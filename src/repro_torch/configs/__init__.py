@@ -1,0 +1,27 @@
+"""Config registry of the port: the architectures ported so far, by the
+names the JAX package uses (`repro.configs.base`)."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+_REGISTRY: Dict[str, str] = {
+    "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+}
+
+ARCHS = tuple(_REGISTRY)
+
+
+def _module(name: str):
+    if name not in _REGISTRY:
+        raise KeyError(f"architecture {name!r} is not ported yet "
+                       f"(ported: {', '.join(ARCHS)})")
+    return importlib.import_module(_REGISTRY[name])
+
+
+def get_config(name: str):
+    return _module(name).config()
+
+
+def get_reduced_config(name: str):
+    return _module(name).reduced()

@@ -1,0 +1,136 @@
+"""Public entry points of the SPARQ kernels (port of `repro.kernels.ops`).
+
+Dispatch goes by the device of the tensors: CPU tensors take the plain
+PyTorch versions, CUDA tensors take the hand-written kernels, any other
+device raises. There is no switch that could route a CUDA tensor to a
+plain version: on the card, the main path always runs the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantizer import QScale
+from repro_torch.core.sparq import SparqConfig
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import sparq_decode_attn as _dec
+from repro_torch.kernels import sparq_matmul as _mm
+from repro_torch.kernels import sparq_prefill_attn as _pre
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type == "cpu":
+        return "plain"
+    if t.device.type == "cuda":
+        return "cuda"
+    raise ValueError(f"no SPARQ kernel for device {t.device}")
+
+
+# ----------------------------------------------------------------------
+# §5.1 footprint accounting (single source of truth, as in the reference)
+# ----------------------------------------------------------------------
+
+def data_bytes_per_value(cfg: SparqConfig) -> float:
+    """Data plane: n data bits per value + 1 MuxCtrl bit per vSPARQ pair;
+    plain int8 (trimming disabled) is one full byte."""
+    if not cfg.enabled:
+        return 1.0
+    mux = 0.5 if cfg.vsparq else 0.0
+    return (cfg.bits + mux) / 8.0
+
+
+def ctrl_bytes_per_value(cfg: SparqConfig) -> float:
+    """ShiftCtrl side-band: 3 bits per value when trimming."""
+    return 3.0 / 8.0 if cfg.enabled else 0.0
+
+
+def bytes_per_value(cfg: SparqConfig) -> float:
+    """Combined modeled residency of the packed SPARQ format (§5.1)."""
+    return data_bytes_per_value(cfg) + ctrl_bytes_per_value(cfg)
+
+
+def _codec_kw(cfg: SparqConfig) -> dict:
+    return dict(bits=cfg.bits, opts_shifts=cfg.shifts, rounding=cfg.rounding,
+                vsparq=cfg.vsparq, signed=cfg.signed, max_val=cfg.max_val,
+                enabled=cfg.enabled)
+
+
+def quantized_matmul(x: torch.Tensor, w_codes: torch.Tensor, act_qs: QScale,
+                     chan_scale: torch.Tensor,
+                     cfg: SparqConfig) -> torch.Tensor:
+    """SPARQ-quantized x @ dequant(w), f32 out; leading dims of x flatten.
+
+    K must be even (vSPARQ pairs adjacent lanes). The kernel masks its
+    ragged tile edges itself, which is the same as zero-padding K in whole
+    pairs: a padded pair is all zeros and changes no vSPARQ decision."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    N = w_codes.shape[1]
+    if K % 2:
+        raise ValueError("vSPARQ pairs adjacent K lanes; K must be even")
+    x2 = x.reshape(-1, K)
+    a = torch.as_tensor(act_qs.scale, dtype=torch.float32, device=x.device)
+    if _route(x) == "plain":
+        out = _mm.ref_sparq_matmul(x2, w_codes, a, chan_scale,
+                                   **_codec_kw(cfg))
+    else:
+        out = _mm.sparq_matmul_cuda(
+            x2.contiguous(), w_codes.contiguous(), a.reshape(1),
+            chan_scale.to(torch.float32).contiguous(), **_codec_kw(cfg))
+    return out.reshape(*lead, N)
+
+
+def sparq_pack(codes: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+    """Reconstructed int8 codes -> stored window codes (§5.1 data nibbles):
+    sign * (|codes| >> shift). Exact, since codes were window << shift."""
+    q = codes.to(torch.int32)
+    return (torch.sign(q) * torch.bitwise_right_shift(
+        torch.abs(q), _ref.meta_shifts(meta))).to(torch.int8)
+
+
+def sparq_chunked_prefill_attention(q, k_chunk, v_chunk, k_data, k_meta,
+                                    k_scale, v_data, v_meta, v_scale,
+                                    block_table, seq_id, pos, hist,
+                                    tile_seq, window: int = 0,
+                                    bq: int = 8) -> torch.Tensor:
+    """Ragged chunked-prefill flash attention over the §5.1 page pool.
+    q (C, H, hd), k/v_chunk (C, KV, hd), pools (P, ps, KV, hd), per-slot
+    scales (S,), block_table (S, NB), seq_id/pos/hist (C,), tile_seq
+    (C/bq,). Returns f32 (C, H, hd); padding rows are zeros."""
+    C, H, hd = q.shape
+    KV = k_data.shape[2]
+    G = H // KV
+    assert C % bq == 0 and tile_seq.shape[0] == C // bq, (C, bq)
+    i32 = torch.int32
+    args = (q.reshape(C, KV, G, hd).to(torch.float32).contiguous(),
+            k_chunk.to(torch.float32).contiguous(),
+            v_chunk.to(torch.float32).contiguous(),
+            k_data, k_meta, k_scale.to(torch.float32), v_data, v_meta,
+            v_scale.to(torch.float32), block_table.to(i32),
+            seq_id.to(i32), pos.to(i32), hist.to(i32), tile_seq.to(i32))
+    if _route(q) == "plain":
+        out = _pre.ref_sparq_chunked_prefill_attn(*args, window=window)
+    else:
+        out = _pre.sparq_chunked_prefill_attn_cuda(*args, window=window)
+    return out.reshape(C, H, hd)
+
+
+def sparq_paged_decode_attention(q, k_data, k_meta, k_scale, v_data, v_meta,
+                                 v_scale, block_table, cur,
+                                 window: int = 0) -> torch.Tensor:
+    """Fused flash-decode attention over a paged packed SPARQ cache.
+    q (B, 1, H, hd); pools (P, ps, KV, hd); per-sequence scales (B,);
+    block_table (B, NB); cur (B,) (< 0 = inactive slot, output zeros).
+    Returns f32 (B, 1, H, hd)."""
+    B, Tq, H, hd = q.shape
+    assert Tq == 1, f"decode attention takes one query token, got Tq={Tq}"
+    KV = k_data.shape[2]
+    G = H // KV
+    i32 = torch.int32
+    args = (q.reshape(B, KV, G, hd).to(torch.float32).contiguous(),
+            k_data, k_meta, k_scale.to(torch.float32), v_data, v_meta,
+            v_scale.to(torch.float32), block_table.to(i32), cur.to(i32))
+    if _route(q) == "plain":
+        out = _dec.ref_sparq_paged_decode_attn(*args, window=window)
+    else:
+        out = _dec.sparq_paged_decode_attn_cuda(*args, window=window)
+    return out.reshape(B, 1, H, hd)

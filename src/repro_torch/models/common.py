@@ -1,0 +1,146 @@
+"""Shared model machinery (port of `repro.models.common`): config,
+quantization context, and the primitive layers.
+
+Params are nested dicts of tensors laid out as in the JAX package; every
+matmul of the network routes through `dense()`, where SPARQ plugs in (off,
+calibrate to collect per-site activation statistics, quantized serving).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.core.calibration import CalibBank
+from repro_torch.core.quantizer import QScale, quantize, weight_scale
+from repro_torch.core.sparq import SparqConfig
+from repro_torch.kernels.ops import quantized_matmul
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Dense decoder configuration (the fields of the JAX ModelConfig that
+    the dense family reads)."""
+    name: str
+    family: str                  # dense (the only family ported so far)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    mlp_type: str = "swiglu"
+    norm_type: str = "rmsnorm"
+    rope_theta: float = 10000.0
+    dtype: Any = torch.bfloat16
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+    attn_chunk: int = 1024       # flash-style KV chunk in calibration
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
+class QuantCtx:
+    """How matmuls execute. `scales[site]` is a per-layer 0-d f32 tensor
+    (the calibrated span, divided by qmax at use)."""
+    mode: str = "off"                     # off | calibrate | quantized
+    cfg: Optional[SparqConfig] = None
+    scales: Optional[Dict[str, Any]] = None
+    collect: Optional[CalibBank] = None
+    site_prefix: str = ""
+
+
+def dense(w, x: torch.Tensor, site: str,
+          ctx: Optional[QuantCtx] = None) -> torch.Tensor:
+    """x [..., d_in] @ w [d_in, d_out] through the quantization hook. `w`
+    is a float tensor or a prequantized {"q": int8, "s": f32} leaf."""
+    from repro_torch.models.quantize import as_weight, is_qweight
+    if ctx is None or ctx.mode == "off":
+        return torch.matmul(x, as_weight(w, x.dtype))
+    if ctx.mode == "calibrate":
+        if ctx.collect is not None:
+            ctx.collect.observe(ctx.site_prefix + site, x)
+        return torch.matmul(x, as_weight(w, x.dtype))
+    if ctx.mode == "quantized":
+        cfg = ctx.cfg or SparqConfig.a8w8()
+        scale = None
+        if ctx.scales:
+            scale = ctx.scales.get(ctx.site_prefix + site,
+                                   ctx.scales.get(site))
+        if scale is None:
+            scale = torch.amax(torch.abs(x))   # dynamic per-tensor fallback
+        act_qs = QScale(
+            scale=torch.as_tensor(scale, dtype=torch.float32,
+                                  device=x.device) / cfg.max_val,
+            bits=cfg.act_bits, signed=cfg.signed)
+        if is_qweight(w):
+            w_codes, chan_scale = w["q"], w["s"]
+        else:
+            w_qs = weight_scale(w, cfg.weight_bits)
+            w_codes = quantize(w, w_qs).to(torch.int8)
+            chan_scale = w_qs.scale
+        return quantized_matmul(x, w_codes, act_qs, chan_scale,
+                                cfg).to(x.dtype)
+    raise ValueError(ctx.mode)
+
+
+# ----------------------------------------------------------------------
+# primitive layers
+# ----------------------------------------------------------------------
+
+def norm(params: Dict, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
+    """RMSNorm with the reference's `1 + scale` gain, computed in f32."""
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm_type {kind!r} is not ported")
+    xf = x.to(torch.float32)
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+    return (xf * (1.0 + params["scale"].to(torch.float32))).to(x.dtype)
+
+
+def norm_init(d: int, kind: str, device) -> Dict:
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm_type {kind!r} is not ported")
+    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding over the last axis, computed in f32.
+    x [B, T, H, hd]; positions [B, T]."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq      # [B, T, half]
+    sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return rot.to(x.dtype)
+
+
+def trunc_normal(shape, std: float, generator: torch.Generator,
+                 device, dtype=torch.float32) -> torch.Tensor:
+    """Truncated normal on [-2, 2], times `std` (jax.random.truncated_normal
+    semantics; the draws themselves differ between frameworks)."""
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * std).to(dtype)
+
+
+def init_dense(generator: torch.Generator, d_in: int, d_out: int,
+               device, scale: float = 1.0,
+               dtype=torch.float32) -> torch.Tensor:
+    return trunc_normal((d_in, d_out), scale / math.sqrt(d_in), generator,
+                        device, dtype)
+
+
+def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor,
+                 dtype) -> torch.Tensor:
+    return emb[tokens.long()].to(dtype)

@@ -1,0 +1,344 @@
+"""Paged SPARQ KV cache (port of `repro.models.paging`, the parts the
+chunked-prefill engine runs): one pool of fixed-size §5.1 packed pages per
+layer, per-slot block tables, and the host-side page allocator.
+
+  PagedCacheStore   device state of one attention layer: packed pools
+                    (int8 window codes + meta bytes), per-slot scales, the
+                    block table and per-slot positions. Unlike the JAX
+                    store (an immutable pytree), `update` and `write_chunk`
+                    write the pools in place and return the store: the
+                    pools are the dominant state, and an in-place scatter
+                    moves only the bytes written.
+  PageAllocator     host-side refcounted free list (pure Python).
+
+Pool geometry: `n_pages` usable pages plus one trash page at index
+`n_pages`, the write target of inactive slots, padding tokens and
+unallocated blocks, so writes need no host-side masking.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.sparq import SparqConfig
+from repro_torch.models.cache import CacheConfig
+
+
+class PoolExhausted(RuntimeError):
+    """Raised host-side when the page pool runs dry."""
+
+
+class ChunkMeta(NamedTuple):
+    """Per-chunk stream metadata (device int32 tensors).
+
+      seq_id        [C]    sequence slot per token (-1 = padding)
+      pos           [C]    absolute prompt position per token
+      hist          [C]    per-token history boundary (segment start):
+                           packed pages for kpos < hist, the chunk's float
+                           K/V for kpos in [hist, pos]
+      tile_seq      [C/bq] slot owning each query tile (-1 = padding)
+      seq_pos_after [S]    positions to install after the chunk's writes
+    """
+    seq_id: torch.Tensor
+    pos: torch.Tensor
+    hist: torch.Tensor
+    tile_seq: torch.Tensor
+    seq_pos_after: torch.Tensor
+
+
+class PageAllocator:
+    """Host-side refcounted free-list allocator for the shared page pool.
+
+    Page ids are shared across layers. `alloc` is atomic (a failing call
+    takes nothing) and raises `PoolExhausted`; `release` drops one
+    reference per page and returns the pages that reached zero.
+    `peak_used` is the pool's high watermark (distinct pages)."""
+
+    def __init__(self, n_pages: int):
+        self.n_pages = n_pages
+        self._free: List[int] = list(range(n_pages))
+        self._ref: Dict[int, int] = {}
+        self.peak_used = 0
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def free_pages(self) -> Tuple[int, ...]:
+        return tuple(self._free)
+
+    @property
+    def refcounts(self) -> Dict[int, int]:
+        return dict(self._ref)
+
+    def alloc(self, n: int = 1) -> List[int]:
+        if n > len(self._free):
+            raise PoolExhausted(
+                f"page pool exhausted: need {n} page(s), {len(self._free)} "
+                f"of {self.n_pages} free — grow --n-pages, shrink the "
+                f"admitted batch, or wait for evictions")
+        pages, self._free = self._free[:n], self._free[n:]
+        for p in pages:
+            self._ref[p] = 1
+        self.peak_used = max(self.peak_used, len(self._ref))
+        self.assert_consistent()
+        return pages
+
+    def release(self, pages: Sequence[int]) -> List[int]:
+        freed: List[int] = []
+        for p in pages:
+            assert 0 <= p < self.n_pages, f"page {p} outside the pool"
+            assert p in self._ref, \
+                f"page {p} released while not allocated (double free)"
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                del self._ref[p]
+                self._free.append(p)
+                freed.append(p)
+        self.assert_consistent()
+        return freed
+
+    def assert_consistent(self) -> None:
+        assert len(self._free) == len(set(self._free)), \
+            "duplicate pages on the free list"
+        assert not set(self._ref).intersection(self._free), \
+            "page simultaneously free and allocated"
+        assert all(c > 0 for c in self._ref.values()), \
+            "allocated page with non-positive refcount"
+        assert len(self._free) + len(self._ref) == self.n_pages, \
+            "pages leaked: free + used != pool size"
+
+
+@dataclasses.dataclass
+class PagedCacheStore:
+    """Paged KV cache of one attention layer (sparq layout only).
+
+      k/v_data, k/v_meta  int8  [P, ps, KV, hd]  packed §5.1 page pools
+      k/v_scale           f32   [S]              per-slot site scales
+                                                 (0 = uncalibrated)
+      block_table         int32 [S, NB]          page per logical block
+                                                 (-1 = unallocated; the
+                                                 engine shares one table
+                                                 across layers)
+      seq_pos             int32 [S]              tokens written per slot
+                                                 (-1 = inactive slot)
+    """
+    k_data: torch.Tensor
+    k_meta: torch.Tensor
+    v_data: torch.Tensor
+    v_meta: torch.Tensor
+    k_scale: torch.Tensor
+    v_scale: torch.Tensor
+    block_table: torch.Tensor
+    seq_pos: torch.Tensor
+    codec: Optional[SparqConfig] = None
+
+    @staticmethod
+    def init(n_seqs: int, n_pages: int, page_size: int, n_blocks: int,
+             kv_heads: int, head_dim: int, cc: CacheConfig, device,
+             block_table: Optional[torch.Tensor] = None
+             ) -> "PagedCacheStore":
+        if cc.layout != "sparq":
+            raise ValueError("PagedCacheStore stores the packed §5.1 "
+                             "planes; use --kv-cache sparq")
+        assert head_dim % 2 == 0, \
+            f"sparq pairs adjacent lanes; head_dim must be even: {head_dim}"
+        shp = (n_pages + 1, page_size, kv_heads, head_dim)  # +1: trash page
+        z8 = lambda: torch.zeros(shp, dtype=torch.int8, device=device)
+        if block_table is None:
+            block_table = torch.full((n_seqs, n_blocks), -1,
+                                     dtype=torch.int32, device=device)
+        return PagedCacheStore(
+            k_data=z8(), k_meta=z8(), v_data=z8(), v_meta=z8(),
+            k_scale=torch.zeros((n_seqs,), dtype=torch.float32,
+                                device=device),
+            v_scale=torch.zeros((n_seqs,), dtype=torch.float32,
+                                device=device),
+            block_table=block_table,
+            seq_pos=torch.full((n_seqs,), -1, dtype=torch.int32,
+                               device=device),
+            codec=cc.sparq)
+
+    @property
+    def page_size(self) -> int:
+        return self.k_data.shape[-3]
+
+    @property
+    def n_blocks(self) -> int:
+        return self.block_table.shape[-1]
+
+    # ------------------------------------------------------------- write
+    def _resolve_scale(self, stored, x):
+        """Per-slot scale: frozen once calibrated (> 0), else set from this
+        write's dynamic range."""
+        dyn = torch.clamp(torch.amax(torch.abs(x.to(torch.float32)),
+                                     dim=(1, 2, 3)), min=1e-8) \
+            / self.codec.max_val
+        return torch.where(stored > 0, stored, dyn)
+
+    def _encode(self, x: torch.Tensor, scale: torch.Tensor):
+        """float [N, KV, hd] with per-row scale [N] -> (§5.1 window codes,
+        meta bytes), int8. The KV write path is plain tensor code, as in
+        the reference (it is not a kernel there either)."""
+        from repro_torch.kernels import ref as _ref
+        from repro_torch.kernels.ops import sparq_pack
+        cfg = self.codec
+        codes, meta = _ref.ref_sparq_quant(
+            x.to(torch.float32), scale[:, None, None],
+            bits=cfg.bits, opts_shifts=cfg.shifts, rounding=cfg.rounding,
+            vsparq=cfg.vsparq, signed=cfg.signed, max_val=cfg.max_val,
+            enabled=cfg.enabled)
+        return sparq_pack(codes, meta), meta
+
+    def _scatter(self, page, off, kd, km, vd, vm) -> None:
+        page, off = page.long(), off.long()
+        self.k_data[page, off] = kd
+        self.k_meta[page, off] = km
+        self.v_data[page, off] = vd
+        self.v_meta[page, off] = vm
+
+    def update(self, k_new: torch.Tensor,
+               v_new: torch.Tensor) -> "PagedCacheStore":
+        """Write one decode token per slot at seq_pos[s] and advance the
+        positions. k_new/v_new float [S, 1, KV, hd]. Inactive slots and
+        unallocated blocks write to the trash page."""
+        S, T = k_new.shape[:2]
+        assert T == 1, f"paged decode writes one token per step, got {T}"
+        ps = self.page_size
+        trash = self.k_data.shape[0] - 1
+        pos = self.seq_pos
+        active = pos >= 0
+        eff = torch.clamp(pos, min=0)
+        blk = torch.clamp(eff // ps, max=self.n_blocks - 1)
+        page = self.block_table[torch.arange(S, device=pos.device),
+                                blk.long()]
+        page = torch.where(active & (page >= 0), page,
+                           torch.full_like(page, trash))
+        k_scale = self._resolve_scale(self.k_scale, k_new)
+        v_scale = self._resolve_scale(self.v_scale, v_new)
+        kd, km = self._encode(k_new[:, 0], k_scale)
+        vd, vm = self._encode(v_new[:, 0], v_scale)
+        self._scatter(page, eff % ps, kd, km, vd, vm)
+        self.k_scale = torch.where(active, k_scale, self.k_scale)
+        self.v_scale = torch.where(active, v_scale, self.v_scale)
+        self.seq_pos = torch.where(active, pos + 1, pos)
+        return self
+
+    def _resolve_chunk_scale(self, stored, x, s_safe, first_seg):
+        """Per-slot scale of a chunk write: frozen once calibrated, else
+        the range of the slot's first-segment tokens (hist == 0) only, so
+        the frozen scale depends on (prompt, seg) alone."""
+        tok_max = torch.amax(torch.abs(x.to(torch.float32)), dim=(1, 2))
+        tok_max = torch.where(first_seg, tok_max, torch.zeros_like(tok_max))
+        S = stored.shape[0]
+        seq_max = torch.zeros((S,), dtype=torch.float32,
+                              device=x.device).scatter_reduce(
+            0, s_safe, tok_max, "amax")
+        dyn = torch.clamp(seq_max, min=1e-8) / self.codec.max_val
+        has = torch.zeros((S,), dtype=torch.int32,
+                          device=x.device).scatter_reduce(
+            0, s_safe, first_seg.to(torch.int32), "amax") > 0
+        return torch.where(stored > 0, stored,
+                           torch.where(has, dyn, stored))
+
+    def write_chunk(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                    meta: ChunkMeta) -> "PagedCacheStore":
+        """Scatter one prefill chunk's K/V [C, KV, hd] straight into the
+        pool: token i lands at page block_table[seq_id[i], pos[i] // ps],
+        row pos[i] % ps, quantized with its slot's scale. Padding and
+        unallocated blocks write to the trash page; seq_pos becomes
+        meta.seq_pos_after."""
+        ps = self.page_size
+        trash = self.k_data.shape[0] - 1
+        sid = meta.seq_id
+        valid = sid >= 0
+        s_safe = torch.clamp(sid, min=0).long()
+        first_seg = valid & (meta.hist == 0)
+        k_scale = self._resolve_chunk_scale(self.k_scale, k_new, s_safe,
+                                            first_seg)
+        v_scale = self._resolve_chunk_scale(self.v_scale, v_new, s_safe,
+                                            first_seg)
+        kd, km = self._encode(k_new, k_scale[s_safe])
+        vd, vm = self._encode(v_new, v_scale[s_safe])
+        eff = torch.clamp(meta.pos, min=0)
+        blk = torch.clamp(eff // ps, max=self.n_blocks - 1)
+        page = self.block_table[s_safe, blk.long()]
+        page = torch.where(valid & (page >= 0), page,
+                           torch.full_like(page, trash))
+        self._scatter(page, eff % ps, kd, km, vd, vm)
+        self.k_scale, self.v_scale = k_scale, v_scale
+        self.seq_pos = meta.seq_pos_after.to(torch.int32).clone()
+        return self
+
+
+# ----------------------------------------------------------------------
+# attention read path
+# ----------------------------------------------------------------------
+
+def paged_decode_attention(q: torch.Tensor, store: PagedCacheStore, *,
+                           window: int = 0) -> torch.Tensor:
+    """Fused flash-decode over the page pool. q [S, 1, H, hd]; the decoded
+    position of each slot is seq_pos - 1 (the token `update` just wrote);
+    inactive slots return zeros."""
+    from repro_torch.kernels.ops import sparq_paged_decode_attention
+    out = sparq_paged_decode_attention(
+        q, store.k_data, store.k_meta, store.k_scale,
+        store.v_data, store.v_meta, store.v_scale,
+        store.block_table, store.seq_pos - 1, window=window)
+    return out.to(q.dtype)
+
+
+def chunked_prefill_attention(q: torch.Tensor, k_chunk: torch.Tensor,
+                              v_chunk: torch.Tensor, store: PagedCacheStore,
+                              meta: ChunkMeta, *,
+                              window: int = 0) -> torch.Tensor:
+    """Ragged chunked-prefill attention for one layer, on the store after
+    its `write_chunk`. q [1, C, H, hd]; k/v_chunk [C, KV, hd] float."""
+    from repro_torch.kernels.ops import sparq_chunked_prefill_attention
+    C = q.shape[1]
+    out = sparq_chunked_prefill_attention(
+        q[0], k_chunk, v_chunk,
+        store.k_data, store.k_meta, store.k_scale,
+        store.v_data, store.v_meta, store.v_scale,
+        store.block_table, meta.seq_id, meta.pos, meta.hist,
+        meta.tile_seq, window=window, bq=C // meta.tile_seq.shape[0])
+    return out[None].to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# engine-level transitions and accounting (over the list of layer stores)
+# ----------------------------------------------------------------------
+
+def evict_slot(stores: Sequence[PagedCacheStore], slot: int) -> None:
+    """Clear a finished slot in every layer: deactivate the position and
+    zero the scales so the next occupant recalibrates. The shared block
+    table row is cleared by the engine; the pages go back to the free list
+    host-side, and their stale bytes are overwritten by the next writer."""
+    for st in stores:
+        st.seq_pos[slot] = -1
+        st.k_scale[slot] = 0.0
+        st.v_scale[slot] = 0.0
+
+
+def modeled_pool_bytes(stores: Sequence[PagedCacheStore]) -> dict:
+    """Modeled §5.1 residency of the page pools: packed pools charged the
+    `kernels.ops` data/ctrl figures, bookkeeping at its actual size (the
+    shared block table is charged once per layer, as in the reference,
+    which keeps one copy per layer)."""
+    from repro_torch.kernels.ops import (ctrl_bytes_per_value,
+                                         data_bytes_per_value)
+    tally = {"data_bytes": 0.0, "ctrl_bytes": 0.0, "values": 0,
+             "other_bytes": 0.0}
+    for st in stores:
+        n = st.k_data.numel() + st.v_data.numel()
+        tally["data_bytes"] += n * data_bytes_per_value(st.codec)
+        tally["ctrl_bytes"] += n * ctrl_bytes_per_value(st.codec)
+        tally["values"] += n
+        for extra in (st.k_scale, st.v_scale, st.block_table, st.seq_pos):
+            tally["other_bytes"] += extra.numel() * extra.element_size()
+    tally["total_bytes"] = (tally["data_bytes"] + tally["ctrl_bytes"] +
+                            tally["other_bytes"])
+    return tally
