@@ -5,23 +5,42 @@ the port still starts on the card).
     python3 chip_smoke.py --phases build,kernels
 
 Phases (each one that fails makes the script exit non-zero):
-  build    nvcc-build the three hand-written kernels from src/repro_torch/csrc
-  kernels  each kernel against its plain PyTorch version on the card, at the
-           shapes the main path gives it: K1 sparq_matmul bit-exact, K2
-           paged decode and K3 chunked prefill within 1e-4 absolute (f32
-           sums in another order), without and with a sliding window;
-           times of the kernel, the plain version
-           and one PyTorch library call, and each kernel's least possible
-           time from its bytes and operations
-  serve    tinyllama-1.1b at full width (22 layers, bf16, 5opt, int8
-           weights, one calibration batch) serves 8 ragged requests through
-           the paged chunked-prefill engine; launch counters reset just
-           before and read just after prove every kernel ran
-  parity   a 2-layer full-width f32 model serves 4 requests on the card
-           (kernels) and on the CPU (plain versions): equal greedy tokens
-  profile  (not run by default) the serve workload once more under
-           torch.profiler: device time by kernel and the device's idle
-           share of the run
+  build       nvcc-build the six hand-written kernels from
+              src/repro_torch/csrc, one nvcc per source, all at once
+  kernels     each kernel against its plain PyTorch version on the card, at
+              the shapes the main paths give it: K1 sparq_matmul, K4
+              sparq_quant and K6 sparq_dequant bit-exact; K2 paged decode,
+              K3 chunked prefill and K5 contiguous decode within 1e-4
+              absolute (f32 sums in another order), without and with a
+              sliding window; K5 with bk = 16 against K2 on the same bytes
+              laid out as pages: difference 0.0. Times of the kernel, the
+              plain version and one PyTorch library call where one computes
+              the same function, and each kernel's least possible time
+              from its bytes and operations
+  serve       tinyllama-1.1b at full width (22 layers, bf16, 5opt, int8
+              weights, one calibration batch) serves 8 ragged requests
+              through the paged chunked-prefill engine: K1, K2, K3, and K4
+              at every KV write (2 x 22 per chunk and per decode step)
+  scan        the same model, `DecodeEngine.generate` on batch 8, prompt
+              256, gen 32 over the contiguous sparq cache: K1 = 7*22*32,
+              K4 = 2*22*32, K5 = 22*31, K2 = K3 = K6 = 0; then every layer's
+              K/V read back through `CacheStore.kv()` (K6, 44 launches),
+              equal to the plain dequant of the same bytes
+  sequential  the serve phase's 8 requests through the paged engine with
+              sequential admission (prefill alone, adopt into pages): K1,
+              K2, K4 at every write, K3 = K5 = 0
+  parity      2-layer full-width f32 models on the card (kernels) and on
+              the CPU (plain versions): the paged chunked engine and the
+              scan engine give equal greedy tokens; on the card, the paged
+              sequential engine equals the scan engine serving each request
+              alone with attn_bk = page_size
+  profile     (not run by default) the serve workload once more under
+              torch.profiler: device time by kernel and the device's idle
+              share of the run
+
+Each of serve, scan and sequential resets the launch counters just before
+it drives its path and reads them just after; the plain versions of the
+KV codec must not run there at all.
 
 Output: progress lines, then the card's name and power limit, one JSON line
 of per-kernel results, and last `{"ok": true, "device": {...}}`. Full
@@ -60,6 +79,13 @@ def smi_line() -> str:
         timeout=60).stdout.strip().splitlines()[0]
 
 
+# cycles of torch.cuda._sleep queued ahead of a timed loop (~50 ms at the
+# H100's clocks): the card stays busy while the host queues the timed
+# launches, which then run back to back, so a small kernel's time is its
+# device time and not its wrapper's Python overhead
+SLEEP_CYCLES = 100_000_000
+
+
 def bench(fn, arg_sets, iters=50, warmup=5):
     """Mean ms per call on the card (CUDA events), cycling through input
     sets large enough together to defeat the 50 MB L2 cache."""
@@ -67,6 +93,7 @@ def bench(fn, arg_sets, iters=50, warmup=5):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for i in range(iters):
         fn(*arg_sets[i % len(arg_sets)])
@@ -362,32 +389,238 @@ def check_k3(dev, results):
         f"bound {bound:.5f} ms)")
 
 
+def check_k4(dev, results):
+    """K4 at the scan path's shapes (prefill 8 x 256 tokens x 4 KV heads,
+    decode 8 x 4 rows, one scale) and the paged path's (a 256-token chunk
+    and a decode step, one scale per row), 5opt and a8w8: bit-exact."""
+    from repro_torch.core.sparq import SparqConfig
+    from repro_torch.kernels import sparq_quant as qk
+    from repro_torch.kernels.ops import _codec_kw
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for codec_name, cfg in (("5opt", SparqConfig.opt5(signed=True)),
+                            ("a8w8", SparqConfig(enabled=False,
+                                                 signed=True))):
+        kw = _codec_kw(cfg)
+        for case, M, per_row in (("scan prefill", 8192, False),
+                                 ("scan decode", 32, False),
+                                 ("paged chunk", 1024, True),
+                                 ("paged decode", 32, True)):
+            K = 64
+
+            def make():
+                x = torch.randn((M, K), generator=gen, device=dev) * 2
+                x = torch.where(torch.rand((M, K), generator=gen,
+                                           device=dev) < 0.2, 0.0, x)
+                n = M if per_row else 1
+                a = torch.rand((n,), generator=gen, device=dev) * 0.03 \
+                    + 0.005
+                return x, a
+            sets = [make() for _ in range(n_sets(M * K * 6))]
+            x, a = sets[0]
+            got = qk.sparq_quant_cuda(x, a, **kw)
+            want = qk.ref_sparq_quant(x, a[:, None] if per_row
+                                      else a.reshape(()), **kw)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("codes", "meta")):
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"K4 {codec_name} {case}: {what} not bit-exact "
+                        f"({int((g != w).sum())} of {g.numel()} differ)")
+            ms = bench(lambda x_, a_: qk.sparq_quant_cuda(x_, a_, **kw),
+                       sets)
+            plain_ms = bench(lambda x_, a_: qk.ref_sparq_quant(
+                x_, a_[:, None] if per_row else a_.reshape(()), **kw),
+                sets, iters=5, warmup=1)
+            nbytes = M * K * 4 + a.numel() * 4 + 2 * M * K
+            flops = M * K                  # one f32 division per value
+            bound = max(nbytes / H100_BYTES_S,
+                        flops / H100_F32_FLOPS_S) * 1e3
+            rows.append(dict(codec=codec_name, case=case, M=M, K=K,
+                             per_row=per_row, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, exact=True))
+            log(f"K4 sparq_quant {codec_name} {case:12s} M={M:5d} K={K}"
+                f"{' per-row' if per_row else ''}: bit-exact, {ms:.4f} ms "
+                f"(plain {plain_ms:.3f} ms, bound {bound:.5f} ms)")
+    rep = next(r for r in rows if r["codec"] == "5opt"
+               and r["case"] == "scan prefill")
+    results["sparq_quant"] = dict(
+        max_abs_err=0.0, ms=rep["ms"], plain_ms=rep["plain_ms"],
+        bound_ms=rep["bound_ms"], bound_by="bytes", library_ms=None,
+        shape="5opt scan prefill M=8192 K=64 (one scale)", rows=rows)
+
+
+def check_k6(dev, results):
+    """K6 at the read-back shape of the scan cache (8 x 296 slots x 4 KV
+    heads, hd 64), every int8 byte in store and meta: bit-exact."""
+    from repro_torch.kernels import sparq_dequant as dq
+    gen = torch.Generator(device=dev).manual_seed(6)
+    M, K = 8 * 296 * 4, 64
+
+    def make():
+        return tuple(torch.randint(-128, 128, (M, K), generator=gen,
+                                   device=dev, dtype=torch.int8)
+                     for _ in range(2))
+    sets = [make() for _ in range(n_sets(3 * M * K))]
+    store, meta = sets[0]
+    got = dq.sparq_dequant_cuda(store, meta)
+    want = dq.ref_sparq_dequant(store, meta)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K6 dequant: not bit-exact "
+                             f"({int((got != want).sum())} differ)")
+    # every (store, meta) byte pair on both lane parities
+    b = torch.arange(-128, 128, dtype=torch.int16, device=dev)
+    st = b.repeat_interleave(256).to(torch.int8)
+    mt = b.repeat(256).to(torch.int8)
+    st = torch.cat([st, st.roll(1)]).reshape(-1, 128)
+    mt = torch.cat([mt, mt.roll(1)]).reshape(-1, 128)
+    if not torch.equal(dq.sparq_dequant_cuda(st, mt),
+                       dq.ref_sparq_dequant(st, mt)):
+        raise AssertionError("K6 dequant: not bit-exact on the 256 x 256 "
+                             "byte grid")
+    ms = bench(dq.sparq_dequant_cuda, sets)
+    plain_ms = bench(dq.ref_sparq_dequant, sets, iters=5, warmup=1)
+    bound = 3 * M * K / H100_BYTES_S * 1e3
+    results["sparq_dequant"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by="bytes", library_ms=None,
+        shape=f"M={M} K={K} (8 x 296 slots x 4 KV heads)")
+    log(f"K6 sparq_dequant M={M} K={K}: bit-exact (and on all 256 x 256 "
+        f"byte pairs), {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+        f"{bound:.5f} ms)")
+
+
+def check_k5(dev, results):
+    """K5 at the scan decode's shapes (q 8 x 4 x 8 x 64, planes 8 x 296 x
+    4 x 64, bk 128: a ragged last tile), within 1e-4 of its plain version
+    without and with a window (rotated ring kpos with empty slots); with
+    bk = 16 equal to K2 on the same bytes laid out as pages."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import sparq_decode_attn as dec
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, Tk, KV, G, hd, bk, cur = 8, 296, 4, 8, 64, 128, 286
+    i32 = torch.int32
+
+    def make():
+        kd, km = _pools(gen, dev, B, Tk, KV, hd)
+        vd, vm = _pools(gen, dev, B, Tk, KV, hd)
+        q = torch.randn((B, KV, G, hd), generator=gen, device=dev)
+        ks = torch.rand((1,), generator=gen, device=dev) * 0.02 + 0.005
+        vs = torch.rand((1,), generator=gen, device=dev) * 0.02 + 0.005
+        kpos = torch.arange(Tk, dtype=i32, device=dev)[None].expand(
+            B, Tk).contiguous()
+        return (q, kd, km, ks, vd, vm, vs, kpos,
+                torch.tensor([cur], dtype=i32, device=dev))
+    sets = [make() for _ in range(n_sets(4 * B * Tk * KV * hd))]
+    args = sets[0]
+    got = dec.sparq_decode_attn_cuda(*args, bk=bk)
+    want = dec.ref_sparq_decode_attn(*args, bk=bk)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    assert torch.isfinite(got).all()
+    if err > 1e-4:
+        raise AssertionError(f"K5 contiguous decode: max abs err {err} "
+                             f"> 1e-4")
+    # ring-style slots: rotated positions, a run of empty (-1) slots
+    ring = ((torch.arange(Tk, device=dev) + 57) % Tk + 40).to(i32)
+    ring[100:130] = -1
+    ring_args = args[:7] + (ring[None].expand(B, Tk).contiguous(),
+                            args[8])
+    got_w = dec.sparq_decode_attn_cuda(*ring_args, window=K2_WINDOW, bk=bk)
+    want_w = dec.ref_sparq_decode_attn(*ring_args, window=K2_WINDOW, bk=bk)
+    torch.cuda.synchronize()
+    err_w = float((got_w - want_w).abs().max())
+    assert torch.isfinite(got_w).all()
+    if err_w > 1e-4:
+        raise AssertionError(f"K5 contiguous decode, window {K2_WINDOW}, "
+                             f"ring kpos: max abs err {err_w} > 1e-4")
+    err = max(err, err_w)
+    # bk = page size: K2 over the same bytes scattered into a page pool
+    ps = 16
+    NB = math.ceil(Tk / ps)
+    q, kd, km, ks, vd, vm, vs, kpos, c = args
+    P = B * NB
+    perm = torch.randperm(P, generator=gen, device=dev).to(i32)
+    bt = perm.reshape(B, NB)
+
+    def paged(plane):
+        pad = torch.zeros((B, NB * ps - Tk, KV, hd), dtype=plane.dtype,
+                          device=dev)
+        pool = torch.empty((P, ps, KV, hd), dtype=plane.dtype, device=dev)
+        pool[bt.reshape(-1).long()] = torch.cat([plane, pad], 1).reshape(
+            P, ps, KV, hd)
+        return pool
+    pk, pkm, pv, pvm = map(paged, (kd, km, vd, vm))
+    k5 = dec.sparq_decode_attn_cuda(*args, bk=ps)
+    k2 = dec.sparq_paged_decode_attn_cuda(
+        q, pk, pkm, ks.expand(B).contiguous(), pv, pvm,
+        vs.expand(B).contiguous(), bt, c.expand(B).contiguous())
+    torch.cuda.synchronize()
+    diff_k2 = float((k5 - k2).abs().max())
+    if diff_k2 != 0.0:
+        raise AssertionError(f"K5 (bk={ps}) vs K2 on the same bytes: max "
+                             f"abs difference {diff_k2}, expected 0.0")
+    ms = bench(lambda *a: dec.sparq_decode_attn_cuda(*a, bk=bk), sets)
+    plain_ms = bench(lambda *a: dec.ref_sparq_decode_attn(*a, bk=bk), sets,
+                     iters=5, warmup=1)
+    # library yardstick: SDPA over the dequantized K/V (decode excluded)
+    from repro_torch.kernels.ref import _meta_decode32
+    n = cur + 1
+    kk = _meta_decode32(kd[:, :n], km[:, :n], ks).transpose(1, 2)
+    vv = _meta_decode32(vd[:, :n], vm[:, :n], vs).transpose(1, 2)
+    kk, vv = kk.repeat_interleave(G, 1), vv.repeat_interleave(G, 1)
+    qh = q.reshape(B, KV * G, 1, hd)
+    lib_ms = bench(lambda: F.scaled_dot_product_attention(qh, kk, vv),
+                   [()])
+    tokens = B * n
+    nbytes = (B * KV * G * hd * 4 * 2 + tokens * KV * hd * 4 + B * Tk * 4
+              + 12)
+    flops = 4 * tokens * KV * G * hd
+    bound = max(nbytes / H100_BYTES_S, flops / H100_F32_FLOPS_S) * 1e3
+    results["sparq_decode_attn"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=bound, bound_by="bytes" if nbytes / H100_BYTES_S
+        >= flops / H100_F32_FLOPS_S else "operations", vs_k2=diff_k2,
+        shape=f"B={B} Tk={Tk} KV={KV} G={G} hd={hd} bk={bk} cur={cur}")
+    log(f"K5 sparq_decode_attn: max abs err {err:.2e}, vs K2 (bk={ps}) "
+        f"{diff_k2}, {ms:.4f} ms (plain {plain_ms:.3f} ms, SDPA "
+        f"{lib_ms:.4f} ms, bound {bound:.5f} ms)")
+
+
 # ----------------------------------------------------------------------
 # phase: the main path end to end, full width
 # ----------------------------------------------------------------------
 
-def _serve_setup(dev):
-    """The serve phase's workload: tinyllama-1.1b at full width and depth
-    (22 layers), random weights (seed 0) as int8 codes, one calibration
-    batch, 8 requests of seeded ragged lengths 64-512 and gen 32, and the
-    paged chunked-prefill engine (page 16, chunk 256) sized to hold them."""
+def _full_width(dev):
+    """tinyllama-1.1b at full width and depth (22 layers, bf16), random
+    weights (seed 0) as int8 codes, one calibration batch, 5opt."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import Batcher, DataConfig
     from repro_torch.launch import serve
-    from repro_torch.models.common import QuantCtx
     from repro_torch.models.model import Model
     from repro_torch.models.quantize import quantize_params
     cfg = get_config("tinyllama-1.1b")
     model = Model(cfg, device=dev)
     params = model.init_params(seed=0)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(64, 513, 8)
-    gen = 32
     data = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
                               global_batch=8, seed=0))
     scales = model.calibrate(params, data.calib_batches(1))
     codec = serve.SPARQ_PRESETS["5opt"]
-    params = quantize_params(params, codec.weight_bits)
+    return cfg, model, quantize_params(params, codec.weight_bits), scales, \
+        codec
+
+
+def _serve_setup(dev, prefill="chunked"):
+    """The serve phase's workload: the full-width model, 8 requests of
+    seeded ragged lengths 64-512 and gen 32, and the paged engine (page
+    16, chunk 256) sized to hold them, with `prefill` admission."""
+    from repro_torch.launch import serve
+    from repro_torch.models.common import QuantCtx
+    cfg, model, params, scales, codec = _full_width(dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, 8)
+    gen = 32
     reqs = [serve.Request(rng.integers(0, cfg.vocab_size, int(L)), gen)
             for L in lens]
     ps = 16
@@ -397,48 +630,161 @@ def _serve_setup(dev):
         model, serve.make_cache_config("sparq", codec),
         QuantCtx(mode="quantized", cfg=codec), scales, page_size=ps,
         n_pages=n_pages, max_active=8, max_seq_len=max_seq,
-        prefill="chunked", chunk_size=256, chunk_align=8, device=dev)
+        prefill=prefill, chunk_size=256, chunk_align=8, device=dev)
     return cfg, engine, params, reqs, lens, gen, n_pages
 
 
-def serve_full_width(dev, results):
+class PlainCodecSpy:
+    """Counts calls of the KV codec's plain version while a path runs on
+    the card, where every KV write must go through K4 instead."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref, sparq_quant
+        self.calls = 0
+        self._mods = (ref, sparq_quant)
+        self._orig = ref.ref_sparq_quant
+
+        def spy(*a, **k):
+            self.calls += 1
+            return self._orig(*a, **k)
+        for m in self._mods:
+            m.ref_sparq_quant = spy
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.ref_sparq_quant = self._orig
+
+
+def _drive(fn):
+    """Run one path with the launch counters set to 0 just before and read
+    just after, under the plain-codec spy. Returns (result, counts)."""
     from repro_torch.kernels import build
-    t0 = time.perf_counter()
-    cfg, engine, params, reqs, lens, gen, n_pages = _serve_setup(dev)
-    n_layers = cfg.n_layers
-    torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
-    engine.run(params, reqs)                       # warm-up, untimed
-    build.reset_launch_counts()
-    out, stats = engine.run(params, reqs)
-    counts = build.launch_counts()
-    for rid, r in enumerate(reqs):
+    with PlainCodecSpy() as spy:
+        build.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = build.launch_counts()
+    if spy.calls:
+        raise AssertionError(f"the plain KV codec ran {spy.calls} times on "
+                             f"the card")
+    return out, counts
+
+
+def _check_requests(cfg, reqs, out, gen):
+    for rid in range(len(reqs)):
         toks = out[rid]
         assert len(toks) == gen, (rid, len(toks))
         assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), rid
+
+
+def _paged_full_width(dev, results, prefill):
+    t0 = time.perf_counter()
+    cfg, engine, params, reqs, lens, gen, n_pages = _serve_setup(dev,
+                                                                 prefill)
+    L = cfg.n_layers
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    engine.run(params, reqs)                       # warm-up, untimed
+    (out, stats), counts = _drive(lambda: engine.run(params, reqs))
+    _check_requests(cfg, reqs, out, gen)
     assert stats["free_pages_after"] == n_pages, "pages leaked"
-    for name, n in counts.items():
-        assert n > 0, f"kernel {name} never launched on the main path"
-    per_step = 7 * n_layers
-    assert counts["sparq_matmul"] >= per_step * stats["decode_steps"], \
-        counts
-    assert counts["sparq_paged_decode_attn"] == \
-        n_layers * stats["decode_steps"], counts
-    assert counts["sparq_chunked_prefill_attn"] == \
-        n_layers * stats["prefill_chunks"], counts
-    results["serve"] = dict(
-        arch=cfg.name, n_layers=n_layers, dtype=str(cfg.dtype),
-        prompt_lens=[int(L) for L in lens], gen=gen, chunk_size=256,
+    steps = stats["decode_steps"]
+    chunks = stats["prefill_chunks"]
+    # sequential: one prefill per request (7 matmuls, 2 K4 per layer)
+    prefills = chunks if prefill == "chunked" else len(reqs)
+    assert counts["sparq_matmul"] >= 7 * L * (steps + prefills), counts
+    assert counts["sparq_paged_decode_attn"] == L * steps, counts
+    assert counts["sparq_quant"] == 2 * L * (prefills + steps), counts
+    assert counts["sparq_chunked_prefill_attn"] == L * chunks, counts
+    assert counts["sparq_decode_attn"] == 0, counts
+    assert counts["sparq_dequant"] == 0, counts
+    if prefill == "chunked":
+        assert chunks > 0, "no prefill chunk ran"
+    else:
+        assert chunks == 0 and counts["sparq_chunked_prefill_attn"] == 0
+    name = "serve" if prefill == "chunked" else "sequential"
+    results[name] = dict(
+        arch=cfg.name, n_layers=L, dtype=str(cfg.dtype),
+        prompt_lens=[int(x) for x in lens], gen=gen, chunk_size=256,
         setup_s=t_setup, launches=counts,
         **{k: v for k, v in stats.items() if not isinstance(v, dict)})
-    log(f"serve {cfg.name} x{n_layers} layers bf16 5opt int8-weights: "
-        f"prefill {stats['prefill_s']:.3f} s over {stats['prefill_chunks']} "
-        f"chunks | decode {stats['decode_tok_s']:.1f} tok/s "
-        f"({stats['decode_steps']} steps) | peak pages "
-        f"{stats['peak_pages_used']}/{n_pages} | launches {counts}")
+    log(f"{name} {cfg.name} x{L} layers bf16 5opt int8-weights, "
+        f"{prefill} prefill: prefill {stats['prefill_s']:.3f} s "
+        f"({chunks} chunks) | decode {stats['decode_tok_s']:.1f} tok/s "
+        f"({steps} steps) | peak pages {stats['peak_pages_used']}/"
+        f"{n_pages} | launches {counts}")
     del params, engine
     torch.cuda.empty_cache()
     return counts
+
+
+def serve_full_width(dev, results):
+    return _paged_full_width(dev, results, "chunked")
+
+
+def sequential_full_width(dev, results):
+    return _paged_full_width(dev, results, "sequential")
+
+
+def scan_full_width(dev, results):
+    """The scan engine at full width: batch 8, prompt 256, gen 32, sparq
+    KV (5opt). A first generate is the warm-up; the launch counters are
+    reset after it and read after the timed one. Then every layer's K/V
+    comes back through CacheStore.kv() (K6), held against the plain
+    dequant of the same bytes."""
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.kernels.sparq_dequant import ref_sparq_dequant
+    from repro_torch.launch import serve
+    from repro_torch.models.common import QuantCtx
+    t0 = time.perf_counter()
+    cfg, model, params, scales, codec = _full_width(dev)
+    B, T, gen = 8, 256, 32
+    L = cfg.n_layers
+    batch = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=T,
+                               global_batch=B, seed=1)).global_batch(0)
+    cc = serve.make_cache_config("sparq", codec)
+    engine = serve.DecodeEngine(model, cc, QuantCtx(mode="quantized",
+                                                    cfg=codec), scales)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    engine.generate(params, batch, gen, warmup=False)     # warm-up
+    (toks, stats), counts = _drive(
+        lambda: engine.generate(params, batch, gen, warmup=False))
+    assert toks.shape == (B, gen), toks.shape
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    want = {"sparq_matmul": 7 * L * gen, "sparq_quant": 2 * L * gen,
+            "sparq_decode_attn": L * (gen - 1), "sparq_paged_decode_attn": 0,
+            "sparq_chunked_prefill_attn": 0, "sparq_dequant": 0}
+    if counts != want:
+        raise AssertionError(f"scan launches {counts}, expected {want}")
+    caches = engine.last_caches
+    planes, k6 = _drive(lambda: [st.kv() for st in caches])
+    if k6["sparq_dequant"] != 2 * L or sum(k6.values()) != 2 * L:
+        raise AssertionError(f"read-back launches {k6}, expected "
+                             f"{2 * L} of sparq_dequant only")
+    for st, (k, v) in zip(caches, planes):
+        for got, ct in ((k, st.k), (v, st.v)):
+            plain = ref_sparq_dequant(ct.data, ct.meta).to(torch.float32) \
+                * ct.scale
+            if not torch.equal(got, plain):
+                raise AssertionError("K6 read-back differs from the plain "
+                                     "dequant of the same bytes")
+        assert int(st.pos) == T + gen - 1
+    results["scan"] = dict(
+        arch=cfg.name, n_layers=L, dtype=str(cfg.dtype), batch=B,
+        prompt_len=T, gen=gen, setup_s=t_setup, launches=counts,
+        readback_launches=k6, **stats)
+    log(f"scan {cfg.name} x{L} layers bf16 5opt int8-weights sparq KV, "
+        f"B={B} prompt={T} gen={gen}: prefill {stats['prefill_s']:.3f} s | "
+        f"decode {stats['decode_tok_s']:.1f} tok/s | cache "
+        f"{stats['cache_bytes_per_value']:.4f} B/value data (+"
+        f"{stats['cache_ctrl_bytes_per_value']:.4f} ctrl), "
+        f"{stats['cache_total_bytes'] / 1e6:.2f} MB modeled | launches "
+        f"{counts} | read-back {k6}")
+    del params, engine, caches, planes
+    torch.cuda.empty_cache()
+    return {**counts, "sparq_dequant": k6["sparq_dequant"]}
 
 
 # Device-time groups of the profile phase: the three kernels by their
@@ -446,7 +792,10 @@ def serve_full_width(dev, results):
 # copies) as "other".
 KERNEL_GROUPS = (("sparq_matmul", "sparq_matmul_kernel"),
                  ("sparq_paged_decode_attn", "paged_decode_kernel"),
-                 ("sparq_chunked_prefill_attn", "chunked_prefill_kernel"))
+                 ("sparq_chunked_prefill_attn", "chunked_prefill_kernel"),
+                 ("sparq_quant", "sparq_quant_kernel"),
+                 ("sparq_decode_attn", "decode_attn_kernel"),
+                 ("sparq_dequant", "sparq_dequant_kernel"))
 
 
 def profile_serve(dev, results):
@@ -502,6 +851,12 @@ def profile_serve(dev, results):
 # ----------------------------------------------------------------------
 
 def parity_two_layers(dev, results):
+    """2-layer full-width f32 models with the same weights on the card and
+    on the CPU: the paged chunked engine and the scan engine each give
+    equal greedy tokens on both; on the card, the paged sequential engine
+    gives the scan engine's tokens (each request alone, attn_bk = page
+    size, so K5's tiles are K2's pages)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import Batcher, DataConfig
     from repro_torch.launch import serve
@@ -511,6 +866,8 @@ def parity_two_layers(dev, results):
     cfg = get_config("tinyllama-1.1b").replace(n_layers=2,
                                                dtype=torch.float32)
     codec = serve.SPARQ_PRESETS["5opt"]
+    cc = serve.make_cache_config("sparq", codec)
+    ctx = QuantCtx(mode="quantized", cfg=codec)
     gpu = Model(cfg, device=dev)
     params = quantize_params(gpu.init_params(seed=1), codec.weight_bits)
     data = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
@@ -519,8 +876,10 @@ def parity_two_layers(dev, results):
     rng = np.random.default_rng(1)
     reqs = [serve.Request(rng.integers(0, cfg.vocab_size, L), 8)
             for L in (40, 100, 20, 70)]          # 100, 70 > chunk_seg 64
-    kw = dict(page_size=16, n_pages=40, max_active=3, max_seq_len=112,
-              prefill="chunked", chunk_size=64, chunk_align=8)
+    scan_batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 48))}
+    ps = 16
+    kw = dict(page_size=ps, n_pages=40, max_active=3, max_seq_len=112,
+              chunk_size=64, chunk_align=8)
 
     def to_cpu(tree):
         if isinstance(tree, dict):
@@ -529,31 +888,49 @@ def parity_two_layers(dev, results):
             return [to_cpu(v) for v in tree]
         return tree.cpu()
 
-    out = {}
+    def same(a, b, what):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"parity, {what}: tokens differ: "
+                                 f"{np.asarray(a).tolist()} vs "
+                                 f"{np.asarray(b).tolist()}")
+
+    out, scan = {}, {}
     for name, model, p, sc in (
             ("cuda", gpu, params, scales),
             ("cpu", Model(cfg, device="cpu"), to_cpu(params),
              to_cpu(scales))):
         eng = serve.ContinuousBatchingEngine(
-            model, serve.make_cache_config("sparq", codec),
-            QuantCtx(mode="quantized", cfg=codec), sc,
-            device=model.device, **kw)
+            model, cc, ctx, sc, device=model.device, prefill="chunked", **kw)
         out[name], _ = eng.run(p, reqs)
+        scan[name], _ = serve.DecodeEngine(model, cc, ctx, sc).generate(
+            p, scan_batch, 8, warmup=False)
     for rid in out["cpu"]:
-        if not np.array_equal(out["cuda"][rid], out["cpu"][rid]):
-            raise AssertionError(
-                f"parity: request {rid} tokens differ: kernels "
-                f"{out['cuda'][rid].tolist()} vs plain "
-                f"{out['cpu'][rid].tolist()}")
+        same(out["cuda"][rid], out["cpu"][rid],
+             f"paged chunked, request {rid}, kernels vs plain")
+    same(scan["cuda"], scan["cpu"], "scan engine, kernels vs plain")
+    seq, _ = serve.ContinuousBatchingEngine(
+        gpu, cc, ctx, scales, device=dev, prefill="sequential",
+        **kw).run(params, reqs)
+    alone = serve.DecodeEngine(gpu, dataclasses.replace(cc, attn_bk=ps),
+                               ctx, scales)
+    for rid, r in enumerate(reqs):
+        toks, _ = alone.generate(params, {"tokens": r.tokens[None]}, r.gen,
+                                 warmup=False)
+        same(seq[rid], toks[0], f"request {rid}, paged sequential vs scan "
+                                f"(attn_bk = {ps}) on the card")
     results["parity"] = {str(r): out["cuda"][r].tolist() for r in out["cpu"]}
+    results["parity_scan"] = scan["cuda"].tolist()
     log(f"parity 2-layer full-width f32: kernels == plain versions on "
-        f"{len(reqs)} requests ({sum(len(t) for t in out['cpu'].values())} "
-        f"tokens)")
+        f"{len(reqs)} paged requests "
+        f"({sum(len(t) for t in out['cpu'].values())} tokens) and a scan "
+        f"batch of {scan['cpu'].shape[0]}; paged sequential == scan "
+        f"(attn_bk {ps}) on the card for all {len(reqs)} requests")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="build,kernels,serve,parity")
+    ap.add_argument("--phases",
+                    default="build,kernels,serve,scan,sequential,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -578,12 +955,22 @@ def main(argv=None):
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {len(logs)} kernel libraries in {results['build_s']:.1f} s")
     if "kernels" in phases:
-        check_k1(dev, results)
-        check_k2(dev, results)
-        check_k3(dev, results)
-    counts = {}
-    if "serve" in phases:
-        counts = serve_full_width(dev, results)
+        for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
+                      check_k6):
+            check(dev, results)
+    by_path = {}
+    for name, run in (("serve", serve_full_width), ("scan", scan_full_width),
+                      ("sequential", sequential_full_width)):
+        if name in phases:
+            by_path[name] = run(dev, results)
+    counts = {k: sum(c.get(k, 0) for c in by_path.values())
+              for k in build.KERNELS}
+    if len(by_path) == 3:
+        idle = [k for k, n in counts.items() if n == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched on any path: "
+                                 f"{idle}")
+    results["launches_by_path"] = by_path
     if "parity" in phases:
         parity_two_layers(dev, results)
     if "profile" in phases:
@@ -599,6 +986,8 @@ def main(argv=None):
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{k.source}",
             "replaces": k.replaces, "launches": counts.get(name, 0),
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in by_path.items()},
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"),

@@ -1,9 +1,10 @@
 """PyTorch/CUDA port of the SPARQ serving stack (`repro` is the JAX original).
 
 The package imports torch and numpy only. Plain tensor code runs on any
-device; the three hot kernels (quantized matmul, paged flash-decode and
-chunked-prefill attention) are hand-written CUDA C++ for Hopper under
-`csrc/`, built with nvcc at first use. Dispatch goes by the device of the
+device; the six kernels of the JAX package (quantized matmul, paged and
+contiguous flash-decode, chunked-prefill attention, the KV-write quantizer
+and the KV read-back meta-decode) are hand-written CUDA C++ for Hopper
+under `csrc/`, built with nvcc at first use. Dispatch goes by the device of the
 tensors: CPU tensors take the plain PyTorch versions, CUDA tensors take
 the kernels, anything else raises.
 """

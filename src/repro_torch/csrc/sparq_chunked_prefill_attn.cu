@@ -8,7 +8,8 @@
 //   through the block table and meta-decoded in the loop, then (2) the
 //   chunk's own float K/V of the same sequence with hist <= kpos <= pos.
 //   Stage order: pages ascending, then the chunk, as in the oracle. Online
-//   softmax in f32; padding rows and padding tiles write zeros.
+//   softmax with f32 statistics and f64 sums of p and p.v per tile;
+//   padding rows and padding tiles write zeros.
 // Bound: at serving shapes (C = 256, G = 8, hd = 64) the f32 score and
 //   value products dominate the bytes moved (~30 flops per byte), so this
 //   first version is bound by its f32 operations, far below any tensor-core

@@ -42,36 +42,74 @@ __device__ __forceinline__ int select_shift(int m, const SparqCodec& c) {
   return c.shift_max;
 }
 
-// bsparq_recon: trim (and round, re-encoding the carry after clamping to
-// max_val) a non-negative magnitude; returns q << s
-__device__ __forceinline__ int bsparq_recon(int x, const SparqCodec& c) {
+// bsparq_encode: trim (and round, re-encoding the carry after clamping to
+// max_val) a non-negative magnitude; returns q << s and sets s (ShiftCtrl)
+__device__ __forceinline__ int bsparq_encode(int x, const SparqCodec& c,
+                                             int& s) {
   const int wmask = (1 << c.bits) - 1;
-  const int s = select_shift(msb_pos(x), c);
+  s = select_shift(msb_pos(x), c);
   const int q = (x >> s) & wmask;
   if (!c.rounding) return q << s;
   const int rbit = s > 0 ? (x >> (s - 1)) & 1 : 0;
   const int v = min((q + rbit) << s, c.max_val);
-  const int s2 = select_shift(msb_pos(v), c);
-  return ((v >> s2) & wmask) << s2;
+  s = select_shift(msb_pos(v), c);
+  return ((v >> s) & wmask) << s;
 }
 
-// SPARQ reconstruction of one vSPARQ pair of clipped integer codes
-__device__ __forceinline__ void sparq_recon_pair(int q0, int q1,
-                                                 const SparqCodec& c,
-                                                 int& r0, int& r1) {
+__device__ __forceinline__ int bsparq_recon(int x, const SparqCodec& c) {
+  int s;
+  return bsparq_encode(x, c, s);
+}
+
+// SPARQ encoding of one vSPARQ pair of clipped integer codes: the
+// reconstructed codes r0/r1 and the pair's §5.1 meta byte
+// mux_any * 64 + shift_even * 8 + shift_odd (0 when trimming is off).
+// A lane whose partner is zero passes through at full precision, with
+// shift 0 and its MuxCtrl bit set.
+__device__ __forceinline__ void sparq_encode_pair(int q0, int q1,
+                                                  const SparqCodec& c,
+                                                  int& r0, int& r1,
+                                                  int& meta) {
   if (!c.enabled) {
     r0 = q0;
     r1 = q1;
+    meta = 0;
     return;
   }
   const int m0 = abs(q0), m1 = abs(q1);
-  int t0 = bsparq_recon(m0, c), t1 = bsparq_recon(m1, c);
+  int s0, s1;
+  int t0 = bsparq_encode(m0, c, s0), t1 = bsparq_encode(m1, c, s1);
+  int mux = 0;
   if (c.vsparq) {
-    if (m1 == 0) t0 = m0;  // partner zero -> full precision
-    if (m0 == 0) t1 = m1;
+    if (m1 == 0) {  // partner zero -> full precision
+      t0 = m0;
+      s0 = 0;
+      mux = 1;
+    }
+    if (m0 == 0) {
+      t1 = m1;
+      s1 = 0;
+      mux = 1;
+    }
   }
   r0 = q0 < 0 ? -t0 : t0;
   r1 = q1 < 0 ? -t1 : t1;
+  meta = mux * 64 + s0 * 8 + s1;
+}
+
+// SPARQ reconstruction of one vSPARQ pair (the codes of sparq_encode_pair)
+__device__ __forceinline__ void sparq_recon_pair(int q0, int q1,
+                                                 const SparqCodec& c,
+                                                 int& r0, int& r1) {
+  int meta;
+  sparq_encode_pair(q0, q1, c, r0, r1, meta);
+}
+
+// clip(rint(x / a)) in f32, as the oracles' quantize_codes (IEEE division,
+// round half to even), returned as an int
+__device__ __forceinline__ int quantize_code(float x, float a, float qmin,
+                                             float qmax) {
+  return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(x, a)), qmin), qmax));
 }
 
 // §5.1 meta-decode of one stored lane: sign(q) * (|q| << shift) * scale,
@@ -83,6 +121,20 @@ __device__ __forceinline__ float meta_decode(int8_t store, int8_t meta,
   const int s = (lane & 1) ? (m & 7) : ((m >> 3) & 7);
   const int mag = abs(q) << s;
   return __fmul_rn(static_cast<float>(q < 0 ? -mag : mag), scale);
+}
+
+// The dot products of a tile (q . k over hd, p . v and the sum of p over
+// the tile's keys) accumulate in f64 and round once to f32. In f32, a
+// serial sum's rounding differs from the oracle's (another order) by
+// enough to move an output of tens by ~1e-4 when scores reach tens; in f64
+// each tile's sums are correctly rounded, and the kernels stay within the
+// oracle's own f32 error.
+__device__ __forceinline__ float score_dot(const float* q, const float* k,
+                                           int hd) {
+  double dot = 0.0;
+  for (int d = 0; d < hd; ++d)
+    dot = fma(static_cast<double>(q[d]), static_cast<double>(k[d]), dot);
+  return static_cast<float>(dot);
 }
 
 // One online-softmax update over a tile of nk keys for nr query rows.
@@ -101,7 +153,7 @@ __device__ __forceinline__ void online_softmax_tile(
     const float m_prev = m[r];
     const float m_new = fmaxf(m_prev, mx);
     const float m_safe = (m_new == -CUDART_INF_F) ? 0.f : m_new;
-    float sum = 0.f;
+    double sum = 0.0;
     for (int j = 0; j < nk; ++j) {
       const float p = (s[j] == -CUDART_INF_F) ? 0.f : expf(s[j] - m_safe);
       s[j] = p;
@@ -109,16 +161,18 @@ __device__ __forceinline__ void online_softmax_tile(
     }
     const float cr = (m_prev == -CUDART_INF_F) ? 0.f : expf(m_prev - m_safe);
     corr[r] = cr;
-    l[r] = l[r] * cr + sum;
+    l[r] = l[r] * cr + static_cast<float>(sum);
     m[r] = m_new;
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < nr * hd; idx += blockDim.x) {
     const int r = idx / hd, d = idx - r * hd;
     const float* p = sc + r * nk;
-    float pv = 0.f;
-    for (int j = 0; j < nk; ++j) pv = fmaf(p[j], vt[j * ldv + d], pv);
-    acc[idx] = acc[idx] * corr[r] + pv;
+    double pv = 0.0;
+    for (int j = 0; j < nk; ++j)
+      pv = fma(static_cast<double>(p[j]),
+               static_cast<double>(vt[j * ldv + d]), pv);
+    acc[idx] = acc[idx] * corr[r] + static_cast<float>(pv);
   }
   __syncthreads();
 }

@@ -7,7 +7,8 @@
 //   the one decode token attend over the slot's pages, gathered through the
 //   block table. Each page tile is meta-decoded in the loop:
 //   sign(q) * (|q| << shift) * scale[b]. Mask: block allocated and
-//   kpos <= cur[b] (and kpos > cur[b] - window). Online softmax in f32;
+//   kpos <= cur[b] (and kpos > cur[b] - window). Online softmax with f32
+//   statistics and f64 tile sums (score_dot, online_softmax_tile);
 //   out = acc / max(l, 1e-30). An inactive slot (cur < 0) writes zeros.
 // Bound: device-memory bytes (the packed pages, 2 B per cached value for
 //   data + meta, plus the f32 query/output); there are ~2 flops per byte.
@@ -79,9 +80,8 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kd,
       const int g = idx / ps, j = idx - g * ps;
       const int kpos = t * ps + j;
       const bool ok = kpos <= c && (window == 0 || kpos > c - window);
-      float dot = 0.f;
-      for (int d = 0; d < hd; ++d) dot = fmaf(qs[g * hd + d], kt[j * ldk + d], dot);
-      sc[idx] = ok ? dot * sm_scale : -CUDART_INF_F;
+      sc[idx] = ok ? score_dot(qs + g * hd, kt + j * ldk, hd) * sm_scale
+                   : -CUDART_INF_F;
     }
     __syncthreads();
     online_softmax_tile(sc, vt, ldk, m, l, corr, acc, G, ps, hd);

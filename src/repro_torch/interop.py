@@ -1,6 +1,7 @@
-"""Move the JAX package's parameters and calibrated scales into the port.
+"""Move the JAX package's parameters, calibrated scales and contiguous
+KV caches into the port.
 
-Both functions take numpy arrays — the caller converts a JAX tree with
+The functions take numpy arrays — the caller converts a JAX tree with
 `jax.tree.map(np.asarray, tree)` — so this module imports no jax. The
 trees keep their layout: `params["blocks"][g]` holds layer-stacked
 [L, ...] leaves, and prequantized weights are {"q": int8, "s": f32}
@@ -38,3 +39,30 @@ def scales_from_jax(np_scales_groups, device="cpu") -> list:
     -> the port's scales_groups (f32 tensors)."""
     return [{site: torch.from_numpy(np.array(v, np.float32)).to(device)
              for site, v in group.items()} for group in np_scales_groups]
+
+
+def cache_from_jax(np_caches, cache_cfg, device="cpu") -> list:
+    """JAX contiguous caches (as numpy: `Model.init_cache`'s list of
+    layer-stacked `CacheStore`s, leaves [L, ...]) -> the port's flat
+    per-layer list of `CacheStore`s with the same bytes, scales and
+    positions. `cache_cfg` is the port's `CacheConfig` of the same layout
+    (it supplies the codec and attention tile; the JAX tree is read by
+    attribute only)."""
+    from repro_torch.models.cache import CachedTensor, CacheStore
+
+    def plane(ct, li):
+        meta = None if ct.meta is None else to_torch(ct.meta[li], device)
+        return CachedTensor(
+            data=to_torch(ct.data[li], device), meta=meta,
+            scale=to_torch(np.asarray(ct.scale[li], np.float32), device),
+            layout=cache_cfg.layout,
+            codec=cache_cfg.sparq if cache_cfg.layout == "sparq" else None,
+            bk=cache_cfg.attn_bk if cache_cfg.layout == "sparq" else None)
+
+    out = []
+    for group in np_caches:
+        for li in range(np.asarray(group.pos).shape[0]):
+            out.append(CacheStore(
+                k=plane(group.k, li), v=plane(group.v, li),
+                pos=to_torch(np.asarray(group.pos[li], np.int32), device)))
+    return out

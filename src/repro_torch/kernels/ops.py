@@ -7,14 +7,22 @@ plain version: on the card, the main path always runs the kernels.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.quantizer import QScale
 from repro_torch.core.sparq import SparqConfig
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparq_decode_attn as _dec
+from repro_torch.kernels import sparq_dequant as _dq
 from repro_torch.kernels import sparq_matmul as _mm
 from repro_torch.kernels import sparq_prefill_attn as _pre
+from repro_torch.kernels import sparq_quant as _q
+
+# default Tk-tile size of the contiguous decode-attention kernel (K5);
+# CacheConfig.attn_bk overrides it per cache
+DEFAULT_BK = 128
 
 
 def _route(t: torch.Tensor) -> str:
@@ -79,12 +87,81 @@ def quantized_matmul(x: torch.Tensor, w_codes: torch.Tensor, act_qs: QScale,
     return out.reshape(*lead, N)
 
 
+def sparq_quantize(x: torch.Tensor, scale: torch.Tensor,
+                   cfg: SparqConfig):
+    """SPARQ quantization of the KV write path: float (..., K) -> (codes,
+    meta), int8 with x's shape; the last axis is the vSPARQ pair axis (K
+    even). `scale` is the f32 quantization step on x's device: one element
+    for every row, or one per row of the flattened leading dims. `codes`
+    are the reconstructed values (window << shift, sign applied);
+    `sparq_pack` shifts them down to the stored form."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K).to(torch.float32)
+    M = x2.shape[0]
+    sc = scale.to(torch.float32).reshape(-1)
+    if sc.numel() not in (1, M):
+        raise ValueError(f"scale has {sc.numel()} elements; expected 1 or "
+                         f"one per row ({M})")
+    if _route(x) == "plain":
+        a = sc.reshape(()) if sc.numel() == 1 else sc[:, None]
+        codes, meta = _q.ref_sparq_quant(x2, a, **_codec_kw(cfg))
+    else:
+        codes, meta = _q.sparq_quant_cuda(x2.contiguous(), sc.contiguous(),
+                                          **_codec_kw(cfg))
+    return codes.reshape(*lead, K), meta.reshape(*lead, K)
+
+
+def sparq_dequantize(store: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+    """§5.1 meta-decode of the KV read-back path: int8 (store, meta)
+    (..., K) -> int8 reconstructed codes (multiply by the plane's scale
+    for floats). The decode hot path never calls this: the attention
+    kernels decode tile by tile in their loops."""
+    lead = store.shape[:-1]
+    K = store.shape[-1]
+    s2, m2 = store.reshape(-1, K), meta.reshape(-1, K)
+    if _route(store) == "plain":
+        codes = _dq.ref_sparq_dequant(s2, m2)
+    else:
+        codes = _dq.sparq_dequant_cuda(s2.contiguous(), m2.contiguous())
+    return codes.reshape(*lead, K)
+
+
 def sparq_pack(codes: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     """Reconstructed int8 codes -> stored window codes (§5.1 data nibbles):
     sign * (|codes| >> shift). Exact, since codes were window << shift."""
     q = codes.to(torch.int32)
     return (torch.sign(q) * torch.bitwise_right_shift(
         torch.abs(q), _ref.meta_shifts(meta))).to(torch.int8)
+
+
+def sparq_decode_attention(q, k_data, k_meta, k_scale, v_data, v_meta,
+                           v_scale, kpos, cur, window: int = 0,
+                           bk: Optional[int] = None) -> torch.Tensor:
+    """Fused flash-decode attention over contiguous packed SPARQ planes.
+    q (B, 1, H, hd); planes (B, Tk, KV, hd) int8; per-site scales and the
+    decoded position `cur` as one-element device tensors; kpos (B, Tk)
+    int32 slot positions (-1 = empty). `bk` is the Tk-tile size (None ->
+    DEFAULT_BK, clamped to Tk): the tile split fixes the f32 summation
+    order, so bk == page_size reproduces the paged kernel bit for bit.
+    Returns f32 (B, 1, H, hd)."""
+    B, Tq, H, hd = q.shape
+    assert Tq == 1, f"decode attention takes one query token, got Tq={Tq}"
+    Tk, KV = k_data.shape[1], k_data.shape[2]
+    G = H // KV
+    bk = DEFAULT_BK if bk is None else bk
+    if bk < 1:
+        raise ValueError(f"bk must be >= 1, got {bk}")
+    bk = min(bk, Tk)
+    args = (q.reshape(B, KV, G, hd).to(torch.float32).contiguous(),
+            k_data, k_meta, k_scale.to(torch.float32),
+            v_data, v_meta, v_scale.to(torch.float32),
+            kpos.to(torch.int32).contiguous(), cur.to(torch.int32))
+    if _route(q) == "plain":
+        out = _dec.ref_sparq_decode_attn(*args, window=window, bk=bk)
+    else:
+        out = _dec.sparq_decode_attn_cuda(*args, window=window, bk=bk)
+    return out.reshape(B, 1, H, hd)
 
 
 def sparq_chunked_prefill_attention(q, k_chunk, v_chunk, k_data, k_meta,

@@ -1,23 +1,35 @@
-"""Paged continuous-batching server (port of `repro.launch.serve`'s
-`ContinuousBatchingEngine`, chunked-prefill configuration).
+"""Serving engines (port of `repro.launch.serve`): the scan engine over a
+contiguous cache, and paged continuous batching.
 
-Ragged requests share one pool of fixed-size §5.1 packed pages per layer
-(page ids shared across layers, one block table). The host loop only
-schedules — admission, chunk planning and page grants, growth pages at
-block boundaries, eviction — between device steps. Prompts stream through
-fixed-size prefill chunks (`launch.prefill`) interleaved with decode steps;
-every decode step is one call over all slots (inactive slots are masked
-inside the kernels), and its greedy tokens come back to the host in one
-device-to-host copy (one `.tolist()`).
+  DecodeEngine (`--engine scan`, the default)
+      Uniform batch, one contiguous (k, v, pos) cache per layer, fp or
+      §5.1 packed. A prefill, then a Python loop of decode steps (the
+      JAX package's `lax.scan`) that never reads a device value: the
+      positions and tokens stay on the device, and the generated tokens
+      come back in one copy at the end. With the sparq layout every step
+      quantizes its K/V through K4 and attends through K5.
 
-Ported configuration: `--prefill chunked`, no preemption (pool
-exhaustion raises `PoolExhausted`), no prefix cache, one device, a
-synchronous run. The other features of the JAX engine are not ported yet;
+  ContinuousBatchingEngine (`--engine paged`)
+      Ragged requests share one pool of fixed-size §5.1 packed pages per
+      layer (page ids shared across layers, one block table). The host
+      loop only schedules — admission, page grants, growth pages at block
+      boundaries, eviction — between device steps; every decode step is
+      one call over all slots (inactive slots are masked inside the
+      kernels), and its greedy tokens come back in one device-to-host
+      copy. Admission is `prefill="sequential"` (the default: each prompt
+      prefills alone into a batch-1 contiguous cache whose packed pages
+      `paging.adopt_prefill` copies into the pool) or `"chunked"`
+      (prompts stream through fixed-size chunks, `launch.prefill`,
+      interleaved with decode steps).
+
+Not ported yet: preemption (pool exhaustion raises `PoolExhausted`), the
+prefix cache, tensor parallelism, the async front-end and telemetry;
 their flags raise.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --reduced --batch 4 --prompt-len 64 --gen 16 --sparq 5opt \\
-        --kv-cache sparq --prefill chunked --prequantize --device cuda
+        --kv-cache sparq --prequantize --device cuda           # scan engine
+    ... --engine paged --prefill sequential|chunked             # paged engine
 """
 from __future__ import annotations
 
@@ -57,15 +69,132 @@ def make_cache_config(layout: str,
                       sparq: Optional[SparqConfig]) -> CacheConfig:
     """`--kv-cache` flag -> CacheConfig. The sparq layout reuses the active
     SPARQ preset as its codec (plain int8 when the preset is off)."""
+    if layout == "fp32":
+        return CacheConfig.fp32()
+    if layout == "bf16":
+        return CacheConfig.bf16()
     if layout == "sparq":
         if sparq is None:
             return CacheConfig(layout="sparq")
         return CacheConfig.sparq_cache(sparq)
-    if layout in ("fp32", "bf16"):
-        raise NotImplementedError(
-            f"--kv-cache {layout} serves through the scan engine, which is "
-            f"not yet ported; the paged engine stores sparq pages")
     raise ValueError(layout)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class DecodeEngine:
+    """Greedy batched generation over a contiguous cache on the model's
+    device: a prefill, then `gen - 1` decode steps. With the sparq layout
+    each step quantizes on write (K4) and attends through the fused
+    packed-cache decode kernel (K5); no plane is dequantized whole."""
+
+    def __init__(self, model: Model, cache_cfg: Optional[CacheConfig] = None,
+                 ctx: Optional[QuantCtx] = None, scales_groups=None):
+        self.model = model
+        self.device = model.device
+        self.cache_cfg = cache_cfg or CacheConfig.fp32()
+        self.ctx = ctx
+        self.scales_groups = scales_groups
+
+    def init_cache(self, batch: int, max_len: int) -> list:
+        return self.model.init_cache(batch, max_len,
+                                     cache_cfg=self.cache_cfg)
+
+    def _prefill(self, params, tokens, caches) -> torch.Tensor:
+        logits = self.model.prefill(params, {"tokens": tokens}, caches,
+                                    ctx=self.ctx,
+                                    scales_groups=self.scales_groups)
+        return torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+    def _decode(self, params, tok, caches, pos0: int,
+                steps: int) -> torch.Tensor:
+        """`steps` greedy steps from tok [B, 1] at position pos0. The loop
+        reads nothing back: pos is a device scalar, each step's argmax
+        feeds the next. Returns the tokens [B, steps] on the device."""
+        pos = torch.tensor(pos0, dtype=torch.int32, device=self.device)
+        out = []
+        for _ in range(steps):
+            logits = self.model.decode_step(
+                params, tok, caches, pos, ctx=self.ctx,
+                scales_groups=self.scales_groups)
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            out.append(tok)
+            pos = pos + 1
+        return torch.cat(out, 1)
+
+    def generate(self, params, batch, gen: int, pad: int = 8,
+                 max_len: Optional[int] = None, warmup: bool = True):
+        """Returns (tokens int32 [B, gen] numpy, stats).
+
+        `max_len` caps the cache capacity (default: prompt + gen + pad
+        slots). The capacity check runs on the host before any work: the
+        cache write clamps its start, so an overflowing decode would
+        overwrite the newest slots instead of failing.
+
+        `warmup` runs prefill + decode once untimed first (on a cache of
+        its own; the kernels build at first use), reported as compile_s,
+        so prefill_s and decode_tok_s measure steady-state execution."""
+        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
+                                 device=self.device)
+        B, pos0 = tokens.shape
+        max_len = max_len if max_len is not None else pos0 + gen + pad
+        if pos0 + gen > max_len:
+            raise ValueError(
+                f"KV-cache overflow: prompt ({pos0} slots) + generation "
+                f"({gen}) needs {pos0 + gen} cache slots but capacity is "
+                f"{max_len}; the cache write would clamp and overwrite the "
+                f"newest entries")
+        with torch.no_grad():
+            compile_s = 0.0
+            if warmup:
+                t0 = time.perf_counter()
+                caches = self.init_cache(B, max_len)
+                tok_w = self._prefill(params, tokens, caches)
+                if gen > 1:
+                    self._decode(params, tok_w, caches, pos0, gen - 1)
+                _sync(self.device)
+                compile_s = time.perf_counter() - t0
+            caches = self.init_cache(B, max_len)
+            _sync(self.device)
+            t0 = time.perf_counter()
+            tok0 = self._prefill(params, tokens, caches)
+            _sync(self.device)
+            t_prefill = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            toks = tok0
+            if gen > 1:
+                toks = torch.cat([tok0, self._decode(params, tok0, caches,
+                                                     pos0, gen - 1)], 1)
+            _sync(self.device)
+            t_decode = time.perf_counter() - t0
+        self.last_caches = caches      # the timed pass's caches (read-back)
+        tally = cache_mod.modeled_cache_bytes(caches)
+        stats = {
+            "device": str(self.device),
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "compile_s": compile_s,
+            "decode_tok_s": (B * (gen - 1) / max(t_decode, 1e-9))
+                            if gen > 1 else 0.0,
+            "cache_bytes_per_value":
+                cache_mod.bytes_per_value(self.cache_cfg),
+            "cache_ctrl_bytes_per_value":
+                cache_mod.ctrl_bytes_per_value(self.cache_cfg),
+            "cache_data_bytes": tally["data_bytes"],
+            "cache_total_bytes": tally["total_bytes"],
+        }
+        return toks.cpu().numpy(), stats
+
+
+def serve(model: Model, params, batch, gen: int,
+          ctx: Optional[QuantCtx], scales_groups=None,
+          cache_cfg: Optional[CacheConfig] = None, warmup: bool = True):
+    """Greedy batched generation. Returns (tokens [B, gen], stats)."""
+    engine = DecodeEngine(model, cache_cfg, ctx, scales_groups)
+    return engine.generate(params, batch, gen, warmup=warmup)
 
 
 @dataclasses.dataclass
@@ -94,23 +223,21 @@ class _Slot:
     pages: List[int]            # physical pages owned by this sequence
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 class ContinuousBatchingEngine:
-    """Greedy generation over ragged requests with a paged SPARQ cache and
-    chunked prefill. `max_active` slots share `n_pages` pages of
-    `page_size` slots; decode-time pool exhaustion raises
-    `PoolExhausted`. Runs on the model's device; `device` (default
-    `cuda`) must name it, so a CPU run is always asked for explicitly."""
+    """Greedy generation over ragged requests with a paged SPARQ cache.
+    `max_active` slots share `n_pages` pages of `page_size` slots;
+    decode-time pool exhaustion raises `PoolExhausted`. `prefill` picks the
+    admission: "sequential" (each prompt prefills alone into a batch-1
+    contiguous cache, adopted page by page) or "chunked" (prompts stream
+    through fixed-size chunks written straight into pages). Runs on the
+    model's device; `device` (default `cuda`) must name it, so a CPU run is
+    always asked for explicitly."""
 
     def __init__(self, model: Model, cache_cfg: CacheConfig,
                  ctx: Optional[QuantCtx] = None, scales_groups=None, *,
                  page_size: int = 16, n_pages: int = 64,
                  max_active: int = 4, max_seq_len: int = 512,
-                 prefill: str = "chunked", chunk_size: int = 32,
+                 prefill: str = "sequential", chunk_size: int = 32,
                  chunk_align: int = 8, chunk_seg: Optional[int] = None,
                  device=None):
         self.device = resolve_device(device)
@@ -125,10 +252,8 @@ class ContinuousBatchingEngine:
         if max_seq_len % page_size:
             raise ValueError(f"max_seq_len {max_seq_len} must be a multiple "
                              f"of page_size {page_size}")
-        if prefill != "chunked":
-            raise NotImplementedError(
-                f"prefill={prefill!r} (sequential admission + "
-                f"adopt_prefill) is not yet ported; use prefill='chunked'")
+        if prefill not in ("sequential", "chunked"):
+            raise ValueError(f"unknown prefill mode {prefill!r}")
         self.model = model
         self.cc = cache_cfg
         self.ctx = ctx
@@ -138,10 +263,12 @@ class ContinuousBatchingEngine:
         self.max_active = max_active
         self.n_blocks = max_seq_len // page_size
         self.prefill_mode = prefill
-        self._sched = PrefillScheduler(
-            model, ctx, scales_groups, chunk_size=chunk_size,
-            align=chunk_align, page_size=page_size, n_slots=max_active,
-            seg=chunk_seg)
+        self._sched = None
+        if prefill == "chunked":
+            self._sched = PrefillScheduler(
+                model, ctx, scales_groups, chunk_size=chunk_size,
+                align=chunk_align, page_size=page_size, n_slots=max_active,
+                seg=chunk_seg)
 
     # ------------------------------------------------------------ device
     def _init_stores(self) -> Tuple[list, torch.Tensor]:
@@ -154,6 +281,23 @@ class ContinuousBatchingEngine:
             cfg.n_kv_heads, cfg.head_dim, self.cc, self.device,
             block_table=bt) for _ in range(cfg.n_layers)]
         return stores, bt
+
+    def _prefill_alone(self, params, tokens: np.ndarray, caches: list,
+                       slot: int, pages: List[int]) -> torch.Tensor:
+        """Sequential admission of one prompt: prefill it into a batch-1
+        contiguous sparq cache of len(pages) pages, then adopt every
+        layer's packed bytes, scales and position into the pool at `slot`.
+        Returns the first greedy token, int32 [1] on the device."""
+        ps = self.page_size
+        tmp = self.model.init_cache(1, len(pages) * ps, cache_cfg=self.cc)
+        logits = self.model.prefill(
+            params, {"tokens": tokens[None]}, tmp, ctx=self.ctx,
+            scales_groups=self.scales_groups)
+        pages_dev = torch.tensor(pages, dtype=torch.int64,
+                                 device=self.device)
+        for store, cs in zip(caches, tmp):
+            paging.adopt_prefill(store, cs, slot, pages_dev)
+        return torch.argmax(logits, -1).to(torch.int32)
 
     def _step(self, params, tok, caches, pos):
         logits = self.model.decode_step(params, tok, caches, pos,
@@ -206,7 +350,8 @@ class ContinuousBatchingEngine:
         ps, NB, S = self.page_size, self.n_blocks, self.max_active
         dev = self.device
         sched = self._sched
-        sched.reset()
+        if sched is not None:
+            sched.reset()
         for i, r in requests.items():
             self._validate_request(r, f"request {i}")
 
@@ -241,7 +386,7 @@ class ContinuousBatchingEngine:
             debt = 0
             for s in range(S):
                 st = slots[s]
-                if st is None or st.generated >= st.target or sched.has(s):
+                if st is None or st.generated >= st.target or prefilling(s):
                     continue
                 if host_bt[s, host_pos[s] // ps] < 0:
                     debt += 1
@@ -251,7 +396,7 @@ class ContinuousBatchingEngine:
             """Pages mid-prefill sequences still need, plus the first growth
             page of any whose prompt ends on a block boundary."""
             debt = 0
-            for j in sched.jobs:
+            for j in (sched.jobs if sched is not None else ()):
                 debt += sched.pages_outstanding(j.slot, host_bt)
                 if slots[j.slot].target > 1 and len(j.tokens) % ps == 0:
                     debt += 1
@@ -278,6 +423,9 @@ class ContinuousBatchingEngine:
         def arrived():
             return bool(queue) and queue[0][0] <= clock
 
+        def prefilling(s: int) -> bool:
+            return sched is not None and sched.has(s)
+
         t_run0 = time.perf_counter()
         while True:
             # ---- evict finished sequences: pages back to the free list
@@ -302,15 +450,31 @@ class ContinuousBatchingEngine:
                         allocator.alloc(need)           # PoolExhausted
                     break                               # wait for evictions
                 heapq.heappop(queue)
-                slots[s] = _Slot(rid=rid, target=req.gen, generated=0,
-                                 pages=[])
+                if sched is not None:
+                    slots[s] = _Slot(rid=rid, target=req.gen, generated=0,
+                                     pages=[])
+                    host_bt[s] = -1
+                    host_pos[s] = 0
+                    sched.add(s, rid, req.tokens)
+                    continue
+                # sequential: the whole prompt now, alone, then adoption
+                pages = allocator.alloc(math.ceil(L / ps))
+                t0 = time.perf_counter()
+                tok0 = self._prefill_alone(params, req.tokens, caches, s,
+                                           pages)
+                _sync(dev)
+                prefill_s += time.perf_counter() - t0
+                first_tok[rid] = tok0[0]
+                tok[s, 0] = tok0[0]
+                slots[s] = _Slot(rid=rid, target=req.gen, generated=1,
+                                 pages=list(pages))
                 host_bt[s] = -1
-                host_pos[s] = 0
-                sched.add(s, rid, req.tokens)
+                host_bt[s, :len(pages)] = pages
+                host_pos[s] = L
 
             # ---- one prefill chunk of the packed prompt stream
             chunk_ran = False
-            if sched.pending:
+            if sched is not None and sched.pending:
                 def budget() -> int:
                     return max(allocator.free_count - growth_debt(), 0)
 
@@ -354,7 +518,7 @@ class ContinuousBatchingEngine:
             dirty = False
             for s in range(S):
                 st = slots[s]
-                if st is None or st.generated >= st.target or sched.has(s):
+                if st is None or st.generated >= st.target or prefilling(s):
                     continue
                 blk = host_pos[s] // ps
                 if host_bt[s, blk] >= 0:
@@ -372,13 +536,13 @@ class ContinuousBatchingEngine:
                 push_block_table()
             check_page_accounting()
 
-            prefilling = tuple(s for s in range(S) if sched.has(s))
+            in_prefill = tuple(s for s in range(S) if prefilling(s))
             active = tuple((s, slots[s].rid) for s in range(S)
                            if slots[s] is not None
                            and slots[s].generated < slots[s].target
-                           and s not in prefilling)
+                           and s not in in_prefill)
             if not active:
-                if sched.pending and not chunk_ran:
+                if sched is not None and sched.pending and not chunk_ran:
                     check_page_accounting()
                     raise paging.PoolExhausted(
                         f"page pool exhausted mid-prefill of slot "
@@ -386,7 +550,7 @@ class ContinuousBatchingEngine:
                 continue
             if trace_hook is not None:
                 trace_hook(self._snapshot(n_steps, allocator, slots, host_bt,
-                                          host_pos, prefilling))
+                                          host_pos, in_prefill))
 
             # ---- one decode step over every slot; one D2H copy
             tok = self._step(params, tok, caches, caches[0].seq_pos)
@@ -440,7 +604,7 @@ _NOT_PORTED = {
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="paged chunked-prefill SPARQ serving (PyTorch/CUDA)")
+        description="SPARQ serving, scan or paged engine (PyTorch/CUDA)")
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
@@ -449,13 +613,17 @@ def main(argv=None):
     ap.add_argument("--sparq", choices=list(SPARQ_PRESETS), default="5opt")
     ap.add_argument("--kv-cache", choices=("fp32", "bf16", "sparq"),
                     default="sparq")
-    ap.add_argument("--engine", choices=("scan", "paged"), default="paged")
+    ap.add_argument("--engine", choices=("scan", "paged"), default="scan",
+                    help="scan: uniform batch over a contiguous cache; "
+                         "paged: continuous batching over the page pool")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--n-pages", type=int, default=64)
     ap.add_argument("--max-active", type=int, default=0,
                     help="concurrent sequence slots (default: --batch)")
     ap.add_argument("--prefill", choices=("sequential", "chunked"),
-                    default="chunked")
+                    default="sequential",
+                    help="paged engine admission: sequential (each prompt "
+                         "alone, then adopted into pages) or chunked")
     ap.add_argument("--chunk-size", type=int, default=32)
     ap.add_argument("--chunk-align", type=int, default=8)
     ap.add_argument("--chunk-seg", type=int, default=0,
@@ -485,10 +653,6 @@ def main(argv=None):
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not yet ported to "
                 f"repro_torch (see ROADMAP.md)")
-    if args.engine != "paged":
-        raise NotImplementedError("--engine scan is not yet ported")
-    if args.prefill != "chunked":
-        raise NotImplementedError("--prefill sequential is not yet ported")
 
     device = resolve_device(args.device)
     cfg = get_reduced_config(args.arch) if args.reduced \
@@ -511,8 +675,20 @@ def main(argv=None):
             params = quantize_params(params, scfg.weight_bits)
     cache_cfg = make_cache_config(args.kv_cache, scfg)
     print(f"arch={cfg.name} sparq={args.sparq} kv-cache={args.kv_cache} "
-          f"device={device} batch={args.batch} prompt={args.prompt_len} "
-          f"gen={args.gen}")
+          f"engine={args.engine} device={device} batch={args.batch} "
+          f"prompt={args.prompt_len} gen={args.gen}")
+
+    if args.engine == "scan":
+        toks, stats = serve(model, params, batch, args.gen, ctx, scales,
+                            cache_cfg)
+        print(f"compile {stats['compile_s']:.1f} s | "
+              f"prefill {stats['prefill_s']*1e3:.1f} ms | decode "
+              f"{stats['decode_tok_s']:.1f} tok/s | cache "
+              f"{stats['cache_bytes_per_value']:.4f} B/value data "
+              f"(+{stats['cache_ctrl_bytes_per_value']:.4f} ctrl), "
+              f"{stats['cache_total_bytes']/1e6:.2f} MB modeled")
+        print("sample:", toks[0, :16])
+        return stats
 
     need = args.prompt_len + args.gen - 1
     max_seq = -(-need // args.page_size) * args.page_size

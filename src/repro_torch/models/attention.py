@@ -1,12 +1,14 @@
 """GQA attention sub-block (port of `repro.models.attention`): the QKV
-projections, the flash-style train/calibration attention in plain torch,
-and the paged chunk-prefill and decode modes."""
+projections, the flash-style train/prefill attention in plain torch, the
+contiguous-cache prefill and decode modes, and the paged chunk-prefill and
+decode modes."""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
 
+from repro_torch.models.cache import CacheConfig, CacheStore
 from repro_torch.models.common import (ModelConfig, QuantCtx, dense,
                                        init_dense, rope)
 
@@ -71,20 +73,83 @@ def flash_attention(q, k, v, *, q_chunk=512, kv_chunk=1024):
     return out
 
 
+def decode_attention(q: torch.Tensor, cache, *,
+                     window: int = 0) -> torch.Tensor:
+    """Single-token decode against a cache the step has already written.
+    q [B, 1, H, hd].
+
+    paged store: K2 over the page pool (per-slot positions and scales);
+    contiguous sparq: K5 over the raw packed planes, kpos = arange and
+    cur = pos - 1 (device tensors: no host sync); the planes are never
+    dequantized whole;
+    contiguous fp: `decode_attention_dequant`, plain torch."""
+    from repro_torch.models.paging import (PagedCacheStore,
+                                           paged_decode_attention)
+    if isinstance(cache, PagedCacheStore):
+        return paged_decode_attention(q, cache, window=window)
+    if cache.k.is_sparq:
+        from repro_torch.kernels.ops import sparq_decode_attention
+        B, Tk = cache.k.data.shape[:2]
+        kpos = torch.arange(Tk, dtype=torch.int32,
+                            device=q.device)[None].expand(B, Tk)
+        out = sparq_decode_attention(
+            q, cache.k.data, cache.k.meta, cache.k.scale,
+            cache.v.data, cache.v.meta, cache.v.scale,
+            kpos, cache.pos - 1, window=window, bk=cache.k.bk)
+        return out.to(q.dtype)
+    return decode_attention_dequant(q, cache, window=window)
+
+
+def decode_attention_dequant(q: torch.Tensor, cache: CacheStore, *,
+                             window: int = 0) -> torch.Tensor:
+    """Full-plane decode: CachedTensor.read() then attend, plain torch.
+    The path of fp planes; for the sparq layout it dequantizes the whole
+    cache each step, so it is only the oracle the fused kernel is held to."""
+    B, _, H, hd = q.shape
+    k, v = cache.kv()
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, 1, KV, G, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) \
+        * hd ** -0.5
+    kpos = torch.arange(k.shape[1], device=q.device)
+    allow = kpos < cache.pos
+    if window:
+        allow = allow & (kpos >= cache.pos - window)
+    s = torch.where(allow, s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def cache_init(cfg: ModelConfig, batch: int, max_len: int, device,
+               cache_cfg: Optional[CacheConfig] = None) -> CacheStore:
+    cc = cache_cfg or CacheConfig(layout="fp", dtype=cfg.dtype)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return CacheStore.init(shape, cc, device)
+
+
+def cache_update(cache, k_new: torch.Tensor, v_new: torch.Tensor):
+    """Insert [B, T_new, KV, hd] at the cache's position (in place). Sparq
+    planes quantize on write, the per-site scale frozen at first write."""
+    return cache.update(k_new, v_new)
+
+
 def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, cache=None, mode: str = "train",
                     ctx: Optional[QuantCtx] = None, chunk=None):
     """qkv -> attend -> out projection. Returns (out, cache).
 
     train:          causal flash attention over x (calibration forward);
+    prefill:        the prompt's K/V are written to the contiguous cache,
+                    then causal flash attention over the fresh K/V;
     chunk_prefill:  x is one chunk of the packed prompt stream; its K/V
                     quantize straight into the slots' pages
                     (PagedCacheStore.write_chunk), then attention runs over
                     the chunk plus the already-written pages (K3);
-    decode:         one token per slot, written to its page, then paged
-                    flash-decode over the pool (K2)."""
-    from repro_torch.models.paging import (chunked_prefill_attention,
-                                           paged_decode_attention)
+    decode:         one token per sequence, written to the cache, then
+                    `decode_attention` (K5 contiguous, K2 paged)."""
+    from repro_torch.models.paging import chunked_prefill_attention
     q, k, v = qkv_proj(params, x, cfg, positions, ctx)
     if mode == "chunk_prefill":
         assert cache is not None and chunk is not None
@@ -92,9 +157,12 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         out = chunked_prefill_attention(q, k[0], v[0], cache, chunk)
     elif mode == "decode":
         assert cache is not None
-        cache.update(k, v)
-        out = paged_decode_attention(q, cache)
-    elif mode == "train":
+        cache_update(cache, k, v)
+        out = decode_attention(q, cache)
+    elif mode in ("train", "prefill"):
+        if mode == "prefill":
+            assert cache is not None
+            cache_update(cache, k, v)
         out = flash_attention(q, k, v, q_chunk=cfg.attn_chunk,
                               kv_chunk=cfg.attn_chunk)
     else:

@@ -1,5 +1,6 @@
 """Public model API (port of `repro.models.model`, dense decoders):
-init / forward / calibrate / chunked prefill / decode step.
+init / forward / calibrate / contiguous-cache prefill / chunked prefill /
+decode step.
 
 `Model(cfg, device)` runs on `cuda` unless the caller asks for another
 device, and raises when no GPU is present and none was asked for.
@@ -13,6 +14,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.calibration import CalibBank
 from repro_torch.models import transformer as tr
+from repro_torch.models.cache import CacheConfig
 from repro_torch.models.common import (ModelConfig, QuantCtx, embed_tokens,
                                        norm, norm_init, trunc_normal)
 
@@ -75,6 +77,31 @@ class Model:
                                                scales_groups))
 
     # ------------------------------------------------------------ serve
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   cache_cfg=None) -> list:
+        """Contiguous decode-time caches, one per layer, on the model's
+        device. `cache_cfg` (models.cache.CacheConfig) selects the layout:
+        fp (in `dtype` when no config is given) or sparq (§5.1 packed)."""
+        cc = cache_cfg or CacheConfig(layout="fp", dtype=dtype)
+        return tr.stack_cache_init(self.cfg, self.kinds, batch, max_len,
+                                   self.device, cc)
+
+    def prefill(self, params, batch: Dict, caches,
+                ctx: Optional[QuantCtx] = None, scales_groups=None):
+        """Process the prompt batch["tokens"] [B, T] into the contiguous
+        `caches` (written in place). Returns the last token's logits
+        [B, V]."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        x = self._embed_in(params, tokens, cfg.dtype)
+        x = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
+                           positions=self._positions(*tokens.shape),
+                           caches=caches, mode="prefill", ctx=ctx,
+                           scales_groups=scales_groups)
+        x = norm(params["final_norm"], x[:, -1:], cfg.norm_type,
+                 cfg.norm_eps)
+        return self._head(params, x)[:, 0]
+
     def prefill_chunk(self, params, tokens, caches, chunk, last_rows,
                       ctx: Optional[QuantCtx] = None, scales_groups=None):
         """One chunk of the packed ragged-prefill stream. tokens [1, C];
@@ -95,8 +122,9 @@ class Model:
 
     def decode_step(self, params, tokens, caches, pos,
                     ctx: Optional[QuantCtx] = None, scales_groups=None):
-        """One token for every slot. tokens [S, 1]; pos [S] the position of
-        the new token per slot. Returns logits [S, V]."""
+        """One token for every sequence. tokens [S, 1]; pos the position of
+        the new token: a 0-d tensor (uniform batch, the scan engine) or
+        [S] (paged continuous batching, per slot). Returns logits [S, V]."""
         cfg = self.cfg
         x = self._embed_in(params, tokens, cfg.dtype)
         positions = pos.reshape(-1, 1).expand(x.shape[0], 1)

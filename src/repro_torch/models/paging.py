@@ -1,6 +1,7 @@
 """Paged SPARQ KV cache (port of `repro.models.paging`, the parts the
-chunked-prefill engine runs): one pool of fixed-size §5.1 packed pages per
-layer, per-slot block tables, and the host-side page allocator.
+paged engine runs without preemption or the prefix cache): one pool of
+fixed-size §5.1 packed pages per layer, per-slot block tables, the
+host-side page allocator, and `adopt_prefill` for sequential admission.
 
   PagedCacheStore   device state of one attention layer: packed pools
                     (int8 window codes + meta bytes), per-slot scales, the
@@ -180,17 +181,12 @@ class PagedCacheStore:
         return torch.where(stored > 0, stored, dyn)
 
     def _encode(self, x: torch.Tensor, scale: torch.Tensor):
-        """float [N, KV, hd] with per-row scale [N] -> (§5.1 window codes,
-        meta bytes), int8. The KV write path is plain tensor code, as in
-        the reference (it is not a kernel there either)."""
-        from repro_torch.kernels import ref as _ref
-        from repro_torch.kernels.ops import sparq_pack
-        cfg = self.codec
-        codes, meta = _ref.ref_sparq_quant(
-            x.to(torch.float32), scale[:, None, None],
-            bits=cfg.bits, opts_shifts=cfg.shifts, rounding=cfg.rounding,
-            vsparq=cfg.vsparq, signed=cfg.signed, max_val=cfg.max_val,
-            enabled=cfg.enabled)
+        """float [N, KV, hd] with per-token scale [N] -> (§5.1 window codes,
+        meta bytes), int8, through K4 with one scale per (token, head) row.
+        The codes and meta are integers, so the bytes are the reference's."""
+        from repro_torch.kernels.ops import sparq_pack, sparq_quantize
+        rows = scale[:, None].expand(x.shape[0], x.shape[1]).reshape(-1)
+        codes, meta = sparq_quantize(x, rows, self.codec)
         return sparq_pack(codes, meta), meta
 
     def _scatter(self, page, off, kd, km, vd, vm) -> None:
@@ -311,6 +307,34 @@ def chunked_prefill_attention(q: torch.Tensor, k_chunk: torch.Tensor,
 # ----------------------------------------------------------------------
 # engine-level transitions and accounting (over the list of layer stores)
 # ----------------------------------------------------------------------
+
+def adopt_prefill(store: PagedCacheStore, cs, slot: int,
+                  pages: torch.Tensor) -> PagedCacheStore:
+    """Move one layer of a prefilled sequence into the pool at `slot`,
+    backed by `pages` (int [nbp], on the store's device), in place.
+
+    `cs` is that layer's batch-1 contiguous sparq `CacheStore` of capacity
+    nbp * page_size, filled by `Model.prefill`. Its packed planes are
+    copied page by page and its calibrated scales and position become the
+    slot's: no re-quantization, so the pool bytes are the contiguous
+    cache's. Rows past the prompt are the contiguous cache's zeros, masked
+    until decode overwrites them, so a reused page is rewritten whole."""
+    nbp = pages.shape[0]
+    ps = store.page_size
+    if cs.k.data.shape[:2] != (1, nbp * ps) or not cs.k.is_sparq:
+        raise ValueError(f"adopt_prefill takes a batch-1 sparq cache of "
+                         f"{nbp * ps} slots, got {tuple(cs.k.data.shape)}")
+    idx = pages.to(device=store.k_data.device, dtype=torch.int64)
+    for pool, plane in ((store.k_data, cs.k.data), (store.k_meta, cs.k.meta),
+                        (store.v_data, cs.v.data), (store.v_meta, cs.v.meta)):
+        pool[idx] = plane.reshape(nbp, ps, *plane.shape[2:])
+    store.k_scale[slot] = cs.k.scale
+    store.v_scale[slot] = cs.v.scale
+    store.block_table[slot] = -1
+    store.block_table[slot, :nbp] = idx.to(torch.int32)
+    store.seq_pos[slot] = cs.pos
+    return store
+
 
 def evict_slot(stores: Sequence[PagedCacheStore], slot: int) -> None:
     """Clear a finished slot in every layer: deactivate the position and

@@ -79,6 +79,19 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, kinds: list[str],
     return out
 
 
+def stack_cache_init(cfg: ModelConfig, kinds: list[str], batch: int,
+                     max_len: int, device, cache_cfg=None) -> list:
+    """One contiguous (k, v, pos) cache per layer, in layer order (the
+    flat list `stack_apply` indexes)."""
+    out = []
+    for kind in kinds:
+        if kind != "dense":
+            raise NotImplementedError(f"layer kind {kind!r} is not ported")
+        out.append(attn_mod.cache_init(cfg, batch, max_len, device,
+                                       cache_cfg))
+    return out
+
+
 def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
                 cfg: ModelConfig, *, positions: torch.Tensor,
                 caches: Optional[list] = None, mode: str = "train",

@@ -254,3 +254,32 @@ def test_chunked_prefill_dispatcher_shapes():
         _t(q3), *map(_t, rest), bq=4).numpy()
     assert got.shape == want.shape == (C, KV * G, hd)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def _c_params(source: str, symbol: str):
+    """Parameter types of `extern "C" int symbol(...)` in a csrc source."""
+    import re
+    from repro_torch.kernels.build import CSRC
+    text = (CSRC / source).read_text()
+    m = re.search(r'extern "C" int ' + symbol + r'\((.*?)\)\s*\{', text,
+                  re.S)
+    assert m, f"{symbol} not found in {source}"
+    return [p.strip().rsplit(" ", 1)[0] for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("name", ["sparq_matmul", "sparq_paged_decode_attn",
+                                  "sparq_chunked_prefill_attn", "sparq_quant",
+                                  "sparq_decode_attn", "sparq_dequant"])
+def test_kernel_binding_matches_c_signature(name):
+    """Each wrapper's ctypes argtypes follow its C entry point parameter by
+    parameter (pointers c_void_p, int c_int, float c_float): a mismatch
+    only shows on the card, as a refused call or a garbled argument."""
+    import ctypes
+    from repro_torch.kernels import build
+    k = build.KERNELS[name]
+    want = {"int": ctypes.c_int, "float": ctypes.c_float}
+    params = _c_params(k.source, k.symbol)
+    assert len(params) == len(k.argtypes), (params, k.argtypes)
+    for c_type, arg in zip(params, k.argtypes):
+        assert arg is (ctypes.c_void_p if "*" in c_type else want[c_type]), \
+            (c_type, arg)

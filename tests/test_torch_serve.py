@@ -132,7 +132,7 @@ def test_engine_pool_exhaustion_raises(models):
     eng = tserve.ContinuousBatchingEngine(
         tm, tserve.make_cache_config("sparq", TCfg.opt5(signed=True)),
         device="cpu", page_size=PS, n_pages=4, max_active=2,
-        max_seq_len=24, chunk_size=16, chunk_align=4)
+        max_seq_len=24, prefill="chunked", chunk_size=16, chunk_align=4)
     with pytest.raises(PoolExhausted):
         eng.run(params, [tserve.Request(np.arange(2), 12),
                          tserve.Request(np.arange(2) + 5, 12)])
@@ -142,14 +142,13 @@ def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys):
     base = ["--reduced", "--batch", "2", "--prompt-len", "12", "--gen", "3",
             "--page-size", "4", "--n-pages", "16", "--chunk-size", "16",
             "--chunk-align", "4", "--calibrate", "1", "--prequantize",
-            "--device", "cpu"]
+            "--device", "cpu", "--engine", "paged", "--prefill", "chunked"]
     stats = tserve.main(base)
     assert stats["decode_tokens"] == 2 * (3 - 1) and stats["device"] == "cpu"
     assert "sample:" in capsys.readouterr().out
     for extra in (["--preempt", "swap"], ["--prefix-cache"], ["--tp", "2"],
-                  ["--serve", "async"], ["--prefill", "sequential"],
-                  ["--engine", "scan"]):
+                  ["--serve", "async"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tserve.main(base + extra)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="packed"):   # pages are sparq
         tserve.main(base + ["--kv-cache", "fp32"])
