@@ -6,12 +6,17 @@ the port still starts on the card).
 
 Phases (each one that fails makes the script exit non-zero):
   build       nvcc-build the six hand-written kernels from
-              src/repro_torch/csrc, one nvcc per source, all at once
+              src/repro_torch/csrc, one nvcc per source, all at once;
+              cuobjdump -sass of K1's library must show IMMA (int8 tensor
+              cores) and no IDP4A
   kernels     each kernel against its plain PyTorch version on the card, at
-              the shapes the main paths give it: K1 sparq_matmul, K4
-              sparq_quant and K6 sparq_dequant bit-exact; K2 paged decode,
-              K3 chunked prefill and K5 contiguous decode within 1e-4
-              absolute (f32 sums in another order), without and with a
+              the shapes the main paths give it: K1 sparq_matmul (M = 8,
+              256, 445, 2048 on the four projections, 5opt and a8w8, each
+              shape run twice: both runs equal and bit-exact; its tile
+              plan logged per row), K4 sparq_quant and K6 sparq_dequant
+              bit-exact; K2 paged decode, K3 chunked prefill and K5
+              contiguous decode within 1e-4 absolute (f32 sums in another
+              order), without and with a
               sliding window; K5 with bk = 16 against K2 on the same bytes
               laid out as pages: difference 0.0. Times of the kernel, the
               plain version and one PyTorch library call where one computes
@@ -114,6 +119,14 @@ PROJ = {"wq/wo": (2048, 2048), "wk/wv": (2048, 256),
         "gate/up": (2048, 5632), "down": (5632, 2048)}
 
 
+# M of K1's calls on the main paths: decode (8 active slots), one prefill
+# chunk (256), the longest serve prompt alone (445, ragged) and the scan
+# prefill (8 x 256)
+K1_MS = (8, 256, 445, 2048)
+# one layer's seven projections: wq, wk, wv, wo, gate, up, down
+LAYER = {"wq/wo": 2, "wk/wv": 2, "gate/up": 2, "down": 1}
+
+
 def check_k1(dev, results):
     from repro_torch.core.sparq import SparqConfig
     from repro_torch.kernels import sparq_matmul as mm
@@ -129,7 +142,7 @@ def check_k1(dev, results):
                   signed=cfg.signed, max_val=cfg.max_val,
                   enabled=cfg.enabled)
         for proj, (K, N) in PROJ.items():
-            for M in (8, 256):
+            for M in K1_MS:
                 def make():
                     x = torch.randn((M, K), generator=gen, device=dev)
                     x = torch.where(torch.rand((M, K), generator=gen,
@@ -143,6 +156,8 @@ def check_k1(dev, results):
                 sets = [make() for _ in range(n_sets(K * N + M * K * 2))]
                 x, w, a, c = sets[0]
                 got = mm.sparq_matmul_cuda(x, w, a, c, **kw)
+                # split-K's slices finish in another order on each run
+                again = mm.sparq_matmul_cuda(x, w, a, c, **kw)
                 want = mm.ref_sparq_matmul(x, w, a, c, **kw)
                 torch.cuda.synchronize()
                 exact = torch.equal(got, want)
@@ -152,32 +167,74 @@ def check_k1(dev, results):
                     raise AssertionError(
                         f"K1 {codec_name} {proj} M={M}: not bit-exact "
                         f"(max abs err {err})")
+                if not torch.equal(got, again):
+                    raise AssertionError(
+                        f"K1 {codec_name} {proj} M={M}: two runs differ")
+                p = mm.plan(M, N, K, mm.sm_count(dev))
                 ms = bench(lambda *s: mm.sparq_matmul_cuda(*s, **kw), sets)
                 plain_ms = bench(lambda *s: mm.ref_sparq_matmul(*s, **kw),
                                  sets, iters=5, warmup=1)
-                lib_ms = None
-                if M > 16:   # torch._int_mm takes M > 16
-                    qs = [(quantize_codes(s[0], s[2], True, 127)
-                           .to(torch.int8), s[1], s[2], s[3]) for s in sets]
-                    lib_ms = bench(lambda xq, w_, a_, c_: (torch._int_mm(
-                        xq, w_).float() * a_) * c_, qs)
+                # yardstick: torch._int_mm on the codes + the scaling;
+                # _int_mm takes M > 16 and M a multiple of 8, so the codes
+                # are zero-padded to lib_m rows where M is not
+                lib_m = max(24, -(-M // 8) * 8)
+
+                def codes(s):
+                    q = torch.zeros((lib_m, K), dtype=torch.int8,
+                                    device=dev)
+                    q[:M] = quantize_codes(s[0], s[2], True, 127)
+                    return q, s[1], s[2], s[3]
+                lib_ms = bench(lambda xq, w_, a_, c_: (torch._int_mm(
+                    xq, w_).float() * a_) * c_, [codes(s) for s in sets])
                 nbytes = M * K * 2 + K * N + N * 4 + M * N * 4
                 bound = max(nbytes / H100_BYTES_S,
                             2 * M * N * K / H100_INT8_OPS_S) * 1e3
                 row = dict(codec=codec_name, proj=proj, M=M, K=K, N=N,
                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=bound,
+                           library_m=lib_m, bound_ms=bound,
                            bound_by="bytes" if nbytes / H100_BYTES_S
                            >= 2 * M * N * K / H100_INT8_OPS_S
-                           else "operations", exact=exact)
+                           else "operations", exact=exact,
+                           plan=dict(bm=p.bm, bn=p.bn, split_k=p.split_k,
+                                     blocks=p.blocks))
                 rows.append(row)
-                log(f"K1 sparq_matmul {codec_name} {proj:7s} M={M:3d} "
-                    f"K={K} N={N}: bit-exact, {ms:.4f} ms (plain "
-                    f"{plain_ms:.3f} ms, _int_mm "
-                    f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms, "
+                log(f"K1 sparq_matmul {codec_name} {proj:7s} M={M:4d} "
+                    f"K={K} N={N} [BM {p.bm} BN {p.bn} split {p.split_k} "
+                    f"blocks {p.blocks}]: bit-exact x2, {ms:.4f} ms (plain "
+                    f"{plain_ms:.3f} ms, _int_mm {lib_ms:.4f} ms"
+                    f"{f' padded to M={lib_m}' if lib_m != M else ''}, "
                     f"bound {bound:.4f} ms)")
-    # the JSON line's representative: one prefill-chunk gate/up projection
-    # (torch._int_mm, the yardstick, needs M > 16); every shape is in rows
+        layer = {k: sum(n * r[k] for r in rows for p_, n in LAYER.items()
+                        if r["codec"] == codec_name and r["M"] == 8
+                        and r["proj"] == p_)
+                 for k in ("ms", "library_ms", "bound_ms")}
+        results.setdefault("sparq_matmul_layer_m8", {})[codec_name] = layer
+        log(f"K1 {codec_name} one layer's seven projections at M=8: "
+            f"{layer['ms']:.4f} ms (_int_mm padded {layer['library_ms']:.4f}"
+            f" ms, bound {layer['bound_ms']:.4f} ms)")
+        # off the main path: ragged K (kp > K), N % 16 != 0 (the kernel's
+        # byte-wise weight copies) and split-K over a ragged last tile
+        for M, K, N in ((37, 70, 40), (8, 1030, 200)):
+            x = torch.randn((M, K), generator=gen, device=dev)
+            w = torch.randint(-127, 128, (K, N), generator=gen,
+                              device=dev, dtype=torch.int8)
+            c = torch.rand((N,), generator=gen, device=dev) * 1e-3
+            a = (x.abs().amax() / cfg.max_val).reshape(1)
+            got = mm.sparq_matmul_cuda(x, w, a, c, **kw)
+            again = mm.sparq_matmul_cuda(x, w, a, c, **kw)
+            want = mm.ref_sparq_matmul(x, w, a, c, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(again, want)):
+                raise AssertionError(
+                    f"K1 {codec_name} ragged M={M} K={K} N={N}: not "
+                    f"bit-exact (max abs err "
+                    f"{float((got - want).abs().max())})")
+            p = mm.plan(M, N, K, mm.sm_count(dev))
+            log(f"K1 sparq_matmul {codec_name} ragged M={M} K={K} N={N} f32 "
+                f"[BM {p.bm} BN {p.bn} split {p.split_k} blocks "
+                f"{p.blocks}]: bit-exact x2")
+    # the JSON line's representative: one prefill-chunk gate/up
+    # projection; every shape is in rows
     rep = next(r for r in rows if r["codec"] == "5opt"
                and r["proj"] == "gate/up" and r["M"] == 256)
     results["sparq_matmul"] = dict(
@@ -787,10 +844,10 @@ def scan_full_width(dev, results):
     return {**counts, "sparq_dequant": k6["sparq_dequant"]}
 
 
-# Device-time groups of the profile phase: the three kernels by their
-# __global__ names in csrc/, everything else (PyTorch's own kernels and
-# copies) as "other".
-KERNEL_GROUPS = (("sparq_matmul", "sparq_matmul_kernel"),
+# Device-time groups of the profile phase: the six kernels by their
+# __global__ names in csrc/ (K1's pre-pass and GEMM together), everything
+# else (PyTorch's own kernels and copies) as "other".
+KERNEL_GROUPS = (("sparq_matmul", "sparq_matmul_"),
                  ("sparq_paged_decode_attn", "paged_decode_kernel"),
                  ("sparq_chunked_prefill_attn", "chunked_prefill_kernel"),
                  ("sparq_quant", "sparq_quant_kernel"),
@@ -927,6 +984,23 @@ def parity_two_layers(dev, results):
         f"(attn_bk {ps}) on the card for all {len(reqs)} requests")
 
 
+def k1_sass():
+    """Count K1's tensor-core (IMMA) and dp4a (IDP4A) instructions in the
+    built library's SASS: K1 runs on the int8 tensor cores, dp4a is gone."""
+    from repro_torch.kernels import build
+    cuobjdump = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build._lib_path("sparq_matmul.cu"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    counts = {op: sum(op in line for line in sass.splitlines())
+              for op in ("IMMA", "IDP4A")}
+    log(f"K1 SASS: {counts['IMMA']} IMMA, {counts['IDP4A']} IDP4A")
+    if counts["IMMA"] == 0 or counts["IDP4A"] != 0:
+        raise AssertionError(f"K1 SASS: expected IMMA and no IDP4A, got "
+                             f"{counts}")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
@@ -954,6 +1028,7 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {len(logs)} kernel libraries in {results['build_s']:.1f} s")
+    results["k1_sass"] = k1_sass()
     if "kernels" in phases:
         for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
                       check_k6):
