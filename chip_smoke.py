@@ -8,15 +8,15 @@ Phases (each one that fails makes the script exit non-zero):
   build       nvcc-build the six hand-written kernels from
               src/repro_torch/csrc, one nvcc per source, all at once;
               cuobjdump -sass of K1's library must show IMMA (int8 tensor
-              cores) and no IDP4A
+              cores) and no IDP4A, and K3's DMMA (f64 tensor cores)
   kernels     each kernel against its plain PyTorch version on the card, at
               the shapes the main paths give it: K1 sparq_matmul (M = 8,
               256, 445, 2048 on the four projections, 5opt and a8w8, each
               shape run twice: both runs equal and bit-exact; its tile
               plan logged per row), K4 sparq_quant and K6 sparq_dequant
-              bit-exact; K2 paged decode, K3 chunked prefill and K5
-              contiguous decode within 1e-4 absolute (f32 sums in another
-              order), without and with a
+              bit-exact; K2 paged decode, K3 chunked prefill (two
+              layouts: check_k3) and K5 contiguous decode within 1e-4
+              absolute (f32 sums in another order), without and with a
               sliding window; K5 with bk = 16 against K2 on the same bytes
               laid out as pages: difference 0.0. Times of the kernel, the
               plain version and one PyTorch library call where one computes
@@ -70,6 +70,7 @@ sys.path.insert(0, str(ROOT / "src"))
 H100_BYTES_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_INT8_OPS_S = 1979e12     # dense int8 tensor-core rate
 H100_F32_FLOPS_S = 67e12      # f32 outside the tensor cores
+H100_F64_MMA_FLOPS_S = 67e12  # f64 tensor cores (DMMA), the same rate
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -349,65 +350,158 @@ def check_k2(dev, results):
         f"{bound:.5f} ms, {tokens} cached tokens)")
 
 
+# K3's layouts of one 256-token chunk: runs (slot, first pos, tokens, hist,
+# seg) packed in order, each aligned to bq = 8; a token's hist is `hist`,
+# or with seg > 0 the start of its segment, (pos // seg) * seg, as the
+# scheduler sets it. Beside the runs: pages allocated per slot, and block
+# table holes (slot, logical page) set to -1.
+K3_LAYOUTS = {
+    # timed: slot 0 is the second segment of a 400-token prompt (positions
+    # 256..399, hist 256: 16 packed pages of history), slot 1 a fresh
+    # 96-token prompt, then 16 rows of padding
+    "timed": ([(0, 256, 144, 256, 0), (1, 0, 96, 0, 0)],
+              {0: 25, 1: 6}, []),
+    # serve-like: four sequences whose runs of 77, 45, 100 and 1 tokens end
+    # in partial query tiles; slot 0's hist moves from 192 to 256 inside
+    # its run and inside one query tile (seg 64); slot 1's hist 37 and
+    # slot 3's 50 are not page-aligned; slot 0's history has a hole
+    "serve-like": ([(0, 203, 77, 0, 64), (1, 37, 45, 37, 0),
+                    (2, 0, 100, 0, 0), (3, 50, 1, 50, 0)],
+                   {0: 18, 1: 6, 2: 7, 3: 4}, [(0, 5)]),
+}
+
+
+def k3_stream(runs, C, bq):
+    """seq_id, pos, hist (C,) and tile_seq (C / bq,), int32 numpy arrays,
+    for runs (slot, first pos, tokens, hist, seg) packed as K3_LAYOUTS
+    says."""
+    seq_id = np.full(C, -1, np.int32)
+    pos = np.zeros(C, np.int32)
+    hist = np.zeros(C, np.int32)
+    tile_seq = np.full(C // bq, -1, np.int32)
+    at = 0
+    for slot, start, n, h, seg in runs:
+        p = np.arange(start, start + n)
+        seq_id[at:at + n] = slot
+        pos[at:at + n] = p
+        hist[at:at + n] = (p // seg) * seg if seg else h
+        tile_seq[at // bq:(at + n + bq - 1) // bq] = slot
+        at += -(-n // bq) * bq
+    assert at <= C, runs
+    return seq_id, pos, hist, tile_seq
+
+
+def k3_case(gen, dev, layout, S=8, KV=4, G=8, hd=64, ps=16, C=256, bq=8,
+            NB=34, P=40):
+    """K3's inputs for one of K3_LAYOUTS, random from `gen`."""
+    runs, pages, holes = K3_LAYOUTS[layout]
+    kd, km = _pools(gen, dev, P + 1, ps, KV, hd)
+    vd, vm = _pools(gen, dev, P + 1, ps, KV, hd)
+    bt = torch.full((S, NB), -1, dtype=torch.int32, device=dev)
+    for slot, n in pages.items():
+        bt[slot, :n] = torch.randperm(P, generator=gen, device=dev)[:n] \
+            .to(torch.int32)
+    for slot, t in holes:
+        bt[slot, t] = -1
+    seq_id, pos, hist, tile_seq = (
+        torch.from_numpy(a).to(dev) for a in k3_stream(runs, C, bq))
+    q = torch.randn((C, KV, G, hd), generator=gen, device=dev)
+    kc = torch.randn((C, KV, hd), generator=gen, device=dev)
+    vc = torch.randn((C, KV, hd), generator=gen, device=dev)
+    ks = torch.rand((S,), generator=gen, device=dev) * 0.02 + 0.005
+    vs = torch.rand((S,), generator=gen, device=dev) * 0.02 + 0.005
+    return (q, kc, vc, kd, km, ks, vd, vm, vs, bt, seq_id, pos, hist,
+            tile_seq)
+
+
+def k3_f64_reference(q, kc, vc, kd, km, ks, vd, vm, vs, bt, sid, pos, hist,
+                     tile_seq, window=0):
+    """K3's function with the oracle's rounding points up to the scores
+    (q.k rounded to f32, times the f32 scale) and everything after in f64:
+    one softmax per row over all its keys. The yardstick of how far the
+    kernel and its plain version each lie from the exact result."""
+    from repro_torch.kernels.ref import _meta_decode32
+    C, KV, G, hd = q.shape
+    ps, NB = kd.shape[1], bt.shape[1]
+    T = NB * ps
+    tseq = tile_seq.long().repeat_interleave(C // tile_seq.shape[0])
+    sc = torch.tensor(hd ** -0.5, dtype=torch.float32, device=q.device)
+    q64 = q.double()
+    kp = torch.arange(T, device=q.device)
+    s_c = (torch.einsum("ckgh,jkh->ckgj", q64, kc.double()).float()
+           * sc).double()
+    ok_c = (sid[None] == sid[:, None]) & (sid >= 0)[:, None] \
+        & (pos[None] <= pos[:, None]) & (pos[None] >= hist[:, None])
+    if window:
+        ok_c &= pos[None] > pos[:, None] - window
+    out = torch.zeros(q.shape, dtype=torch.float64, device=q.device)
+    for slot in torch.unique(tseq[tseq >= 0]).tolist():
+        rows = torch.nonzero(tseq == slot)[:, 0]
+        pages = bt[slot]
+        pg = pages.clamp(min=0).long()
+        k = _meta_decode32(kd[pg], km[pg], ks[slot]).reshape(T, KV, hd)
+        v = _meta_decode32(vd[pg], vm[pg], vs[slot]).reshape(T, KV, hd)
+        s_h = (torch.einsum("ckgh,tkh->ckgt", q64[rows], k.double()).float()
+               * sc).double()
+        ok_h = (pages[kp // ps] >= 0)[None] & (sid[rows] >= 0)[:, None] \
+            & (kp[None] < hist[rows, None])
+        if window:
+            ok_h &= kp[None] > pos[rows, None] - window
+        ok = torch.cat([ok_h, ok_c[rows]], 1)[:, None, None, :]
+        x = torch.where(ok, torch.cat([s_h, s_c[rows]], -1), float("-inf"))
+        mx = x.amax(-1, keepdim=True)
+        e = torch.where(ok, torch.exp(x - torch.where(torch.isinf(mx), 0.0,
+                                                      mx)), 0.0)
+        o = torch.einsum("ckgt,tkh->ckgh", e[..., :T], v.double()) \
+            + torch.einsum("ckgj,jkh->ckgh", e[..., T:], vc.double())
+        out[rows] = o / e.sum(-1, keepdim=True).clamp(min=1e-300)
+    return out
+
+
 def check_k3(dev, results):
+    """K3 on both layouts of K3_LAYOUTS, without and with a window: within
+    1e-4 of its plain version and of k3_f64_reference, padding rows exactly
+    zero. Both distances are logged, with the plain version's own from the
+    f64 result: its f32 sums, not the kernel, set the margin of the first
+    gate (on an H100 80GB HBM3 at 700 W, 4.7e-5 for the plain version and
+    1.1e-5 for the kernel on these inputs). Timed on the timed layout (the
+    shape of the earlier slices' numbers) beside one SDPA call."""
     import torch.nn.functional as F
     from repro_torch.kernels import sparq_prefill_attn as pre
     gen = torch.Generator(device=dev).manual_seed(3)
     S, KV, G, hd, ps, C, bq = 8, 4, 8, 64, 16, 256, 8
-    NB = 34
-    # slot 0: second segment of a 400-token prompt (positions 256..399,
-    # hist 256: 16 packed pages of history); slot 1: a fresh 96-token
-    # prompt; 16 rows of padding
-    runs = [(0, 256, 144, 256), (1, 0, 96, 0)]
-    P = 40
-
-    def make():
-        kd, km = _pools(gen, dev, P + 1, ps, KV, hd)
-        vd, vm = _pools(gen, dev, P + 1, ps, KV, hd)
-        bt = torch.full((S, NB), -1, dtype=torch.int32, device=dev)
-        bt[0, :25] = torch.randperm(P, generator=gen, device=dev)[:25] \
-            .to(torch.int32)
-        bt[1, :6] = torch.arange(30, 36, dtype=torch.int32, device=dev)
-        seq_id = torch.full((C,), -1, dtype=torch.int32, device=dev)
-        pos = torch.zeros((C,), dtype=torch.int32, device=dev)
-        hist = torch.zeros((C,), dtype=torch.int32, device=dev)
-        tile_seq = torch.full((C // bq,), -1, dtype=torch.int32, device=dev)
-        at = 0
-        for slot, start, n, h in runs:
-            seq_id[at:at + n] = slot
-            pos[at:at + n] = torch.arange(start, start + n, device=dev)
-            hist[at:at + n] = h
-            tile_seq[at // bq:(at + n) // bq] = slot
-            at += n
-        q = torch.randn((C, KV, G, hd), generator=gen, device=dev)
-        kc = torch.randn((C, KV, hd), generator=gen, device=dev)
-        vc = torch.randn((C, KV, hd), generator=gen, device=dev)
-        ks = torch.rand((S,), generator=gen, device=dev) * 0.02 + 0.005
-        vs = torch.rand((S,), generator=gen, device=dev) * 0.02 + 0.005
-        return (q, kc, vc, kd, km, ks, vd, vm, vs, bt, seq_id, pos, hist,
-                tile_seq)
-    sets = [make() for _ in range(n_sets(4 * (P + 1) * ps * KV * hd))]
+    NB, P = 34, 40
+    runs = K3_LAYOUTS["timed"][0]
+    errs, f64_errs = {}, {}
+    for layout in K3_LAYOUTS:
+        args = k3_case(gen, dev, layout)
+        for window in (0, K3_WINDOW):
+            got = pre.sparq_chunked_prefill_attn_cuda(*args, window=window)
+            want = pre.ref_sparq_chunked_prefill_attn(*args, window=window)
+            exact = k3_f64_reference(*args, window=window)
+            torch.cuda.synchronize()
+            case = f"{layout}, window {window}"
+            err = float((got - want).abs().max())
+            err64 = float((got.double() - exact).abs().max())
+            errs[case] = err
+            f64_errs[case] = dict(kernel=err64, plain=float(
+                (want.double() - exact).abs().max()))
+            if not torch.all(got[args[10] < 0] == 0):
+                raise AssertionError(f"K3 {case}: padding rows are not "
+                                     f"exactly zero")
+            if not torch.isfinite(got).all() or max(err, err64) > 1e-4:
+                raise AssertionError(f"K3 chunked prefill, {case}: max abs "
+                                     f"err {err} against the plain version,"
+                                     f" {err64} against f64 (limit 1e-4)")
+    log("K3 max abs err vs plain: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
+    log("K3 max abs err vs f64, kernel / plain: " + ", ".join(
+        f"{k} {v['kernel']:.2e} / {v['plain']:.2e}"
+        for k, v in f64_errs.items()))
+    err = max(errs.values())
+    sets = [k3_case(gen, dev, "timed")
+            for _ in range(n_sets(4 * (P + 1) * ps * KV * hd))]
     args = sets[0]
-    got = pre.sparq_chunked_prefill_attn_cuda(*args)
-    want = pre.ref_sparq_chunked_prefill_attn(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    assert torch.all(got[args[10] < 0] == 0), \
-        "K3: padding rows are not exactly zero"
-    assert torch.isfinite(got).all()
-    if err > 1e-4:
-        raise AssertionError(f"K3 chunked prefill: max abs err {err} > 1e-4")
-    # sliding window, masking in both the page and the chunk stage
-    got_w = pre.sparq_chunked_prefill_attn_cuda(*args, window=K3_WINDOW)
-    want_w = pre.ref_sparq_chunked_prefill_attn(*args, window=K3_WINDOW)
-    torch.cuda.synchronize()
-    err_w = float((got_w - want_w).abs().max())
-    assert torch.all(got_w[args[10] < 0] == 0) and torch.isfinite(got_w).all()
-    if err_w > 1e-4:
-        raise AssertionError(
-            f"K3 chunked prefill, window {K3_WINDOW}: max abs err {err_w} "
-            f"> 1e-4")
-    err = max(err, err_w)
     ms = bench(pre.sparq_chunked_prefill_attn_cuda, sets)
     plain_ms = bench(pre.ref_sparq_chunked_prefill_attn, sets, iters=5,
                      warmup=1)
@@ -434,13 +528,13 @@ def check_k3(dev, results):
     nbytes = (C * KV * G * hd * 4 * 2 + C * KV * hd * 4 * 2
               + Th * KV * hd * 4 + S * 8 + S * NB * 4 + C * 12 + C // bq * 4)
     flops = 4 * pairs * KV * G * hd   # QK^T and PV over all KV * G heads
-    bound = max(nbytes / H100_BYTES_S, flops / H100_F32_FLOPS_S) * 1e3
+    bound = max(nbytes / H100_BYTES_S, flops / H100_F64_MMA_FLOPS_S) * 1e3
     results["sparq_chunked_prefill_attn"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=bound, bound_by="bytes" if nbytes / H100_BYTES_S
-        >= flops / H100_F32_FLOPS_S else "operations",
-        shape=f"C={C} bq={bq} KV={KV} G={G} hd={hd} ps={ps} "
-              f"runs(slot,start,n,hist)={runs}")
+        >= flops / H100_F64_MMA_FLOPS_S else "operations",
+        errors=errs, f64_errors=f64_errs, shape=f"C={C} bq={bq} KV={KV} G={G} hd={hd} ps={ps} "
+                           f"runs(slot,start,n,hist,seg)={runs}")
     log(f"K3 sparq_chunked_prefill_attn: max abs err {err:.2e}, "
         f"{ms:.4f} ms (plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, "
         f"bound {bound:.5f} ms)")
@@ -984,20 +1078,35 @@ def parity_two_layers(dev, results):
         f"(attn_bk {ps}) on the card for all {len(reqs)} requests")
 
 
-def k1_sass():
-    """Count K1's tensor-core (IMMA) and dp4a (IDP4A) instructions in the
-    built library's SASS: K1 runs on the int8 tensor cores, dp4a is gone."""
+# opcodes that must (True) or must not (False) appear in a kernel
+# library's SASS: K1 runs on the int8 tensor cores and dp4a is gone; K3
+# runs on the f64 tensor cores
+SASS_CHECKS = {"sparq_matmul.cu": {"IMMA": True, "IDP4A": False},
+               "sparq_chunked_prefill_attn.cu": {"DMMA": True}}
+
+
+def sass_counts(source, opcodes):
+    """Count the SASS lines of a built kernel library that hold each
+    opcode (cuobjdump -sass)."""
     from repro_torch.kernels import build
     cuobjdump = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(build._lib_path("sparq_matmul.cu"))],
+        [str(cuobjdump), "-sass", str(build._lib_path(source))],
         capture_output=True, text=True, check=True, timeout=120).stdout
-    counts = {op: sum(op in line for line in sass.splitlines())
-              for op in ("IMMA", "IDP4A")}
-    log(f"K1 SASS: {counts['IMMA']} IMMA, {counts['IDP4A']} IDP4A")
-    if counts["IMMA"] == 0 or counts["IDP4A"] != 0:
-        raise AssertionError(f"K1 SASS: expected IMMA and no IDP4A, got "
-                             f"{counts}")
+    return {op: sum(op in line for line in sass.splitlines())
+            for op in opcodes}
+
+
+def check_sass():
+    counts = {}
+    for source, want in SASS_CHECKS.items():
+        got = sass_counts(source, want)
+        log(f"SASS {source}: " + ", ".join(f"{n} {op}"
+                                           for op, n in got.items()))
+        if any((n > 0) != want[op] for op, n in got.items()):
+            raise AssertionError(f"SASS of {source}: expected {want} "
+                                 f"(True: present), got {got}")
+        counts[source] = got
     return counts
 
 
@@ -1028,7 +1137,7 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {len(logs)} kernel libraries in {results['build_s']:.1f} s")
-    results["k1_sass"] = k1_sass()
+    results["sass"] = check_sass()
     if "kernels" in phases:
         for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
                       check_k6):

@@ -1,11 +1,14 @@
 """K3: ragged chunked-prefill attention over the §5.1 page pool — the CUDA
 kernel's wrapper and its plain PyTorch version (port of
 `repro.kernels.sparq_prefill_attn.sparq_chunked_prefill_attn_pallas` and of
-the oracle `repro.kernels.ref.ref_sparq_chunked_prefill_attn`)."""
+the oracle `repro.kernels.ref.ref_sparq_chunked_prefill_attn`), and
+`walk`, the rule by which the kernel skips key tiles."""
 from __future__ import annotations
 
 import ctypes
+from typing import List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build as _b
@@ -18,6 +21,68 @@ KERNEL = _b.CudaKernel(
     [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                    ctypes.c_void_p],
     replaces="src/repro/kernels/sparq_prefill_attn.py:138")
+
+# keys per tile of the CUDA kernel, in the page stage and the chunk stage
+# alike (`KT` in csrc/sparq_chunked_prefill_attn.cu)
+KEY_TILE = 64
+# the shapes the CUDA kernel takes: its head dim, and the most query rows
+# (bq * G) one block holds
+KERNEL_HD = 64
+KERNEL_ROWS = 64
+
+
+class Visits(NamedTuple):
+    """The key tiles one query tile visits, in the kernel's order: page
+    tile u holds the keys at positions [u * key_tile, (u + 1) * key_tile)
+    of the sequence's pages, chunk tile u the stream keys [u * key_tile,
+    (u + 1) * key_tile) of the chunk."""
+    pages: Tuple[int, ...]
+    chunk: Tuple[int, ...]
+
+
+def walk(tile_seq, seq_id, pos, hist, block_table, ps: int,
+         key_tile: int = KEY_TILE, window: int = 0) -> List[Visits]:
+    """The key tiles each query tile of K3 visits (one `Visits` per tile).
+
+    Skipping a tile is exact when no (query row, key) pair in it is
+    unmasked: the online-softmax update then leaves (m, l, acc) bit for
+    bit unchanged. The bounds come from the valid rows (seq_id >= 0) of
+    the query tile: lo = max(0, min_pos - window + 1) with a window, else
+    0. A page is live when its block-table entry is >= 0 and its keys
+    meet [lo, max_hist); a page tile is visited when it holds a live page
+    (the kernel zero-fills the others in it). A chunk tile is visited when
+    it holds a key of the tile's sequence with max(min_hist, lo) <= kpos
+    <= max_pos. Padding tiles (tile_seq < 0) and tiles without a valid row
+    visit nothing. Nothing here depends on how the runs were packed; each
+    valid row of a query tile is taken to belong to the tile's sequence,
+    as the stream layout of `launch/prefill.py` has it."""
+    tile_seq, seq_id, pos, hist, block_table = (
+        np.asarray(a) for a in (tile_seq, seq_id, pos, hist, block_table))
+    if key_tile % ps:
+        raise ValueError(f"page size {ps} does not divide the key tile "
+                         f"{key_tile}")
+    nt, C = len(tile_seq), len(seq_id)
+    bq = C // nt
+    ppt = key_tile // ps
+    NB = block_table.shape[1]
+    visits = []
+    for qt, ts in enumerate(tile_seq.tolist()):
+        rows = slice(qt * bq, (qt + 1) * bq)
+        ok = seq_id[rows] >= 0
+        if ts < 0 or not ok.any():
+            visits.append(Visits((), ()))
+            continue
+        qpos, qhist = pos[rows][ok], hist[rows][ok]
+        lo = max(0, int(qpos.min()) - window + 1) if window else 0
+        hi = int(qhist.max())
+        t = np.arange(NB)
+        live = (block_table[ts] >= 0) & (t * ps < hi) & ((t + 1) * ps > lo)
+        lo_c = max(int(qhist.min()), lo)
+        keys = (seq_id == ts) & (pos >= lo_c) & (pos <= int(qpos.max()))
+        visits.append(Visits(
+            tuple(sorted(set((t[live] // ppt).tolist()))),
+            tuple(sorted(set((np.nonzero(keys)[0] // key_tile).tolist())))))
+    return visits
 
 
 def ref_sparq_chunked_prefill_attn(q, k_chunk, v_chunk, k_data, k_meta,
@@ -83,7 +148,9 @@ def sparq_chunked_prefill_attn_cuda(q, k_chunk, v_chunk, k_data, k_meta,
                                     block_table, seq_id, pos, hist,
                                     tile_seq, *, window: int = 0):
     """Launch K3 on the current stream; arguments as the plain version,
-    float tensors f32, index tensors int32."""
+    float tensors f32, index tensors int32. The kernel takes hd = 64,
+    bq * G <= 64 query rows per tile and a page size dividing KEY_TILE;
+    it raises on anything else."""
     dev = q.device
     C, KV, G, hd = q.shape
     P, ps = k_data.shape[:2]
@@ -92,6 +159,11 @@ def sparq_chunked_prefill_attn_cuda(q, k_chunk, v_chunk, k_data, k_meta,
     if C % nt:
         raise ValueError(f"chunk {C} is not a whole number of {nt} tiles")
     bq = C // nt
+    if hd != KERNEL_HD or bq * G > KERNEL_ROWS or KEY_TILE % ps:
+        raise ValueError(
+            f"K3 takes hd = {KERNEL_HD}, bq * G <= {KERNEL_ROWS} and a page "
+            f"size dividing {KEY_TILE}; got hd = {hd}, bq * G = {bq * G}, "
+            f"ps = {ps}")
     _b.check(q, "q", torch.float32, (C, KV, G, hd), dev)
     _b.check(k_chunk, "k_chunk", torch.float32, (C, KV, hd), dev)
     _b.check(v_chunk, "v_chunk", torch.float32, (C, KV, hd), dev)
@@ -104,6 +176,12 @@ def sparq_chunked_prefill_attn_cuda(q, k_chunk, v_chunk, k_data, k_meta,
     for name, t in (("seq_id", seq_id), ("pos", pos), ("hist", hist)):
         _b.check(t, name, torch.int32, (C,), dev)
     _b.check(tile_seq, "tile_seq", torch.int32, (nt,), dev)
+    for name, t in (("q", q), ("k_chunk", k_chunk), ("v_chunk", v_chunk),
+                    ("k_data", k_data), ("k_meta", k_meta),
+                    ("v_data", v_data), ("v_meta", v_meta)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K3 copies 16-byte rows; the tensor "
+                             f"must start 16-byte aligned")
     out = torch.empty((C, KV, G, hd), dtype=torch.float32, device=dev)
     KERNEL.launch(
         _b.ptr(q), _b.ptr(k_chunk), _b.ptr(v_chunk), _b.ptr(k_data),

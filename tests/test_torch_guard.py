@@ -1,6 +1,7 @@
-"""The port stands alone: no module under src/repro_torch/ and not
-chip_smoke.py imports jax or the JAX package `repro`, and entry points
-called without a device raise on a machine with no GPU."""
+"""The port stands alone: no module under src/repro_torch/, not
+chip_smoke.py and no probe under probes/ imports jax or the JAX package
+`repro`, and entry points called without a device raise on a machine with
+no GPU."""
 import ast
 import pathlib
 import subprocess
@@ -11,7 +12,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "probes").glob("*.py"))
 FORBIDDEN = ("jax", "repro", "jaxlib")
 
 
