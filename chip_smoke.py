@@ -5,7 +5,7 @@ the port still starts on the card).
     python3 chip_smoke.py --phases build,kernels
 
 Phases (each one that fails makes the script exit non-zero):
-  build       nvcc-build the six hand-written kernels from
+  build       nvcc-build the seven hand-written kernels from
               src/repro_torch/csrc, one nvcc per source, all at once;
               cuobjdump -sass of K1's library must show IMMA (int8 tensor
               cores) and no IDP4A, and K3's DMMA (f64 tensor cores)
@@ -14,18 +14,25 @@ Phases (each one that fails makes the script exit non-zero):
               256, 445, 2048 on the four projections, 5opt and a8w8, each
               shape run twice: both runs equal and bit-exact; its tile
               plan logged per row), K4 sparq_quant and K6 sparq_dequant
-              bit-exact; K2 paged decode, K3 chunked prefill (two
-              layouts: check_k3) and K5 contiguous decode within 1e-4
-              absolute (f32 sums in another order), without and with a
-              sliding window; K5 with bk = 16 against K2 on the same bytes
-              laid out as pages: difference 0.0. Times of the kernel, the
-              plain version and one PyTorch library call where one computes
-              the same function, and each kernel's least possible time
-              from its bytes and operations
+              bit-exact; K2 paged decode and K5 contiguous decode (the
+              split-key body) at their serving shapes and at hd 16 / G 4,
+              hd 128 and misaligned planes, K3 chunked prefill at hd 64 G 8
+              (the tensor-core kernel, two layouts: check_k3) and at hd 16,
+              hd 128, bq * G = 128 and page size 128 (the loop kernel, as
+              k3_path routes them), all without and with a sliding window,
+              each within 1e-4 of an f64 evaluation and of its plain version
+              (PLAIN_TOL beyond the serving shapes, where the plain
+              version's own f32 error passes 1e-4); K5 with bk = 16 against
+              K2 on the same bytes laid out as pages, at a cur inside a
+              split and on a split boundary: difference 0.0. Times of the
+              kernel, the plain version and one PyTorch library call where
+              one computes the same function, and each kernel's least
+              possible time from its bytes and operations
   serve       tinyllama-1.1b at full width (22 layers, bf16, 5opt, int8
               weights, one calibration batch) serves 8 ragged requests
-              through the paged chunked-prefill engine: K1, K2, K3, and K4
-              at every KV write (2 x 22 per chunk and per decode step)
+              through the paged chunked-prefill engine: K1, K2, K3 (the
+              tensor-core kernel), and K4 at every KV write (2 x 22 per
+              chunk and per decode step)
   scan        the same model, `DecodeEngine.generate` on batch 8, prompt
               256, gen 32 over the contiguous sparq cache: K1 = 7*22*32,
               K4 = 2*22*32, K5 = 22*31, K2 = K3 = K6 = 0; then every layer's
@@ -34,6 +41,10 @@ Phases (each one that fails makes the script exit non-zero):
   sequential  the serve phase's 8 requests through the paged engine with
               sequential admission (prefill alone, adopt into pages): K1,
               K2, K4 at every write, K3 = K5 = 0
+  cli         `python -m repro_torch.launch.serve` (CLI_ARGS: the reduced
+              tinyllama, paged chunked engine, sparq KV, 5opt) through its
+              `main`: every request returns its tokens; K3 runs the loop
+              kernel only (hd 16), K2 every decode step
   parity      2-layer full-width f32 models on the card (kernels) and on
               the CPU (plain versions): the paged chunked engine and the
               scan engine give equal greedy tokens; on the card, the paged
@@ -43,9 +54,10 @@ Phases (each one that fails makes the script exit non-zero):
               torch.profiler: device time by kernel and the device's idle
               share of the run
 
-Each of serve, scan and sequential resets the launch counters just before
-it drives its path and reads them just after; the plain versions of the
-KV codec must not run there at all.
+Each of serve, scan, sequential and cli resets the launch counters just
+before it drives its path and reads them just after; the plain versions of
+the KV codec must not run there at all. With all four, every kernel must
+have launched on some path.
 
 Output: progress lines, then the card's name and power limit, one JSON line
 of per-kernel results, and last `{"ok": true, "device": {...}}`. Full
@@ -245,12 +257,19 @@ def check_k1(dev, results):
         shape="5opt gate/up M=256 K=2048 N=5632", rows=rows)
 
 
-def _pools(gen, dev, P, ps, KV, hd):
-    data = torch.randint(-15, 16, (P, ps, KV, hd), generator=gen,
-                         device=dev, dtype=torch.int8)
-    meta = torch.randint(0, 128, (P, ps, KV, hd), generator=gen,
-                         device=dev, dtype=torch.int8)
-    return data, meta
+def _pools(gen, dev, P, ps, KV, hd, misalign=False):
+    """Random packed data and meta planes; with `misalign` each starts one
+    byte past a 16-byte boundary (the kernels' byte-wise load path)."""
+    def plane(lo, hi):
+        t = torch.randint(lo, hi, (P, ps, KV, hd), generator=gen,
+                          device=dev, dtype=torch.int8)
+        if not misalign:
+            return t
+        buf = torch.empty((t.numel() + 1,), dtype=torch.int8, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    return plane(-15, 16), plane(0, 128)
 
 
 def _dequant_pages(data, meta, pages, scale):
@@ -263,54 +282,163 @@ def _dequant_pages(data, meta, pages, scale):
 K2_WINDOW, K3_WINDOW = 100, 64
 
 
+def decode_f64_reference(q, k, v, live):
+    """The decode attention of K2 and K5 with the oracles' rounding points
+    up to the scores (q.k rounded to f32, times the f32 scale) and
+    everything after in f64: one softmax per query row over all its live
+    keys. q [B, KV, G, hd]; k, v the decoded keys and values [B, n, KV, hd]
+    f32; live [B, n] bool. The yardstick of how far the kernels and their
+    plain versions each lie from the exact result; a slot without a live
+    key gives zeros."""
+    hd = q.shape[-1]
+    sc = torch.tensor(hd ** -0.5, dtype=torch.float32, device=q.device)
+    s = (torch.einsum("bkgh,bnkh->bkgn", q.double(), k.double()).float()
+         * sc).double()
+    ok = live[:, None, None, :]
+    x = torch.where(ok, s, float("-inf"))
+    mx = x.amax(-1, keepdim=True)
+    e = torch.where(ok, torch.exp(x - torch.where(torch.isinf(mx), 0.0, mx)),
+                    0.0)
+    o = torch.einsum("bkgn,bnkh->bkgh", e, v.double())
+    return o / e.sum(-1, keepdim=True).clamp(min=1e-300)
+
+
+def paged_keys(kd, km, ks, vd, vm, vs, bt, cur, window=0):
+    """K2's keys as decode_f64_reference takes them: each slot's logical
+    positions [0, NB * ps) decoded through its block table, and K2's mask
+    (`paged_live`)."""
+    from repro_torch.kernels.ref import _meta_decode32
+    from repro_torch.kernels.sparq_decode_attn import paged_live
+    B, NB = bt.shape
+    ps, KV, hd = kd.shape[1:]
+    pg = bt.clamp(min=0).long()
+
+    def keys(d, m, s):
+        return _meta_decode32(d[pg], m[pg], s.reshape(B, 1, 1, 1, 1)) \
+            .reshape(B, NB * ps, KV, hd)
+    live = paged_live(bt.cpu().numpy(), cur.cpu().numpy(), ps, window)
+    return keys(kd, km, ks), keys(vd, vm, vs), torch.from_numpy(live).to(
+        bt.device)
+
+
+def contig_keys(kd, km, ks, vd, vm, vs, kpos, cur, window=0):
+    """K5's keys as decode_f64_reference takes them: the Tk rows decoded,
+    and K5's mask (`contig_live`)."""
+    from repro_torch.kernels.ref import _meta_decode32
+    from repro_torch.kernels.sparq_decode_attn import contig_live
+    live = contig_live(kpos.cpu().numpy(), cur.cpu().numpy(), window)
+    return (_meta_decode32(kd, km, ks.reshape(())),
+            _meta_decode32(vd, vm, vs.reshape(())),
+            torch.from_numpy(live).to(kpos.device))
+
+
+# K2's slots: cur per slot (slot 4 inactive); slot 5's block table is
+# allocated up to page 20 only
+K2_CURS = [599, 433, 17, 300, -1, 511, 64, 250]
+# K2 and K5 beyond their timed shape (G 8, hd 64): (G, hd, misaligned
+# planes) — the reduced tinyllama's heads, granite-class hd 128, the
+# byte-wise load path, and a head dim that is not a multiple of 4 (the
+# scalar score loop)
+DECODE_SHAPES = {"hd 16 G 4": (4, 16, False), "hd 128 G 8": (8, 128, False),
+                 "hd 64 G 8 unaligned": (8, 64, True),
+                 "hd 10 G 4": (4, 10, False)}
+
+
+# How far a kernel may lie from its plain version. The plain versions sum
+# f32 products in f32, and their own error grows with the length of those
+# sums and with the inputs: on the serving shapes (K2's and K5's timed
+# cases, K3 at hd 64 G 8) chip_smoke's inputs keep it under 1e-4, but at
+# hd 128, at pages of 128 keys and on other random inputs it passes 1e-4
+# (it is logged beside every case as "plain vs f64"). So every kernel is
+# held to the f64 evaluation by 1e-4, which holds its accuracy, and to its
+# plain version by 1e-4 on the serving shapes and by PLAIN_TOL beyond them,
+# which still catches any difference in what is computed.
+PLAIN_TOL = 1e-3
+
+
+def hold(what, got, want, exact, plain_tol=1e-4):
+    """Hold a kernel's output within plain_tol of its plain version and
+    within 1e-4 of the f64 evaluation; returns the distances (kernel -
+    plain, kernel - f64, plain - f64, all max abs)."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    err64 = float((got.double() - exact).abs().max())
+    plain64 = float((want.double() - exact).abs().max())
+    if not torch.isfinite(got).all() or err > plain_tol or err64 > 1e-4:
+        raise AssertionError(
+            f"{what}: max abs err {err} against the plain version (limit "
+            f"{plain_tol}), {err64} against f64 (limit 1e-4); the plain "
+            f"version lies {plain64} from f64")
+    return dict(plain=err, f64=err64, plain_f64=plain64)
+
+
+def _log_decode(name, errs):
+    log(f"{name} max abs err vs plain / vs f64 (plain vs f64): " + ", ".join(
+        f"{k} {v['plain']:.2e} / {v['f64']:.2e} ({v['plain_f64']:.2e})"
+        for k, v in errs.items()))
+
+
+def k2_case(gen, dev, G=8, hd=64, misalign=False, S=8, KV=4, ps=16, NB=40):
+    """K2's inputs at check_k2's slots (K2_CURS), random from `gen`: each
+    active slot's pages up to its cur, permuted in the pool, slot 5's table
+    cut at page 20."""
+    curs = K2_CURS
+    P = sum(c // ps + 1 for c in curs if c >= 0) + 8
+    kd, km = _pools(gen, dev, P + 1, ps, KV, hd, misalign)
+    vd, vm = _pools(gen, dev, P + 1, ps, KV, hd, misalign)
+    perm = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
+    bt = torch.full((S, NB), -1, dtype=torch.int32, device=dev)
+    at = 0
+    for s, c in enumerate(curs):
+        if c < 0:
+            continue
+        n = c // ps + 1
+        bt[s, :n] = perm[at:at + n]
+        at += n
+    bt[5, 20:] = -1               # partially allocated table (cur 511)
+    q = torch.randn((S, KV, G, hd), generator=gen, device=dev)
+    ks = torch.rand((S,), generator=gen, device=dev) * 0.02 + 0.005
+    vs = torch.rand((S,), generator=gen, device=dev) * 0.02 + 0.005
+    cur = torch.tensor(curs, dtype=torch.int32, device=dev)
+    return q, kd, km, ks, vd, vm, vs, bt, cur
+
+
 def check_k2(dev, results):
+    """K2 at check_k2's slots (timed) and at DECODE_SHAPES, without and
+    with a window, held by `hold` to its plain version and to
+    decode_f64_reference; the inactive slot exactly zero."""
     import torch.nn.functional as F
     from repro_torch.kernels import sparq_decode_attn as dec
     gen = torch.Generator(device=dev).manual_seed(2)
     S, KV, G, hd, ps = 8, 4, 8, 64, 16
-    curs = [599, 433, 17, 300, -1, 511, 64, 250]     # slot 4 inactive
+    curs = K2_CURS
     NB = 40
     P = sum(c // ps + 1 for c in curs if c >= 0) + 8
-
-    def make():
-        kd, km = _pools(gen, dev, P + 1, ps, KV, hd)
-        vd, vm = _pools(gen, dev, P + 1, ps, KV, hd)
-        perm = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
-        bt = torch.full((S, NB), -1, dtype=torch.int32, device=dev)
-        at = 0
-        for s, c in enumerate(curs):
-            if c < 0:
-                continue
-            n = c // ps + 1
-            bt[s, :n] = perm[at:at + n]
-            at += n
-        bt[5, 20:] = -1               # partially allocated table (cur 511)
-        q = torch.randn((S, KV, G, hd), generator=gen, device=dev)
-        ks = torch.rand((S,), generator=gen, device=dev) * 0.02 + 0.005
-        vs = torch.rand((S,), generator=gen, device=dev) * 0.02 + 0.005
-        cur = torch.tensor(curs, dtype=torch.int32, device=dev)
-        return q, kd, km, ks, vd, vm, vs, bt, cur
-    sets = [make() for _ in range(n_sets(4 * (P + 1) * ps * KV * hd))]
+    sets = [k2_case(gen, dev)
+            for _ in range(n_sets(4 * (P + 1) * ps * KV * hd))]
     args = sets[0]
-    got = dec.sparq_paged_decode_attn_cuda(*args)
-    want = dec.ref_sparq_paged_decode_attn(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    assert torch.all(got[4] == 0), "K2: inactive slot is not exactly zero"
-    assert torch.isfinite(got).all()
-    if err > 1e-4:
-        raise AssertionError(f"K2 paged decode: max abs err {err} > 1e-4")
-    # sliding window (the kernel skips whole blocks below cur - window)
-    got_w = dec.sparq_paged_decode_attn_cuda(*args, window=K2_WINDOW)
-    want_w = dec.ref_sparq_paged_decode_attn(*args, window=K2_WINDOW)
-    torch.cuda.synchronize()
-    err_w = float((got_w - want_w).abs().max())
-    assert torch.all(got_w[4] == 0) and torch.isfinite(got_w).all()
-    if err_w > 1e-4:
-        raise AssertionError(
-            f"K2 paged decode, window {K2_WINDOW}: max abs err {err_w} "
-            f"> 1e-4")
-    err = max(err, err_w)
+    cases = [("timed", args)] + [(name, k2_case(gen, dev, *shape))
+                                 for name, shape in DECODE_SHAPES.items()]
+    errs = {}
+    for name, a in cases:
+        # window > 0: K2 masks whole splits and keys inside a page
+        for window in (0, K2_WINDOW):
+            what = f"K2 {name}, window {window}"
+            got = dec.sparq_paged_decode_attn_cuda(*a, window=window)
+            want = dec.ref_sparq_paged_decode_attn(*a, window=window)
+            exact = decode_f64_reference(a[0], *paged_keys(*a[1:],
+                                                           window=window))
+            errs[f"{name}, window {window}"] = hold(
+                what, got, want, exact, 1e-4 if name == "timed" else PLAIN_TOL)
+            if not torch.all(got[4] == 0):
+                raise AssertionError(f"{what}: inactive slot is not exactly "
+                                     f"zero")
+    _log_decode("K2", errs)
+    err = max(e["plain"] for k, e in errs.items() if k.startswith("timed"))
+    plans = dec.split_plan(dec.paged_live(args[7].cpu().numpy(), curs, ps),
+                           ps)
+    blocks = KV * sum(len(p) for p in plans)
+    geo = dec.split_geometry(NB * ps, ps)
     ms = bench(dec.sparq_paged_decode_attn_cuda, sets)
     plain_ms = bench(dec.ref_sparq_paged_decode_attn, sets, iters=5,
                      warmup=1)
@@ -343,11 +471,13 @@ def check_k2(dev, results):
     results["sparq_paged_decode_attn"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=bound, bound_by="bytes" if nbytes / H100_BYTES_S
-        >= flops / H100_F32_FLOPS_S else "operations",
+        >= flops / H100_F32_FLOPS_S else "operations", errors=errs,
+        live_blocks=blocks, grid=[S, KV, geo.n_splits],
         shape=f"S={S} KV={KV} G={G} hd={hd} ps={ps} cur={curs}")
     log(f"K2 sparq_paged_decode_attn: max abs err {err:.2e}, {ms:.4f} ms "
         f"(plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound "
-        f"{bound:.5f} ms, {tokens} cached tokens)")
+        f"{bound:.5f} ms, {tokens} cached tokens, grid {S}x{KV}x"
+        f"{geo.n_splits}, {blocks} blocks with live keys)")
 
 
 # K3's layouts of one 256-token chunk: runs (slot, first pos, tokens, hist,
@@ -391,18 +521,21 @@ def k3_stream(runs, C, bq):
     return seq_id, pos, hist, tile_seq
 
 
-def k3_case(gen, dev, layout, S=8, KV=4, G=8, hd=64, ps=16, C=256, bq=8,
-            NB=34, P=40):
-    """K3's inputs for one of K3_LAYOUTS, random from `gen`."""
+def k3_case(gen, dev, layout, S=8, KV=4, G=8, hd=64, ps=16, C=256, bq=8):
+    """K3's inputs for one of K3_LAYOUTS, random from `gen`. The layout's
+    page counts and holes are in pages of 16 positions; another page size
+    covers the same positions (34 x 16 of table, a pool of 40 x 16)."""
     runs, pages, holes = K3_LAYOUTS[layout]
+    NB, P = -(-34 * 16 // ps), -(-40 * 16 // ps)
     kd, km = _pools(gen, dev, P + 1, ps, KV, hd)
     vd, vm = _pools(gen, dev, P + 1, ps, KV, hd)
     bt = torch.full((S, NB), -1, dtype=torch.int32, device=dev)
     for slot, n in pages.items():
+        n = -(-n * 16 // ps)
         bt[slot, :n] = torch.randperm(P, generator=gen, device=dev)[:n] \
             .to(torch.int32)
     for slot, t in holes:
-        bt[slot, t] = -1
+        bt[slot, t * 16 // ps] = -1
     seq_id, pos, hist, tile_seq = (
         torch.from_numpy(a).to(dev) for a in k3_stream(runs, C, bq))
     q = torch.randn((C, KV, G, hd), generator=gen, device=dev)
@@ -458,60 +591,36 @@ def k3_f64_reference(q, kc, vc, kd, km, ks, vd, vm, vs, bt, sid, pos, hist,
     return out
 
 
-def check_k3(dev, results):
-    """K3 on both layouts of K3_LAYOUTS, without and with a window: within
-    1e-4 of its plain version and of k3_f64_reference, padding rows exactly
-    zero. Both distances are logged, with the plain version's own from the
-    f64 result: its f32 sums, not the kernel, set the margin of the first
-    gate (on an H100 80GB HBM3 at 700 W, 4.7e-5 for the plain version and
-    1.1e-5 for the kernel on these inputs). Timed on the timed layout (the
-    shape of the earlier slices' numbers) beside one SDPA call."""
+# K3's shapes: (G, hd, ps, bq) and the kernel k3_path must pick. The first
+# is the serving shape (full tinyllama at the CLI defaults), the others
+# what the tensor-core kernel refuses: the reduced tinyllama's heads, hd
+# 128, 128 query rows per tile (--chunk-align 16) and --page-size 128
+K3_SHAPES = {"hd 64 G 8": (8, 64, 16, 8, "dmma"),
+             "hd 16 G 4": (4, 16, 16, 8, "loop"),
+             "hd 128 G 8": (8, 128, 16, 8, "loop"),
+             "bq*G 128": (8, 64, 16, 16, "loop"),
+             "ps 128": (8, 64, 128, 8, "loop")}
+# the loop kernel's timed shapes (the JSON line's row is the first)
+K3_LOOP_TIMED = ("hd 16 G 4", "hd 128 G 8")
+
+
+def _k3_timing(dev, sets, G, hd, ps, bq):
+    """K3's time on the timed layout beside its plain version, one SDPA
+    call and its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import sparq_prefill_attn as pre
-    gen = torch.Generator(device=dev).manual_seed(3)
-    S, KV, G, hd, ps, C, bq = 8, 4, 8, 64, 16, 256, 8
-    NB, P = 34, 40
-    runs = K3_LAYOUTS["timed"][0]
-    errs, f64_errs = {}, {}
-    for layout in K3_LAYOUTS:
-        args = k3_case(gen, dev, layout)
-        for window in (0, K3_WINDOW):
-            got = pre.sparq_chunked_prefill_attn_cuda(*args, window=window)
-            want = pre.ref_sparq_chunked_prefill_attn(*args, window=window)
-            exact = k3_f64_reference(*args, window=window)
-            torch.cuda.synchronize()
-            case = f"{layout}, window {window}"
-            err = float((got - want).abs().max())
-            err64 = float((got.double() - exact).abs().max())
-            errs[case] = err
-            f64_errs[case] = dict(kernel=err64, plain=float(
-                (want.double() - exact).abs().max()))
-            if not torch.all(got[args[10] < 0] == 0):
-                raise AssertionError(f"K3 {case}: padding rows are not "
-                                     f"exactly zero")
-            if not torch.isfinite(got).all() or max(err, err64) > 1e-4:
-                raise AssertionError(f"K3 chunked prefill, {case}: max abs "
-                                     f"err {err} against the plain version,"
-                                     f" {err64} against f64 (limit 1e-4)")
-    log("K3 max abs err vs plain: " + ", ".join(
-        f"{k} {v:.2e}" for k, v in errs.items()))
-    log("K3 max abs err vs f64, kernel / plain: " + ", ".join(
-        f"{k} {v['kernel']:.2e} / {v['plain']:.2e}"
-        for k, v in f64_errs.items()))
-    err = max(errs.values())
-    sets = [k3_case(gen, dev, "timed")
-            for _ in range(n_sets(4 * (P + 1) * ps * KV * hd))]
-    args = sets[0]
+    C, KV = sets[0][0].shape[:2]
+    S, NB = sets[0][9].shape
     ms = bench(pre.sparq_chunked_prefill_attn_cuda, sets)
     plain_ms = bench(pre.ref_sparq_chunked_prefill_attn, sets, iters=5,
                      warmup=1)
     # library yardstick: one SDPA call over [dequantized history of slot 0
     # ; the chunk's float K/V] with the same mask (decode excluded)
-    q, kc, vc, kd, km, ks, vd, vm, vs, bt, sid, pos, hist, _ = args
+    q, kc, vc, kd, km, ks, vd, vm, vs, bt, sid, pos, hist, _ = sets[0]
     Th = 256
-    pages = bt[0, :Th // ps].long()
-    kh = _dequant_pages(kd, km, pages, ks[0]).reshape(Th, KV, hd)
-    vh = _dequant_pages(vd, vm, pages, vs[0]).reshape(Th, KV, hd)
+    pages = bt[0, :-(-Th // ps)].long()
+    kh = _dequant_pages(kd, km, pages, ks[0]).reshape(-1, KV, hd)[:Th]
+    vh = _dequant_pages(vd, vm, pages, vs[0]).reshape(-1, KV, hd)[:Th]
     kall = torch.cat([kh, kc]).transpose(0, 1)[None]   # [1, KV, Th+C, hd]
     vall = torch.cat([vh, vc]).transpose(0, 1)[None]
     kall = kall.repeat_interleave(G, 1)
@@ -529,15 +638,96 @@ def check_k3(dev, results):
               + Th * KV * hd * 4 + S * 8 + S * NB * 4 + C * 12 + C // bq * 4)
     flops = 4 * pairs * KV * G * hd   # QK^T and PV over all KV * G heads
     bound = max(nbytes / H100_BYTES_S, flops / H100_F64_MMA_FLOPS_S) * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by="bytes" if nbytes / H100_BYTES_S
+                >= flops / H100_F64_MMA_FLOPS_S else "operations")
+
+
+def check_k3(dev, results):
+    """K3 at every K3_SHAPES shape, on both layouts of K3_LAYOUTS, without
+    and with a window: k3_path picks the expected kernel, whose output is
+    held by `hold` to k3_f64_reference (1e-4) and to its plain version
+    (1e-4 at the serving shape, PLAIN_TOL beyond it), padding rows exactly
+    zero. Both distances are logged, with the plain version's own
+    from the f64 result: its f32 sums, not the kernel, set the margin of
+    the first gate (on an H100 80GB HBM3 at 700 W, 4.7e-5 for the plain
+    version and 1.1e-5 for the tensor-core kernel at the serving shape).
+    The tensor-core kernel is timed on the timed layout (the shape of the
+    earlier slices' numbers), the loop kernel at K3_LOOP_TIMED, each beside
+    one SDPA call."""
+    from repro_torch.kernels import sparq_prefill_attn as pre
+    gen = torch.Generator(device=dev).manual_seed(3)
+    C = 256
+    runs = K3_LAYOUTS["timed"][0]
+    errs = {"dmma": {}, "loop": {}}
+    f64_errs = {}
+    timing = {}
+    for shape, (G, hd, ps, bq, path) in K3_SHAPES.items():
+        kw = dict(G=G, hd=hd, ps=ps, bq=bq)
+        for layout in K3_LAYOUTS:
+            args = k3_case(gen, dev, layout, **kw)
+            aligned = all(args[i].data_ptr() % 16 == 0
+                          for i in (0, 1, 2, 3, 4, 6, 7))
+            got_path = pre.k3_path(hd, G, bq, ps, aligned)
+            if got_path != path:
+                raise AssertionError(f"K3 {shape}: k3_path picked "
+                                     f"{got_path}, expected {path}")
+            for window in (0, K3_WINDOW):
+                got = pre.sparq_chunked_prefill_attn_cuda(*args,
+                                                          window=window)
+                want = pre.ref_sparq_chunked_prefill_attn(*args,
+                                                          window=window)
+                exact = k3_f64_reference(*args, window=window)
+                case = f"{shape}, {layout}, window {window}"
+                e = hold(f"K3 chunked prefill [{path}], {case}", got, want,
+                         exact, 1e-4 if shape == "hd 64 G 8" else PLAIN_TOL)
+                errs[path][case] = e["plain"]
+                f64_errs[case] = dict(path=path, kernel=e["f64"],
+                                      plain=e["plain_f64"])
+                if not torch.all(got[args[10] < 0] == 0):
+                    raise AssertionError(f"K3 {case}: padding rows are not "
+                                         f"exactly zero")
+        if shape == "hd 64 G 8" or shape in K3_LOOP_TIMED:
+            # the four planes of a pool of 41 x 16 positions, 4 KV heads
+            sets = [k3_case(gen, dev, "timed", **kw)
+                    for _ in range(n_sets(4 * 41 * 16 * 4 * hd))]
+            timing[shape] = dict(_k3_timing(dev, sets, G, hd, ps, bq),
+                                 path=path)
+            t = timing[shape]
+            log(f"K3 [{path}] {shape} timed layout: {t['ms']:.4f} ms (plain "
+                f"{t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.5f} ms)")
+    for path in errs:
+        log(f"K3 [{path}] max abs err vs plain: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs[path].items()))
+    log("K3 max abs err vs f64, kernel / plain: " + ", ".join(
+        f"{k} [{v['path']}] {v['kernel']:.2e} / {v['plain']:.2e}"
+        for k, v in f64_errs.items()))
+    dm = timing["hd 64 G 8"]
     results["sparq_chunked_prefill_attn"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=bound, bound_by="bytes" if nbytes / H100_BYTES_S
-        >= flops / H100_F64_MMA_FLOPS_S else "operations",
-        errors=errs, f64_errors=f64_errs, shape=f"C={C} bq={bq} KV={KV} G={G} hd={hd} ps={ps} "
-                           f"runs(slot,start,n,hist,seg)={runs}")
-    log(f"K3 sparq_chunked_prefill_attn: max abs err {err:.2e}, "
-        f"{ms:.4f} ms (plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, "
-        f"bound {bound:.5f} ms)")
+        max_abs_err=max(errs["dmma"].values()),
+        **{k: dm[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by")},
+        errors=errs["dmma"], f64_errors={k: v for k, v in f64_errs.items()
+                                         if v["path"] == "dmma"},
+        shape=f"C={C} bq=8 KV=4 G=8 hd=64 ps=16 "
+              f"runs(slot,start,n,hist,seg)={runs}")
+    lp = timing[K3_LOOP_TIMED[0]]
+    results["sparq_chunked_prefill_attn_loop"] = dict(
+        max_abs_err=max(v for k, v in errs["loop"].items()
+                        if k.startswith(K3_LOOP_TIMED[0])),
+        **{k: lp[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by")},
+        errors=errs["loop"], f64_errors={k: v for k, v in f64_errs.items()
+                                         if v["path"] == "loop"},
+        rows={k: timing[k] for k in K3_LOOP_TIMED},
+        shape=f"C={C} bq=8 KV=4 G=4 hd=16 ps=16 timed layout")
+    for name in ("sparq_chunked_prefill_attn",
+                 "sparq_chunked_prefill_attn_loop"):
+        r = results[name]
+        log(f"K3 {name}: max abs err {r['max_abs_err']:.2e}, {r['ms']:.4f} "
+            f"ms (plain {r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.5f} ms)")
 
 
 def check_k4(dev, results):
@@ -642,51 +832,53 @@ def check_k6(dev, results):
         f"{bound:.5f} ms)")
 
 
+def k5_case(gen, dev, G=8, hd=64, misalign=False, B=8, Tk=296, KV=4,
+            cur=286):
+    """K5's inputs at the scan decode's shape, random from `gen`: linear
+    kpos, cur 286 (a ragged last tile of bk 128)."""
+    kd, km = _pools(gen, dev, B, Tk, KV, hd, misalign)
+    vd, vm = _pools(gen, dev, B, Tk, KV, hd, misalign)
+    q = torch.randn((B, KV, G, hd), generator=gen, device=dev)
+    ks = torch.rand((1,), generator=gen, device=dev) * 0.02 + 0.005
+    vs = torch.rand((1,), generator=gen, device=dev) * 0.02 + 0.005
+    kpos = torch.arange(Tk, dtype=torch.int32, device=dev)[None].expand(
+        B, Tk).contiguous()
+    return (q, kd, km, ks, vd, vm, vs, kpos,
+            torch.tensor([cur], dtype=torch.int32, device=dev))
+
+
 def check_k5(dev, results):
     """K5 at the scan decode's shapes (q 8 x 4 x 8 x 64, planes 8 x 296 x
-    4 x 64, bk 128: a ragged last tile), within 1e-4 of its plain version
-    without and with a window (rotated ring kpos with empty slots); with
-    bk = 16 equal to K2 on the same bytes laid out as pages."""
+    4 x 64, bk 128: a ragged last tile) and at DECODE_SHAPES, without and
+    with a window (rotated ring kpos with empty slots), held by `hold` to
+    its plain version and to decode_f64_reference. With bk = 16, equal to K2
+    on the same bytes laid out as pages, at a cur that ends inside a split
+    and one that ends on a split boundary, without and with a window."""
     import torch.nn.functional as F
     from repro_torch.kernels import sparq_decode_attn as dec
     gen = torch.Generator(device=dev).manual_seed(5)
     B, Tk, KV, G, hd, bk, cur = 8, 296, 4, 8, 64, 128, 286
     i32 = torch.int32
-
-    def make():
-        kd, km = _pools(gen, dev, B, Tk, KV, hd)
-        vd, vm = _pools(gen, dev, B, Tk, KV, hd)
-        q = torch.randn((B, KV, G, hd), generator=gen, device=dev)
-        ks = torch.rand((1,), generator=gen, device=dev) * 0.02 + 0.005
-        vs = torch.rand((1,), generator=gen, device=dev) * 0.02 + 0.005
-        kpos = torch.arange(Tk, dtype=i32, device=dev)[None].expand(
-            B, Tk).contiguous()
-        return (q, kd, km, ks, vd, vm, vs, kpos,
-                torch.tensor([cur], dtype=i32, device=dev))
-    sets = [make() for _ in range(n_sets(4 * B * Tk * KV * hd))]
+    sets = [k5_case(gen, dev) for _ in range(n_sets(4 * B * Tk * KV * hd))]
     args = sets[0]
-    got = dec.sparq_decode_attn_cuda(*args, bk=bk)
-    want = dec.ref_sparq_decode_attn(*args, bk=bk)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    assert torch.isfinite(got).all()
-    if err > 1e-4:
-        raise AssertionError(f"K5 contiguous decode: max abs err {err} "
-                             f"> 1e-4")
     # ring-style slots: rotated positions, a run of empty (-1) slots
     ring = ((torch.arange(Tk, device=dev) + 57) % Tk + 40).to(i32)
     ring[100:130] = -1
-    ring_args = args[:7] + (ring[None].expand(B, Tk).contiguous(),
-                            args[8])
-    got_w = dec.sparq_decode_attn_cuda(*ring_args, window=K2_WINDOW, bk=bk)
-    want_w = dec.ref_sparq_decode_attn(*ring_args, window=K2_WINDOW, bk=bk)
-    torch.cuda.synchronize()
-    err_w = float((got_w - want_w).abs().max())
-    assert torch.isfinite(got_w).all()
-    if err_w > 1e-4:
-        raise AssertionError(f"K5 contiguous decode, window {K2_WINDOW}, "
-                             f"ring kpos: max abs err {err_w} > 1e-4")
-    err = max(err, err_w)
+    ring = ring[None].expand(B, Tk).contiguous()
+    errs = {}
+    for name, a in [("timed", args)] + [(n, k5_case(gen, dev, *shape))
+                                        for n, shape in DECODE_SHAPES.items()]:
+        for window, kpos in ((0, a[7]), (K2_WINDOW, ring)):
+            case = a[:7] + (kpos, a[8])
+            what = f"{name}, window {window}{', ring' if window else ''}"
+            got = dec.sparq_decode_attn_cuda(*case, window=window, bk=bk)
+            want = dec.ref_sparq_decode_attn(*case, window=window, bk=bk)
+            exact = decode_f64_reference(case[0], *contig_keys(
+                *case[1:], window=window))
+            errs[what] = hold(f"K5 {what}", got, want, exact,
+                              1e-4 if name == "timed" else PLAIN_TOL)
+    _log_decode("K5", errs)
+    err = max(e["plain"] for k, e in errs.items() if k.startswith("timed"))
     # bk = page size: K2 over the same bytes scattered into a page pool
     ps = 16
     NB = math.ceil(Tk / ps)
@@ -703,15 +895,27 @@ def check_k5(dev, results):
             P, ps, KV, hd)
         return pool
     pk, pkm, pv, pvm = map(paged, (kd, km, vd, vm))
-    k5 = dec.sparq_decode_attn_cuda(*args, bk=ps)
-    k2 = dec.sparq_paged_decode_attn_cuda(
-        q, pk, pkm, ks.expand(B).contiguous(), pv, pvm,
-        vs.expand(B).contiguous(), bt, c.expand(B).contiguous())
-    torch.cuda.synchronize()
-    diff_k2 = float((k5 - k2).abs().max())
-    if diff_k2 != 0.0:
-        raise AssertionError(f"K5 (bk={ps}) vs K2 on the same bytes: max "
-                             f"abs difference {diff_k2}, expected 0.0")
+    diffs = {}
+    # cur 286 ends inside a split, 255 on a split boundary (256 keys)
+    for c_ in (cur, 255):
+        for window in (0, K2_WINDOW):
+            cc = torch.tensor([c_], dtype=i32, device=dev)
+            k5 = dec.sparq_decode_attn_cuda(*args[:8], cc, window=window,
+                                            bk=ps)
+            k2 = dec.sparq_paged_decode_attn_cuda(
+                q, pk, pkm, ks.expand(B).contiguous(), pv, pvm,
+                vs.expand(B).contiguous(), bt, cc.expand(B).contiguous(),
+                window=window)
+            torch.cuda.synchronize()
+            diffs[f"cur {c_}, window {window}"] = d = float(
+                (k5 - k2).abs().max())
+            if d != 0.0:
+                raise AssertionError(
+                    f"K5 (bk={ps}) vs K2 on the same bytes, cur {c_}, "
+                    f"window {window}: max abs difference {d}, expected "
+                    f"0.0")
+    diff_k2 = max(diffs.values())
+    geo = dec.split_geometry(Tk, bk)
     ms = bench(lambda *a: dec.sparq_decode_attn_cuda(*a, bk=bk), sets)
     plain_ms = bench(lambda *a: dec.ref_sparq_decode_attn(*a, bk=bk), sets,
                      iters=5, warmup=1)
@@ -732,11 +936,13 @@ def check_k5(dev, results):
     results["sparq_decode_attn"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
         bound_ms=bound, bound_by="bytes" if nbytes / H100_BYTES_S
-        >= flops / H100_F32_FLOPS_S else "operations", vs_k2=diff_k2,
+        >= flops / H100_F32_FLOPS_S else "operations", vs_k2=diffs,
+        errors=errs, grid=[B, KV, geo.n_splits],
         shape=f"B={B} Tk={Tk} KV={KV} G={G} hd={hd} bk={bk} cur={cur}")
     log(f"K5 sparq_decode_attn: max abs err {err:.2e}, vs K2 (bk={ps}) "
-        f"{diff_k2}, {ms:.4f} ms (plain {plain_ms:.3f} ms, SDPA "
-        f"{lib_ms:.4f} ms, bound {bound:.5f} ms)")
+        f"{diff_k2} at {list(diffs)}, {ms:.4f} ms (plain {plain_ms:.3f} "
+        f"ms, SDPA {lib_ms:.4f} ms, bound {bound:.5f} ms, grid {B}x{KV}x"
+        f"{geo.n_splits})")
 
 
 # ----------------------------------------------------------------------
@@ -848,6 +1054,8 @@ def _paged_full_width(dev, results, prefill):
     assert counts["sparq_paged_decode_attn"] == L * steps, counts
     assert counts["sparq_quant"] == 2 * L * (prefills + steps), counts
     assert counts["sparq_chunked_prefill_attn"] == L * chunks, counts
+    # full width at the serving shape: K3 takes the tensor-core kernel
+    assert counts["sparq_chunked_prefill_attn_loop"] == 0, counts
     assert counts["sparq_decode_attn"] == 0, counts
     assert counts["sparq_dequant"] == 0, counts
     if prefill == "chunked":
@@ -906,7 +1114,8 @@ def scan_full_width(dev, results):
     assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
     want = {"sparq_matmul": 7 * L * gen, "sparq_quant": 2 * L * gen,
             "sparq_decode_attn": L * (gen - 1), "sparq_paged_decode_attn": 0,
-            "sparq_chunked_prefill_attn": 0, "sparq_dequant": 0}
+            "sparq_chunked_prefill_attn": 0,
+            "sparq_chunked_prefill_attn_loop": 0, "sparq_dequant": 0}
     if counts != want:
         raise AssertionError(f"scan launches {counts}, expected {want}")
     caches = engine.last_caches
@@ -938,12 +1147,57 @@ def scan_full_width(dev, results):
     return {**counts, "sparq_dequant": k6["sparq_dequant"]}
 
 
-# Device-time groups of the profile phase: the six kernels by their
+# the North-star command as a user runs it, on the card: the reduced
+# tinyllama (hd 16, G 4) through the paged chunked engine, whose K3 calls
+# take the loop kernel
+CLI_ARGS = ["--arch", "tinyllama-1.1b", "--reduced", "--engine", "paged",
+            "--prefill", "chunked", "--kv-cache", "sparq", "--sparq", "5opt",
+            "--device", "cuda"]
+
+
+def cli_reduced(dev, results):
+    """`python -m repro_torch.launch.serve` with CLI_ARGS, through its
+    `main` (a warm-up run, then the timed one): every request returns `gen`
+    tokens in [0, vocab); K3 runs the loop kernel only, K2 every decode
+    step, K4 every KV write."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import serve
+    cfg = get_reduced_config("tinyllama-1.1b")
+    L = cfg.n_layers
+    stats, counts = _drive(lambda: serve.main(CLI_ARGS))
+    toks = stats["tokens"]
+    gen = 32                                  # the CLI's --gen default
+    _check_requests(cfg, range(len(toks)), toks, gen)
+    chunks, steps = stats["prefill_chunks"], stats["decode_steps"]
+    want = {"sparq_chunked_prefill_attn": 0,
+            "sparq_chunked_prefill_attn_loop": 2 * L * chunks,
+            "sparq_paged_decode_attn": 2 * L * steps,
+            "sparq_quant": 2 * 2 * L * (chunks + steps),
+            "sparq_decode_attn": 0, "sparq_dequant": 0}
+    got = {k: counts[k] for k in want}
+    if got != want or counts["sparq_matmul"] == 0 or chunks == 0:
+        raise AssertionError(f"cli launches {counts} (two runs of {chunks} "
+                             f"chunks and {steps} steps), expected {want} "
+                             f"and K1 > 0")
+    results["cli"] = dict(
+        argv=CLI_ARGS, arch=cfg.name, head_dim=cfg.head_dim,
+        G=cfg.n_heads // cfg.n_kv_heads, launches=counts,
+        **{k: v for k, v in stats.items() if not isinstance(v, dict)})
+    log(f"cli {' '.join(CLI_ARGS)}: {len(toks)} requests x {gen} tokens | "
+        f"prefill {stats['prefill_s']:.3f} s ({chunks} chunks) | decode "
+        f"{stats['decode_tok_s']:.1f} tok/s | launches (warm-up + timed run) "
+        f"{counts}")
+    return counts
+
+
+# Device-time groups of the profile phase: the seven kernels by their
 # __global__ names in csrc/ (K1's pre-pass and GEMM together), everything
 # else (PyTorch's own kernels and copies) as "other".
 KERNEL_GROUPS = (("sparq_matmul", "sparq_matmul_"),
                  ("sparq_paged_decode_attn", "paged_decode_kernel"),
                  ("sparq_chunked_prefill_attn", "chunked_prefill_kernel"),
+                 ("sparq_chunked_prefill_attn_loop",
+                  "chunked_prefill_loop_kernel"),
                  ("sparq_quant", "sparq_quant_kernel"),
                  ("sparq_decode_attn", "decode_attn_kernel"),
                  ("sparq_dequant", "sparq_dequant_kernel"))
@@ -951,8 +1205,8 @@ KERNEL_GROUPS = (("sparq_matmul", "sparq_matmul_"),
 
 def profile_serve(dev, results):
     """The serve phase's workload once more under torch.profiler (warm):
-    device time by kernel, grouped into the three SPARQ kernels and the
-    rest, and the device's idle share of the run's wall time."""
+    device time by kernel, grouped into the SPARQ kernels and the rest, and
+    the device's idle share of the run's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     _, engine, params, reqs, _, _, _ = _serve_setup(dev)
@@ -1113,7 +1367,7 @@ def check_sass():
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,kernels,serve,scan,sequential,parity")
+                    default="build,kernels,serve,scan,sequential,cli,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1143,13 +1397,14 @@ def main(argv=None):
                       check_k6):
             check(dev, results)
     by_path = {}
-    for name, run in (("serve", serve_full_width), ("scan", scan_full_width),
-                      ("sequential", sequential_full_width)):
+    paths = (("serve", serve_full_width), ("scan", scan_full_width),
+             ("sequential", sequential_full_width), ("cli", cli_reduced))
+    for name, run in paths:
         if name in phases:
             by_path[name] = run(dev, results)
     counts = {k: sum(c.get(k, 0) for c in by_path.values())
               for k in build.KERNELS}
-    if len(by_path) == 3:
+    if len(by_path) == len(paths):
         idle = [k for k, n in counts.items() if n == 0]
         if idle:
             raise AssertionError(f"kernels never launched on any path: "

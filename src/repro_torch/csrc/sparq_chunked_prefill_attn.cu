@@ -527,17 +527,10 @@ extern "C" int sparq_chunked_prefill_attn_launch(
   const size_t smem = 2 * RING + sizeof(double) * (2 * ROWS + 2 * KT) * LD +
                       (sizeof(double) + sizeof(float)) * WARPS * 16 +
                       sizeof(int) * (2 * C + NB + 2 * nvis);
-  static size_t attr_smem[64] = {};  // per device: largest size set so far
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static size_t attr_smem[64] = {};
+  const cudaError_t e =
+      set_smem_once(chunked_prefill_kernel, smem, attr_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= 64 || smem > attr_smem[dev]) {
-    e = cudaFuncSetAttribute(chunked_prefill_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 64) attr_smem[dev] = smem;
-  }
   dim3 grid(C / bq, KV);
   chunked_prefill_kernel<<<grid, THREADS, smem,
                            static_cast<cudaStream_t>(stream)>>>(

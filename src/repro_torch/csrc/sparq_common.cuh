@@ -15,6 +15,21 @@ extern "C" const char* sparq_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, smem) once per
+// device and larger size, not on every launch: done[dev] holds the largest
+// size set so far on that device. Returns the attribute call's error.
+template <class F>
+inline cudaError_t set_smem_once(F* kernel, size_t smem, size_t (&done)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && smem <= done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess && dev < 64) done[dev] = smem;
+  return e;
+}
+
 struct SparqCodec {
   int bits;        // window width n
   int shift_mask;  // bit s set <=> window shift s is a placement option

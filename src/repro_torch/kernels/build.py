@@ -29,6 +29,8 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+# dynamic shared memory one block may use on an H100 (227 KB)
+SMEM_LIMIT = 232448
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 

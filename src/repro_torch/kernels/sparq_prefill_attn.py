@@ -1,8 +1,9 @@
 """K3: ragged chunked-prefill attention over the §5.1 page pool — the CUDA
-kernel's wrapper and its plain PyTorch version (port of
+kernels' wrappers and their plain PyTorch version (port of
 `repro.kernels.sparq_prefill_attn.sparq_chunked_prefill_attn_pallas` and of
-the oracle `repro.kernels.ref.ref_sparq_chunked_prefill_attn`), and
-`walk`, the rule by which the kernel skips key tiles."""
+the oracle `repro.kernels.ref.ref_sparq_chunked_prefill_attn`), `walk`,
+the rule by which the tensor-core kernel skips key tiles, and `k3_path`,
+the rule by which a call takes that kernel or the general loop kernel."""
 from __future__ import annotations
 
 import ctypes
@@ -15,20 +16,59 @@ from repro_torch.kernels import build as _b
 from repro_torch.kernels.ref import _meta_decode32
 from repro_torch.kernels.sparq_decode_attn import NEG_INF, _online_update
 
+_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float,
+                                                          ctypes.c_void_p]
+
+# K3's two hand-written paths; `k3_path` picks one per call
 KERNEL = _b.CudaKernel(
     "sparq_chunked_prefill_attn", "sparq_chunked_prefill_attn.cu",
-    "sparq_chunked_prefill_attn_launch",
-    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                   ctypes.c_void_p],
+    "sparq_chunked_prefill_attn_launch", _ARGTYPES,
+    replaces="src/repro/kernels/sparq_prefill_attn.py:138")
+LOOP_KERNEL = _b.CudaKernel(
+    "sparq_chunked_prefill_attn_loop", "sparq_chunked_prefill_attn_loop.cu",
+    "sparq_chunked_prefill_attn_loop_launch", _ARGTYPES,
     replaces="src/repro/kernels/sparq_prefill_attn.py:138")
 
-# keys per tile of the CUDA kernel, in the page stage and the chunk stage
-# alike (`KT` in csrc/sparq_chunked_prefill_attn.cu)
+# keys per tile of the tensor-core kernel, in the page stage and the chunk
+# stage alike (`KT` in csrc/sparq_chunked_prefill_attn.cu)
 KEY_TILE = 64
-# the shapes the CUDA kernel takes: its head dim, and the most query rows
-# (bq * G) one block holds
+# the shapes the tensor-core kernel takes: its head dim, and the most query
+# rows (bq * G) one block holds
 KERNEL_HD = 64
 KERNEL_ROWS = 64
+# the loop kernel's chunk-stage key tile (`KT` in
+# csrc/sparq_chunked_prefill_attn_loop.cu)
+LOOP_KEY_TILE = 16
+
+
+def loop_smem_bytes(hd: int, G: int, bq: int, ps: int) -> int:
+    """Dynamic shared memory of one block of the loop kernel, as its
+    launcher computes it: q and acc [bq * G][hd], the decoded K and V tile
+    [max(ps, 16)][hd + 1], the scores [bq * G][max(ps, 16)], the row
+    statistics, and the query tile's positions and the chunk tile's keys
+    (int32)."""
+    R, T = bq * G, max(ps, LOOP_KEY_TILE)
+    return (4 * (2 * R * hd + 2 * T * (hd + 1) + R * T + 3 * R)
+            + 4 * (3 * bq + 2 * LOOP_KEY_TILE))
+
+
+def k3_path(hd: int, G: int, bq: int, ps: int, aligned: bool) -> str:
+    """Which hand-written kernel runs one K3 call: "dmma" (the f64
+    tensor-core kernel) exactly when it takes the shape — hd 64, at most
+    64 query rows (bq * G) per tile, a page size dividing its 64-key tile
+    and every tensor 16-byte aligned — else "loop" (the general kernel).
+    Raises only where the loop kernel's block does not fit in shared
+    memory."""
+    if (hd == KERNEL_HD and bq * G <= KERNEL_ROWS and 0 < ps <= KEY_TILE
+            and KEY_TILE % ps == 0 and aligned):
+        return "dmma"
+    need = loop_smem_bytes(hd, G, bq, ps)
+    if need > _b.SMEM_LIMIT:
+        raise ValueError(
+            f"K3: hd = {hd}, bq * G = {bq * G} and page size {ps} need "
+            f"{need} bytes of shared memory per block on the loop path, "
+            f"above the card's {_b.SMEM_LIMIT}")
+    return "loop"
 
 
 class Visits(NamedTuple):
@@ -148,9 +188,8 @@ def sparq_chunked_prefill_attn_cuda(q, k_chunk, v_chunk, k_data, k_meta,
                                     block_table, seq_id, pos, hist,
                                     tile_seq, *, window: int = 0):
     """Launch K3 on the current stream; arguments as the plain version,
-    float tensors f32, index tensors int32. The kernel takes hd = 64,
-    bq * G <= 64 query rows per tile and a page size dividing KEY_TILE;
-    it raises on anything else."""
+    float tensors f32, index tensors int32. `k3_path` picks the kernel:
+    the tensor-core one where it takes the shape, else the loop one."""
     dev = q.device
     C, KV, G, hd = q.shape
     P, ps = k_data.shape[:2]
@@ -159,11 +198,6 @@ def sparq_chunked_prefill_attn_cuda(q, k_chunk, v_chunk, k_data, k_meta,
     if C % nt:
         raise ValueError(f"chunk {C} is not a whole number of {nt} tiles")
     bq = C // nt
-    if hd != KERNEL_HD or bq * G > KERNEL_ROWS or KEY_TILE % ps:
-        raise ValueError(
-            f"K3 takes hd = {KERNEL_HD}, bq * G <= {KERNEL_ROWS} and a page "
-            f"size dividing {KEY_TILE}; got hd = {hd}, bq * G = {bq * G}, "
-            f"ps = {ps}")
     _b.check(q, "q", torch.float32, (C, KV, G, hd), dev)
     _b.check(k_chunk, "k_chunk", torch.float32, (C, KV, hd), dev)
     _b.check(v_chunk, "v_chunk", torch.float32, (C, KV, hd), dev)
@@ -176,14 +210,12 @@ def sparq_chunked_prefill_attn_cuda(q, k_chunk, v_chunk, k_data, k_meta,
     for name, t in (("seq_id", seq_id), ("pos", pos), ("hist", hist)):
         _b.check(t, name, torch.int32, (C,), dev)
     _b.check(tile_seq, "tile_seq", torch.int32, (nt,), dev)
-    for name, t in (("q", q), ("k_chunk", k_chunk), ("v_chunk", v_chunk),
-                    ("k_data", k_data), ("k_meta", k_meta),
-                    ("v_data", v_data), ("v_meta", v_meta)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: K3 copies 16-byte rows; the tensor "
-                             f"must start 16-byte aligned")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (
+        q, k_chunk, v_chunk, k_data, k_meta, v_data, v_meta))
+    kernel = KERNEL if k3_path(hd, G, bq, ps, aligned) == "dmma" \
+        else LOOP_KERNEL
     out = torch.empty((C, KV, G, hd), dtype=torch.float32, device=dev)
-    KERNEL.launch(
+    kernel.launch(
         _b.ptr(q), _b.ptr(k_chunk), _b.ptr(v_chunk), _b.ptr(k_data),
         _b.ptr(k_meta), _b.ptr(k_scale), _b.ptr(v_data), _b.ptr(v_meta),
         _b.ptr(v_scale), _b.ptr(block_table), _b.ptr(seq_id), _b.ptr(pos),

@@ -688,7 +688,7 @@ def main(argv=None):
               f"(+{stats['cache_ctrl_bytes_per_value']:.4f} ctrl), "
               f"{stats['cache_total_bytes']/1e6:.2f} MB modeled")
         print("sample:", toks[0, :16])
-        return stats
+        return {**stats, "tokens": toks}
 
     need = args.prompt_len + args.gen - 1
     max_seq = -(-need // args.page_size) * args.page_size
@@ -707,7 +707,7 @@ def main(argv=None):
           f"({stats['page_size']} slots) peak, "
           f"{stats['cache_total_bytes']/1e6:.2f} MB modeled")
     print("sample:", results[0][:16])
-    return stats
+    return {**stats, "tokens": results}
 
 
 if __name__ == "__main__":
