@@ -5,7 +5,7 @@ the port still starts on the card).
     python3 chip_smoke.py --phases build,kernels
 
 Phases (each one that fails makes the script exit non-zero):
-  build       nvcc-build the seven hand-written kernels from
+  build       nvcc-build the six hand-written kernels from
               src/repro_torch/csrc, one nvcc per source, all at once;
               cuobjdump -sass of K1's library must show IMMA (int8 tensor
               cores) and no IDP4A, and K3's DMMA (f64 tensor cores)
@@ -16,23 +16,25 @@ Phases (each one that fails makes the script exit non-zero):
               plan logged per row), K4 sparq_quant and K6 sparq_dequant
               bit-exact; K2 paged decode and K5 contiguous decode (the
               split-key body) at their serving shapes and at hd 16 / G 4,
-              hd 128 and misaligned planes, K3 chunked prefill at hd 64 G 8
-              (the tensor-core kernel, two layouts: check_k3) and at hd 16,
-              hd 128, bq * G = 128 and page size 128 (the loop kernel, as
-              k3_path routes them), all without and with a sliding window,
-              each within 1e-4 of an f64 evaluation and of its plain version
-              (PLAIN_TOL beyond the serving shapes, where the plain
-              version's own f32 error passes 1e-4); K5 with bk = 16 against
-              K2 on the same bytes laid out as pages, at a cur inside a
-              split and on a split boundary: difference 0.0. Times of the
-              kernel, the plain version and one PyTorch library call where
-              one computes the same function, and each kernel's least
-              possible time from its bytes and operations
+              hd 128 and misaligned planes, K3 chunked prefill at every
+              K3_SHAPES shape (hd 64 G 8, the serving shape; hd 16, hd 128
+              at G 8 and G 48, bq * G = 128, page size 128, hd 256, hd 10,
+              misaligned tensors, and the exact shapes of the cli and wide
+              paths, a 32-token chunk over a long history, each at the
+              instantiation k3_traits names) on the K3_LAYOUTS that
+              fit the chunk (check_k3), all without and with a sliding
+              window, each within 1e-4 of an f64 evaluation and of
+              its plain version (PLAIN_TOL beyond the serving shapes, where
+              the plain version's own f32 error passes 1e-4); K5 with bk =
+              16 against K2 on the same bytes laid out as pages, at a cur
+              inside a split and on a split boundary: difference 0.0.
+              Times of the kernel, the plain version and one PyTorch
+              library call where one computes the same function, and each
+              kernel's least possible time from its bytes and operations
   serve       tinyllama-1.1b at full width (22 layers, bf16, 5opt, int8
               weights, one calibration batch) serves 8 ragged requests
-              through the paged chunked-prefill engine: K1, K2, K3 (the
-              tensor-core kernel), and K4 at every KV write (2 x 22 per
-              chunk and per decode step)
+              through the paged chunked-prefill engine: K1, K2, K3 and K4
+              at every KV write (2 x 22 per chunk and per decode step)
   scan        the same model, `DecodeEngine.generate` on batch 8, prompt
               256, gen 32 over the contiguous sparq cache: K1 = 7*22*32,
               K4 = 2*22*32, K5 = 22*31, K2 = K3 = K6 = 0; then every layer's
@@ -43,21 +45,26 @@ Phases (each one that fails makes the script exit non-zero):
               K2, K4 at every write, K3 = K5 = 0
   cli         `python -m repro_torch.launch.serve` (CLI_ARGS: the reduced
               tinyllama, paged chunked engine, sparq KV, 5opt) through its
-              `main`: every request returns its tokens; K3 runs the loop
-              kernel only (hd 16), K2 every decode step
+              `main`: every request returns its tokens; K3 at every chunk's
+              layer (hd 16 G 4), K2 every decode step
+  wide        the same CLI at full width with --chunk-align 16
+              --page-size 128 (WIDE_ARGS: 22 layers, K3 at 128 query rows
+              a tile in two row blocks, two key tiles a page): the same
+              checks
   parity      2-layer full-width f32 models on the card (kernels) and on
-              the CPU (plain versions): the paged chunked engine and the
-              scan engine give equal greedy tokens; on the card, the paged
+              the CPU (plain versions): the paged chunked engine (also at
+              chunk-align 16 and page size 128) and the scan engine give
+              equal greedy tokens; on the card, the paged
               sequential engine equals the scan engine serving each request
               alone with attn_bk = page_size
   profile     (not run by default) the serve workload once more under
               torch.profiler: device time by kernel and the device's idle
               share of the run
 
-Each of serve, scan, sequential and cli resets the launch counters just
-before it drives its path and reads them just after; the plain versions of
-the KV codec must not run there at all. With all four, every kernel must
-have launched on some path.
+Each of serve, scan, sequential, cli and wide resets the launch counters
+just before it drives its path and reads them just after; the plain
+versions of the KV codec must not run there at all. With all five, every
+kernel must have launched on some path.
 
 Output: progress lines, then the card's name and power limit, one JSON line
 of per-kernel results, and last `{"ok": true, "device": {...}}`. Full
@@ -498,7 +505,17 @@ K3_LAYOUTS = {
     "serve-like": ([(0, 203, 77, 0, 64), (1, 37, 45, 37, 0),
                     (2, 0, 100, 0, 0), (3, 50, 1, 50, 0)],
                    {0: 18, 1: 6, 2: 7, 3: 4}, [(0, 5)]),
+    # long history: the 17th 32-token chunk of one prompt (positions
+    # 512..543, hist 512: 32 pages of history, one of them a hole) at the
+    # CLI's chunk size, the chunk of the cli and wide paths
+    "long history": ([(0, 512, 32, 512, 0)], {0: 34}, [(0, 9)]),
 }
+
+
+def k3_layouts(C, bq=8):
+    """The K3_LAYOUTS whose runs fit a chunk of C tokens."""
+    return [name for name, (runs, _, _) in K3_LAYOUTS.items()
+            if sum(-(-n // bq) * bq for _, _, n, _, _ in runs) <= C]
 
 
 def k3_stream(runs, C, bq):
@@ -521,14 +538,17 @@ def k3_stream(runs, C, bq):
     return seq_id, pos, hist, tile_seq
 
 
-def k3_case(gen, dev, layout, S=8, KV=4, G=8, hd=64, ps=16, C=256, bq=8):
+def k3_case(gen, dev, layout, S=8, KV=4, G=8, hd=64, ps=16, C=256, bq=8,
+            misalign=False):
     """K3's inputs for one of K3_LAYOUTS, random from `gen`. The layout's
     page counts and holes are in pages of 16 positions; another page size
-    covers the same positions (34 x 16 of table, a pool of 40 x 16)."""
+    covers the same positions (34 x 16 of table, a pool of 40 x 16). With
+    `misalign`, q starts 4 bytes and the pools 1 byte past a 16-byte
+    boundary (the wrapper hands the kernel aligned copies)."""
     runs, pages, holes = K3_LAYOUTS[layout]
     NB, P = -(-34 * 16 // ps), -(-40 * 16 // ps)
-    kd, km = _pools(gen, dev, P + 1, ps, KV, hd)
-    vd, vm = _pools(gen, dev, P + 1, ps, KV, hd)
+    kd, km = _pools(gen, dev, P + 1, ps, KV, hd, misalign)
+    vd, vm = _pools(gen, dev, P + 1, ps, KV, hd, misalign)
     bt = torch.full((S, NB), -1, dtype=torch.int32, device=dev)
     for slot, n in pages.items():
         n = -(-n * 16 // ps)
@@ -539,6 +559,8 @@ def k3_case(gen, dev, layout, S=8, KV=4, G=8, hd=64, ps=16, C=256, bq=8):
     seq_id, pos, hist, tile_seq = (
         torch.from_numpy(a).to(dev) for a in k3_stream(runs, C, bq))
     q = torch.randn((C, KV, G, hd), generator=gen, device=dev)
+    if misalign:
+        q = torch.cat([q.new_zeros(1), q.flatten()])[1:].view(q.shape)
     kc = torch.randn((C, KV, hd), generator=gen, device=dev)
     vc = torch.randn((C, KV, hd), generator=gen, device=dev)
     ks = torch.rand((S,), generator=gen, device=dev) * 0.02 + 0.005
@@ -591,22 +613,45 @@ def k3_f64_reference(q, kc, vc, kd, km, ks, vd, vm, vs, bt, sid, pos, hist,
     return out
 
 
-# K3's shapes: (G, hd, ps, bq) and the kernel k3_path must pick. The first
-# is the serving shape (full tinyllama at the CLI defaults), the others
-# what the tensor-core kernel refuses: the reduced tinyllama's heads, hd
-# 128, 128 query rows per tile (--chunk-align 16) and --page-size 128
-K3_SHAPES = {"hd 64 G 8": (8, 64, 16, 8, "dmma"),
-             "hd 16 G 4": (4, 16, 16, 8, "loop"),
-             "hd 128 G 8": (8, 128, 16, 8, "loop"),
-             "bq*G 128": (8, 64, 16, 16, "loop"),
-             "ps 128": (8, 64, 128, 8, "loop")}
-# the loop kernel's timed shapes (the JSON line's row is the first)
-K3_LOOP_TIMED = ("hd 16 G 4", "hd 128 G 8")
+# K3's shapes: (KV, G, hd, ps, bq, misalign, C) and the instantiation
+# k3_traits must pick, (head dim, key tile, rows a block, row blocks). The
+# first is the serving shape (full tinyllama at the CLI defaults); then the
+# reduced tinyllama's heads (the North-star --reduced run), hd 128 (G 8 and
+# granite-class G 48 over one KV head), 128 query rows a tile
+# (--chunk-align 16), --page-size 128, hd 256, a head dim that is not a
+# multiple of 16 (2-byte and 8-byte loads, zero-padded to 16), misaligned
+# tensors (aligned copies), and the shapes the cli and wide paths give K3
+# (`cli_k3_shape` of CLI_ARGS and WIDE_ARGS: a 32-token chunk, the wide
+# one in two row blocks of 16-token query tiles over key tiles that are
+# slices of 128-key pages)
+K3_SHAPES = {"hd 64 G 8": ((4, 8, 64, 16, 8, False, 256), (64, 64, 64, 1)),
+             "hd 16 G 4": ((4, 4, 16, 16, 8, False, 256), (16, 64, 32, 1)),
+             "hd 128 G 8": ((4, 8, 128, 16, 8, False, 256),
+                            (128, 32, 64, 1)),
+             "hd 128 G 48 KV 1": ((1, 48, 128, 16, 8, False, 256),
+                                  (128, 32, 64, 6)),
+             "bq*G 128": ((4, 8, 64, 16, 16, False, 256), (64, 64, 64, 2)),
+             "ps 128": ((4, 8, 64, 128, 8, False, 256), (64, 64, 64, 1)),
+             "hd 256 G 8": ((4, 8, 256, 16, 8, False, 256),
+                            (256, 16, 32, 2)),
+             "hd 10 G 4": ((4, 4, 10, 16, 8, False, 256), (16, 64, 32, 1)),
+             "hd 64 G 8 misaligned": ((4, 8, 64, 16, 8, True, 256),
+                                      (64, 64, 64, 1)),
+             "cli": ((2, 4, 16, 16, 8, False, 32), (16, 64, 32, 1)),
+             "wide": ((4, 8, 64, 128, 16, False, 32), (64, 64, 64, 2))}
+# the shapes timed, on the timed layout where it fits the chunk, else on
+# the long history (the serving shape is the JSON line's row)
+K3_TIMED = ("hd 64 G 8", "hd 16 G 4", "hd 128 G 8", "hd 128 G 48 KV 1",
+            "bq*G 128", "ps 128", "hd 256 G 8", "cli", "wide")
+
+
+def k3_timed_layout(C):
+    return "timed" if "timed" in k3_layouts(C) else "long history"
 
 
 def _k3_timing(dev, sets, G, hd, ps, bq):
-    """K3's time on the timed layout beside its plain version, one SDPA
-    call and its bound."""
+    """K3's time on sets (a layout whose slot 0 holds every history page)
+    beside its plain version, one SDPA call and its bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import sparq_prefill_attn as pre
     C, KV = sets[0][0].shape[:2]
@@ -617,7 +662,7 @@ def _k3_timing(dev, sets, G, hd, ps, bq):
     # library yardstick: one SDPA call over [dequantized history of slot 0
     # ; the chunk's float K/V] with the same mask (decode excluded)
     q, kc, vc, kd, km, ks, vd, vm, vs, bt, sid, pos, hist, _ = sets[0]
-    Th = 256
+    Th = int(hist[sid == 0].max())   # slot 0's history
     pages = bt[0, :-(-Th // ps)].long()
     kh = _dequant_pages(kd, km, pages, ks[0]).reshape(-1, KV, hd)[:Th]
     vh = _dequant_pages(vd, vm, pages, vs[0]).reshape(-1, KV, hd)[:Th]
@@ -645,89 +690,72 @@ def _k3_timing(dev, sets, G, hd, ps, bq):
 
 def check_k3(dev, results):
     """K3 at every K3_SHAPES shape, on both layouts of K3_LAYOUTS, without
-    and with a window: k3_path picks the expected kernel, whose output is
-    held by `hold` to k3_f64_reference (1e-4) and to its plain version
-    (1e-4 at the serving shape, PLAIN_TOL beyond it), padding rows exactly
-    zero. Both distances are logged, with the plain version's own
+    and with a window: k3_traits picks the expected instantiation, and the
+    output is held by `hold` to k3_f64_reference (1e-4) and to the plain
+    version (1e-4 at the serving shape, PLAIN_TOL beyond it), padding rows
+    exactly zero. Both distances are logged, with the plain version's own
     from the f64 result: its f32 sums, not the kernel, set the margin of
-    the first gate (on an H100 80GB HBM3 at 700 W, 4.7e-5 for the plain
-    version and 1.1e-5 for the tensor-core kernel at the serving shape).
-    The tensor-core kernel is timed on the timed layout (the shape of the
-    earlier slices' numbers), the loop kernel at K3_LOOP_TIMED, each beside
-    one SDPA call."""
+    the first gate. K3_TIMED are timed on the timed layout (the long
+    history at a 32-token chunk), each beside one SDPA call and its
+    bound."""
     from repro_torch.kernels import sparq_prefill_attn as pre
     gen = torch.Generator(device=dev).manual_seed(3)
-    C = 256
     runs = K3_LAYOUTS["timed"][0]
-    errs = {"dmma": {}, "loop": {}}
-    f64_errs = {}
-    timing = {}
-    for shape, (G, hd, ps, bq, path) in K3_SHAPES.items():
-        kw = dict(G=G, hd=hd, ps=ps, bq=bq)
-        for layout in K3_LAYOUTS:
-            args = k3_case(gen, dev, layout, **kw)
-            aligned = all(args[i].data_ptr() % 16 == 0
-                          for i in (0, 1, 2, 3, 4, 6, 7))
-            got_path = pre.k3_path(hd, G, bq, ps, aligned)
-            if got_path != path:
-                raise AssertionError(f"K3 {shape}: k3_path picked "
-                                     f"{got_path}, expected {path}")
+    errs, f64_errs, timing = {}, {}, {}
+    for shape, ((KV, G, hd, ps, bq, mis, C), want) in K3_SHAPES.items():
+        tr = pre.k3_traits(hd, G, bq, ps)
+        got_tr = (tr.hd, tr.key_tile, tr.rows, tr.row_blocks)
+        if got_tr != want:
+            raise AssertionError(f"K3 {shape}: k3_traits gave {tr}, "
+                                 f"expected (hd, key tile, rows, row "
+                                 f"blocks) = {want}")
+        kw = dict(KV=KV, G=G, hd=hd, ps=ps, bq=bq, C=C)
+        for layout in k3_layouts(C, bq):
+            args = k3_case(gen, dev, layout, misalign=mis, **kw)
             for window in (0, K3_WINDOW):
                 got = pre.sparq_chunked_prefill_attn_cuda(*args,
                                                           window=window)
-                want = pre.ref_sparq_chunked_prefill_attn(*args,
-                                                          window=window)
+                want_out = pre.ref_sparq_chunked_prefill_attn(*args,
+                                                              window=window)
                 exact = k3_f64_reference(*args, window=window)
                 case = f"{shape}, {layout}, window {window}"
-                e = hold(f"K3 chunked prefill [{path}], {case}", got, want,
-                         exact, 1e-4 if shape == "hd 64 G 8" else PLAIN_TOL)
-                errs[path][case] = e["plain"]
-                f64_errs[case] = dict(path=path, kernel=e["f64"],
-                                      plain=e["plain_f64"])
+                e = hold(f"K3 chunked prefill, {case}", got, want_out, exact,
+                         1e-4 if shape == "hd 64 G 8" else PLAIN_TOL)
+                errs[case] = e["plain"]
+                f64_errs[case] = dict(kernel=e["f64"], plain=e["plain_f64"])
                 if not torch.all(got[args[10] < 0] == 0):
                     raise AssertionError(f"K3 {case}: padding rows are not "
                                          f"exactly zero")
-        if shape == "hd 64 G 8" or shape in K3_LOOP_TIMED:
-            # the four planes of a pool of 41 x 16 positions, 4 KV heads
-            sets = [k3_case(gen, dev, "timed", **kw)
-                    for _ in range(n_sets(4 * 41 * 16 * 4 * hd))]
+        if shape in K3_TIMED:
+            # the four planes of a pool of 41 x 16 positions
+            layout = k3_timed_layout(C)
+            sets = [k3_case(gen, dev, layout, **kw)
+                    for _ in range(n_sets(4 * 41 * 16 * KV * hd))]
             timing[shape] = dict(_k3_timing(dev, sets, G, hd, ps, bq),
-                                 path=path)
+                                 traits=tr._asdict(), layout=layout)
             t = timing[shape]
-            log(f"K3 [{path}] {shape} timed layout: {t['ms']:.4f} ms (plain "
-                f"{t['plain_ms']:.3f} ms, SDPA {t['library_ms']:.4f} ms, "
-                f"bound {t['bound_ms']:.5f} ms)")
-    for path in errs:
-        log(f"K3 [{path}] max abs err vs plain: " + ", ".join(
-            f"{k} {v:.2e}" for k, v in errs[path].items()))
+            log(f"K3 {shape} ({tr.hd}/{tr.key_tile}/{tr.rows}x"
+                f"{tr.row_blocks}) {layout} layout: "
+                f"{t['ms']:.4f} ms (plain {t['plain_ms']:.3f} ms, SDPA "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms)")
+    log("K3 max abs err vs plain: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()))
     log("K3 max abs err vs f64, kernel / plain: " + ", ".join(
-        f"{k} [{v['path']}] {v['kernel']:.2e} / {v['plain']:.2e}"
+        f"{k} {v['kernel']:.2e} / {v['plain']:.2e}"
         for k, v in f64_errs.items()))
     dm = timing["hd 64 G 8"]
     results["sparq_chunked_prefill_attn"] = dict(
-        max_abs_err=max(errs["dmma"].values()),
+        max_abs_err=max(v for k, v in errs.items()
+                        if k.startswith("hd 64 G 8,")),
         **{k: dm[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                               "bound_by")},
-        errors=errs["dmma"], f64_errors={k: v for k, v in f64_errs.items()
-                                         if v["path"] == "dmma"},
-        shape=f"C={C} bq=8 KV=4 G=8 hd=64 ps=16 "
+        errors=errs, f64_errors=f64_errs, rows=timing,
+        shape=f"C=256 bq=8 KV=4 G=8 hd=64 ps=16 "
               f"runs(slot,start,n,hist,seg)={runs}")
-    lp = timing[K3_LOOP_TIMED[0]]
-    results["sparq_chunked_prefill_attn_loop"] = dict(
-        max_abs_err=max(v for k, v in errs["loop"].items()
-                        if k.startswith(K3_LOOP_TIMED[0])),
-        **{k: lp[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "bound_by")},
-        errors=errs["loop"], f64_errors={k: v for k, v in f64_errs.items()
-                                         if v["path"] == "loop"},
-        rows={k: timing[k] for k in K3_LOOP_TIMED},
-        shape=f"C={C} bq=8 KV=4 G=4 hd=16 ps=16 timed layout")
-    for name in ("sparq_chunked_prefill_attn",
-                 "sparq_chunked_prefill_attn_loop"):
-        r = results[name]
-        log(f"K3 {name}: max abs err {r['max_abs_err']:.2e}, {r['ms']:.4f} "
-            f"ms (plain {r['plain_ms']:.3f} ms, SDPA {r['library_ms']:.4f} "
-            f"ms, bound {r['bound_ms']:.5f} ms)")
+    r = results["sparq_chunked_prefill_attn"]
+    log(f"K3 sparq_chunked_prefill_attn: max abs err {r['max_abs_err']:.2e}, "
+        f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, SDPA "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms)")
 
 
 def check_k4(dev, results):
@@ -1054,8 +1082,6 @@ def _paged_full_width(dev, results, prefill):
     assert counts["sparq_paged_decode_attn"] == L * steps, counts
     assert counts["sparq_quant"] == 2 * L * (prefills + steps), counts
     assert counts["sparq_chunked_prefill_attn"] == L * chunks, counts
-    # full width at the serving shape: K3 takes the tensor-core kernel
-    assert counts["sparq_chunked_prefill_attn_loop"] == 0, counts
     assert counts["sparq_decode_attn"] == 0, counts
     assert counts["sparq_dequant"] == 0, counts
     if prefill == "chunked":
@@ -1114,8 +1140,7 @@ def scan_full_width(dev, results):
     assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
     want = {"sparq_matmul": 7 * L * gen, "sparq_quant": 2 * L * gen,
             "sparq_decode_attn": L * (gen - 1), "sparq_paged_decode_attn": 0,
-            "sparq_chunked_prefill_attn": 0,
-            "sparq_chunked_prefill_attn_loop": 0, "sparq_dequant": 0}
+            "sparq_chunked_prefill_attn": 0, "sparq_dequant": 0}
     if counts != want:
         raise AssertionError(f"scan launches {counts}, expected {want}")
     caches = engine.last_caches
@@ -1148,45 +1173,85 @@ def scan_full_width(dev, results):
 
 
 # the North-star command as a user runs it, on the card: the reduced
-# tinyllama (hd 16, G 4) through the paged chunked engine, whose K3 calls
-# take the loop kernel
+# tinyllama (hd 16, G 4) through the paged chunked engine
 CLI_ARGS = ["--arch", "tinyllama-1.1b", "--reduced", "--engine", "paged",
             "--prefill", "chunked", "--kv-cache", "sparq", "--sparq", "5opt",
             "--device", "cuda"]
+# full-width tinyllama through the same CLI at 16-token query tiles (128
+# query rows a tile: two row blocks) and pages of 128 keys (two key tiles
+# a page)
+WIDE_ARGS = ["--arch", "tinyllama-1.1b", "--engine", "paged", "--prefill",
+             "chunked", "--kv-cache", "sparq", "--sparq", "5opt",
+             "--chunk-align", "16", "--page-size", "128", "--device", "cuda"]
 
 
-def cli_reduced(dev, results):
-    """`python -m repro_torch.launch.serve` with CLI_ARGS, through its
-    `main` (a warm-up run, then the timed one): every request returns `gen`
-    tokens in [0, vocab); K3 runs the loop kernel only, K2 every decode
+def _cli_config(argv):
+    """The model config `serve.main(argv)` builds."""
+    from repro_torch.configs import get_config, get_reduced_config
+    arch = argv[argv.index("--arch") + 1]
+    return (get_reduced_config if "--reduced" in argv else get_config)(arch)
+
+
+def cli_k3_shape(argv):
+    """K3's shape on the path `serve.main(argv)` drives, as K3_SHAPES
+    writes it: (KV, G, hd, ps, bq, misaligned, C), with the CLI's defaults
+    (--page-size 16, --chunk-align 8, --chunk-size 32) where argv gives
+    none."""
+    cfg = _cli_config(argv)
+    arg = dict(zip(argv[::2], argv[1::2]))
+    return (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+            int(arg.get("--page-size", 16)), int(arg.get("--chunk-align", 8)),
+            False, int(arg.get("--chunk-size", 32)))
+
+
+def _cli(dev, results, name, argv):
+    """`python -m repro_torch.launch.serve` with argv, through its `main`
+    (a warm-up run, then the timed one): every request returns `gen`
+    tokens in [0, vocab); K3 runs at every chunk's layer (the tensor-core
+    kernel, at the instantiation k3_traits names, at K3_SHAPES[name], which
+    check_k3 holds against f64 and the plain version), K2 every decode
     step, K4 every KV write."""
-    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import sparq_prefill_attn as pre
     from repro_torch.launch import serve
-    cfg = get_reduced_config("tinyllama-1.1b")
+    cfg = _cli_config(argv)
     L = cfg.n_layers
-    stats, counts = _drive(lambda: serve.main(CLI_ARGS))
+    KV, G, hd, ps, bq, _, _ = shape = cli_k3_shape(argv)
+    if K3_SHAPES[name][0] != shape:
+        raise AssertionError(f"{name}: K3 runs at {shape}, but check_k3 "
+                             f"holds {K3_SHAPES[name][0]}")
+    tr = pre.k3_traits(hd, G, bq, ps)
+    stats, counts = _drive(lambda: serve.main(argv))
     toks = stats["tokens"]
     gen = 32                                  # the CLI's --gen default
     _check_requests(cfg, range(len(toks)), toks, gen)
     chunks, steps = stats["prefill_chunks"], stats["decode_steps"]
-    want = {"sparq_chunked_prefill_attn": 0,
-            "sparq_chunked_prefill_attn_loop": 2 * L * chunks,
+    want = {"sparq_chunked_prefill_attn": 2 * L * chunks,
             "sparq_paged_decode_attn": 2 * L * steps,
             "sparq_quant": 2 * 2 * L * (chunks + steps),
             "sparq_decode_attn": 0, "sparq_dequant": 0}
     got = {k: counts[k] for k in want}
     if got != want or counts["sparq_matmul"] == 0 or chunks == 0:
-        raise AssertionError(f"cli launches {counts} (two runs of {chunks} "
-                             f"chunks and {steps} steps), expected {want} "
-                             f"and K1 > 0")
-    results["cli"] = dict(
-        argv=CLI_ARGS, arch=cfg.name, head_dim=cfg.head_dim,
-        G=cfg.n_heads // cfg.n_kv_heads, launches=counts,
+        raise AssertionError(f"{name} launches {counts} (two runs of "
+                             f"{chunks} chunks and {steps} steps), expected "
+                             f"{want} and K1 > 0")
+    results[name] = dict(
+        argv=argv, arch=cfg.name, n_layers=L, head_dim=cfg.head_dim, G=G,
+        k3_traits=tr._asdict(), launches=counts,
         **{k: v for k, v in stats.items() if not isinstance(v, dict)})
-    log(f"cli {' '.join(CLI_ARGS)}: {len(toks)} requests x {gen} tokens | "
+    log(f"{name} {' '.join(argv)}: {len(toks)} requests x {gen} tokens | "
         f"prefill {stats['prefill_s']:.3f} s ({chunks} chunks) | decode "
-        f"{stats['decode_tok_s']:.1f} tok/s | launches (warm-up + timed run) "
-        f"{counts}")
+        f"{stats['decode_tok_s']:.1f} tok/s | K3 {tr} | launches (warm-up + "
+        f"timed run) {counts}")
+    return counts
+
+
+def cli_reduced(dev, results):
+    return _cli(dev, results, "cli", CLI_ARGS)
+
+
+def cli_wide(dev, results):
+    counts = _cli(dev, results, "wide", WIDE_ARGS)
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1196,8 +1261,6 @@ def cli_reduced(dev, results):
 KERNEL_GROUPS = (("sparq_matmul", "sparq_matmul_"),
                  ("sparq_paged_decode_attn", "paged_decode_kernel"),
                  ("sparq_chunked_prefill_attn", "chunked_prefill_kernel"),
-                 ("sparq_chunked_prefill_attn_loop",
-                  "chunked_prefill_loop_kernel"),
                  ("sparq_quant", "sparq_quant_kernel"),
                  ("sparq_decode_attn", "decode_attn_kernel"),
                  ("sparq_dequant", "sparq_dequant_kernel"))
@@ -1260,7 +1323,9 @@ def parity_two_layers(dev, results):
     on the CPU: the paged chunked engine and the scan engine each give
     equal greedy tokens on both; on the card, the paged sequential engine
     gives the scan engine's tokens (each request alone, attn_bk = page
-    size, so K5's tiles are K2's pages)."""
+    size, so K5's tiles are K2's pages). The paged chunked engine also
+    runs at --chunk-align 16 --page-size 128 (K3's row blocks and pages
+    larger than its key tile), card against CPU."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import Batcher, DataConfig
@@ -1285,6 +1350,8 @@ def parity_two_layers(dev, results):
     ps = 16
     kw = dict(page_size=ps, n_pages=40, max_active=3, max_seq_len=112,
               chunk_size=64, chunk_align=8)
+    kw_wide = dict(page_size=128, n_pages=8, max_active=3, max_seq_len=128,
+                   chunk_size=64, chunk_align=16)
 
     def to_cpu(tree):
         if isinstance(tree, dict):
@@ -1299,7 +1366,7 @@ def parity_two_layers(dev, results):
                                  f"{np.asarray(a).tolist()} vs "
                                  f"{np.asarray(b).tolist()}")
 
-    out, scan = {}, {}
+    out, wide, scan = {}, {}, {}
     for name, model, p, sc in (
             ("cuda", gpu, params, scales),
             ("cpu", Model(cfg, device="cpu"), to_cpu(params),
@@ -1307,11 +1374,18 @@ def parity_two_layers(dev, results):
         eng = serve.ContinuousBatchingEngine(
             model, cc, ctx, sc, device=model.device, prefill="chunked", **kw)
         out[name], _ = eng.run(p, reqs)
+        eng = serve.ContinuousBatchingEngine(
+            model, cc, ctx, sc, device=model.device, prefill="chunked",
+            **kw_wide)
+        wide[name], _ = eng.run(p, reqs)
         scan[name], _ = serve.DecodeEngine(model, cc, ctx, sc).generate(
             p, scan_batch, 8, warmup=False)
     for rid in out["cpu"]:
         same(out["cuda"][rid], out["cpu"][rid],
              f"paged chunked, request {rid}, kernels vs plain")
+        same(wide["cuda"][rid], wide["cpu"][rid],
+             f"paged chunked at chunk-align 16 and page size 128, request "
+             f"{rid}, kernels vs plain")
     same(scan["cuda"], scan["cpu"], "scan engine, kernels vs plain")
     seq, _ = serve.ContinuousBatchingEngine(
         gpu, cc, ctx, scales, device=dev, prefill="sequential",
@@ -1324,10 +1398,13 @@ def parity_two_layers(dev, results):
         same(seq[rid], toks[0], f"request {rid}, paged sequential vs scan "
                                 f"(attn_bk = {ps}) on the card")
     results["parity"] = {str(r): out["cuda"][r].tolist() for r in out["cpu"]}
+    results["parity_wide"] = {str(r): wide["cuda"][r].tolist()
+                              for r in wide["cpu"]}
     results["parity_scan"] = scan["cuda"].tolist()
     log(f"parity 2-layer full-width f32: kernels == plain versions on "
         f"{len(reqs)} paged requests "
-        f"({sum(len(t) for t in out['cpu'].values())} tokens) and a scan "
+        f"({sum(len(t) for t in out['cpu'].values())} tokens; again at "
+        f"chunk-align 16 and page size 128) and a scan "
         f"batch of {scan['cpu'].shape[0]}; paged sequential == scan "
         f"(attn_bk {ps}) on the card for all {len(reqs)} requests")
 
@@ -1367,7 +1444,8 @@ def check_sass():
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,kernels,serve,scan,sequential,cli,parity")
+                    default="build,kernels,serve,scan,sequential,cli,wide,"
+                            "parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1388,7 +1466,8 @@ def main(argv=None):
     results["build_s"] = time.perf_counter() - t0
     for src, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Function properties" in line):
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {len(logs)} kernel libraries in {results['build_s']:.1f} s")
     results["sass"] = check_sass()
@@ -1398,7 +1477,8 @@ def main(argv=None):
             check(dev, results)
     by_path = {}
     paths = (("serve", serve_full_width), ("scan", scan_full_width),
-             ("sequential", sequential_full_width), ("cli", cli_reduced))
+             ("sequential", sequential_full_width), ("cli", cli_reduced),
+             ("wide", cli_wide))
     for name, run in paths:
         if name in phases:
             by_path[name] = run(dev, results)

@@ -1,6 +1,6 @@
 // Shared device code of the SPARQ kernels: the codec (bSPARQ trim with
-// rounding carry, vSPARQ pair rule, sign-magnitude), the §5.1 meta-decode,
-// and the online-softmax tile update of the flash attention kernels.
+// rounding carry, vSPARQ pair rule, sign-magnitude) and the §5.1
+// meta-decode.
 // Every function mirrors an oracle of the plain PyTorch versions
 // (repro_torch/core/*.py, repro_torch/kernels/ref.py) operation for
 // operation. Built without --use_fast_math: divisions are IEEE-correct
@@ -136,58 +136,4 @@ __device__ __forceinline__ float meta_decode(int8_t store, int8_t meta,
   const int s = (lane & 1) ? (m & 7) : ((m >> 3) & 7);
   const int mag = abs(q) << s;
   return __fmul_rn(static_cast<float>(q < 0 ? -mag : mag), scale);
-}
-
-// The dot products of a tile (q . k over hd, p . v and the sum of p over
-// the tile's keys) accumulate in f64 and round once to f32. In f32, a
-// serial sum's rounding differs from the oracle's (another order) by
-// enough to move an output of tens by ~1e-4 when scores reach tens; in f64
-// each tile's sums are correctly rounded, and the kernels stay within the
-// oracle's own f32 error.
-__device__ __forceinline__ float score_dot(const float* q, const float* k,
-                                           int hd) {
-  double dot = 0.0;
-  for (int d = 0; d < hd; ++d)
-    dot = fma(static_cast<double>(q[d]), static_cast<double>(k[d]), dot);
-  return static_cast<float>(dot);
-}
-
-// One online-softmax update over a tile of nk keys for nr query rows.
-// sc[r * nk + j] holds the scaled score, -inf where masked; it is
-// overwritten with the probabilities. vt[j * ldv + d] is the decoded value
-// tile, acc[r * hd + d] the running output; m, l, corr hold per-row
-// statistics. Same arithmetic as the oracles: m_safe = 0 when m is -inf,
-// corr = 0 when the previous m is -inf, masked probabilities are 0.
-__device__ __forceinline__ void online_softmax_tile(
-    float* sc, const float* vt, int ldv, float* m, float* l, float* corr,
-    float* acc, int nr, int nk, int hd) {
-  for (int r = threadIdx.x; r < nr; r += blockDim.x) {
-    float* s = sc + r * nk;
-    float mx = -CUDART_INF_F;
-    for (int j = 0; j < nk; ++j) mx = fmaxf(mx, s[j]);
-    const float m_prev = m[r];
-    const float m_new = fmaxf(m_prev, mx);
-    const float m_safe = (m_new == -CUDART_INF_F) ? 0.f : m_new;
-    double sum = 0.0;
-    for (int j = 0; j < nk; ++j) {
-      const float p = (s[j] == -CUDART_INF_F) ? 0.f : expf(s[j] - m_safe);
-      s[j] = p;
-      sum += p;
-    }
-    const float cr = (m_prev == -CUDART_INF_F) ? 0.f : expf(m_prev - m_safe);
-    corr[r] = cr;
-    l[r] = l[r] * cr + static_cast<float>(sum);
-    m[r] = m_new;
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < nr * hd; idx += blockDim.x) {
-    const int r = idx / hd, d = idx - r * hd;
-    const float* p = sc + r * nk;
-    double pv = 0.0;
-    for (int j = 0; j < nk; ++j)
-      pv = fma(static_cast<double>(p[j]),
-               static_cast<double>(vt[j * ldv + d]), pv);
-    acc[idx] = acc[idx] * corr[r] + static_cast<float>(pv);
-  }
-  __syncthreads();
 }

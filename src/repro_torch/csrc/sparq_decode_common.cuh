@@ -24,7 +24,7 @@
 //     memory, so the products convert each K and V element once per RG
 //     rows instead of once per product. A thread takes one key and RG
 //     query rows of the scores (RG independent f64 chains, k read as
-//     float4; each dot in d order and rounded once, score_dot's sums), a
+//     float4; each dot an f64 sum in d order, rounded once), a
 //     warp per query row takes the row max and the f64 sum of p with
 //     shuffles, and a thread takes one column and RG rows of P V (RG
 //     independent f64 sums over the tile's keys in key order). The f32

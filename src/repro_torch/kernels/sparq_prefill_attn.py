@@ -1,9 +1,10 @@
 """K3: ragged chunked-prefill attention over the §5.1 page pool — the CUDA
-kernels' wrappers and their plain PyTorch version (port of
+kernel's wrapper and its plain PyTorch version (port of
 `repro.kernels.sparq_prefill_attn.sparq_chunked_prefill_attn_pallas` and of
-the oracle `repro.kernels.ref.ref_sparq_chunked_prefill_attn`), `walk`,
-the rule by which the tensor-core kernel skips key tiles, and `k3_path`,
-the rule by which a call takes that kernel or the general loop kernel."""
+the oracle `repro.kernels.ref.ref_sparq_chunked_prefill_attn`), and the
+rules the kernel follows: `k3_traits`, the instantiation a call runs (head
+dim, key tile, rows a block), and `walk`, the key tiles each query tile
+visits."""
 from __future__ import annotations
 
 import ctypes
@@ -16,59 +17,74 @@ from repro_torch.kernels import build as _b
 from repro_torch.kernels.ref import _meta_decode32
 from repro_torch.kernels.sparq_decode_attn import NEG_INF, _online_update
 
-_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                          ctypes.c_void_p]
+# q .. tile_seq, out; C, KV, G, hd, ps, NB, bq, window, hd_pad, groups;
+# sm_scale; the stream
+_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                           ctypes.c_void_p]
 
-# K3's two hand-written paths; `k3_path` picks one per call
 KERNEL = _b.CudaKernel(
     "sparq_chunked_prefill_attn", "sparq_chunked_prefill_attn.cu",
     "sparq_chunked_prefill_attn_launch", _ARGTYPES,
     replaces="src/repro/kernels/sparq_prefill_attn.py:138")
-LOOP_KERNEL = _b.CudaKernel(
-    "sparq_chunked_prefill_attn_loop", "sparq_chunked_prefill_attn_loop.cu",
-    "sparq_chunked_prefill_attn_loop_launch", _ARGTYPES,
-    replaces="src/repro/kernels/sparq_prefill_attn.py:138")
 
-# keys per tile of the tensor-core kernel, in the page stage and the chunk
-# stage alike (`KT` in csrc/sparq_chunked_prefill_attn.cu)
-KEY_TILE = 64
-# the shapes the tensor-core kernel takes: its head dim, and the most query
-# rows (bq * G) one block holds
-KERNEL_HD = 64
-KERNEL_ROWS = 64
-# the loop kernel's chunk-stage key tile (`KT` in
-# csrc/sparq_chunked_prefill_attn_loop.cu)
-LOOP_KEY_TILE = 16
+# the kernel's instantiations (`KeyTile` and `K3_INSTANCE` in
+# csrc/sparq_chunked_prefill_attn.cu): keys per tile of each head dim, and
+# the row groups of 16 query rows a block of that head dim may have
+KEY_TILES = {16: 64, 32: 64, 64: 64, 128: 32, 256: 16}
+GROUPS = {16: (1, 2, 4), 32: (1, 2, 4), 64: (1, 2, 4), 128: (1, 2, 4),
+          256: (1, 2)}
+# producer warps of a block (`Traits::PW` there), beside two consumer
+# warps per row group
+PRODUCER_WARPS = 4
 
 
-def loop_smem_bytes(hd: int, G: int, bq: int, ps: int) -> int:
-    """Dynamic shared memory of one block of the loop kernel, as its
-    launcher computes it: q and acc [bq * G][hd], the decoded K and V tile
-    [max(ps, 16)][hd + 1], the scores [bq * G][max(ps, 16)], the row
-    statistics, and the query tile's positions and the chunk tile's keys
-    (int32)."""
-    R, T = bq * G, max(ps, LOOP_KEY_TILE)
-    return (4 * (2 * R * hd + 2 * T * (hd + 1) + R * T + 3 * R)
-            + 4 * (3 * bq + 2 * LOOP_KEY_TILE))
+class Traits(NamedTuple):
+    """The instantiation one K3 call runs: its head dim (the call's, or the
+    next one up, zero-padded), keys per tile (`walk`'s key_tile), query
+    rows a block holds (16 per row group), its warps (two per row group
+    and the producers), and how many row blocks a query tile's bq * G
+    rows are cut into."""
+    hd: int
+    key_tile: int
+    rows: int
+    warps: int
+    row_blocks: int
 
 
-def k3_path(hd: int, G: int, bq: int, ps: int, aligned: bool) -> str:
-    """Which hand-written kernel runs one K3 call: "dmma" (the f64
-    tensor-core kernel) exactly when it takes the shape — hd 64, at most
-    64 query rows (bq * G) per tile, a page size dividing its 64-key tile
-    and every tensor 16-byte aligned — else "loop" (the general kernel).
-    Raises only where the loop kernel's block does not fit in shared
-    memory."""
-    if (hd == KERNEL_HD and bq * G <= KERNEL_ROWS and 0 < ps <= KEY_TILE
-            and KEY_TILE % ps == 0 and aligned):
-        return "dmma"
-    need = loop_smem_bytes(hd, G, bq, ps)
-    if need > _b.SMEM_LIMIT:
-        raise ValueError(
-            f"K3: hd = {hd}, bq * G = {bq * G} and page size {ps} need "
-            f"{need} bytes of shared memory per block on the loop path, "
-            f"above the card's {_b.SMEM_LIMIT}")
-    return "loop"
+def smem_bytes(hd_pad: int, groups: int, C: int = 0, NB: int = 0,
+               ps: int = 1) -> int:
+    """Dynamic shared memory of one block, as the launcher computes it:
+    `Traits::FIXED` (f64 Q, two f64 K/V buffers, P, the consumer warps'
+    row statistics) plus the per-call index arrays pg [NB], flag and
+    visit [npt + nct] (int32). With the defaults, the fixed part alone."""
+    kt = KEY_TILES[hd_pad]
+    rows, cw = 16 * groups, 2 * groups
+    npt, nct = -(-NB * ps // kt), -(-C // kt)
+    return (8 * (rows * (hd_pad + 4) + 4 * kt * (hd_pad + 4)
+                 + rows * (kt + 4) + cw * 16) + 4 * cw * 16
+            + 4 * (NB + 2 * (npt + nct)))
+
+
+def k3_traits(hd: int, G: int, bq: int, ps: int) -> Traits:
+    """The instantiation a K3 call at head dim hd, G query heads per KV
+    head, bq tokens per query tile and page size ps runs: the smallest
+    compiled head dim >= hd (any even hd up to 256), its key tile, and the
+    fewest row groups that hold bq * G rows (else the most the head dim
+    has, the rows then cut into row blocks). Any page size: a key tile
+    holds several pages or a slice of one. Raises past what any
+    instantiation takes."""
+    if hd < 2 or hd % 2 or hd > max(KEY_TILES):
+        raise ValueError(f"K3: head dim {hd}; the kernel takes an even head "
+                         f"dim up to {max(KEY_TILES)}")
+    if G < 1 or bq < 1 or ps < 1:
+        raise ValueError(f"K3: G = {G}, bq = {bq}, page size {ps}")
+    hd_pad = min(h for h in KEY_TILES if h >= hd)
+    R = bq * G
+    groups = next((n for n in GROUPS[hd_pad] if 16 * n >= R),
+                  max(GROUPS[hd_pad]))
+    rows = 16 * groups
+    return Traits(hd_pad, KEY_TILES[hd_pad], rows,
+                  2 * groups + PRODUCER_WARPS, -(-R // rows))
 
 
 class Visits(NamedTuple):
@@ -81,29 +97,31 @@ class Visits(NamedTuple):
 
 
 def walk(tile_seq, seq_id, pos, hist, block_table, ps: int,
-         key_tile: int = KEY_TILE, window: int = 0) -> List[Visits]:
+         key_tile: int, window: int = 0) -> List[Visits]:
     """The key tiles each query tile of K3 visits (one `Visits` per tile).
 
     Skipping a tile is exact when no (query row, key) pair in it is
     unmasked: the online-softmax update then leaves (m, l, acc) bit for
     bit unchanged. The bounds come from the valid rows (seq_id >= 0) of
     the query tile: lo = max(0, min_pos - window + 1) with a window, else
-    0. A page is live when its block-table entry is >= 0 and its keys
-    meet [lo, max_hist); a page tile is visited when it holds a live page
-    (the kernel zero-fills the others in it). A chunk tile is visited when
-    it holds a key of the tile's sequence with max(min_hist, lo) <= kpos
-    <= max_pos. Padding tiles (tile_seq < 0) and tiles without a valid row
-    visit nothing. Nothing here depends on how the runs were packed; each
-    valid row of a query tile is taken to belong to the tile's sequence,
-    as the stream layout of `launch/prefill.py` has it."""
+    0, and hi = max_hist. Key position x lies on page x // ps. A page is
+    live when its block-table entry is >= 0 and its keys meet [lo, hi); a
+    page tile is visited when it holds a key of a live page inside [lo,
+    hi) (with ps <= key_tile, when it holds a live page; with ps >
+    key_tile a live page's tiles outside [lo, hi) are not visited). The
+    kernel zero-fills the pages of a visited tile that are not live. A
+    chunk tile is visited when it holds a key of the tile's sequence with
+    max(min_hist, lo) <= kpos <= max_pos. Padding tiles (tile_seq < 0) and
+    tiles without a valid row visit nothing. Nothing here depends on how
+    the runs were packed; each valid row of a query tile is taken to
+    belong to the tile's sequence, as the stream layout of
+    `launch/prefill.py` has it."""
     tile_seq, seq_id, pos, hist, block_table = (
         np.asarray(a) for a in (tile_seq, seq_id, pos, hist, block_table))
-    if key_tile % ps:
-        raise ValueError(f"page size {ps} does not divide the key tile "
-                         f"{key_tile}")
+    if ps < 1 or key_tile < 1:
+        raise ValueError(f"page size {ps}, key tile {key_tile}")
     nt, C = len(tile_seq), len(seq_id)
     bq = C // nt
-    ppt = key_tile // ps
     NB = block_table.shape[1]
     visits = []
     for qt, ts in enumerate(tile_seq.tolist()):
@@ -117,10 +135,15 @@ def walk(tile_seq, seq_id, pos, hist, block_table, ps: int,
         hi = int(qhist.max())
         t = np.arange(NB)
         live = (block_table[ts] >= 0) & (t * ps < hi) & ((t + 1) * ps > lo)
+        pages = set()
+        for tp in t[live].tolist():
+            first = max(tp * ps, lo) // key_tile
+            last = (min((tp + 1) * ps, hi) - 1) // key_tile
+            pages.update(range(first, last + 1))
         lo_c = max(int(qhist.min()), lo)
         keys = (seq_id == ts) & (pos >= lo_c) & (pos <= int(qpos.max()))
         visits.append(Visits(
-            tuple(sorted(set((t[live] // ppt).tolist()))),
+            tuple(sorted(pages)),
             tuple(sorted(set((np.nonzero(keys)[0] // key_tile).tolist())))))
     return visits
 
@@ -188,8 +211,10 @@ def sparq_chunked_prefill_attn_cuda(q, k_chunk, v_chunk, k_data, k_meta,
                                     block_table, seq_id, pos, hist,
                                     tile_seq, *, window: int = 0):
     """Launch K3 on the current stream; arguments as the plain version,
-    float tensors f32, index tensors int32. `k3_path` picks the kernel:
-    the tensor-core one where it takes the shape, else the loop one."""
+    float tensors f32, index tensors int32. The instantiation is
+    `k3_traits`'. A float or int8
+    tensor that does not start 16-byte aligned is handed to the kernel as
+    an aligned copy (its 16-byte loads need aligned rows)."""
     dev = q.device
     C, KV, G, hd = q.shape
     P, ps = k_data.shape[:2]
@@ -210,15 +235,22 @@ def sparq_chunked_prefill_attn_cuda(q, k_chunk, v_chunk, k_data, k_meta,
     for name, t in (("seq_id", seq_id), ("pos", pos), ("hist", hist)):
         _b.check(t, name, torch.int32, (C,), dev)
     _b.check(tile_seq, "tile_seq", torch.int32, (nt,), dev)
-    aligned = all(t.data_ptr() % 16 == 0 for t in (
-        q, k_chunk, v_chunk, k_data, k_meta, v_data, v_meta))
-    kernel = KERNEL if k3_path(hd, G, bq, ps, aligned) == "dmma" \
-        else LOOP_KERNEL
+    tr = k3_traits(hd, G, bq, ps)
+    groups = tr.rows // 16
+    smem = smem_bytes(tr.hd, groups, C, NB, ps)
+    if smem > _b.SMEM_LIMIT:
+        raise ValueError(
+            f"K3: a block-table row of {NB} pages of {ps} and a chunk of "
+            f"{C} need {smem} bytes of shared memory per block, above the "
+            f"card's {_b.SMEM_LIMIT}")
+    q, k_chunk, v_chunk, k_data, k_meta, v_data, v_meta = (
+        t if t.data_ptr() % 16 == 0 else t.clone() for t in (
+            q, k_chunk, v_chunk, k_data, k_meta, v_data, v_meta))
     out = torch.empty((C, KV, G, hd), dtype=torch.float32, device=dev)
-    kernel.launch(
+    KERNEL.launch(
         _b.ptr(q), _b.ptr(k_chunk), _b.ptr(v_chunk), _b.ptr(k_data),
         _b.ptr(k_meta), _b.ptr(k_scale), _b.ptr(v_data), _b.ptr(v_meta),
         _b.ptr(v_scale), _b.ptr(block_table), _b.ptr(seq_id), _b.ptr(pos),
         _b.ptr(hist), _b.ptr(tile_seq), _b.ptr(out), C, KV, G, hd, ps, NB,
-        bq, int(window), float(hd ** -0.5), _b.stream_ptr(q))
+        bq, int(window), tr.hd, groups, float(hd ** -0.5), _b.stream_ptr(q))
     return out

@@ -230,7 +230,7 @@ def emulate(q, k, v, live, tile):
                 kt = torch.where(ok[:, None, None], k[b, kk], 0.0)
                 vt = torch.where(ok[:, None, None], v[b, kk], 0.0)
                 dot = torch.zeros((KV, G, tile), dtype=torch.float64)
-                for d in range(hd):                # score_dot, in d order
+                for d in range(hd):                # f64 sums in d order
                     dot += q[b, :, :, d, None].double() \
                         * kt[:, :, d].T[:, None, :].double()
                 s = torch.where(ok, dot.float() * sm, ninf)

@@ -269,7 +269,6 @@ def _c_params(source: str, symbol: str):
 
 @pytest.mark.parametrize("name", ["sparq_matmul", "sparq_paged_decode_attn",
                                   "sparq_chunked_prefill_attn",
-                                  "sparq_chunked_prefill_attn_loop",
                                   "sparq_quant", "sparq_decode_attn",
                                   "sparq_dequant"])
 def test_kernel_binding_matches_c_signature(name):
