@@ -13,10 +13,16 @@ Phases (each one that fails makes the script exit non-zero):
               the shapes the main paths give it: K1 sparq_matmul (M = 8,
               256, 445, 2048 on the four projections, 5opt and a8w8, each
               shape run twice: both runs equal and bit-exact; its tile
-              plan logged per row), K4 sparq_quant and K6 sparq_dequant
-              bit-exact; K2 paged decode and K5 contiguous decode (the
-              split-key body) at their serving shapes and at hd 16 / G 4,
-              hd 128 and misaligned planes, K3 chunked prefill at every
+              plan logged per row); K4 sparq_quant bit-exact in its rows
+              mode and in every KV-write mode (paged decode, chunk,
+              contiguous) at every K4_WRITES shape, against its plain
+              version (every pool byte but the trash page's, every scale
+              and position); K6
+              sparq_dequant bit-exact in codes and float modes (f32 and
+              bf16 out), `CachedTensor.read` profiled as one K6 launch;
+              K2 paged decode and K5 contiguous decode (the split-key
+              body) at their serving shapes and at hd 16 / G 4, hd 128
+              and misaligned planes, K3 chunked prefill at every
               K3_SHAPES shape (hd 64 G 8, the serving shape; hd 16, hd 128
               at G 8 and G 48, bq * G = 128, page size 128, hd 256, hd 10,
               misaligned tensors, and the exact shapes of the cli and wide
@@ -34,15 +40,23 @@ Phases (each one that fails makes the script exit non-zero):
   serve       tinyllama-1.1b at full width (22 layers, bf16, 5opt, int8
               weights, one calibration batch) serves 8 ragged requests
               through the paged chunked-prefill engine: K1, K2, K3 and K4
-              at every KV write (2 x 22 per chunk and per decode step)
+              at every KV write (22 per decode step, 2 x 22 per chunk);
+              the first decode update and chunk write of the warm-up run,
+              replayed alone on their own inputs under the profiler,
+              launch K4 and nothing else (`WriteCapture`)
   scan        the same model, `DecodeEngine.generate` on batch 8, prompt
               256, gen 32 over the contiguous sparq cache: K1 = 7*22*32,
-              K4 = 2*22*32, K5 = 22*31, K2 = K3 = K6 = 0; then every layer's
-              K/V read back through `CacheStore.kv()` (K6, 44 launches),
-              equal to the plain dequant of the same bytes
+              K4 = 22*(2 + 31), K5 = 22*31, K2 = K3 = K6 = 0; the first
+              prefill slab and decode append replayed alone: K4 only; then
+              every
+              layer's K/V read back through `CacheStore.kv()` (K6, 44
+              launches and no other device kernel), equal to the plain
+              dequant of the same bytes
   sequential  the serve phase's 8 requests through the paged engine with
               sequential admission (prefill alone, adopt into pages): K1,
-              K2, K4 at every write, K3 = K5 = 0
+              K2, K4 at every write (2 x 22 per prefill), K3 = K5 = 0;
+              the first prefill slab and decode update replayed alone: K4
+              only
   cli         `python -m repro_torch.launch.serve` (CLI_ARGS: the reduced
               tinyllama, paged chunked engine, sparq KV, 5opt) through its
               `main`: every request returns its tokens; K3 at every chunk's
@@ -58,13 +72,18 @@ Phases (each one that fails makes the script exit non-zero):
               sequential engine equals the scan engine serving each request
               alone with attn_bk = page_size
   profile     (not run by default) the serve workload once more under
-              torch.profiler: device time by kernel and the device's idle
-              share of the run
+              torch.profiler: device time by kernel, the device's idle
+              share of the run, device kernels per decode step and each KV
+              write's kernels and device time, counted between marker
+              kernels on the device timeline (every decode update one K4
+              launch, every chunk write two, nothing else)
 
 Each of serve, scan, sequential, cli and wide resets the launch counters
 just before it drives its path and reads them just after; the plain
 versions of the KV codec must not run there at all. With all five, every
-kernel must have launched on some path.
+kernel must have launched on some path. The plain versions of the KV path
+(codec, `sparq_pack`, the three writes, the dequantizers) must not run on
+any path.
 
 Output: progress lines, then the card's name and power limit, one JSON line
 of per-kernel results, and last `{"ok": true, "device": {...}}`. Full
@@ -73,6 +92,8 @@ results also go to chiprun_out/chip_smoke.json. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import math
 import pathlib
@@ -758,10 +779,229 @@ def check_k3(dev, results):
         f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms)")
 
 
+# K4's write modes at the shapes the driven paths give them, and at hd 128
+# (granite, one KV head) and hd 10 (rows of 10 or 30 lanes: the kernel's
+# scalar lane pairs): (mode, dims, K/V dtype, calibrated). Paged cases
+# cover inactive slots, unallocated blocks, calibrated and uncalibrated
+# slots; chunks mix first- and later-segment runs with padding; an
+# uncalibrated contiguous decode makes the one-launch mode reduce the slab.
+K4_WRITES = {
+    "serve decode": ("paged", dict(S=8, KV=4, hd=64, ps=16, NB=34),
+                     torch.bfloat16, None),
+    "serve chunk": ("chunk", dict(S=8, C=256, KV=4, hd=64, ps=16, NB=34),
+                    torch.bfloat16, None),
+    "scan prefill": ("contiguous", dict(B=8, T=256, Tmax=296, KV=4, hd=64),
+                     torch.bfloat16, False),
+    "scan decode": ("contiguous", dict(B=8, T=1, Tmax=296, KV=4, hd=64),
+                    torch.bfloat16, True),
+    "scan decode, uncalibrated": ("contiguous", dict(B=8, T=1, Tmax=296,
+                                                     KV=4, hd=64),
+                                  torch.bfloat16, False),
+    "sequential prefill": ("contiguous", dict(B=1, T=445, Tmax=480, KV=4,
+                                              hd=64), torch.bfloat16, False),
+    "cli decode": ("paged", dict(S=4, KV=2, hd=16, ps=16, NB=6),
+                   torch.bfloat16, None),
+    "cli chunk": ("chunk", dict(S=4, C=32, KV=2, hd=16, ps=16, NB=6),
+                  torch.bfloat16, None),
+    "wide decode": ("paged", dict(S=4, KV=4, hd=64, ps=128, NB=2),
+                    torch.bfloat16, None),
+    "wide chunk": ("chunk", dict(S=4, C=32, KV=4, hd=64, ps=128, NB=2),
+                   torch.bfloat16, None),
+    "hd 128 decode": ("paged", dict(S=8, KV=1, hd=128, ps=16, NB=34),
+                      torch.float32, None),
+    "hd 128 chunk": ("chunk", dict(S=8, C=256, KV=1, hd=128, ps=16, NB=34),
+                     torch.float32, None),
+    "hd 128 prefill": ("contiguous", dict(B=8, T=256, Tmax=296, KV=1,
+                                          hd=128), torch.float32, False),
+    "hd 10 decode": ("paged", dict(S=8, KV=1, hd=10, ps=16, NB=34),
+                     torch.float32, None),
+    "hd 10 chunk": ("chunk", dict(S=8, C=64, KV=3, hd=10, ps=16, NB=34),
+                    torch.bfloat16, None),
+    # K/V and pools a lane pair past a 16-byte boundary: lane pairs only
+    "serve decode, unaligned": ("paged", dict(S=8, KV=4, hd=64, ps=16,
+                                              NB=34), torch.bfloat16, None),
+    "scan prefill, unaligned": ("contiguous", dict(B=8, T=256, Tmax=296,
+                                                   KV=4, hd=64),
+                                torch.float32, False),
+}
+# the case whose numbers stand for K4 in the kernels line: the serve path's
+# decode write, K4's most frequent launch on the main path
+K4_REP = "serve decode"
+
+
+def _kv_slab(gen, dev, shape, dtype):
+    x = torch.randn(shape, generator=gen, device=dev) * 2
+    x = torch.where(torch.rand(shape, generator=gen, device=dev) < 0.2, 0.0,
+                    x)
+    return x.to(dtype)
+
+
+def _offset_copy(t, elems):
+    """t's values in a buffer that starts `elems` elements past a 16-byte
+    boundary."""
+    buf = torch.empty((t.numel() + 16,), dtype=t.dtype, device=t.device)
+    view = buf[elems:elems + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _bytes(gen, dev, shape):
+    return [torch.randint(-8, 8, shape, generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(4)]
+
+
+def k4_write_case(gen, dev, mode, d, dtype, calibrated):
+    """Inputs of one K4 write: (x args, state tensors the write changes in
+    place, other args). Paged: slot 1 inactive, slot 2's current block
+    unallocated, odd slots uncalibrated; chunk: runs per slot, even slots
+    first segments (uncalibrated but slot 4, whose stored scale wins), odd
+    slots later segments (calibrated), the last eighth padding, slot 3's
+    last block unallocated."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    if mode == "contiguous":
+        B, T, Tmax, KV, hd = (d[k] for k in ("B", "T", "Tmax", "KV", "hd"))
+        x = [_kv_slab(gen, dev, (B, T, KV, hd), dtype) for _ in range(2)]
+        planes = _bytes(gen, dev, (B, Tmax, KV, hd))
+        sc = [torch.full((), 0.02 * (i + 1) if calibrated else 0.0,
+                         device=dev) for i in range(2)]
+        pos = torch.tensor(0 if T > 1 else Tmax - 6, **i32)
+        return x, planes, sc + [pos]
+    S, KV, hd, ps, NB = (d[k] for k in ("S", "KV", "hd", "ps", "NB"))
+    P = S * NB + 3
+    bt = torch.randperm(P, generator=gen, device=dev)[:S * NB].to(
+        torch.int32).reshape(S, NB)
+    pools = _bytes(gen, dev, (P + 1, ps, KV, hd))
+    sc = [torch.rand((S,), generator=gen, device=dev) * 0.03 + 0.005
+          for _ in range(2)]
+    if mode == "paged":
+        pos = torch.randint(0, NB * ps, (S,), generator=gen, **i32)
+        pos[1] = -1
+        bt[2, int(pos[2]) // ps] = -1
+        for s_ in sc:
+            s_[1::2] = 0.0
+        x = [_kv_slab(gen, dev, (S, 1, KV, hd), dtype) for _ in range(2)]
+        return x, pools, sc + [bt, pos]
+    C = d["C"]
+    live = C - C // 8
+    cuts = sorted(torch.randperm(live - 1, generator=gen, device=dev)
+                  [:S - 1].add(1).tolist())
+    sid = torch.full((C,), -1, **i32)
+    pos = torch.zeros((C,), **i32)
+    hist = torch.zeros((C,), **i32)
+    after = torch.full((S,), -1, **i32)
+    for s_, (a, b) in enumerate(zip([0] + cuts, cuts + [live])):
+        p0 = 0 if s_ % 2 == 0 else (s_ * 7) % max(NB * ps - (b - a), 1)
+        sid[a:b] = s_
+        pos[a:b] = torch.arange(p0, p0 + b - a, **i32)
+        hist[a:b] = p0
+        after[s_] = p0 + b - a
+        if s_ == 3:                    # its last token's block: unallocated
+            bt[3, (p0 + b - a - 1) // ps] = -1
+    for s_ in sc:
+        s_[0::2] = 0.0
+        s_[4 % S] = 0.01
+    x = [_kv_slab(gen, dev, (C, KV, hd), dtype) for _ in range(2)]
+    return x, pools, sc + [bt, sid, pos, hist, after]
+
+
+def k4_write_calls(mode, codec):
+    """(kernel, plain) callables of a write mode: f(x, state, other) ->
+    the new (k_scale, v_scale, positions)."""
+    from repro_torch.kernels import sparq_quant as qk
+    from repro_torch.kernels.ops import _codec_kw
+    kw = _codec_kw(codec)
+    kern = {"paged": qk.kv_write_paged_cuda, "chunk": qk.kv_write_chunk_cuda,
+            "contiguous": qk.kv_write_contiguous_cuda}[mode]
+    plain = {"paged": qk.ref_kv_write_paged, "chunk": qk.ref_kv_write_chunk,
+             "contiguous": qk.ref_kv_write_contiguous}[mode]
+    return (lambda x, st, o: kern(*x, *st, *o, **kw),
+            lambda x, st, o: plain(*x, *st, *o, **kw))
+
+
+def k4_write_bytes(mode, d, dtype, other):
+    """Bytes a write must move on this case's data, and its operations (one
+    f32 division a value). Bytes: K/V read once in their dtype, codes and
+    meta written once (2 B a value), scales and positions read and written
+    once, the block-table entries the data addresses read once (one a live
+    slot at decode, one a distinct (slot, block) of a chunk's tokens), and
+    the scale pass's maxima (an int a token of a chunk, a plane's 8 rows of
+    a contiguous slab), written once and read back once."""
+    vals = 2 * math.prod(d[k] for k in (("B", "T", "KV", "hd")
+                                         if mode == "contiguous" else
+                                         ("S", "KV", "hd") if mode == "paged"
+                                         else ("C", "KV", "hd")))
+    moved = vals * (torch.finfo(dtype).bits // 8 + 2)
+    if mode == "contiguous":
+        rows = d["B"] * d["T"]
+        small = 2 * 4 * 2 + 4 * 2                  # scales, pos in and out
+        if d["T"] > 1:
+            small += 2 * 2 * -(-rows // 8) * 4     # maxima out and back
+    elif mode == "paged":
+        pos = other[3]
+        small = d["S"] * (2 * 4 * 2 + 4 * 2) + int((pos >= 0).sum()) * 4
+    else:
+        sid, pos = other[3], other[4]
+        live = sid >= 0
+        blocks = torch.unique(sid[live].long() * d["NB"]
+                              + (pos[live] // d["ps"]).long()).numel()
+        small = (d["C"] * 3 * 4 + d["S"] * (2 * 4 * 2 + 4 * 2)
+                 + blocks * 4 + 2 * 2 * d["C"] * 4)
+    return moved + small, vals
+
+
+def _k4_writes(dev, rows):
+    from repro_torch.core.sparq import SparqConfig
+    gen = torch.Generator(device=dev).manual_seed(44)
+    for name, (mode, d, dtype, calibrated) in K4_WRITES.items():
+        for codec_name, cfg in (("5opt", SparqConfig.opt5(signed=True)),
+                                ("a8w8", SparqConfig(enabled=False,
+                                                     signed=True))):
+            kern, plain = k4_write_calls(mode, cfg)
+            x, st, other = k4_write_case(gen, dev, mode, d, dtype,
+                                         calibrated)
+            if "unaligned" in name:
+                x = [_offset_copy(t, 2) for t in x]
+                st = [_offset_copy(t, 2) for t in st]
+            st_plain = [t.clone() for t in st]
+            got = kern(x, st, other)
+            want = plain(x, st_plain, other)
+            torch.cuda.synchronize()
+            live = (slice(None),) if mode == "contiguous" \
+                else (slice(0, -1),)              # the trash page is free
+            for what, g, w in zip(("k_data", "k_meta", "v_data", "v_meta"),
+                                  st, st_plain):
+                if not torch.equal(g[live], w[live]):
+                    raise AssertionError(
+                        f"K4 {name} {codec_name}: {what} differs from the "
+                        f"plain write ({int((g[live] != w[live]).sum())} "
+                        f"bytes)")
+            for what, g, w in zip(("k_scale", "v_scale", "positions"), got,
+                                  want):
+                if not torch.equal(g, w.to(g.dtype)):
+                    raise AssertionError(
+                        f"K4 {name} {codec_name}: {what} {g.tolist()} != "
+                        f"plain {w.tolist()}")
+            nbytes, ops = k4_write_bytes(mode, d, dtype, other)
+            sets = [k4_write_case(gen, dev, mode, d, dtype, calibrated)
+                    for _ in range(n_sets(nbytes))]
+            ms = bench(kern, sets)
+            plain_ms = bench(plain, sets[:1], iters=5, warmup=1)
+            bound = max(nbytes / H100_BYTES_S, ops / H100_F32_FLOPS_S) * 1e3
+            rows.append(dict(codec=codec_name, case=name, mode=mode,
+                             dims=d, dtype=str(dtype), ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound, exact=True))
+            log(f"K4 {mode} write {codec_name} {name:26s} "
+                f"{str(dtype)[6:]:8s}: bit-exact, {ms:.4f} ms (plain "
+                f"{plain_ms:.3f} ms, bound {bound:.3e} ms)")
+
+
 def check_k4(dev, results):
-    """K4 at the scan path's shapes (prefill 8 x 256 tokens x 4 KV heads,
-    decode 8 x 4 rows, one scale) and the paged path's (a 256-token chunk
-    and a decode step, one scale per row), 5opt and a8w8: bit-exact."""
+    """K4's rows mode (the Pallas contract) at the old per-write shapes,
+    5opt and a8w8, bit-exact; then every write mode at K4_WRITES against
+    its plain version on the card from the same inputs: every pool byte
+    but the trash page's, every scale and position equal. That each write
+    of a path launches K4 alone is checked on the path's own writes
+    (`WriteCapture`)."""
     from repro_torch.core.sparq import SparqConfig
     from repro_torch.kernels import sparq_quant as qk
     from repro_torch.kernels.ops import _codec_kw
@@ -805,33 +1045,56 @@ def check_k4(dev, results):
             flops = M * K                  # one f32 division per value
             bound = max(nbytes / H100_BYTES_S,
                         flops / H100_F32_FLOPS_S) * 1e3
-            rows.append(dict(codec=codec_name, case=case, M=M, K=K,
-                             per_row=per_row, ms=ms, plain_ms=plain_ms,
+            rows.append(dict(codec=codec_name, case=case, mode="rows", M=M,
+                             K=K, per_row=per_row, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, exact=True))
-            log(f"K4 sparq_quant {codec_name} {case:12s} M={M:5d} K={K}"
+            log(f"K4 rows {codec_name} {case:12s} M={M:5d} K={K}"
                 f"{' per-row' if per_row else ''}: bit-exact, {ms:.4f} ms "
-                f"(plain {plain_ms:.3f} ms, bound {bound:.5f} ms)")
+                f"(plain {plain_ms:.3f} ms, bound {bound:.3e} ms)")
+    _k4_writes(dev, rows)
     rep = next(r for r in rows if r["codec"] == "5opt"
-               and r["case"] == "scan prefill")
+               and r["case"] == K4_REP)
     results["sparq_quant"] = dict(
         max_abs_err=0.0, ms=rep["ms"], plain_ms=rep["plain_ms"],
         bound_ms=rep["bound_ms"], bound_by="bytes", library_ms=None,
-        shape="5opt scan prefill M=8192 K=64 (one scale)", rows=rows)
+        shape=f"5opt {K4_REP} write, bf16 K/V (8 slots x 4 KV heads x "
+              f"64, both planes)", rows=rows)
+
+
+def profiled_kernels(fn):
+    """Run fn under torch.profiler; the names of the device kernels it
+    launched, in order (memory copies and sets included). A MARK kernel
+    runs first, synchronised, so that the tracer is live before fn (a
+    profile can lose its first device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in device_kernels(prof) if MARK not in e.name]
 
 
 def check_k6(dev, results):
     """K6 at the read-back shape of the scan cache (8 x 296 slots x 4 KV
-    heads, hd 64), every int8 byte in store and meta: bit-exact."""
+    heads, hd 64), every int8 byte in store and meta: bit-exact in codes
+    mode and in float mode (f32 and bf16 out); `CachedTensor.read` is one
+    K6 launch and no other device kernel."""
+    from repro_torch.core.sparq import SparqConfig
     from repro_torch.kernels import sparq_dequant as dq
+    from repro_torch.models.cache import CachedTensor
     gen = torch.Generator(device=dev).manual_seed(6)
     M, K = 8 * 296 * 4, 64
 
     def make():
         return tuple(torch.randint(-128, 128, (M, K), generator=gen,
                                    device=dev, dtype=torch.int8)
-                     for _ in range(2))
+                     for _ in range(2)) + (
+            torch.rand((), generator=gen, device=dev) * 0.05 + 0.001,)
     sets = [make() for _ in range(n_sets(3 * M * K))]
-    store, meta = sets[0]
+    store, meta, scale = sets[0]
     got = dq.sparq_dequant_cuda(store, meta)
     want = dq.ref_sparq_dequant(store, meta)
     torch.cuda.synchronize()
@@ -848,16 +1111,47 @@ def check_k6(dev, results):
                        dq.ref_sparq_dequant(st, mt)):
         raise AssertionError("K6 dequant: not bit-exact on the 256 x 256 "
                              "byte grid")
-    ms = bench(dq.sparq_dequant_cuda, sets)
-    plain_ms = bench(dq.ref_sparq_dequant, sets, iters=5, warmup=1)
+    def off_by_one(t):                 # one byte past a 16-byte boundary
+        buf = torch.empty((t.numel() + 1,), dtype=torch.int8, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    for dtype in (None, torch.bfloat16):
+        for s_, m_ in ((st, mt), (store, meta), (off_by_one(st),
+                                                  off_by_one(mt)),
+                       (st[:3, :10].contiguous(), mt[:3, :10].contiguous())):
+            g = dq.sparq_dequant_cuda(s_, m_, scale, dtype)
+            w = dq.ref_sparq_dequant_float(s_, m_, scale, dtype)
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"K6 float mode ({dtype or 'f32'}): not bit-exact on "
+                    f"{tuple(s_.shape)} ({int((g != w).sum())} differ)")
+    ms = bench(lambda s_, m_, a_: dq.sparq_dequant_cuda(s_, m_), sets)
+    plain_ms = bench(lambda s_, m_, a_: dq.ref_sparq_dequant(s_, m_), sets,
+                     iters=5, warmup=1)
+    float_ms = bench(dq.sparq_dequant_cuda, sets)
+    float_plain_ms = bench(dq.ref_sparq_dequant_float, sets, iters=5,
+                           warmup=1)
     bound = 3 * M * K / H100_BYTES_S * 1e3
+    float_bound = 6 * M * K / H100_BYTES_S * 1e3
+    plane = CachedTensor(store.reshape(8, 296, 4, 64),
+                         meta.reshape(8, 296, 4, 64), scale, layout="sparq",
+                         codec=SparqConfig.opt5(signed=True))
+    plane.read()
+    names = profiled_kernels(plane.read)
+    if len(names) != 1 or "sparq_dequant_kernel" not in names[0]:
+        raise AssertionError(f"CachedTensor.read launched {names}, "
+                             f"expected one K6 kernel")
     results["sparq_dequant"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by="bytes", library_ms=None,
-        shape=f"M={M} K={K} (8 x 296 slots x 4 KV heads)")
-    log(f"K6 sparq_dequant M={M} K={K}: bit-exact (and on all 256 x 256 "
-        f"byte pairs), {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-        f"{bound:.5f} ms)")
+        bound_by="bytes", library_ms=None, float_ms=float_ms,
+        float_plain_ms=float_plain_ms, float_bound_ms=float_bound,
+        shape=f"M={M} K={K} (8 x 296 slots x 4 KV heads), codes mode")
+    log(f"K6 sparq_dequant M={M} K={K}: bit-exact in codes and float modes "
+        f"(and on all 256 x 256 byte pairs), codes {ms:.4f} ms (plain "
+        f"{plain_ms:.3f} ms, bound {bound:.5f} ms); f32 out {float_ms:.4f} "
+        f"ms (plain {float_plain_ms:.3f} ms, bound {float_bound:.5f} ms); "
+        f"read() = {names}")
 
 
 def k5_case(gen, dev, G=8, hd=64, misalign=False, B=8, Tk=296, KV=4,
@@ -1020,25 +1314,112 @@ def _serve_setup(dev, prefill="chunked"):
 
 
 class PlainCodecSpy:
-    """Counts calls of the KV codec's plain version while a path runs on
-    the card, where every KV write must go through K4 instead."""
+    """Counts calls of the KV path's plain versions while a path runs on
+    the card, where every KV write must go through K4 and every read-back
+    through K6 instead: the plain codec, `sparq_pack`, the three plain
+    writes and the plain dequantizers."""
+
+    NAMES = (("ref", "ref_sparq_quant"), ("sparq_quant", "ref_sparq_quant"),
+             ("ref", "sparq_pack"), ("ops", "sparq_pack"),
+             ("sparq_quant", "ref_kv_write_paged"),
+             ("sparq_quant", "ref_kv_write_chunk"),
+             ("sparq_quant", "ref_kv_write_contiguous"),
+             ("sparq_dequant", "ref_sparq_dequant"),
+             ("sparq_dequant", "ref_sparq_dequant_float"))
 
     def __enter__(self):
-        from repro_torch.kernels import ref, sparq_quant
-        self.calls = 0
-        self._mods = (ref, sparq_quant)
-        self._orig = ref.ref_sparq_quant
+        import importlib
+        self.calls = {}
+        self._orig = []
+        for mod, name in self.NAMES:
+            m = importlib.import_module(f"repro_torch.kernels.{mod}")
+            orig = getattr(m, name)
+            self._orig.append((m, name, orig))
 
-        def spy(*a, **k):
-            self.calls += 1
-            return self._orig(*a, **k)
-        for m in self._mods:
-            m.ref_sparq_quant = spy
+            def spy(*a, _orig=orig, _name=name, **k):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _orig(*a, **k)
+            setattr(m, name, spy)
         return self
 
     def __exit__(self, *exc):
-        for m in self._mods:
-            m.ref_sparq_quant = self._orig
+        for m, name, orig in self._orig:
+            setattr(m, name, orig)
+
+
+def _clone_state(obj):
+    """A copy of a cache store (or plane) whose tensors are fresh clones."""
+    c = copy.copy(obj)
+    for name, v in vars(obj).items():
+        if isinstance(v, torch.Tensor):
+            setattr(c, name, v.clone())
+        elif dataclasses.is_dataclass(v) and any(
+                isinstance(t, torch.Tensor) for t in vars(v).values()):
+            setattr(c, name, _clone_state(v))
+    return c
+
+
+class WriteCapture:
+    """Keeps the first call of each KV write a path makes through the store
+    API: a copy of the store as it was, and the K/V and chunk metadata as
+    the model passed them (their dtype, strides and alignment), so that
+    `replay_alone` can run that very write again under the profiler."""
+
+    WRITES = (("paging", "PagedCacheStore", "update"),
+              ("paging", "PagedCacheStore", "write_chunk"),
+              ("cache", "CacheStore", "update"))
+    # K4 launches of each write: one at decode, two for a chunk or a
+    # contiguous prefill slab (scale pass, write pass)
+    LAUNCHES = {"PagedCacheStore.update": 1,
+                "PagedCacheStore.write_chunk": 2,
+                "CacheStore.update (decode)": 1,
+                "CacheStore.update (prefill slab)": 2}
+
+    def __enter__(self):
+        import importlib
+        self.calls, self._orig = {}, []
+        for mod, cls_name, meth in self.WRITES:
+            cls = getattr(importlib.import_module(
+                f"repro_torch.models.{mod}"), cls_name)
+            orig = getattr(cls, meth)
+            self._orig.append((cls, meth, orig))
+
+            def spy(st, *a, _orig=orig, _name=f"{cls_name}.{meth}", **k):
+                if _name == "CacheStore.update":
+                    _name += " (decode)" if a[0].shape[1] == 1 else \
+                        " (prefill slab)"
+                if _name not in self.calls:
+                    self.calls[_name] = (_clone_state(st), _orig, a, k)
+                return _orig(st, *a, **k)
+            setattr(cls, meth, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, meth, orig in self._orig:
+            setattr(cls, meth, orig)
+
+    def replay_alone(self, want):
+        """Run each captured write once more, profiled, on a fresh copy of
+        its store: it must launch K4 and no other device kernel, once at
+        decode and twice for a chunk or a prefill slab. `want` names the
+        writes the path must have made. Returns the kernels seen."""
+        if sorted(self.calls) != sorted(want):
+            raise AssertionError(f"captured writes {sorted(self.calls)}, "
+                                 f"expected {sorted(want)}")
+        out = {}
+        for what, (saved, fn, a, k) in self.calls.items():
+            st = _clone_state(saved)
+            n = self.LAUNCHES[what]
+            names = profiled_kernels(lambda: fn(st, *a, **k))
+            out[what] = names
+            if len(names) != n or not all("sparq_quant_" in x
+                                          for x in names):
+                raise AssertionError(f"{what} on the path's own inputs "
+                                     f"launched {names}, expected {n} K4 "
+                                     f"kernel(s) and nothing else")
+        log("K4 alone on the path's writes: " + "; ".join(
+            f"{w}: {len(v)} launch(es), K4 only" for w, v in out.items()))
+        return out
 
 
 def _drive(fn):
@@ -1051,8 +1432,8 @@ def _drive(fn):
         torch.cuda.synchronize()
         counts = build.launch_counts()
     if spy.calls:
-        raise AssertionError(f"the plain KV codec ran {spy.calls} times on "
-                             f"the card")
+        raise AssertionError(f"plain versions of the KV path ran on the "
+                             f"card: {spy.calls}")
     return out, counts
 
 
@@ -1070,17 +1451,24 @@ def _paged_full_width(dev, results, prefill):
     L = cfg.n_layers
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    engine.run(params, reqs)                       # warm-up, untimed
+    with WriteCapture() as cap:
+        engine.run(params, reqs)                   # warm-up, untimed
     (out, stats), counts = _drive(lambda: engine.run(params, reqs))
     _check_requests(cfg, reqs, out, gen)
+    alone = cap.replay_alone(
+        ["PagedCacheStore.update"] + (
+            ["PagedCacheStore.write_chunk"] if prefill == "chunked" else
+            ["CacheStore.update (prefill slab)"]))
     assert stats["free_pages_after"] == n_pages, "pages leaked"
     steps = stats["decode_steps"]
     chunks = stats["prefill_chunks"]
-    # sequential: one prefill per request (7 matmuls, 2 K4 per layer)
+    # sequential: one prefill per request (7 matmuls per layer); K4 is one
+    # launch a layer per decode step and two (scale pass, write pass) per
+    # chunk or per contiguous prefill slab
     prefills = chunks if prefill == "chunked" else len(reqs)
     assert counts["sparq_matmul"] >= 7 * L * (steps + prefills), counts
     assert counts["sparq_paged_decode_attn"] == L * steps, counts
-    assert counts["sparq_quant"] == 2 * L * (prefills + steps), counts
+    assert counts["sparq_quant"] == L * (2 * prefills + steps), counts
     assert counts["sparq_chunked_prefill_attn"] == L * chunks, counts
     assert counts["sparq_decode_attn"] == 0, counts
     assert counts["sparq_dequant"] == 0, counts
@@ -1092,7 +1480,7 @@ def _paged_full_width(dev, results, prefill):
     results[name] = dict(
         arch=cfg.name, n_layers=L, dtype=str(cfg.dtype),
         prompt_lens=[int(x) for x in lens], gen=gen, chunk_size=256,
-        setup_s=t_setup, launches=counts,
+        setup_s=t_setup, launches=counts, k4_alone=alone,
         **{k: v for k, v in stats.items() if not isinstance(v, dict)})
     log(f"{name} {cfg.name} x{L} layers bf16 5opt int8-weights, "
         f"{prefill} prefill: prefill {stats['prefill_s']:.3f} s "
@@ -1133,12 +1521,16 @@ def scan_full_width(dev, results):
                                                     cfg=codec), scales)
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
-    engine.generate(params, batch, gen, warmup=False)     # warm-up
+    with WriteCapture() as cap:
+        engine.generate(params, batch, gen, warmup=False)  # warm-up
     (toks, stats), counts = _drive(
         lambda: engine.generate(params, batch, gen, warmup=False))
+    alone = cap.replay_alone(["CacheStore.update (prefill slab)",
+                              "CacheStore.update (decode)"])
     assert toks.shape == (B, gen), toks.shape
     assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
-    want = {"sparq_matmul": 7 * L * gen, "sparq_quant": 2 * L * gen,
+    # K4: two launches a layer at the prefill slab, one per decode step
+    want = {"sparq_matmul": 7 * L * gen, "sparq_quant": L * (gen + 1),
             "sparq_decode_attn": L * (gen - 1), "sparq_paged_decode_attn": 0,
             "sparq_chunked_prefill_attn": 0, "sparq_dequant": 0}
     if counts != want:
@@ -1148,6 +1540,11 @@ def scan_full_width(dev, results):
     if k6["sparq_dequant"] != 2 * L or sum(k6.values()) != 2 * L:
         raise AssertionError(f"read-back launches {k6}, expected "
                              f"{2 * L} of sparq_dequant only")
+    names = profiled_kernels(lambda: [st.kv() for st in caches])
+    if len(names) != 2 * L or not all("sparq_dequant_kernel" in n
+                                      for n in names):
+        raise AssertionError(f"the read-back ran {len(names)} device "
+                             f"kernels, expected {2 * L} K6 launches only")
     for st, (k, v) in zip(caches, planes):
         for got, ct in ((k, st.k), (v, st.v)):
             plain = ref_sparq_dequant(ct.data, ct.meta).to(torch.float32) \
@@ -1159,7 +1556,7 @@ def scan_full_width(dev, results):
     results["scan"] = dict(
         arch=cfg.name, n_layers=L, dtype=str(cfg.dtype), batch=B,
         prompt_len=T, gen=gen, setup_s=t_setup, launches=counts,
-        readback_launches=k6, **stats)
+        k4_alone=alone, readback_launches=k6, **stats)
     log(f"scan {cfg.name} x{L} layers bf16 5opt int8-weights sparq KV, "
         f"B={B} prompt={T} gen={gen}: prefill {stats['prefill_s']:.3f} s | "
         f"decode {stats['decode_tok_s']:.1f} tok/s | cache "
@@ -1227,7 +1624,7 @@ def _cli(dev, results, name, argv):
     chunks, steps = stats["prefill_chunks"], stats["decode_steps"]
     want = {"sparq_chunked_prefill_attn": 2 * L * chunks,
             "sparq_paged_decode_attn": 2 * L * steps,
-            "sparq_quant": 2 * 2 * L * (chunks + steps),
+            "sparq_quant": 2 * L * (2 * chunks + steps),
             "sparq_decode_attn": 0, "sparq_dequant": 0}
     got = {k: counts[k] for k in want}
     if got != want or counts["sparq_matmul"] == 0 or chunks == 0:
@@ -1261,57 +1658,205 @@ def cli_wide(dev, results):
 KERNEL_GROUPS = (("sparq_matmul", "sparq_matmul_"),
                  ("sparq_paged_decode_attn", "paged_decode_kernel"),
                  ("sparq_chunked_prefill_attn", "chunked_prefill_kernel"),
-                 ("sparq_quant", "sparq_quant_kernel"),
+                 ("sparq_quant", "sparq_quant_"),
                  ("sparq_decode_attn", "decode_attn_kernel"),
                  ("sparq_dequant", "sparq_dequant_kernel"))
 
 
-def profile_serve(dev, results):
-    """The serve phase's workload once more under torch.profiler (warm):
-    device time by kernel, grouped into the SPARQ kernels and the rest, and
-    the device's idle share of the run's wall time."""
+# torch.cuda._sleep's kernel, queued at the start and at the end of every
+# traced decode step and KV write: on the device timeline (one stream), the
+# kernels between two markers are the step's or the write's, however they
+# were launched. The host keeps the markers' order, so each device marker
+# is matched to what it opened or closed.
+MARK = "spin_kernel"
+MARK_CYCLES = 1000
+RANGES = ("decode_step", "kv_write")
+WRITE_METHODS = ("update", "write_chunk")       # of PagedCacheStore
+
+
+def device_kernels(prof):
+    """A profile's device activities in time order, without the device
+    copies of record_function ranges."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    _, engine, params, reqs, _, _, _ = _serve_setup(dev)
-    engine.run(params, reqs)                       # warm-up, unprofiled
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, stats = engine.run(params, reqs)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, spans = {}, []
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and e.name not in RANGES
+           and not getattr(e, "is_user_annotation", False)]
+    return sorted(evs, key=lambda e: e.time_range.start)
+
+
+def _ms(e):
+    return (e.time_range.end - e.time_range.start) / 1e3
+
+
+def range_kernels(prof, name):
+    """The non-SPARQ device kernels the profiler attributes to the
+    record_function ranges `name` through the CPU ops that launched them:
+    (ranges, {(kernel, launching op): count})."""
+    from torch.autograd import DeviceType
+    n_ranges, seen = 0, {}
     for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.name != name or ev.device_type != DeviceType.CPU:
             continue
-        s, e = ev.time_range.start, ev.time_range.end
-        spans.append((s, e))
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + (e - s) / 1e3
-    busy_ms, end = 0.0, -math.inf
-    for s, e in sorted(spans):                     # union of device spans
-        if e > end:
-            busy_ms += (e - max(s, end)) / 1e3
-            end = e
+        n_ranges += 1
+        todo = [ev]
+        while todo:
+            e = todo.pop()
+            for k in e.kernels:
+                if MARK not in k.name and not any(
+                        sym in k.name for _, sym in KERNEL_GROUPS):
+                    key = f"{k.name[:80]} <- {e.name}"
+                    seen[key] = seen.get(key, 0) + 1
+            todo.extend(e.cpu_children)
+    return n_ranges, seen
+
+
+def profile_summary(prof, wall_ms, marks):
+    """Device time by group, busy time and idle share, device kernels per
+    decode step, and each KV write's device kernels (K4 and others, by
+    write method), all read between MARK kernels on the device timeline;
+    `marks` lists what each marker opened or closed, in launch order. Also
+    the kernels the profiler's CPU-side attribution puts in the kv_write
+    ranges, for comparison."""
+    evs = device_kernels(prof)
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
     groups["other"] = 0.0
-    for name, ms in by_name.items():
-        g = next((g for g, sym in KERNEL_GROUPS if sym in name), "other")
-        groups[g] += ms
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    results["profile"] = dict(
+    by_name, busy_ms, end = {}, 0.0, -math.inf
+    n_marks = sum(MARK in e.name for e in evs)
+    if n_marks != len(marks):
+        raise AssertionError(f"the profile holds {n_marks} marker kernels "
+                             f"of the {len(marks)} launched")
+    it, open_ = iter(marks), []
+    steps = step_n = 0
+    step_ms = 0.0
+    writes = []                            # [method, K4 kernels, others]
+    others, write_ms = {}, 0.0
+    for e in evs:
+        if MARK in e.name:
+            what = next(it)
+            if open_ and open_[-1] == what:
+                open_.pop()
+            else:
+                open_.append(what)
+                steps += what == "decode_step"
+                if what in WRITE_METHODS:
+                    writes.append([what, 0, 0])
+            continue
+        s, t = e.time_range.start, e.time_range.end
+        if t > end:                                # union of device spans
+            busy_ms += (t - max(s, end)) / 1e3
+            end = t
+        g = next((g for g, sym in KERNEL_GROUPS if sym in e.name), "other")
+        groups[g] += _ms(e)
+        by_name[e.name] = by_name.get(e.name, 0.0) + _ms(e)
+        if "decode_step" in open_:
+            step_n += 1
+            step_ms += _ms(e)
+        if open_ and open_[-1] in WRITE_METHODS:
+            write_ms += _ms(e)
+            if "sparq_quant_" in e.name:
+                writes[-1][1] += 1
+            else:
+                writes[-1][2] += 1
+                others[e.name[:80]] = others.get(e.name[:80], 0) + 1
+    shapes = {}                    # method -> {"K4 n + other m": writes}
+    for meth, k4, other in writes:
+        key = f"K4 {k4} + other {other}"
+        shapes.setdefault(meth, {})
+        shapes[meth][key] = shapes[meth].get(key, 0) + 1
+    n_ranges, attributed = range_kernels(prof, "kv_write")
+    return dict(
         wall_ms=wall_ms, device_busy_ms=busy_ms,
         idle_share=1.0 - busy_ms / wall_ms, device_ms_by_group=groups,
-        top_kernels_ms=top, decode_steps=stats["decode_steps"],
-        prefill_chunks=stats["prefill_chunks"],
-        decode_tok_s=stats["decode_tok_s"], prefill_s=stats["prefill_s"])
-    log(f"profile: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"(idle share {1 - busy_ms / wall_ms:.3f}) | device ms by group "
-        + ", ".join(f"{g} {ms:.1f}" for g, ms in groups.items()))
-    for name, ms in top:
+        top_kernels_ms=sorted(by_name.items(), key=lambda kv: -kv[1])[:12],
+        device_kernels=len(evs) - n_marks, decode_steps=steps,
+        kernels_per_decode_step=step_n / max(steps, 1),
+        decode_step_device_ms=step_ms / max(steps, 1), kv_writes=len(writes),
+        kv_write_kernels=sum(w[1] + w[2] for w in writes),
+        kv_write_k4=sum(w[1] for w in writes),
+        kv_write_other=others, kv_write_device_ms=write_ms,
+        kv_write_shapes=shapes,
+        kv_write_ranges=n_ranges, kv_write_range_attributed=attributed)
+
+
+def traced_serve_run(engine, params, reqs):
+    """One serve run under torch.profiler, every decode step and every KV
+    write between two MARK kernels and in a named range. Returns
+    (profile_summary, stats)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models.paging import PagedCacheStore
+    step, orig, marks = engine._step, {}, []
+
+    def traced(name, fn, what):
+        def run(*a, **k):
+            with record_function(name):
+                torch.cuda._sleep(MARK_CYCLES)
+                marks.append(what)
+                out = fn(*a, **k)
+                torch.cuda._sleep(MARK_CYCLES)
+                marks.append(what)
+                return out
+        return run
+    engine._step = traced("decode_step", step, "decode_step")
+    for meth in WRITE_METHODS:
+        orig[meth] = getattr(PagedCacheStore, meth)
+        setattr(PagedCacheStore, meth, traced("kv_write", orig[meth], meth))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(MARK_CYCLES)        # the tracer is live
+            marks.append("start")
+            torch.cuda._sleep(MARK_CYCLES)
+            marks.append("start")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, stats = engine.run(params, reqs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        engine._step = step
+        for meth, fn in orig.items():
+            setattr(PagedCacheStore, meth, fn)
+    return profile_summary(prof, wall_ms, marks), stats
+
+
+def profile_serve(dev, results):
+    """The serve phase's workload once more under torch.profiler (warm):
+    device time by kernel, grouped into the SPARQ kernels and the rest, the
+    device's idle share of the run's wall time, the device kernels of a
+    decode step and those of each KV write: every decode update must be
+    one K4 launch and every chunk write two, with no other kernel."""
+    cfg, engine, params, reqs, _, _, _ = _serve_setup(dev)
+    L = cfg.n_layers
+    engine.run(params, reqs)                       # warm-up, unprofiled
+    torch.cuda.synchronize()
+    r, stats = traced_serve_run(engine, params, reqs)
+    r.update(decode_tok_s=stats["decode_tok_s"], prefill_s=stats["prefill_s"],
+             prefill_chunks=stats["prefill_chunks"])
+    results["profile"] = r
+    log(f"profile: wall {r['wall_ms']:.1f} ms, device busy "
+        f"{r['device_busy_ms']:.1f} ms (idle share {r['idle_share']:.3f}) | "
+        f"device ms by group " + ", ".join(
+            f"{g} {ms:.1f}" for g, ms in r["device_ms_by_group"].items()))
+    log(f"profile: {r['device_kernels']} device kernels; "
+        f"{r['decode_steps']} decode steps between markers (the engine "
+        f"ran {stats['decode_steps']}), "
+        f"{r['kernels_per_decode_step']:.1f} device kernels and "
+        f"{r['decode_step_device_ms']:.3f} device ms a step; "
+        f"{r['kv_writes']} KV writes, {r['kv_write_kernels']} device "
+        f"kernels ({r['kv_write_k4']} K4, others {r['kv_write_other']}), "
+        f"{r['kv_write_device_ms']:.2f} device ms; by write "
+        f"{r['kv_write_shapes']}")
+    log(f"profile: the profiler's CPU-side attribution puts in the "
+        f"{r['kv_write_ranges']} kv_write ranges "
+        f"{sum(r['kv_write_range_attributed'].values())} non-SPARQ kernels: "
+        f"{r['kv_write_range_attributed']}")
+    for name, ms in r["top_kernels_ms"]:
         log(f"profile:   {ms:9.2f} ms  {name[:100]}")
-    if not spans:
-        log("profile: the profiler recorded no device events")
+    want = {"update": {"K4 1 + other 0": L * stats["decode_steps"]},
+            "write_chunk": {"K4 2 + other 0": L * stats["prefill_chunks"]}}
+    if r["kv_write_shapes"] != want:
+        raise AssertionError(f"KV writes on the device timeline "
+                             f"{r['kv_write_shapes']}, expected {want}")
 
 
 # ----------------------------------------------------------------------

@@ -112,6 +112,23 @@ __device__ __forceinline__ void sparq_encode_pair(int q0, int q1,
   meta = mux * 64 + s0 * 8 + s1;
 }
 
+// Stored form of one vSPARQ pair (what the §5.1 KV planes hold): the
+// window codes st = sign * (|r| >> shift), with r and the shifts of
+// sparq_encode_pair (the window on trimmed lanes, the full magnitude on
+// mux'd lanes, whose shift is 0), and the pair's meta byte. Equal to
+// sparq_pack(ref_sparq_quant(...)) bit for bit; with trimming off the
+// meta is 0 and st = q.
+__device__ __forceinline__ void sparq_encode_stored(int q0, int q1,
+                                                    const SparqCodec& c,
+                                                    int& st0, int& st1,
+                                                    int& meta) {
+  int r0, r1;
+  sparq_encode_pair(q0, q1, c, r0, r1, meta);
+  const int m0 = abs(r0) >> ((meta >> 3) & 7), m1 = abs(r1) >> (meta & 7);
+  st0 = r0 < 0 ? -m0 : m0;
+  st1 = r1 < 0 ? -m1 : m1;
+}
+
 // SPARQ reconstruction of one vSPARQ pair (the codes of sparq_encode_pair)
 __device__ __forceinline__ void sparq_recon_pair(int q0, int q1,
                                                  const SparqCodec& c,

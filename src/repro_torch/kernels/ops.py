@@ -89,12 +89,14 @@ def quantized_matmul(x: torch.Tensor, w_codes: torch.Tensor, act_qs: QScale,
 
 def sparq_quantize(x: torch.Tensor, scale: torch.Tensor,
                    cfg: SparqConfig):
-    """SPARQ quantization of the KV write path: float (..., K) -> (codes,
-    meta), int8 with x's shape; the last axis is the vSPARQ pair axis (K
-    even). `scale` is the f32 quantization step on x's device: one element
-    for every row, or one per row of the flattened leading dims. `codes`
-    are the reconstructed values (window << shift, sign applied);
-    `sparq_pack` shifts them down to the stored form."""
+    """SPARQ quantization, K4's rows mode (the Pallas contract): float
+    (..., K) -> (codes, meta), int8 with x's shape; the last axis is the
+    vSPARQ pair axis (K even). `scale` is the f32 quantization step on x's
+    device: one element for every row, or one per row of the flattened
+    leading dims. `codes` are the reconstructed values (window << shift,
+    sign applied); `sparq_pack` shifts them down to the stored form. The
+    KV writes do not come here: they take `kv_write_*`, which quantize,
+    pack and scatter in one pass."""
     lead = x.shape[:-1]
     K = x.shape[-1]
     x2 = x.reshape(-1, K).to(torch.float32)
@@ -112,27 +114,79 @@ def sparq_quantize(x: torch.Tensor, scale: torch.Tensor,
     return codes.reshape(*lead, K), meta.reshape(*lead, K)
 
 
-def sparq_dequantize(store: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+sparq_pack = _ref.sparq_pack
+
+
+def _kv(x: torch.Tensor) -> torch.Tensor:
+    """K/V as K4's write modes read them: float32 or bfloat16, contiguous
+    (no copy for the model's own activations)."""
+    if x.dtype not in _q.X_DTYPES:
+        x = x.to(torch.float32)
+    return x.contiguous()
+
+
+def kv_write_paged(k_new, v_new, k_data, k_meta, v_data, v_meta, k_scale,
+                   v_scale, block_table, seq_pos, cfg: SparqConfig):
+    """A paged decode update (`models.paging.PagedCacheStore.update`):
+    float [S, 1, KV, hd] K/V, one token a slot, quantized and written into
+    the pools in place. Returns the new (k_scale, v_scale, seq_pos). One K4
+    launch on the card."""
+    args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, block_table,
+            seq_pos)
+    if _route(k_new) == "plain":
+        return _q.ref_kv_write_paged(k_new, v_new, *args, **_codec_kw(cfg))
+    return _q.kv_write_paged_cuda(_kv(k_new), _kv(v_new), *args,
+                                  **_codec_kw(cfg))
+
+
+def kv_write_chunk(k_new, v_new, k_data, k_meta, v_data, v_meta, k_scale,
+                   v_scale, block_table, seq_id, pos, hist, seq_pos_after,
+                   cfg: SparqConfig):
+    """A prefill chunk's write (`models.paging.PagedCacheStore.
+    write_chunk`): float [C, KV, hd] K/V in stream order, written into the
+    pools in place. Returns the new (k_scale, v_scale, seq_pos). Two K4
+    launches on the card (scale pass, write pass)."""
+    args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, block_table,
+            seq_id, pos, hist, seq_pos_after)
+    if _route(k_new) == "plain":
+        return _q.ref_kv_write_chunk(k_new, v_new, *args, **_codec_kw(cfg))
+    return _q.kv_write_chunk_cuda(_kv(k_new), _kv(v_new), *args,
+                                  **_codec_kw(cfg))
+
+
+def kv_write_contiguous(k_new, v_new, k_data, k_meta, v_data, v_meta,
+                        k_scale, v_scale, pos, cfg: SparqConfig):
+    """Both planes of a contiguous sparq append (`models.cache.CacheStore.
+    update`): float [B, T, KV, hd] K/V at time offset `pos`, written in
+    place. Returns the new (k_scale, v_scale, pos). On the card one K4
+    launch at T = 1, two (scale pass, write pass) otherwise."""
+    args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, pos)
+    if _route(k_new) == "plain":
+        return _q.ref_kv_write_contiguous(k_new, v_new, *args,
+                                          **_codec_kw(cfg))
+    return _q.kv_write_contiguous_cuda(_kv(k_new), _kv(v_new), *args,
+                                       **_codec_kw(cfg))
+
+
+def sparq_dequantize(store: torch.Tensor, meta: torch.Tensor, scale=None,
+                     dtype=None) -> torch.Tensor:
     """§5.1 meta-decode of the KV read-back path: int8 (store, meta)
-    (..., K) -> int8 reconstructed codes (multiply by the plane's scale
-    for floats). The decode hot path never calls this: the attention
-    kernels decode tile by tile in their loops."""
+    (..., K) -> int8 reconstructed codes, or with `scale` (the plane's f32
+    0-d scale) the floats codes * scale, cast to `dtype` when given (the
+    whole of `CachedTensor.read`, one K6 launch on the card, which writes
+    float32 or bfloat16). The decode
+    hot path never calls this: the attention kernels decode tile by tile
+    in their loops."""
     lead = store.shape[:-1]
     K = store.shape[-1]
     s2, m2 = store.reshape(-1, K), meta.reshape(-1, K)
     if _route(store) == "plain":
-        codes = _dq.ref_sparq_dequant(s2, m2)
+        out = _dq.ref_sparq_dequant(s2, m2) if scale is None else \
+            _dq.ref_sparq_dequant_float(s2, m2, scale, dtype)
     else:
-        codes = _dq.sparq_dequant_cuda(s2.contiguous(), m2.contiguous())
-    return codes.reshape(*lead, K)
-
-
-def sparq_pack(codes: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
-    """Reconstructed int8 codes -> stored window codes (§5.1 data nibbles):
-    sign * (|codes| >> shift). Exact, since codes were window << shift."""
-    q = codes.to(torch.int32)
-    return (torch.sign(q) * torch.bitwise_right_shift(
-        torch.abs(q), _ref.meta_shifts(meta))).to(torch.int8)
+        out = _dq.sparq_dequant_cuda(s2.contiguous(), m2.contiguous(),
+                                     scale, dtype)
+    return out.reshape(*lead, K)
 
 
 def sparq_decode_attention(q, k_data, k_meta, k_scale, v_data, v_meta,

@@ -1,7 +1,8 @@
 """Plain PyTorch oracles of the §5.1 codec (port of `repro.kernels.ref`).
 
-`ref_sparq_quant` (the KV write path's quantizer), `meta_shifts` and
-`_meta_decode32` live here. The plain versions of the three kernels sit
+`ref_sparq_quant` (the KV write path's quantizer), `meta_shifts`,
+`sparq_pack` (reconstructed codes -> the stored form) and `_meta_decode32`
+live here. The plain versions of the three kernels sit
 beside their kernels: `sparq_matmul.ref_sparq_matmul`,
 `sparq_decode_attn.ref_sparq_paged_decode_attn` and
 `sparq_prefill_attn.ref_sparq_chunked_prefill_attn`.
@@ -62,6 +63,14 @@ def meta_shifts(meta: torch.Tensor) -> torch.Tensor:
     lane = torch.arange(m.shape[-1], device=m.device, dtype=torch.int32)
     return torch.where(lane % 2 == 0, torch.bitwise_right_shift(m, 3) & 7,
                        m & 7)
+
+
+def sparq_pack(codes: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+    """Reconstructed int8 codes -> stored window codes (§5.1 data nibbles):
+    sign * (|codes| >> shift). Exact, since codes were window << shift."""
+    q = codes.to(torch.int32)
+    return (torch.sign(q) * torch.bitwise_right_shift(
+        torch.abs(q), meta_shifts(meta))).to(torch.int8)
 
 
 def _meta_decode32(store, meta, scale):

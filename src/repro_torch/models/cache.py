@@ -5,15 +5,18 @@
   fp     float planes in `dtype` (fp32 / bf16);
   sparq  the paper's §5.1 packed format: int8 window codes plus one meta
          byte per lane pair [mux(1)|shift_hi(3)|shift_lo(3)], written by
-         the K4 quantizer (`kernels.ops.sparq_quantize`) under a per-site
-         f32 scale, and read by the fused decode kernel K5 tile by tile.
+         K4's fused write (`kernels.ops.kv_write_contiguous`) under a
+         per-site f32 scale, and read by the fused decode kernel K5 tile
+         by tile.
 
 `CachedTensor` is one [B, Tmax, ...] plane, `CacheStore` the (k, v, pos)
 cache of one attention layer. Unlike the JAX pytrees, both are written in
-place: `append` copies the new slab in at the device-side position with
-`index_copy_`, so the decode loop never reads a position back to the host.
-`CachedTensor.read()` (the K6 full-plane meta-decode) is the read-back
-path only: decode attention consumes the packed planes directly.
+place at the device-side position (`CacheStore.update`: K4 quantizes and
+writes both sparq planes in one pass; fp planes take `index_copy_`), so
+the decode loop never reads a position back to the host.
+`CachedTensor.read()` (K6's full-plane meta-decode with the scale) is the
+read-back path only: decode attention consumes the packed planes
+directly.
 
 The paged engine stores the same packed format in `models.paging`.
 """
@@ -118,48 +121,29 @@ class CachedTensor:
     def n_values(self) -> int:
         return self.data.numel()
 
-    def _resolve_scale(self, x: torch.Tensor) -> torch.Tensor:
-        """Per-site scale: frozen once calibrated (> 0), else this write's
-        dynamic range (the prefill pass). Stays on the device."""
-        dyn = torch.clamp(torch.amax(torch.abs(x.to(torch.float32))),
-                          min=1e-8) / self.codec.max_val
-        return torch.where(self.scale > 0, self.scale, dyn)
-
-    def _encode(self, x: torch.Tensor, scale: torch.Tensor):
-        """float -> (§5.1 window codes, meta bytes) through K4."""
-        from repro_torch.kernels.ops import sparq_pack, sparq_quantize
-        codes, meta = sparq_quantize(x.to(torch.float32), scale, self.codec)
-        return sparq_pack(codes, meta), meta
-
     def append(self, x_new: torch.Tensor,
                pos: torch.Tensor) -> "CachedTensor":
         """Write a float [B, T_new, ...] slab at time offset `pos` (an int32
-        0-d device tensor), in place. The start is clamped so the slab fits,
-        as the reference's dynamic_update_slice does; callers check the
-        capacity host-side (DecodeEngine.generate)."""
+        0-d device tensor) into an fp plane, in place. The start is clamped
+        so the slab fits, as the reference's dynamic_update_slice does;
+        callers check the capacity host-side (DecodeEngine.generate).
+        Sparq planes are written in pairs by `CacheStore.update`."""
+        assert self.layout == "fp", "sparq planes: use CacheStore.update"
         T_new = x_new.shape[1]
         start = torch.clamp(pos.to(torch.int64),
                             max=self.data.shape[1] - T_new)
         idx = start + torch.arange(T_new, device=self.data.device)
-        if self.layout == "fp":
-            self.data.index_copy_(1, idx, x_new.to(self.data.dtype))
-            return self
-        scale = self._resolve_scale(x_new)
-        store, meta = self._encode(x_new, scale)
-        self.data.index_copy_(1, idx, store)
-        self.meta.index_copy_(1, idx, meta)
-        self.scale = scale
+        self.data.index_copy_(1, idx, x_new.to(self.data.dtype))
         return self
 
     def read(self, dtype=None) -> torch.Tensor:
-        """The dequantized full plane (K6 then * scale): the read-back path
-        only. Decode attention must not call this for the sparq layout."""
+        """The dequantized full plane, codes * scale (one K6 launch on the
+        card): the read-back path only. Decode attention must not call
+        this for the sparq layout."""
         if self.layout == "fp":
             return self.data if dtype is None else self.data.to(dtype)
         from repro_torch.kernels.ops import sparq_dequantize
-        out = sparq_dequantize(self.data, self.meta).to(torch.float32) \
-            * self.scale
-        return out if dtype is None else out.to(dtype)
+        return sparq_dequantize(self.data, self.meta, self.scale, dtype)
 
 
 @dataclasses.dataclass
@@ -179,10 +163,20 @@ class CacheStore:
 
     def update(self, k_new: torch.Tensor,
                v_new: torch.Tensor) -> "CacheStore":
-        """Append float [B, T_new, KV, hd] K/V at `pos`; advances pos."""
-        self.k.append(k_new, self.pos)
-        self.v.append(v_new, self.pos)
-        self.pos = self.pos + k_new.shape[1]
+        """Append float [B, T_new, KV, hd] K/V at `pos`; advances pos. The
+        sparq layout quantizes both planes on write (`ops.
+        kv_write_contiguous`: one K4 launch at T_new = 1, two otherwise),
+        each plane's scale frozen at its first write."""
+        if not self.k.is_sparq:
+            self.k.append(k_new, self.pos)
+            self.v.append(v_new, self.pos)
+            self.pos = self.pos + k_new.shape[1]
+            return self
+        from repro_torch.kernels.ops import kv_write_contiguous
+        k, v = self.k, self.v
+        k.scale, v.scale, self.pos = kv_write_contiguous(
+            k_new, v_new, k.data, k.meta, v.data, v.meta, k.scale, v.scale,
+            self.pos, k.codec)
         return self
 
     def kv(self, dtype=None):

@@ -172,101 +172,38 @@ class PagedCacheStore:
         return self.block_table.shape[-1]
 
     # ------------------------------------------------------------- write
-    def _resolve_scale(self, stored, x):
-        """Per-slot scale: frozen once calibrated (> 0), else set from this
-        write's dynamic range."""
-        dyn = torch.clamp(torch.amax(torch.abs(x.to(torch.float32)),
-                                     dim=(1, 2, 3)), min=1e-8) \
-            / self.codec.max_val
-        return torch.where(stored > 0, stored, dyn)
-
-    def _encode(self, x: torch.Tensor, scale: torch.Tensor):
-        """float [N, KV, hd] with per-token scale [N] -> (§5.1 window codes,
-        meta bytes), int8, through K4 with one scale per (token, head) row.
-        The codes and meta are integers, so the bytes are the reference's."""
-        from repro_torch.kernels.ops import sparq_pack, sparq_quantize
-        rows = scale[:, None].expand(x.shape[0], x.shape[1]).reshape(-1)
-        codes, meta = sparq_quantize(x, rows, self.codec)
-        return sparq_pack(codes, meta), meta
-
-    def _scatter(self, page, off, kd, km, vd, vm) -> None:
-        page, off = page.long(), off.long()
-        self.k_data[page, off] = kd
-        self.k_meta[page, off] = km
-        self.v_data[page, off] = vd
-        self.v_meta[page, off] = vm
+    def _pools(self):
+        return self.k_data, self.k_meta, self.v_data, self.v_meta
 
     def update(self, k_new: torch.Tensor,
                v_new: torch.Tensor) -> "PagedCacheStore":
         """Write one decode token per slot at seq_pos[s] and advance the
         positions. k_new/v_new float [S, 1, KV, hd]. Inactive slots and
-        unallocated blocks write to the trash page."""
-        S, T = k_new.shape[:2]
-        assert T == 1, f"paged decode writes one token per step, got {T}"
-        ps = self.page_size
-        trash = self.k_data.shape[0] - 1
-        pos = self.seq_pos
-        active = pos >= 0
-        eff = torch.clamp(pos, min=0)
-        blk = torch.clamp(eff // ps, max=self.n_blocks - 1)
-        page = self.block_table[torch.arange(S, device=pos.device),
-                                blk.long()]
-        page = torch.where(active & (page >= 0), page,
-                           torch.full_like(page, trash))
-        k_scale = self._resolve_scale(self.k_scale, k_new)
-        v_scale = self._resolve_scale(self.v_scale, v_new)
-        kd, km = self._encode(k_new[:, 0], k_scale)
-        vd, vm = self._encode(v_new[:, 0], v_scale)
-        self._scatter(page, eff % ps, kd, km, vd, vm)
-        self.k_scale = torch.where(active, k_scale, self.k_scale)
-        self.v_scale = torch.where(active, v_scale, self.v_scale)
-        self.seq_pos = torch.where(active, pos + 1, pos)
+        unallocated blocks write to the trash page. A slot's scale is
+        frozen once calibrated (> 0), else set from this write's range.
+        One K4 launch on the card (`ops.kv_write_paged`)."""
+        from repro_torch.kernels.ops import kv_write_paged
+        assert k_new.shape[1] == 1, \
+            f"paged decode writes one token per step, got {k_new.shape[1]}"
+        self.k_scale, self.v_scale, self.seq_pos = kv_write_paged(
+            k_new, v_new, *self._pools(), self.k_scale, self.v_scale,
+            self.block_table, self.seq_pos, self.codec)
         return self
-
-    def _resolve_chunk_scale(self, stored, x, s_safe, first_seg):
-        """Per-slot scale of a chunk write: frozen once calibrated, else
-        the range of the slot's first-segment tokens (hist == 0) only, so
-        the frozen scale depends on (prompt, seg) alone."""
-        tok_max = torch.amax(torch.abs(x.to(torch.float32)), dim=(1, 2))
-        tok_max = torch.where(first_seg, tok_max, torch.zeros_like(tok_max))
-        S = stored.shape[0]
-        seq_max = torch.zeros((S,), dtype=torch.float32,
-                              device=x.device).scatter_reduce(
-            0, s_safe, tok_max, "amax")
-        dyn = torch.clamp(seq_max, min=1e-8) / self.codec.max_val
-        has = torch.zeros((S,), dtype=torch.int32,
-                          device=x.device).scatter_reduce(
-            0, s_safe, first_seg.to(torch.int32), "amax") > 0
-        return torch.where(stored > 0, stored,
-                           torch.where(has, dyn, stored))
 
     def write_chunk(self, k_new: torch.Tensor, v_new: torch.Tensor,
                     meta: ChunkMeta) -> "PagedCacheStore":
         """Scatter one prefill chunk's K/V [C, KV, hd] straight into the
         pool: token i lands at page block_table[seq_id[i], pos[i] // ps],
-        row pos[i] % ps, quantized with its slot's scale. Padding and
-        unallocated blocks write to the trash page; seq_pos becomes
-        meta.seq_pos_after."""
-        ps = self.page_size
-        trash = self.k_data.shape[0] - 1
-        sid = meta.seq_id
-        valid = sid >= 0
-        s_safe = torch.clamp(sid, min=0).long()
-        first_seg = valid & (meta.hist == 0)
-        k_scale = self._resolve_chunk_scale(self.k_scale, k_new, s_safe,
-                                            first_seg)
-        v_scale = self._resolve_chunk_scale(self.v_scale, v_new, s_safe,
-                                            first_seg)
-        kd, km = self._encode(k_new, k_scale[s_safe])
-        vd, vm = self._encode(v_new, v_scale[s_safe])
-        eff = torch.clamp(meta.pos, min=0)
-        blk = torch.clamp(eff // ps, max=self.n_blocks - 1)
-        page = self.block_table[s_safe, blk.long()]
-        page = torch.where(valid & (page >= 0), page,
-                           torch.full_like(page, trash))
-        self._scatter(page, eff % ps, kd, km, vd, vm)
-        self.k_scale, self.v_scale = k_scale, v_scale
-        self.seq_pos = meta.seq_pos_after.to(torch.int32).clone()
+        row pos[i] % ps, quantized with its slot's scale (frozen once
+        calibrated, else the range of the slot's first-segment tokens).
+        Padding and unallocated blocks write to the trash page; seq_pos
+        becomes meta.seq_pos_after. Two K4 launches on the card
+        (`ops.kv_write_chunk`)."""
+        from repro_torch.kernels.ops import kv_write_chunk
+        self.k_scale, self.v_scale, self.seq_pos = kv_write_chunk(
+            k_new, v_new, *self._pools(), self.k_scale, self.v_scale,
+            self.block_table, meta.seq_id, meta.pos, meta.hist,
+            meta.seq_pos_after, self.codec)
         return self
 
 
