@@ -7,13 +7,18 @@ the port still starts on the card).
 Phases (each one that fails makes the script exit non-zero):
   build       nvcc-build the six hand-written kernels from
               src/repro_torch/csrc, one nvcc per source, all at once;
-              cuobjdump -sass of K1's library must show IMMA (int8 tensor
-              cores) and no IDP4A, and K3's DMMA (f64 tensor cores)
+              cuobjdump -sass of K1's library must show IMMA (integer
+              tensor cores) with S8 x S8 and with U8 x S8 operands and no
+              IDP4A, and K3's DMMA (f64 tensor cores)
   kernels     each kernel against its plain PyTorch version on the card, at
               the shapes the main paths give it: K1 sparq_matmul (M = 8,
               256, 445, 2048 on the four projections, 5opt and a8w8, each
               shape run twice: both runs equal and bit-exact; its tile
-              plan logged per row); K4 sparq_quant bit-exact in its rows
+              plan logged per row; and in its unsigned mode, uint8 x
+              int8, for every codec of the paper's Tables 1, 2 and 4 at
+              the cnn path's im2col shapes, K 216 / N 24, ragged K and
+              split-K, on post-ReLU data with codes above 127);
+              K4 sparq_quant bit-exact in its rows
               mode and in every KV-write mode (paged decode, chunk,
               contiguous) at every K4_WRITES shape, against its plain
               version (every pool byte but the trash page's, every scale
@@ -65,6 +70,17 @@ Phases (each one that fails makes the script exit non-zero):
               --page-size 128 (WIDE_ARGS: 22 layers, K3 at 128 query rows
               a tile in two row blocks, two key tiles a page): the same
               checks
+  cnn         the paper's PTQ path (`repro_torch.launch.cnn_eval`):
+              paper-resnet at full width (width 32, stages (2, 2, 2), 32 x
+              32, 16 classes), seeded, untrained; BN recalibrated and
+              min-max site scales on 2 x 128 images; 3072 images at batch
+              256 through the 16 codecs of Tables 1, 2 and 4 and an ACIQ
+              A4W8, each conv but the stem through K1 (unsigned): K1 =
+              14 x 12 x 17 and no other kernel; on one batch a codec the
+              logits equal the plain K1's on the card; top-1 agreement
+              with the float network and logit_err per codec; then
+              Table 6's STC codecs on a 2:4-pruned copy, 32 images, no
+              kernel launched
   parity      2-layer full-width f32 models on the card (kernels) and on
               the CPU (plain versions): the paged chunked engine (also at
               chunk-align 16 and page size 128) and the scan engine give
@@ -78,10 +94,10 @@ Phases (each one that fails makes the script exit non-zero):
               kernels on the device timeline (every decode update one K4
               launch, every chunk write two, nothing else)
 
-Each of serve, scan, sequential, cli and wide resets the launch counters
-just before it drives its path and reads them just after; the plain
-versions of the KV codec must not run there at all. With all five, every
-kernel must have launched on some path. The plain versions of the KV path
+Each of serve, scan, sequential, cli, wide and cnn resets the launch
+counters just before it drives its path and reads them just after; the
+plain versions of the KV codec must not run there at all. With all six,
+every kernel must have launched on some path. The plain versions of the KV path
 (codec, `sparq_pack`, the three writes, the dequantizers) must not run on
 any path.
 
@@ -274,6 +290,8 @@ def check_k1(dev, results):
             log(f"K1 sparq_matmul {codec_name} ragged M={M} K={K} N={N} f32 "
                 f"[BM {p.bm} BN {p.bn} split {p.split_k} blocks "
                 f"{p.blocks}]: bit-exact x2")
+    rows += k1_unsigned_rows(dev, gen, results)
+    worst = max(worst, results["sparq_matmul_unsigned"]["max_abs_err"])
     # the JSON line's representative: one prefill-chunk gate/up
     # projection; every shape is in rows
     rep = next(r for r in rows if r["codec"] == "5opt"
@@ -283,6 +301,123 @@ def check_k1(dev, results):
         bound_ms=rep["bound_ms"], bound_by=rep["bound_by"],
         library_ms=rep["library_ms"],
         shape="5opt gate/up M=256 K=2048 N=5632", rows=rows)
+
+
+# K1's unsigned (uint8 x int8) calls on the cnn path: paper-resnet at full
+# width, batch 256, each conv's im2col product (M = 256 * H * W, K = 9 *
+# cin, N = cout), and the trained config's shape in the reference's
+# benchmarks (width 24 at 24 x 24: K 216, N 24, not a multiple of 16)
+K1_CNN_SHAPES = {"s0 conv": (262144, 288, 32),
+                 "s1 conv1/proj": (65536, 288, 64),
+                 "s1 conv2": (65536, 576, 64),
+                 "s2 conv1/proj": (16384, 576, 128),
+                 "s2 conv2": (16384, 1152, 128),
+                 "trained w24": (147456, 216, 24)}
+
+
+def _relu_inputs(gen, dev, M, K, N, cfg):
+    """Post-ReLU-like f32 patches (about 40% zeros), int8 weight codes at
+    the codec's weight bits, a min-max activation scale (the largest
+    value's code is max_val) and per-channel scales."""
+    x = torch.relu(torch.randn((M, K), generator=gen, device=dev) + 0.25)
+    qw = (1 << (cfg.weight_bits - 1)) - 1
+    w = torch.randint(-qw, qw + 1, (K, N), generator=gen, device=dev,
+                      dtype=torch.int8)
+    c = torch.rand((N,), generator=gen, device=dev) * 1e-3
+    a = (x.amax() / cfg.max_val).reshape(1)
+    return x, w, a, c
+
+
+def k1_unsigned_rows(dev, gen, results):
+    """K1 in its unsigned mode at the cnn path's shapes, for every codec of
+    the paper's Tables 1, 2 and 4: bit-exact against the plain version and
+    two runs equal, with codes above 127 present; then ragged K, N % 16 !=
+    0 and split-K at small M. Every row logs the kernel's, the plain
+    version's and the library yardstick's times and the bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sparq_matmul as mm
+    from repro_torch.kernels.ref import quantize_codes
+    from repro_torch.launch.cnn_eval import PAPER_CODECS
+    rows, worst = [], 0.0
+    for shape, (M, K, N) in K1_CNN_SHAPES.items():
+        for name, cfg in PAPER_CODECS.items():
+            kw = ops._codec_kw(cfg)
+            sets = [_relu_inputs(gen, dev, M, K, N, cfg)]
+            x, w, a, c = sets[0]
+            q = quantize_codes(x, a, False, cfg.max_val)
+            zeros = float((q == 0).float().mean())
+            if cfg.max_val == 255 and not (q > 127).any():
+                raise AssertionError(f"K1 u8 {name} {shape}: no code > 127")
+            got = mm.sparq_matmul_cuda(x, w, a, c, **kw)
+            again = mm.sparq_matmul_cuda(x, w, a, c, **kw)
+            want = mm.ref_sparq_matmul(x, w, a, c, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K1 u8 {name} {shape} M={M} K={K} "
+                                     f"N={N}: not bit-exact (max abs err "
+                                     f"{err})")
+            if not torch.equal(got, again):
+                raise AssertionError(f"K1 u8 {name} {shape}: two runs "
+                                     f"differ")
+            p = mm.plan(M, N, K, mm.sm_count(dev))
+            ms = bench(lambda *s_: mm.sparq_matmul_cuda(*s_, **kw), sets)
+            nbytes = M * K * 4 + K * N + N * 4 + M * N * 4
+            ops_s = 2 * M * N * K / H100_INT8_OPS_S
+            row = dict(codec="u:" + name, proj=shape, M=M, K=K, N=N, ms=ms,
+                       bound_ms=max(nbytes / H100_BYTES_S, ops_s) * 1e3,
+                       bound_by="bytes" if nbytes / H100_BYTES_S >= ops_s
+                       else "operations", exact=True, zero_share=zeros,
+                       plan=dict(bm=p.bm, bn=p.bn, split_k=p.split_k,
+                                 blocks=p.blocks))
+            row["plain_ms"] = bench(
+                lambda *s_: mm.ref_sparq_matmul(*s_, **kw), sets, iters=5,
+                warmup=1)
+
+            # yardstick: torch._int_mm on the codes shifted to int8 (q -
+            # 128), plus the rank-one correction 128 * sum_k w, then the
+            # scaling
+            def lib_set(s_):
+                qs = (quantize_codes(s_[0], s_[2], False, cfg.max_val)
+                      - 128).to(torch.int8)
+                corr = 128 * s_[1].to(torch.int32).sum(0)
+                return qs, s_[1], corr, s_[2], s_[3]
+            row["library_ms"] = bench(
+                lambda qs, w_, corr, a_, c_: (
+                    (torch._int_mm(qs, w_) + corr).float() * a_) * c_,
+                [lib_set(s_) for s_ in sets])
+            rows.append(row)
+            log(f"K1 sparq_matmul u8 {name:13s} {shape:13s} M={M:6d} K={K:4d}"
+                f" N={N:3d} [BM {p.bm} BN {p.bn} split {p.split_k}]: "
+                f"bit-exact x2, zeros {zeros:.2f}, {ms:.4f} ms (plain "
+                f"{row['plain_ms']:.3f} ms, _int_mm {row['library_ms']:.4f} "
+                f"ms, bound {row['bound_ms']:.4f} ms)")
+            del sets, x, w, a, c, q, got, again, want
+    for M, K, N in ((37, 70, 40), (8, 1030, 200)):
+        for name, cfg in PAPER_CODECS.items():
+            kw = ops._codec_kw(cfg)
+            x, w, a, c = _relu_inputs(gen, dev, M, K, N, cfg)
+            got = mm.sparq_matmul_cuda(x, w, a, c, **kw)
+            again = mm.sparq_matmul_cuda(x, w, a, c, **kw)
+            want = mm.ref_sparq_matmul(x, w, a, c, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, want) and torch.equal(again, want)):
+                raise AssertionError(
+                    f"K1 u8 {name} ragged M={M} K={K} N={N}: not bit-exact "
+                    f"(max abs err {float((got - want).abs().max())})")
+        p = mm.plan(M, N, K, mm.sm_count(dev))
+        log(f"K1 sparq_matmul u8 ragged M={M} K={K} N={N} [BM {p.bm} BN "
+            f"{p.bn} split {p.split_k}]: {len(PAPER_CODECS)} codecs "
+            f"bit-exact x2")
+    torch.cuda.empty_cache()
+    rep = next(r for r in rows if r["codec"] == "u:5opt_R"
+               and r["proj"] == "s0 conv")
+    results["sparq_matmul_unsigned"] = dict(
+        max_abs_err=worst, shape="u:5opt_R s0 conv M=262144 K=288 N=32",
+        **{k: rep[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")})
+    return rows
 
 
 def _pools(gen, dev, P, ps, KV, hd, misalign=False):
@@ -1652,6 +1787,163 @@ def cli_wide(dev, results):
     return counts
 
 
+# ----------------------------------------------------------------------
+# path: the paper's PTQ of its CNN (K1 in its unsigned mode)
+# ----------------------------------------------------------------------
+
+# the cnn phase's STC batch: the sparse-tensor-core simulation rebuilds
+# each conv's codes per output channel in chunks of 32 (stage 0: M * 32 *
+# 288 int32 and a few temporaries of that size), so it takes one batch of
+# 32 images where the dense codecs take 12 of 256
+CNN_STC_BATCH = 32
+
+
+def _logits(params, batches, cfg, ctx=None):
+    from repro_torch.models import cnn
+    return [cnn.forward(params, b["image"], cfg, ctx=ctx)[0]
+            for b in batches]
+
+
+def _compare(lq, lf, labels):
+    """Top-1 agreement with the float logits, top-1 accuracy and the mean
+    relative logit error (cnn_eval.logit_err's measure) over batches."""
+    from repro_torch.launch.cnn_eval import relative_logit_err
+    agree = sum(int((q.argmax(-1) == f.argmax(-1)).sum())
+                for q, f in zip(lq, lf))
+    right = sum(int((q.argmax(-1) == y).sum()) for q, y in zip(lq, labels))
+    n = sum(q.shape[0] for q in lq)
+    return dict(agree=agree / n, top1=right / n,
+                logit_err=sum(relative_logit_err(q, f)
+                              for q, f in zip(lq, lf)) / len(lq))
+
+
+def cnn_full_width(dev, results):
+    """paper-resnet at full width (width 32, stages (2, 2, 2), 32 x 32, 16
+    classes), seeded and untrained: BatchNorm recalibrated and min-max
+    site scales on 2 x 128 calibration images, then 3072 images at batch
+    256 through every codec of Tables 1, 2 and 4 and Table 3's ACIQ A4W8,
+    each conv but the stem through K1 (14 a forward). Gates: K1 launches
+    exactly 14 x batches x codecs and no other kernel runs; on one batch a
+    codec, the logits equal the plain K1's on the card; every logit is
+    finite. Then Table 6's STC codecs on a 2:4-pruned copy (its BN
+    recalibrated), one batch of CNN_STC_BATCH, with no kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pruning import sparsity
+    from repro_torch.core.sparq import SparqConfig
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import cnn_eval as ce
+    t0 = time.perf_counter()
+    cfg = get_config("paper-resnet")
+    model = ce.init_model(cfg, device=dev)
+    calib = ce.calib_batches(cfg, device=dev)
+    scales = ce.calibrate_cnn(model, calib, device=dev)
+    aciq = ce.aciq_scales(model, 4, calib, device=dev)
+    evalb = ce.eval_batches(cfg, device=dev)
+    params = model["params"]
+    codecs = {name: (scales, c) for name, c in ce.PAPER_CODECS.items()}
+    codecs["aciq_a4w8"] = (aciq, SparqConfig(enabled=False, act_bits=4))
+    ctxs = {name: ce.quant_ctx(sc, c, device=dev)
+            for name, (sc, c) in codecs.items()}
+    lf = _logits(params, evalb, cfg)
+    labels = [b["label"] for b in evalb]
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+
+    def run():
+        out = {}
+        for name, ctx in ctxs.items():
+            t = time.perf_counter()
+            lq = _logits(params, evalb, cfg, ctx)
+            torch.cuda.synchronize()
+            out[name] = (lq, time.perf_counter() - t)
+        return out
+    out, counts = _drive(run)
+    # quantized convs a forward: conv1 and conv2 of every block, and proj
+    # where the width changes (14 at full width); the stem is never one
+    sites = sum(2 * n + (si > 0) for si, n in enumerate(cfg.stages))
+    assert len(scales) == sites, (sorted(scales), sites)
+    want = sites * len(evalb) * len(ctxs)
+    if counts["sparq_matmul"] != want or any(
+            n for k, n in counts.items() if k != "sparq_matmul"):
+        raise AssertionError(f"cnn: launches {counts}, expected "
+                             f"sparq_matmul = {sites} x {len(evalb)} batches "
+                             f"x {len(ctxs)} codecs = {want} and no other")
+    rows = {}
+    orig_route = ops._route
+    ops._route = lambda t: "plain"        # K1's plain version, on the card
+    try:
+        build.reset_launch_counts()
+        for name, ctx in ctxs.items():
+            lq, secs = out[name]
+            if not all(bool(torch.isfinite(q).all()) for q in lq):
+                raise AssertionError(f"cnn {name}: non-finite logits")
+            plain = _logits(params, evalb[:1], cfg, ctx)[0]
+            if not torch.equal(plain, lq[0]):
+                raise AssertionError(
+                    f"cnn {name}: K1 logits differ from the plain version's "
+                    f"(max abs {float((plain - lq[0]).abs().max())})")
+            rows[name] = dict(**_compare(lq, lf, labels),
+                              ms_per_batch=1e3 * secs / len(evalb))
+            r = rows[name]
+            log(f"cnn {name:13s}: == plain K1 on batch 0; agreement "
+                f"{r['agree']:.4f}, logit_err {r['logit_err']:.5f}, top1 "
+                f"{r['top1']:.4f}, {r['ms_per_batch']:.2f} ms a batch")
+        if build.launch_counts()["sparq_matmul"]:
+            raise AssertionError("cnn: the plain comparison launched K1")
+    finally:
+        ops._route = orig_route
+    del out
+    # Table 6: 2:4-pruned copy, STC simulation (plain PyTorch, no kernel)
+    pruned = {"cfg": cfg, "params": ce.prune_cnn(params)}
+    for stage in pruned["params"]["stages"]:
+        for blk in stage:
+            for k in ("w1", "w2", "proj"):
+                if k in blk:
+                    w = blk[k]
+                    assert sparsity(w.reshape(-1, w.shape[-1])) == 0.5, k
+    stc_scales = ce.calibrate_cnn(pruned, calib, device=dev)
+    stc_b = ce.eval_batches(cfg, n=CNN_STC_BATCH, batch=CNN_STC_BATCH,
+                            device=dev)
+    lf_p = _logits(pruned["params"], stc_b, cfg)
+    stc_ctxs = {name: ce.quant_ctx(stc_scales, c, stc=True, device=dev)
+                for name, c in ce.STC_CODECS.items()}
+
+    def run_stc():
+        return {name: _logits(pruned["params"], stc_b, cfg, ctx)
+                for name, ctx in stc_ctxs.items()}
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    stc_out, stc_counts = _drive(run_stc)
+    stc_s = time.perf_counter() - t
+    if any(stc_counts.values()):
+        raise AssertionError(f"cnn STC: kernels launched {stc_counts}")
+    stc_rows = {}
+    for name, lq in stc_out.items():
+        if not all(bool(torch.isfinite(q).all()) for q in lq):
+            raise AssertionError(f"cnn {name}: non-finite logits")
+        stc_rows[name] = _compare(lq, lf_p, [b["label"] for b in stc_b])
+        log(f"cnn {name:13s} (2:4-pruned, {CNN_STC_BATCH} images): "
+            f"agreement {stc_rows[name]['agree']:.4f}, logit_err "
+            f"{stc_rows[name]['logit_err']:.5f}")
+    results["cnn"] = dict(
+        arch=cfg.name, width=cfg.width, stages=list(cfg.stages),
+        img=cfg.img_size, classes=cfg.num_classes,
+        eval_images=sum(b["image"].shape[0] for b in evalb),
+        batch=evalb[0]["image"].shape[0], calib_images=sum(b["image"].shape[0] for b in calib),
+        setup_s=t_setup, launches=counts, codecs=rows,
+        float_top1=_compare(lf, lf, labels)["top1"],
+        stc=dict(batch=CNN_STC_BATCH, seconds=stc_s,
+                 peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                 codecs=stc_rows))
+    log(f"cnn {cfg.name} width {cfg.width} stages {cfg.stages}: "
+        f"{len(ctxs)} codecs x {len(evalb)} batches of "
+        f"{evalb[0]['image'].shape[0]} | launches "
+        f"{counts} | STC {len(stc_ctxs)} codecs in {stc_s:.1f} s")
+    del model, params, pruned, evalb, calib, lf, lf_p, stc_out
+    torch.cuda.empty_cache()
+    return counts
+
+
 # Device-time groups of the profile phase: the seven kernels by their
 # __global__ names in csrc/ (K1's pre-pass and GEMM together), everything
 # else (PyTorch's own kernels and copies) as "other".
@@ -1955,9 +2247,12 @@ def parity_two_layers(dev, results):
 
 
 # opcodes that must (True) or must not (False) appear in a kernel
-# library's SASS: K1 runs on the int8 tensor cores and dp4a is gone; K3
+# library's SASS: K1 runs on the integer tensor cores, with int8 codes
+# (S8 x S8) and the paper's unsigned codes (U8 x S8), and dp4a is gone; K3
 # runs on the f64 tensor cores
-SASS_CHECKS = {"sparq_matmul.cu": {"IMMA": True, "IDP4A": False},
+SASS_CHECKS = {"sparq_matmul.cu": {"IMMA": True, "IMMA.16832.S8.S8": True,
+                                   "IMMA.16832.U8.S8": True,
+                                   "IDP4A": False},
                "sparq_chunked_prefill_attn.cu": {"DMMA": True}}
 
 
@@ -1990,7 +2285,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,kernels,serve,scan,sequential,cli,wide,"
-                            "parity")
+                            "cnn,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -2023,7 +2318,7 @@ def main(argv=None):
     by_path = {}
     paths = (("serve", serve_full_width), ("scan", scan_full_width),
              ("sequential", sequential_full_width), ("cli", cli_reduced),
-             ("wide", cli_wide))
+             ("wide", cli_wide), ("cnn", cnn_full_width))
     for name, run in paths:
         if name in phases:
             by_path[name] = run(dev, results)

@@ -1,4 +1,6 @@
-// K1: fused SPARQ activation quantization + int8 matmul, for Hopper.
+// K1: fused SPARQ activation quantization + 8-bit integer matmul, for
+// Hopper: signed codes (int8 x int8) or the paper's unsigned post-ReLU
+// codes (uint8 x int8).
 //
 // Replaces: src/repro/kernels/sparq_matmul.py::sparq_matmul_pallas
 //           (_kernel, _recon_tile).
@@ -6,6 +8,8 @@
 //   the SPARQ reconstruction of clip(rint(x / a)) (bSPARQ window with the
 //   rounding carry, vSPARQ passthrough when the pair partner is 0,
 //   sign-magnitude) and w holds int8 (K, N) per-channel weight codes.
+//   Signed codecs give r in [-127, 127] (int8); unsigned ones (max_val up
+//   to 255, the paper's post-ReLU activations) r in [0, 255] (uint8).
 // Bound: at decode (M = active slots, 8) the int8 weights are almost all
 //   the bytes and the work is tiny, so K1 is bound by device-memory bytes
 //   and by how many weight bytes are in flight at once; only at large M
@@ -13,13 +17,17 @@
 //   int8 tensor-core rate.
 // Design, one ctypes call = two launches on the caller's stream:
 //   1. sparq_matmul_quant_kernel quantizes x once per call into the
-//      reconstructed int8 codes r (M, kp), kp = K rounded up to the k
-//      tile and zero-filled, one thread per vSPARQ lane pair, with
+//      reconstructed codes r (M, kp), one byte each (int8 when signed,
+//      uint8 when not), kp = K rounded up to the k tile and zero-filled
+//      (0 in either type), one thread per vSPARQ lane pair, with
 //      sparq_common.cuh's codec (the one K4 runs). The pair decisions are
 //      taken here on whole pairs, so nothing downstream can split a pair.
 //      It also zeroes the split-K arrival counters.
-//   2. sparq_matmul_mma_kernel runs the product on the int8 tensor cores
-//      (mma.sync m16n8k32 s8.s8.s32, int32 accumulators in registers).
+//   2. sparq_matmul_mma_kernel runs the product on the integer tensor
+//      cores (mma.sync m16n8k32 s8.s8.s32, or u8.s8.s32 for unsigned
+//      codes; int32 accumulators in registers). r's bytes are copied and
+//      ldmatrix'd as raw bits, never widened, so the only place the A
+//      type shows is the mma's .atype.
 //      Both operands stream into shared memory through a STAGES-deep
 //      cp.async ring of 16-byte copies, one __syncthreads per k tile, so
 //      the next tiles' loads are in flight while the current one runs.
@@ -41,7 +49,8 @@
 //      any order, and the float epilogue (float(acc) * a) * c[n] runs
 //      once, on the whole sum, in the plain version's order, so K1 is
 //      bit-exact and does not depend on the order in which the blocks
-//      finish. |r|, |w| <= 127 and K <= 5632 keep every sum below 2^27.
+//      finish. |r| <= 255, |w| <= 127 and K <= 5632 keep every sum below
+//      2^28 (the CNN's K <= 1152: below 2^26).
 //   At decode the GEMM is launched as a programmatic dependent of the
 //   pre-pass: its blocks start while the pre-pass runs, put their first
 //   weight tiles in flight, and only then wait for r, so the pre-pass and
@@ -66,34 +75,39 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 
 // ---------------------------------------------------------------- pre-pass
 
-// grid (ceil(kp / 2 / QUANT_THREADS), M): one thread per lane pair of a row
+// grid ceil(M * kp / 2 / QUANT_THREADS): one thread per lane pair of r,
+// row-major over (M, kp / 2), so M is bounded by no grid dimension (the
+// CNN's im2col products have M = 256 * H * W, up to 262144)
 template <typename T>
 __global__ void __launch_bounds__(QUANT_THREADS)
 sparq_matmul_quant_kernel(const T* __restrict__ x,
                           const float* __restrict__ ascale,
-                          char2* __restrict__ r, int* __restrict__ arrivals,
-                          int n_arrivals, int K, int kp, SparqCodec codec) {
+                          uchar2* __restrict__ r, int* __restrict__ arrivals,
+                          int n_arrivals, int M, int K, int kp,
+                          SparqCodec codec) {
   // the GEMM may launch now: it prefetches weights, then waits for r
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-  const int m = blockIdx.y;
-  const int i = blockIdx.x * QUANT_THREADS + threadIdx.x;  // pair in row
-  if (2 * i < kp) {
+  const size_t t = (size_t)blockIdx.x * QUANT_THREADS + threadIdx.x;
+  const size_t m = t / (kp / 2);
+  const int i = static_cast<int>(t - m * (kp / 2));  // pair in row
+  if (m < (size_t)M) {
     int r0 = 0, r1 = 0;
     if (2 * i < K) {  // K is even: 2i + 1 < K too
       const float a = ascale[0];
       const float qmax = static_cast<float>(codec.max_val);
       const float qmin = codec.is_signed ? -qmax : 0.f;
-      const T* xp = x + (size_t)m * K + 2 * i;
+      const T* xp = x + m * K + 2 * i;
       sparq_recon_pair(quantize_code(to_float(xp[0]), a, qmin, qmax),
                        quantize_code(to_float(xp[1]), a, qmin, qmax), codec,
                        r0, r1);
     }
-    r[(size_t)m * (kp / 2) + i] = make_char2(static_cast<signed char>(r0),
-                                             static_cast<signed char>(r1));
+    // the code's low byte: int8 two's complement when signed, uint8 when
+    // not (r0, r1 in [0, 255])
+    r[t] = make_uchar2(static_cast<uint8_t>(r0), static_cast<uint8_t>(r1));
   }
-  if (m == 0)
-    for (int j = i; j < n_arrivals; j += gridDim.x * QUANT_THREADS)
-      arrivals[j] = 0;
+  for (size_t j = t; j < (size_t)n_arrivals;
+       j += (size_t)gridDim.x * QUANT_THREADS)
+    arrivals[j] = 0;
 }
 
 // ------------------------------------------------------------ PTX helpers
@@ -127,13 +141,24 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&a)[4]) {
       : "memory");
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+// c += a * b on the integer tensor cores; A (the codes r, row-major) is
+// s8 or, when A_U8, u8; B (the weights) is always s8. PTX orders the
+// types .atype.btype.
+template <bool A_U8>
+__device__ __forceinline__ void mma_i8(int (&c)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (A_U8)
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 4x4 byte transpose: v[i] holds row i's bytes 0..3; o[j] gets byte j of
@@ -170,9 +195,10 @@ __device__ __forceinline__ float epilogue(int acc, float a, float c) {
 
 // One block computes a BM x BN output tile over its K slice; its warps
 // tile it WTM x WTN (MT m16 tiles by NS 32-column slabs of four n8 tiles).
-template <int BM, int BN, int WTM, int WTN>
+// A_U8: r holds uint8 codes (unsigned codecs), else int8.
+template <int BM, int BN, int WTM, int WTN, bool A_U8>
 __global__ void __launch_bounds__((BM / WTM) * (BN / WTN) * 32)
-sparq_matmul_mma_kernel(const int8_t* __restrict__ r,
+sparq_matmul_mma_kernel(const uint8_t* __restrict__ r,
                         const int8_t* __restrict__ w,
                         const float* __restrict__ ascale,
                         const float* __restrict__ cscale,
@@ -205,7 +231,7 @@ sparq_matmul_mma_kernel(const int8_t* __restrict__ r,
     for (int i = tid; i < BM * (BK / 16); i += THREADS) {
       const int row = i >> 2, c = i & 3;
       const bool ok = m0 + row < M;
-      const int8_t* src = r + (size_t)(ok ? m0 + row : 0) * kp + k0 + c * 16;
+      const uint8_t* src = r + (size_t)(ok ? m0 + row : 0) * kp + k0 + c * 16;
       cp_async16(smem_u32(as + a_off(row, c)), src, ok);
     }
   };
@@ -289,7 +315,7 @@ sparq_matmul_mma_kernel(const int8_t* __restrict__ r,
         for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            mma_s8(acc[mt][s * 4 + j], a[mt], b[0][j], b[1][j]);
+            mma_i8<A_U8>(acc[mt][s * 4 + j], a[mt], b[0][j], b[1][j]);
       }
     }
   }
@@ -382,14 +408,14 @@ sparq_matmul_mma_kernel(const int8_t* __restrict__ r,
   }
 }
 
-template <int BM, int BN, int WTM, int WTN>
-int launch_mma(const int8_t* r, const int8_t* w, const float* a,
+template <int BM, int BN, int WTM, int WTN, bool A_U8>
+int launch_mma(const uint8_t* r, const int8_t* w, const float* a,
                const float* c, float* out, int* ws, int* arrivals, int M,
                int N, int K, int kp, int tiles_per_split, int split_k,
                int w_vec, cudaStream_t stream) {
   constexpr int THREADS = (BM / WTM) * (BN / WTN) * 32;
   constexpr int SMEM = STAGES * (BM * BK + BK * B_ROW);
-  auto kernel = sparq_matmul_mma_kernel<BM, BN, WTM, WTN>;
+  auto kernel = sparq_matmul_mma_kernel<BM, BN, WTM, WTN, A_U8>;
   static unsigned long long attr_set = 0;  // per device, per instantiation
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -423,7 +449,8 @@ int launch_mma(const int8_t* r, const int8_t* w, const float* a,
 
 // x: (M, K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); w: (K, N) int8;
 // ascale: 1 f32 (device); cscale: (N,) f32; out: (M, N) f32.
-// Scratch, allocated by the wrapper: r (M, kp) int8; with split_k > 1 the
+// Scratch, allocated by the wrapper: r (M, kp) codes, one byte each (int8
+// when is_signed, uint8 when not); with split_k > 1 the
 // int32 partial sums ws (split_k, M, N) and the arrival counters, one int
 // per output tile.
 // The tile plan (bm, bn, tiles_per_split, split_k) comes from
@@ -441,37 +468,44 @@ extern "C" int sparq_matmul_launch(const void* x, int x_bf16, const void* w,
                                    void* stream) {
   const SparqCodec codec{bits,   shift_mask, shift_max, rounding,
                          vsparq, is_signed,  max_val,   enabled};
-  if (M <= 0 || M > 65535 || N <= 0 || K <= 0 || kp % BK || kp < K ||
-      split_k < 1 ||
+  if (M <= 0 || (M + bm - 1) / bm > 65535 || N <= 0 || K <= 0 ||
+      kp % BK || kp < K || max_val < 1 ||
+      max_val > (is_signed ? 127 : 255) || split_k < 1 ||
       (split_k > 1 && (ws == nullptr || arrivals == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const int tiles = ((N + bn - 1) / bn) * ((M + bm - 1) / bm);
   const int n_arr = split_k > 1 ? tiles : 0;
-  const dim3 qgrid((kp / 2 + QUANT_THREADS - 1) / QUANT_THREADS, M);
-  auto* rp = static_cast<char2*>(r);
+  const size_t pairs = (size_t)M * (kp / 2);
+  const dim3 qgrid(
+      static_cast<unsigned>((pairs + QUANT_THREADS - 1) / QUANT_THREADS));
+  auto* rp = static_cast<uchar2*>(r);
   auto* wsp = static_cast<int*>(ws);
   auto* arp = static_cast<int*>(arrivals);
   if (x_bf16)
     sparq_matmul_quant_kernel<__nv_bfloat16><<<qgrid, QUANT_THREADS, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
-        static_cast<const float*>(ascale), rp, arp, n_arr, K, kp, codec);
+        static_cast<const float*>(ascale), rp, arp, n_arr, M, K, kp, codec);
   else
     sparq_matmul_quant_kernel<float><<<qgrid, QUANT_THREADS, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(ascale), rp,
-        arp, n_arr, K, kp, codec);
+        arp, n_arr, M, K, kp, codec);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const auto* r8 = static_cast<const int8_t*>(r);
+  const auto* r8 = static_cast<const uint8_t*>(r);
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* ap = static_cast<const float*>(ascale);
   const auto* cp = static_cast<const float*>(cscale);
   auto* op = static_cast<float*>(out);
-#define SPARQ_MMA(BM, BN, WTM, WTN)                                         \
-  if (bm == BM && bn == BN)                                                 \
-    return launch_mma<BM, BN, WTM, WTN>(r8, wp, ap, cp, op, wsp, arp, M, N, \
-                                        K, kp, tiles_per_split, split_k,    \
-                                        w_vec, st);
+#define SPARQ_MMA(BM, BN, WTM, WTN)                                          \
+  if (bm == BM && bn == BN)                                                  \
+    return is_signed                                                         \
+               ? launch_mma<BM, BN, WTM, WTN, false>(                        \
+                     r8, wp, ap, cp, op, wsp, arp, M, N, K, kp,              \
+                     tiles_per_split, split_k, w_vec, st)                    \
+               : launch_mma<BM, BN, WTM, WTN, true>(                         \
+                     r8, wp, ap, cp, op, wsp, arp, M, N, K, kp,              \
+                     tiles_per_split, split_k, w_vec, st);
   SPARQ_MMA(16, 128, 16, 32)
   SPARQ_MMA(64, 128, 32, 64)
   SPARQ_MMA(64, 32, 16, 32)

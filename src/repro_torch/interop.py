@@ -5,7 +5,9 @@ The functions take numpy arrays — the caller converts a JAX tree with
 `jax.tree.map(np.asarray, tree)` — so this module imports no jax. The
 trees keep their layout: `params["blocks"][g]` holds layer-stacked
 [L, ...] leaves, and prequantized weights are {"q": int8, "s": f32}
-dicts, as `quantize_params` makes them in either package.
+dicts, as `quantize_params` makes them in either package; the CNN's tree
+(nested lists under "stages", a bare array under "head", BN statistics
+in its dicts) carries across as it is.
 """
 from __future__ import annotations
 

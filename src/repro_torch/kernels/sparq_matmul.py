@@ -1,10 +1,13 @@
-"""K1: fused SPARQ quantize + int8 matmul — the CUDA kernel's wrapper and
-its plain PyTorch version (port of `repro.kernels.sparq_matmul` and of the
-oracle `repro.kernels.ref.ref_sparq_matmul`).
+"""K1: fused SPARQ quantize + 8-bit integer matmul — the CUDA kernel's
+wrapper and its plain PyTorch version (port of `repro.kernels.sparq_matmul`
+and of the oracle `repro.kernels.ref.ref_sparq_matmul`).
 
     out[M,N] f32 = (sum_k r[m,k] * w[k,n]) * a * c[n]
 
-`r` is the SPARQ reconstruction of clip(round(x / a)). The integer sum is
+`r` is the SPARQ reconstruction of clip(round(x / a)): signed codes in
+[-127, 127] (int8 x int8 on the card) or, in the paper's unsigned mode
+(post-ReLU activations, max_val up to 255), codes in [0, 255] (uint8 x
+int8). The weights `w` are int8 in both. The integer sum is
 exact in both versions, and both multiply (float(acc) * a) * c[n] in that
 order, so they agree bit for bit.
 
@@ -126,16 +129,17 @@ def sparq_matmul_cuda(x, w_codes, act_scale, chan_scale, *, bits=4,
                       vsparq=True, signed=False, max_val=255, enabled=True):
     """Launch K1 on the current stream. x (M, K) f32 or bf16, w_codes
     (K, N) int8, act_scale a one-element f32 device tensor, chan_scale
-    (N,) f32. Returns f32 (M, N). The C entry point launches two kernels
-    (the quantizing pre-pass and the GEMM); the call counts as one launch
-    of K1."""
+    (N,) f32. Returns f32 (M, N). Signed codecs (max_val <= 127) run
+    int8 x int8 on the tensor cores, unsigned ones (max_val <= 255)
+    uint8 x int8. The C entry point launches two kernels (the quantizing
+    pre-pass and the GEMM); the call counts as one launch of K1."""
     dev = x.device
     M, K = x.shape
     N = w_codes.shape[1]
-    if not (signed and max_val <= 127):
-        raise NotImplementedError(
-            "the CUDA sparq_matmul takes signed codes with max_val <= 127 "
-            "(int8 x int8); the unsigned max_val 255 path is not ported")
+    if not 1 <= max_val <= (127 if signed else 255):
+        raise ValueError(f"max_val {max_val} out of range for "
+                         f"{'signed int8' if signed else 'unsigned uint8'} "
+                         f"codes")
     if K % 2:
         raise ValueError(f"vSPARQ pairs adjacent K lanes; K={K} is odd")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -148,8 +152,9 @@ def sparq_matmul_cuda(x, w_codes, act_scale, chan_scale, *, bits=4,
     mask = sum(1 << s for s in opts_shifts)
     p = plan(M, N, K, sm_count(dev))
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    # one scratch buffer: the codes r (M, kp) int8, then with split-K the
-    # int32 partial sums (split_k, M, N) and one arrival counter per tile
+    # one scratch buffer: the codes r (M, kp), a byte each, then with
+    # split-K the int32 partial sums (split_k, M, N) and one arrival
+    # counter per tile
     ws_off = _cdiv(M * p.kp, 256) * 256
     n_ws = p.split_k * M * N + p.blocks // p.split_k if p.split_k > 1 else 0
     scratch = torch.empty((ws_off + 4 * n_ws,), dtype=torch.uint8,

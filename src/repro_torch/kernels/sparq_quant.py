@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.quantizer import div_qmax
 from repro_torch.kernels import build as _b
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import ref_sparq_quant  # noqa: F401 (plain)
@@ -55,14 +56,6 @@ X_DTYPES = (torch.float32, torch.bfloat16)
 # ----------------------------------------------------------------------
 # plain versions of the writes
 # ----------------------------------------------------------------------
-
-def _over_max_val(t, max_val):
-    """t / max_val in IEEE f32 on every device: PyTorch's CUDA division
-    by a Python scalar multiplies by the scalar's reciprocal instead, which
-    moves a scale by an ulp."""
-    return t / torch.full((), float(max_val), dtype=torch.float32,
-                          device=t.device)
-
 
 def _stored_form(x, scale, codec):
     """float -> (§5.1 window codes, meta bytes), int8, with a scale that
@@ -97,7 +90,7 @@ def ref_kv_write_paged(k_new, v_new, k_data, k_meta, v_data, v_meta,
                        torch.full_like(page, trash))
     scales = []
     for stored, x in ((k_scale, k_new), (v_scale, v_new)):
-        dyn = _over_max_val(torch.clamp(torch.amax(torch.abs(
+        dyn = div_qmax(torch.clamp(torch.amax(torch.abs(
             x.to(torch.float32)), dim=(1, 2, 3)), min=1e-8),
             codec["max_val"])
         scales.append(torch.where(stored > 0, stored, dyn))
@@ -121,7 +114,7 @@ def _chunk_scale(stored, x, s_safe, first_seg, max_val):
     seq_max = torch.zeros((S,), dtype=torch.float32,
                           device=x.device).scatter_reduce(
         0, s_safe, tok_max, "amax")
-    dyn = _over_max_val(torch.clamp(seq_max, min=1e-8), max_val)
+    dyn = div_qmax(torch.clamp(seq_max, min=1e-8), max_val)
     has = torch.zeros((S,), dtype=torch.int32,
                       device=x.device).scatter_reduce(
         0, s_safe, first_seg.to(torch.int32), "amax") > 0
@@ -170,7 +163,7 @@ def ref_kv_write_contiguous(k_new, v_new, k_data, k_meta, v_data, v_meta,
     scales = []
     for x, data, meta, stored in ((k_new, k_data, k_meta, k_scale),
                                   (v_new, v_data, v_meta, v_scale)):
-        dyn = _over_max_val(torch.clamp(torch.amax(torch.abs(
+        dyn = div_qmax(torch.clamp(torch.amax(torch.abs(
             x.to(torch.float32))), min=1e-8), codec["max_val"])
         scale = torch.where(stored > 0, stored, dyn)
         st, mt = _stored_form(x, scale, codec)

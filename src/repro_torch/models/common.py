@@ -14,8 +14,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.core.calibration import CalibBank
-from repro_torch.core.quantizer import QScale, quantize, weight_scale
-from repro_torch.core.sparq import SparqConfig
+from repro_torch.core.quantizer import (QScale, div_qmax, quantize,
+                                        weight_scale)
+from repro_torch.core.sparq import SparqConfig, sparq_dot_stc
 from repro_torch.kernels.ops import quantized_matmul
 
 
@@ -50,12 +51,17 @@ class ModelConfig:
 @dataclasses.dataclass
 class QuantCtx:
     """How matmuls execute. `scales[site]` is a per-layer 0-d f32 tensor
-    (the calibrated span, divided by qmax at use)."""
+    (the calibrated span, divided by qmax at use). Sites in `skip_sites`
+    run in float; `stc` runs the quantized mode through the sparse-tensor-
+    core simulation (`core.sparq.sparq_dot_stc`, plain PyTorch on every
+    device) instead of K1, for 2:4-pruned weights."""
     mode: str = "off"                     # off | calibrate | quantized
     cfg: Optional[SparqConfig] = None
     scales: Optional[Dict[str, Any]] = None
     collect: Optional[CalibBank] = None
-    site_prefix: str = ""
+    skip_sites: tuple[str, ...] = ()      # paper: first layer left intact
+    site_prefix: str = ""                 # per-layer prefix (calibration)
+    stc: bool = False                     # sparse-TC path (2:4-pruned w)
 
 
 def dense(w, x: torch.Tensor, site: str,
@@ -63,7 +69,7 @@ def dense(w, x: torch.Tensor, site: str,
     """x [..., d_in] @ w [d_in, d_out] through the quantization hook. `w`
     is a float tensor or a prequantized {"q": int8, "s": f32} leaf."""
     from repro_torch.models.quantize import as_weight, is_qweight
-    if ctx is None or ctx.mode == "off":
+    if ctx is None or ctx.mode == "off" or site in ctx.skip_sites:
         return torch.matmul(x, as_weight(w, x.dtype))
     if ctx.mode == "calibrate":
         if ctx.collect is not None:
@@ -78,9 +84,12 @@ def dense(w, x: torch.Tensor, site: str,
         if scale is None:
             scale = torch.amax(torch.abs(x))   # dynamic per-tensor fallback
         act_qs = QScale(
-            scale=torch.as_tensor(scale, dtype=torch.float32,
-                                  device=x.device) / cfg.max_val,
+            scale=div_qmax(torch.as_tensor(scale, dtype=torch.float32,
+                                           device=x.device), cfg.max_val),
             bits=cfg.act_bits, signed=cfg.signed)
+        if ctx.stc:
+            return sparq_dot_stc(x, as_weight(w, torch.float32), act_qs,
+                                 cfg).to(x.dtype)
         if is_qweight(w):
             w_codes, chan_scale = w["q"], w["s"]
         else:

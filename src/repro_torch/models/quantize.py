@@ -10,7 +10,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.quantizer import quantize, weight_scale
+from repro_torch.core.quantizer import div_qmax, quantize, weight_scale
 
 _QUANT_KEYS = (
     "wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down",
@@ -25,7 +25,8 @@ def _quantize_leaf(leaf: torch.Tensor, weight_bits: int) -> dict:
         return {"q": quantize(leaf, qs).to(torch.int8),
                 "s": qs.scale.to(torch.float32)}
     # stacked [L, din, dout]: per-layer per-channel scales [L, dout]
-    s = torch.amax(torch.abs(leaf), dim=1) / ((1 << (weight_bits - 1)) - 1)
+    s = div_qmax(torch.amax(torch.abs(leaf), dim=1),
+                 (1 << (weight_bits - 1)) - 1)
     s = torch.clamp(s, min=1e-8)
     codes = torch.clamp(torch.round(leaf / s[:, None, :]),
                         -127, 127).to(torch.int8)

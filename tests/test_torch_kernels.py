@@ -38,6 +38,12 @@ CODECS = [
     dict(bits=4, opts=5, signed=False),          # paper's unsigned mode
     dict(bits=4, opts=3, signed=False, vsparq=False),
     dict(enabled=False, signed=True),            # plain A8W8
+    # the rest of the paper's CNN codecs (unsigned post-ReLU codes)
+    dict(bits=4, opts=2, signed=False),
+    dict(bits=3, opts=6, signed=False, rounding=False),
+    dict(bits=2, opts=7, signed=False, vsparq=False),
+    dict(enabled=False, signed=False),           # uniform A8W8
+    dict(enabled=False, signed=False, act_bits=4),   # naive A4W8
 ]
 
 
@@ -51,7 +57,7 @@ def _kw(cfg):
                 enabled=cfg.enabled)
 
 
-def _mm_inputs(m, k, n, signed, seed=0, sparsity=0.3):
+def _mm_inputs(m, k, n, signed, seed=0, sparsity=0.3, qmax=None):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((m, k)).astype(np.float32)
     if not signed:
@@ -60,21 +66,23 @@ def _mm_inputs(m, k, n, signed, seed=0, sparsity=0.3):
     w = rng.standard_normal((k, n)).astype(np.float32) / np.sqrt(k)
     cs = (np.abs(w).max(0) / 127).astype(np.float32)
     codes = np.clip(np.round(w / cs), -127, 127).astype(np.int8)
-    qmax = 127 if signed else 255
+    qmax = qmax or (127 if signed else 255)
     a = np.float32(np.abs(x).max()) / np.float32(qmax)
     return x, codes, a, cs
 
 
 @pytest.mark.parametrize("codec", CODECS, ids=lambda c: str(c))
-@pytest.mark.parametrize("shape", [(16, 128, 64), (40, 70, 24)])
+@pytest.mark.parametrize("shape", [(16, 128, 64), (40, 70, 24),
+                                   (32, 144, 16), (24, 216, 24)])
 def test_quantized_matmul_exact(codec, shape):
     """Plain version == JAX quantized_matmul (reference) == the Pallas
     kernel in interpret mode, bit for bit, for every codec of
-    test_kernels.py, including a ragged shape (M, K, N not tile
-    multiples; K padded in whole pairs)."""
+    test_kernels.py and the paper's CNN, including a ragged shape (M, K, N
+    not tile multiples; K padded in whole pairs) and the CNN's im2col
+    shapes (K = 9 * cin, N 16 and 24)."""
     m, k, n = shape
     jc, tc = JCfg(**codec), TCfg(**codec)
-    x, codes, a, cs = _mm_inputs(m, k, n, jc.signed)
+    x, codes, a, cs = _mm_inputs(m, k, n, jc.signed, qmax=jc.max_val)
     from repro.core.quantizer import QScale as JQScale
     want = np.asarray(jops.quantized_matmul(
         jnp.asarray(x), jnp.asarray(codes),
