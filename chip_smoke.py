@@ -81,12 +81,41 @@ Phases (each one that fails makes the script exit non-zero):
               with the float network and logit_err per codec; then
               Table 6's STC codecs on a 2:4-pruned copy, 32 images, no
               kernel launched
+  train       the LLM trainer (`repro_torch.launch.train`): (a) a 2-layer
+              full-width f32 tinyllama, 3 steps of `build_train_step` with
+              `GradCompressor` (batch 2 x 64) on the card and on the CPU
+              from the same weights: losses within 1e-4 relative, params
+              to `train_params_close`; (b) a 2-layer full-width model, 4
+              steps against 2, a checkpoint, a restore and 2 more, under
+              deterministic algorithms: losses and params bit-equal; (c)
+              the main path, `train.main` on the full 22-layer model,
+              batch 8 x 128, 10 steps, without and with --compress-grads:
+              finite losses and grad norms, the last loss below the
+              first, no kernel launched (the reference's training path
+              reaches no Pallas kernel); median ms a step, tokens/s, peak
+              GB logged
+  cnn_train   the CNN float trainer (`launch/cnn_train.py`): train_cnn()
+              and train_cnn(prune_2_4=True) on the card; float top-1 >
+              0.85 and pruned > 0.80 at stage-0 w1 sparsity 0.5 (the
+              reference's thresholds), then the paper's 16 quantizers of
+              Tables 1, 2, 4 and ACIQ A4W8 on the trained network (3072
+              images, K1 unsigned: K1 = 8 sites x (12 x 17 + 1), no other
+              kernel; every quantizer's logits equal the plain K1's on
+              batch 0), top-1, delta and logit_err logged; Table 6 on the
+              pruned network (A8W8 through K1, STC rows, 256 images); the
+              claims of tests/test_paper_claims.py logged beside their
+              margins
   parity      2-layer full-width f32 models on the card (kernels) and on
               the CPU (plain versions): the paged chunked engine (also at
               chunk-align 16 and page size 128) and the scan engine give
               equal greedy tokens; on the card, the paged
               sequential engine equals the scan engine serving each request
               alone with attn_bk = page_size
+  train_profile (not run by default) a full-width compressed train step
+              split into forward + backward, compression and AdamW (host
+              clock between synchronizations), then one plain and one
+              compressed step under torch.profiler: device busy, idle
+              share, kernels, the ops with the most device time
   profile     (not run by default) the serve workload once more under
               torch.profiler: device time by kernel, the device's idle
               share of the run, device kernels per decode step and each KV
@@ -94,10 +123,11 @@ Phases (each one that fails makes the script exit non-zero):
               kernels on the device timeline (every decode update one K4
               launch, every chunk write two, nothing else)
 
-Each of serve, scan, sequential, cli, wide and cnn resets the launch
-counters just before it drives its path and reads them just after; the
-plain versions of the KV codec must not run there at all. With all six,
-every kernel must have launched on some path. The plain versions of the KV path
+Each of serve, scan, sequential, cli, wide, cnn, train (its part c) and
+cnn_train resets the launch counters just before it drives its path and
+reads them just after; the plain versions of the KV codec must not run
+there at all. With all eight, every kernel must have launched on some
+path. The plain versions of the KV path
 (codec, `sparq_pack`, the three writes, the dequantizers) must not run on
 any path.
 
@@ -166,6 +196,47 @@ def bench(fn, arg_sets, iters=50, warmup=5):
 
 def n_sets(bytes_per_set: int) -> int:
     return max(1, min(16, math.ceil(2 * L2_BYTES / max(bytes_per_set, 1))))
+
+
+# ----------------------------------------------------------------------
+# training: the tolerance on parameters after a few optimizer steps
+# ----------------------------------------------------------------------
+
+# Adam's first steps are close to sign(g) element by element: where a
+# gradient element sits near 0, or a compressed gradient code at a
+# rounding boundary, a last-bit difference in g changes that element's
+# step by up to 2 lr. Two runs whose losses agree can then part there by
+# up to 2 lr a step, while everywhere else they agree to f32 noise. The
+# CPU parity tests (JAX against the port) and the train phase (card
+# against CPU) hold parameters to this rule: every element within
+# TRAIN_STEP_BOUND x the steps' summed learning rates, and at most
+# TRAIN_OUTLIER_SHARE of the elements beyond TRAIN_ATOL.
+TRAIN_STEP_BOUND = 2.0
+TRAIN_ATOL = 1e-5
+TRAIN_OUTLIER_SHARE = 0.01
+
+
+def train_params_close(want, got, lr_sum: float, what: str) -> dict:
+    """Hold two lists of parameter leaves (tensors or arrays, in leaf
+    order) to the rule above; returns the largest difference, its ratio
+    to lr_sum and the share of elements beyond TRAIN_ATOL."""
+    def f64(x):
+        if torch.is_tensor(x):
+            return x.detach().to("cpu", torch.float64)
+        return torch.from_numpy(np.array(x, dtype=np.float64))
+
+    worst, beyond, n = 0.0, 0, 0
+    for a, b in zip(want, got, strict=True):
+        d = (f64(a) - f64(b)).abs()
+        worst = max(worst, float(d.max()))
+        beyond += int((d > TRAIN_ATOL).sum())
+        n += d.numel()
+    out = dict(max_abs=worst, max_over_lr_sum=worst / lr_sum,
+               share_beyond_atol=beyond / n)
+    if worst > TRAIN_STEP_BOUND * lr_sum or beyond > TRAIN_OUTLIER_SHARE * n:
+        raise AssertionError(f"{what}: parameters differ beyond the train "
+                             f"tolerance: {out} (lr sum {lr_sum})")
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -1944,6 +2015,465 @@ def cnn_full_width(dev, results):
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase: training (the LLM trainer, `repro_torch.launch.train`)
+# ----------------------------------------------------------------------
+
+TRAIN_ARGS = ["--arch", "tinyllama-1.1b", "--steps", "10", "--batch", "8",
+              "--seq", "128", "--log-every", "100", "--device", "cuda"]
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def train_card_vs_cpu(dev, results):
+    """(a) A 2-layer full-width f32 tinyllama with the same weights and
+    batches (2 x 64) on the card and on the CPU: 3 steps of
+    `build_train_step` with `GradCompressor` and AdamW. The losses agree
+    within 1e-4 relative, the parameters to `train_params_close`."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.distributed.collectives import GradCompressor
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    cfg = get_config("tinyllama-1.1b").replace(n_layers=2,
+                                               dtype=torch.float32)
+    data = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                              global_batch=2, seed=2))
+    opt = AdamW(lr=cosine_schedule(3e-4, 1, 3))
+    gpu = Model(cfg, device=dev)
+    p0 = gpu.init_params(seed=2)
+    out = {}
+    for name, model, params in (("cuda", gpu, p0),
+                                ("cpu", Model(cfg, device="cpu"),
+                                 _to_cpu(p0))):
+        comp = GradCompressor()
+        step = build_train_step(model, opt, comp)
+        state, cstate = opt.init(params), comp.init(params)
+        losses, lr_sum = [], 0.0
+        t = time.perf_counter()
+        for i in range(3):
+            params, state, cstate, m = step(params, state, cstate,
+                                            data.global_batch(i))
+            losses.append(float(m["loss"]))
+            lr_sum += float(m["lr"])
+        out[name] = (losses, T.leaves(params), lr_sum,
+                     time.perf_counter() - t)
+        del state, cstate
+    (lg, pg, lr_sum, sg), (lc, pc, _, sc) = out["cuda"], out["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    if rel > 1e-4:
+        raise AssertionError(f"train card vs CPU: losses {lg} vs {lc}")
+    close = train_params_close(pc, pg, lr_sum, "train card vs CPU")
+    log(f"train (a) 2-layer full-width f32, 3 steps with GradCompressor: "
+        f"losses card {lg} / CPU {lc} (max rel {rel:.2e}); params "
+        f"{close} ({sum(p.numel() for p in pg)} elements); card "
+        f"{sg:.1f} s, CPU {sc:.1f} s")
+    results["train_parity"] = dict(losses_cuda=lg, losses_cpu=lc,
+                                   loss_rel=rel, **close, cuda_s=sg,
+                                   cpu_s=sc)
+    del out, pg, pc, p0
+    torch.cuda.empty_cache()
+
+
+def train_restart_exact(dev, results):
+    """(b) A 2-layer full-width tinyllama (bf16 compute), 4 steps straight
+    through against 2 steps, a checkpoint (params, m, v) into a temporary
+    directory, a restore and 2 more steps. Under deterministic algorithms
+    (set here only, and undone) the resumed losses and final params equal
+    the uninterrupted run's bit for bit."""
+    import os
+    import tempfile
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, AdamWState, cosine_schedule
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg = get_config("tinyllama-1.1b").replace(n_layers=2)
+        model = Model(cfg, device=dev)
+        opt = AdamW(lr=cosine_schedule(3e-4, 1, 4))
+        step = build_train_step(model, opt)
+        data = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                  global_batch=2, seed=3))
+
+        def run(params, state, steps):
+            losses = []
+            for i in steps:
+                params, state, _, m = step(params, state, None,
+                                           data.global_batch(i))
+                losses.append(float(m["loss"]))
+            return params, state, losses
+        p0 = model.init_params(seed=3)
+        p_full, _, full = run(p0, opt.init(p0), range(4))
+        p_half, s_half, first = run(p0, opt.init(p0), range(2))
+        with tempfile.TemporaryDirectory() as d:
+            ckpt.save(d, 2, {"params": p_half, "m": s_half.m,
+                             "v": s_half.v})
+            del p_half, s_half
+            tmpl = model.init_params(seed=4)
+            blank = opt.init(tmpl)
+            got = ckpt.restore(d, 2, {"params": tmpl, "m": blank.m,
+                                      "v": blank.v}, dev)
+        state = AdamWState(got["m"], got["v"], torch.tensor(
+            2, dtype=torch.int32, device=dev))
+        p_res, _, resumed = run(got["params"], state, range(2, 4))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    if first != full[:2] or resumed != full[2:]:
+        raise AssertionError(f"train restart: losses {first} + {resumed} "
+                             f"vs uninterrupted {full}")
+    for (path, a), b in zip(T.flatten_with_path(p_full), T.leaves(p_res)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"train restart: {T.path_key(path)} "
+                                 f"differs by {float((a - b).abs().max())}")
+    log(f"train (b) 2-layer full-width restart at step 2 of 4: losses "
+        f"{full} repeated bit for bit, params equal")
+    results["train_restart"] = dict(losses=full)
+    del p_full, p_res, got, p0
+    torch.cuda.empty_cache()
+
+
+def train_full_width(dev, results):
+    """(a) and (b) above, then the main path: tinyllama-1.1b at full width
+    and depth (22 layers, bf16 compute over f32 params, remat) through
+    `launch.train.main`, batch 8 x 128, 10 steps, without and with
+    --compress-grads. Gates: every loss and grad norm finite, the last
+    loss below the first, and no kernel of the port launched (the
+    reference's training path reaches no Pallas kernel). Logged: the
+    median ms a step after the first, tokens/s, peak GB."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    n_layers = get_config(TRAIN_ARGS[1]).n_layers
+    train_card_vs_cpu(dev, results)
+    train_restart_exact(dev, results)
+
+    def run():
+        out = {}
+        for name, extra in (("plain", []), ("compressed",
+                                            ["--compress-grads"])):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            recs = []
+            t = time.perf_counter()
+            train.main(TRAIN_ARGS + extra, metrics=recs)
+            torch.cuda.synchronize()
+            out[name] = (recs, time.perf_counter() - t,
+                         torch.cuda.max_memory_allocated() / 2 ** 30)
+        return out
+    out, counts = _drive(run)
+    if any(counts.values()):
+        raise AssertionError(f"train: kernels launched {counts}")
+    batch, seq = int(TRAIN_ARGS[5]), int(TRAIN_ARGS[7])
+    rows = {}
+    for name, (recs, secs, peak) in out.items():
+        losses = [r["loss"] for r in recs]
+        norms = [r["grad_norm"] for r in recs]
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise AssertionError(f"train {name}: non-finite {recs}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train {name}: loss did not fall: "
+                                 f"{losses}")
+        ms = float(np.median([r["ms"] for r in recs[1:]]))
+        rows[name] = dict(losses=losses, grad_norms=norms, step_ms=ms,
+                          first_step_ms=recs[0]["ms"],
+                          tokens_s=batch * seq / (ms / 1e3), peak_gb=peak,
+                          seconds=secs)
+        log(f"train {name:10s} {n_layers} layers, batch {batch} x {seq}: median "
+            f"{ms:.1f} ms a step after the first ({recs[0]['ms']:.0f} ms), "
+            f"{rows[name]['tokens_s']:.0f} tokens/s, peak {peak:.2f} GB; "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad norm "
+            f"{norms[0]:.3f} -> {norms[-1]:.3f}")
+    results["train"] = rows
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_train(dev, results):
+    """(not a default phase) Where a full-width train step's time goes:
+    tinyllama-1.1b, 22 layers, batch 8 x 128, the parts of a compressed
+    step (forward + backward, compression, AdamW) each timed on the host
+    clock between synchronizations over 3 steps after a warm-up; then one
+    plain and one compressed `build_train_step` call under
+    torch.profiler: wall ms, device busy ms, idle share, device kernels,
+    and the ops with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.distributed.collectives import GradCompressor
+    from repro_torch.launch.train import build_train_step, value_and_grad
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    cfg = get_config("tinyllama-1.1b")
+    model = Model(cfg, device=dev)
+    params = model.init_params(seed=0)
+    opt, comp = AdamW(lr=cosine_schedule(3e-4, 1, 10)), GradCompressor()
+    state, cstate = opt.init(params), comp.init(params)
+    data = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                              global_batch=8, seed=0))
+    parts = {"forward+backward": [], "compress": [], "adamw": []}
+    for i in range(4):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in data.global_batch(i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, grads = value_and_grad(lambda p: model.loss(p, batch), params)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads, cstate = comp.compress(grads, cstate)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        params, state, _ = opt.update(grads, state, params)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i:
+            for k, a, b in (("forward+backward", t0, t1),
+                            ("compress", t1, t2), ("adamw", t2, t3)):
+                parts[k].append(1e3 * (b - a))
+        del grads
+    out = {"parts_ms": {k: float(np.median(v)) for k, v in parts.items()}}
+    log(f"train profile, parts of a compressed step (median of 3, ms): "
+        f"{out['parts_ms']}")
+    for name, c in (("plain", None), ("compressed", comp)):
+        step = build_train_step(model, opt, c)
+        batch = data.global_batch(5)
+        params, state, cstate, _ = step(params, state, cstate, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            params, state, cstate, _ = step(params, state, cstate, batch)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t)
+        evs = device_kernels(prof)
+        busy, end = 0.0, -math.inf
+        for e in evs:
+            s_, t_ = e.time_range.start, e.time_range.end
+            if t_ > end:
+                busy += (t_ - max(s_, end)) / 1e3
+                end = t_
+        ops = sorted(((a.key, a.self_device_time_total / 1e3, a.count)
+                      for a in prof.key_averages()
+                      if a.self_device_time_total > 0),
+                     key=lambda r: -r[1])[:12]
+        out[name] = dict(wall_ms=wall, device_busy_ms=busy,
+                         idle_share=1 - busy / wall, device_kernels=len(evs),
+                         top_ops_ms=ops)
+        log(f"train profile {name}: wall {wall:.1f} ms, device busy "
+            f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}, {len(evs)} "
+            f"device kernels; top ops (ms, calls): "
+            + "; ".join(f"{k} {ms:.1f} ({n})" for k, ms, n in ops))
+    results["train_profile"] = out
+    del params, state, cstate
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# phase: the CNN float trainer and the paper's quantizers on its network
+# ----------------------------------------------------------------------
+
+# tests/test_paper_claims.py's paired-evaluation margin
+CLAIM_MARGIN = 0.012
+
+
+def _paper_claims(top1, fp32, err, pruned):
+    """The quantities of the reference's paper-claims tests, each beside
+    its margin (findings, not gates: the port draws its own data)."""
+    t = lambda name: top1[name]
+    return {
+        "T1 a8w8 top1 > fp32 - 0.01": (t("a8w8"), fp32 - 0.01),
+        "T1 err(a8w4) > 4 err(a8w8)": (err["a8w4"], 4 * err["a8w8"]),
+        "T1 err(5opt) < err(a8w4)": (err["5opt_R"], err["a8w4"]),
+        "T1 a8w4 top1 > 0.85": (t("a8w4"), 0.85),
+        "T2 5opt top1 > fp32 - 0.025": (t("5opt_R"), fp32 - 0.025),
+        "T2 3opt top1 > fp32 - 0.025": (t("3opt_R"), fp32 - 0.025),
+        **{f"T2 |{o}opt trim - fp32| < 0.08": (abs(t(f"{o}opt_trim") - fp32),
+                                               0.08) for o in (5, 3, 2)},
+        "T4 5opt >= 7opt - margin": (t("5opt_R"),
+                                     t("2b_7opt") - CLAIM_MARGIN),
+        "T4 7opt top1 > 0.5": (t("2b_7opt"), 0.5),
+        "T4 7opt >= 7opt noVS - margin": (t("2b_7opt"),
+                                          t("2b_7opt_noVS") - CLAIM_MARGIN),
+        "T6 pruned top1 > 0.8": (pruned["top1"], 0.8),
+        "T6 STC 5opt > pruned fp32 - 0.03": (pruned["stc_5opt_top1"],
+                                             pruned["fp32_256"] - 0.03),
+    }
+
+
+def cnn_train_full(dev, results):
+    """The paper's path on a trained network: `cnn_train.train_cnn()`
+    (width 24, stages (1, 1, 1), 8 classes, 24 x 24; 420 steps of 96) and
+    `train_cnn(prune_2_4=True)` (630 steps, 2:4 from step 157) on the card,
+    then calibration (BN and min-max spans on one batch of 128, the
+    reference's default) and 3072 images at batch 256 through the 16
+    quantizers of Tables 1, 2 and 4 and ACIQ A4W8, each conv but the stem
+    through K1 (unsigned); Table 6 on the pruned network: its A8W8 row
+    (K1) and the STC rows on one batch of 256. Gates: float top-1 > 0.85
+    and pruned top-1 > 0.80 with stage-0 w1 at sparsity 0.5 (the
+    reference's thresholds for its trainer); K1 launched exactly sites x
+    batches x quantized evaluations and no other kernel; K1's logits equal
+    the plain K1's on batch 0 of every quantizer. The claims of
+    tests/test_paper_claims.py are logged beside their margins."""
+    from repro_torch.core.pruning import sparsity
+    from repro_torch.core.sparq import SparqConfig
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import cnn_eval as ce
+    from repro_torch.launch import cnn_train as ct
+
+    def run():
+        t0 = time.perf_counter()
+        model = ct.train_cnn(device=dev)
+        torch.cuda.synchronize()
+        t_float = time.perf_counter() - t0
+        pruned = ct.train_cnn(prune_2_4=True, device=dev)
+        torch.cuda.synchronize()
+        t_pruned = time.perf_counter() - t0 - t_float
+        cfg = model["cfg"]
+        calib = ce.calib_batches(cfg, 128, device=dev)
+        evalb = ce.eval_batches(cfg, device=dev)
+        scales = ce.calibrate_cnn(model, calib, device=dev)
+        aciq = ce.aciq_scales(model, 4, calib, device=dev)
+        codecs = {n: (scales, c) for n, c in ce.PAPER_CODECS.items()}
+        codecs["aciq_a4w8"] = (aciq, SparqConfig(enabled=False, act_bits=4))
+        ctxs = {n: ce.quant_ctx(sc, c, device=dev)
+                for n, (sc, c) in codecs.items()}
+        params = model["params"]
+        lf = _logits(params, evalb, cfg)
+        lq = {}
+        for name, ctx in ctxs.items():
+            t = time.perf_counter()
+            lq[name] = (_logits(params, evalb, cfg, ctx),
+                        time.perf_counter() - t)
+        # Table 6: the pruned network, uncalibrated (as the reference
+        # tests it), then calibrated for its A8W8 and STC rows
+        p_top1 = ce.cnn_accuracy(pruned, batches=evalb, device=dev)
+        stc_b = evalb[:1]
+        stc_scales = ce.calibrate_cnn(pruned, calib, device=dev)
+        p_lf = _logits(pruned["params"], stc_b, cfg)
+        p_a8w8 = _logits(pruned["params"], stc_b, cfg, ce.quant_ctx(
+            stc_scales, ce.PAPER_CODECS["a8w8"], device=dev))
+        t = time.perf_counter()
+        stc = {n: _logits(pruned["params"], stc_b, cfg, ce.quant_ctx(
+            stc_scales, c, stc=True, device=dev))
+            for n, c in ce.STC_CODECS.items()}
+        t_stc = time.perf_counter() - t
+        return dict(model=model, pruned=pruned, calib=calib, evalb=evalb,
+                    ctxs=ctxs, lf=lf, lq=lq, p_top1=p_top1, p_lf=p_lf,
+                    p_a8w8=p_a8w8, stc=stc, stc_b=stc_b,
+                    stc_scales=stc_scales, t_float=t_float,
+                    t_pruned=t_pruned, t_stc=t_stc)
+    torch.cuda.reset_peak_memory_stats()
+    out, counts = _drive(run)
+    model, pruned, evalb = out["model"], out["pruned"], out["evalb"]
+    cfg, params = model["cfg"], model["params"]
+    sites = sum(2 * n + (si > 0) for si, n in enumerate(cfg.stages))
+    want = sites * (len(evalb) * len(out["ctxs"]) + 1)
+    if counts["sparq_matmul"] != want or any(
+            n for k, n in counts.items() if k != "sparq_matmul"):
+        raise AssertionError(f"cnn_train: launches {counts}, expected "
+                             f"sparq_matmul = {sites} x ({len(evalb)} x "
+                             f"{len(out['ctxs'])} + 1) = {want} and no "
+                             f"other")
+    labels = [b["label"] for b in evalb]
+    fp32 = _compare(out["lf"], out["lf"], labels)["top1"]
+    w = pruned["params"]["stages"][0][0]["w1"]
+    w_sparsity = sparsity(w.reshape(-1, w.shape[-1]))
+    log(f"cnn_train: float {len(model['losses'])} steps in "
+        f"{out['t_float']:.1f} s (loss {model['losses'][0]:.4f} -> "
+        f"{model['losses'][-1]:.2e}), 2:4 {len(pruned['losses'])} steps in "
+        f"{out['t_pruned']:.1f} s; float top-1 {fp32:.4f}, pruned top-1 "
+        f"{out['p_top1']:.4f} at stage-0 w1 sparsity {w_sparsity}")
+    if not fp32 > 0.85:
+        raise AssertionError(f"cnn_train: float top-1 {fp32} <= 0.85")
+    if not (out["p_top1"] > 0.80 and w_sparsity == 0.5):
+        raise AssertionError(f"cnn_train: pruned top-1 {out['p_top1']}, "
+                             f"sparsity {w_sparsity}")
+    rows = {}
+    orig_route = ops._route
+    ops._route = lambda t: "plain"        # K1's plain version, on the card
+    try:
+        build.reset_launch_counts()
+        for name, ctx in out["ctxs"].items():
+            lq, secs = out["lq"][name]
+            if not all(bool(torch.isfinite(q).all()) for q in lq):
+                raise AssertionError(f"cnn_train {name}: non-finite logits")
+            plain = _logits(params, evalb[:1], cfg, ctx)[0]
+            if not torch.equal(plain, lq[0]):
+                raise AssertionError(
+                    f"cnn_train {name}: K1 logits differ from the plain "
+                    f"version's (max abs "
+                    f"{float((plain - lq[0]).abs().max())})")
+            r = _compare(lq, out["lf"], labels)
+            rows[name] = dict(**r, delta=r["top1"] - fp32,
+                              ms_per_batch=1e3 * secs / len(evalb))
+            log(f"cnn_train {name:13s}: == plain K1 on batch 0; top-1 "
+                f"{r['top1']:.4f} (delta {r['top1'] - fp32:+.4f}), "
+                f"logit_err {r['logit_err']:.5f}, agreement "
+                f"{r['agree']:.4f}, {rows[name]['ms_per_batch']:.2f} ms a "
+                f"batch")
+        plain = _logits(pruned["params"], out["stc_b"], cfg, ce.quant_ctx(
+            out["stc_scales"], ce.PAPER_CODECS["a8w8"], device=dev))[0]
+        if not torch.equal(plain, out["p_a8w8"][0]):
+            raise AssertionError("cnn_train: pruned a8w8 K1 logits differ "
+                                 "from the plain version's")
+        if build.launch_counts()["sparq_matmul"]:
+            raise AssertionError("cnn_train: the plain comparison launched "
+                                 "K1")
+    finally:
+        ops._route = orig_route
+    stc_labels = [b["label"] for b in out["stc_b"]]
+    p_fp32 = _compare(out["p_lf"], out["p_lf"], stc_labels)["top1"]
+    stc_rows = {"a8w8": _compare(out["p_a8w8"], out["p_lf"], stc_labels)}
+    for name, lq in out["stc"].items():
+        if not all(bool(torch.isfinite(q).all()) for q in lq):
+            raise AssertionError(f"cnn_train {name}: non-finite logits")
+        stc_rows[name] = _compare(lq, out["p_lf"], stc_labels)
+    for name, r in stc_rows.items():
+        r["delta"] = r["top1"] - p_fp32
+        log(f"cnn_train T6 {name:12s} (2:4-pruned, 256 images): top-1 "
+            f"{r['top1']:.4f} (delta {r['delta']:+.4f}), logit_err "
+            f"{r['logit_err']:.5f}")
+    claims = _paper_claims(
+        {n: r["top1"] for n, r in rows.items()}, fp32,
+        {n: r["logit_err"] for n, r in rows.items()},
+        dict(top1=out["p_top1"], fp32_256=p_fp32,
+             stc_5opt_top1=stc_rows["stc_4b_5opt"]["top1"]))
+    for claim, (value, bound) in claims.items():
+        log(f"cnn_train claim {claim}: {value:.5f} against {bound:.5f}")
+    results["cnn_train"] = dict(
+        arch=cfg.name, width=cfg.width, stages=list(cfg.stages),
+        img=cfg.img_size, classes=cfg.num_classes,
+        steps=len(model["losses"]), pruned_steps=len(pruned["losses"]),
+        train_s=out["t_float"], pruned_train_s=out["t_pruned"],
+        final_loss=model["losses"][-1], float_top1=fp32,
+        pruned_top1=out["p_top1"], pruned_sparsity=w_sparsity,
+        eval_images=sum(b["image"].shape[0] for b in evalb),
+        launches=counts, codecs=rows,
+        stc=dict(images=sum(b["image"].shape[0] for b in out["stc_b"]),
+                 seconds=out["t_stc"], fp32_top1=p_fp32, codecs=stc_rows),
+        claims={k: list(v) for k, v in claims.items()},
+        peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del out, model, pruned, params, evalb
+    torch.cuda.empty_cache()
+    return counts
+
+
 # Device-time groups of the profile phase: the seven kernels by their
 # __global__ names in csrc/ (K1's pre-pass and GEMM together), everything
 # else (PyTorch's own kernels and copies) as "other".
@@ -2190,13 +2720,6 @@ def parity_two_layers(dev, results):
     kw_wide = dict(page_size=128, n_pages=8, max_active=3, max_seq_len=128,
                    chunk_size=64, chunk_align=16)
 
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_cpu(v) for v in tree]
-        return tree.cpu()
-
     def same(a, b, what):
         if not np.array_equal(a, b):
             raise AssertionError(f"parity, {what}: tokens differ: "
@@ -2206,8 +2729,8 @@ def parity_two_layers(dev, results):
     out, wide, scan = {}, {}, {}
     for name, model, p, sc in (
             ("cuda", gpu, params, scales),
-            ("cpu", Model(cfg, device="cpu"), to_cpu(params),
-             to_cpu(scales))):
+            ("cpu", Model(cfg, device="cpu"), _to_cpu(params),
+             _to_cpu(scales))):
         eng = serve.ContinuousBatchingEngine(
             model, cc, ctx, sc, device=model.device, prefill="chunked", **kw)
         out[name], _ = eng.run(p, reqs)
@@ -2285,7 +2808,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,kernels,serve,scan,sequential,cli,wide,"
-                            "cnn,parity")
+                            "cnn,train,cnn_train,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -2318,10 +2841,14 @@ def main(argv=None):
     by_path = {}
     paths = (("serve", serve_full_width), ("scan", scan_full_width),
              ("sequential", sequential_full_width), ("cli", cli_reduced),
-             ("wide", cli_wide), ("cnn", cnn_full_width))
+             ("wide", cli_wide), ("cnn", cnn_full_width),
+             ("train", train_full_width), ("cnn_train", cnn_train_full))
     for name, run in paths:
         if name in phases:
+            t0 = time.perf_counter()
             by_path[name] = run(dev, results)
+            results[f"{name}_phase_s"] = time.perf_counter() - t0
+            log(f"phase {name}: {results[f'{name}_phase_s']:.1f} s")
     counts = {k: sum(c.get(k, 0) for c in by_path.values())
               for k in build.KERNELS}
     if len(by_path) == len(paths):
@@ -2334,6 +2861,8 @@ def main(argv=None):
         parity_two_layers(dev, results)
     if "profile" in phases:
         profile_serve(dev, results)
+    if "train_profile" in phases:
+        profile_train(dev, results)
     results["total_s"] = time.perf_counter() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,9 +1,12 @@
 """Deterministic synthetic token stream (numpy port of
-`repro.data.pipeline`'s Markov stream): prompts and calibration batches.
+`repro.data.pipeline`'s Markov stream): training batches with their
+labels, prompts and calibration batches.
 
-Every batch is a pure function of (seed, step). The draws come from
-numpy's generator, so they differ from the JAX package's; parity tests
-hand both packages the same numpy tokens instead.
+Every batch is a pure function of (seed, step, shard), so a restarted
+training run replays the exact stream with no loader state to
+checkpoint. The draws come from numpy's generator, so they differ from
+the JAX package's; parity tests hand both packages the same numpy tokens
+instead.
 """
 from __future__ import annotations
 
@@ -41,15 +44,30 @@ def markov_tokens(cfg: DataConfig, batch: int, step: int,
 
 @dataclasses.dataclass
 class Batcher:
+    """`global_batch(step)` builds the whole batch; `local_batch(step)`
+    only this host's shard (global_batch // n_hosts rows, its own draws).
+    A batch holds "tokens" and "labels", the tokens shifted left by one
+    with a final -1 (ignored by the loss)."""
     cfg: DataConfig
+    host_id: int = 0
+    n_hosts: int = 1
+
+    def _batch(self, step: int, batch: int,
+               offset: int) -> Dict[str, np.ndarray]:
+        toks = markov_tokens(self.cfg, batch, step, offset)
+        labels = np.concatenate(
+            [toks[:, 1:], np.full((batch, 1), -1, toks.dtype)], 1)
+        return {"tokens": toks, "labels": labels}
 
     def global_batch(self, step: int) -> Dict[str, np.ndarray]:
-        return {"tokens": markov_tokens(self.cfg, self.cfg.global_batch,
-                                        step)}
+        return self._batch(step, self.cfg.global_batch, 0)
+
+    def local_batch(self, step: int) -> Dict[str, np.ndarray]:
+        per = self.cfg.global_batch // self.n_hosts
+        return self._batch(step, per, self.host_id * 1009)
 
     def calib_batches(self, n: int,
                       batch: Optional[int] = None) -> List[Dict]:
         """Calibration set: `n` batches of min(global_batch, 8) rows."""
         b = batch or min(self.cfg.global_batch, 8)
-        return [{"tokens": markov_tokens(self.cfg, b, 10_000_000 + i)}
-                for i in range(n)]
+        return [self._batch(10_000_000 + i, b, 0) for i in range(n)]

@@ -38,7 +38,10 @@ class ModelConfig:
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-5
     tie_embeddings: bool = True
-    attn_chunk: int = 1024       # flash-style KV chunk in calibration
+    logit_chunk: int = 0         # 0 = unchunked loss
+    attn_chunk: int = 1024       # flash-style KV chunk in train/prefill
+    train_microbatches: int = 1  # gradient accumulation (activation memory)
+    remat: bool = True           # recompute each layer in the backward
 
     @property
     def head_dim(self) -> int:
@@ -153,3 +156,45 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int,
 def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor,
                  dtype) -> torch.Tensor:
     return emb[tokens.long()].to(dtype)
+
+
+def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+             ignore: int = -1):
+    """(sum of -log p(label), count) over the positions whose label is
+    not `ignore`, from logits [..., V] in f32."""
+    lse = torch.logsumexp(logits, dim=-1)
+    # the label's logit by row indexing, whose backward (an accumulating
+    # index_put) has a deterministic CUDA path; gather's scatter_add has none
+    flat = logits.reshape(-1, logits.shape[-1])
+    rows = torch.arange(flat.shape[0], device=logits.device)
+    gold = flat[rows, torch.clamp(labels, min=0).reshape(-1).long()
+                ].reshape(labels.shape)
+    mask = (labels != ignore).to(torch.float32)
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore: int = -1) -> torch.Tensor:
+    """Mean CE over non-ignored positions. logits [..., V], labels [...]."""
+    s, c = _nll_sum(logits.to(torch.float32), labels, ignore)
+    return s / torch.clamp(c, min=1.0)
+
+
+def chunked_lm_loss(emb_out: torch.Tensor, x: torch.Tensor,
+                    labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """CE loss of x [B, T, D] projected by emb_out [D, V], one sequence
+    chunk of `chunk` positions at a time (the reference's scan), so the
+    [T, V] logits are never whole; unchunked when `chunk` does not split
+    T into two or more chunks."""
+    B, T, D = x.shape
+    if chunk <= 0 or T % chunk != 0 or T == chunk:
+        logits = torch.matmul(x, emb_out.to(x.dtype))
+        return cross_entropy_loss(logits, labels)
+    s = torch.zeros((), dtype=torch.float32, device=x.device)
+    c = torch.zeros((), dtype=torch.float32, device=x.device)
+    for t0 in range(0, T, chunk):
+        logits = torch.matmul(x[:, t0:t0 + chunk],
+                              emb_out.to(x.dtype)).to(torch.float32)
+        ds, dc = _nll_sum(logits, labels[:, t0:t0 + chunk])
+        s, c = s + ds, c + dc
+    return s / torch.clamp(c, min=1.0)

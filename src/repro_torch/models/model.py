@@ -1,13 +1,13 @@
 """Public model API (port of `repro.models.model`, dense decoders):
-init / forward / calibrate / contiguous-cache prefill / chunked prefill /
-decode step.
+init / forward / loss / calibrate / contiguous-cache prefill / chunked
+prefill / decode step.
 
 `Model(cfg, device)` runs on `cuda` unless the caller asks for another
 device, and raises when no GPU is present and none was asked for.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -15,8 +15,12 @@ from repro_torch import resolve_device
 from repro_torch.core.calibration import CalibBank
 from repro_torch.models import transformer as tr
 from repro_torch.models.cache import CacheConfig
-from repro_torch.models.common import (ModelConfig, QuantCtx, embed_tokens,
-                                       norm, norm_init, trunc_normal)
+from repro_torch.models.common import (ModelConfig, QuantCtx,
+                                       chunked_lm_loss, embed_tokens, norm,
+                                       norm_init, trunc_normal)
+
+LB_COEF = 0.01
+Z_COEF = 0.001
 
 
 class Model:
@@ -75,6 +79,23 @@ class Model:
     def logits(self, params, batch, ctx=None, scales_groups=None):
         return self._head(params, self.forward(params, batch, ctx,
                                                scales_groups))
+
+    def loss(self, params, batch: Dict, ctx: Optional[QuantCtx] = None,
+             scales_groups=None) -> Tuple[torch.Tensor, Dict]:
+        """Next-token CE of batch["tokens"] against batch["labels"] (-1
+        ignored), the vocab projection `cfg.logit_chunk` positions at a
+        time. Returns (total, metrics); the dense family's load-balance
+        and z terms are 0, so total == lm_loss."""
+        cfg = self.cfg
+        x = self.forward(params, batch, ctx, scales_groups)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        head = params["embed"].T if cfg.tie_embeddings \
+            else params["lm_head"]
+        lm = chunked_lm_loss(head, x, labels, cfg.logit_chunk or x.shape[1])
+        aux = {"lb_loss": torch.zeros((), device=self.device),
+               "z_loss": torch.zeros((), device=self.device)}
+        total = lm + LB_COEF * aux["lb_loss"] + Z_COEF * aux["z_loss"]
+        return total, {"lm_loss": lm, **aux}
 
     # ------------------------------------------------------------ serve
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,

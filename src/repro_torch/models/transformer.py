@@ -1,13 +1,17 @@
 """Block assembly and the layer stack (port of `repro.models.transformer`,
 dense kind only). Layers are grouped into homogeneous runs with stacked
 [L, ...] params as in the JAX package; the stack runs as a Python loop over
-layers, each with its own calibrated scales and its own cache store."""
+layers, each with its own calibrated scales and its own cache store. In
+training (mode "train" with gradients on and `cfg.remat`) each layer is
+recomputed in the backward (`torch.utils.checkpoint`, the reference's
+`jax.checkpoint` of the scan body)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
@@ -65,6 +69,16 @@ def layer_params(stacked, li: int):
     return stacked[li]
 
 
+def unstack_layers(stacked, count: int) -> list:
+    """Every layer of a stacked group, as views made by one `unbind` a
+    leaf: its backward stacks the layers' gradients once, where indexing
+    layer by layer would add a zero-filled [L, ...] gradient a layer."""
+    if isinstance(stacked, dict):
+        per = {k: unstack_layers(v, count) for k, v in stacked.items()}
+        return [{k: per[k][li] for k in stacked} for li in range(count)]
+    return list(torch.unbind(stacked, 0))
+
+
 def stack_init(gen: torch.Generator, cfg: ModelConfig, kinds: list[str],
                device) -> list:
     out = []
@@ -100,17 +114,25 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
     """Apply every layer in order. `caches` is the flat per-layer list of
     cache stores (written in place); `scales_groups[g][site]` holds the
     group's per-layer calibrated spans. Returns x."""
+    remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     li_global = 0
     for gi, ((kind, count), stacked) in enumerate(zip(groups_meta, blocks)):
         scales_g = scales_groups[gi] if scales_groups is not None else None
-        for li in range(count):
+        for li, p_l in enumerate(unstack_layers(stacked, count)):
             bctx = ctx
             if ctx is not None and scales_g is not None:
                 bctx = dataclasses.replace(
                     ctx, scales={s: v[li] for s, v in scales_g.items()})
             cache = caches[li_global] if caches is not None else None
-            x, _ = block_apply(layer_params(stacked, li), x, cfg, kind,
-                               positions=positions, cache=cache, mode=mode,
-                               ctx=bctx, chunk=chunk)
+
+            def body(p_l, x, kind=kind, cache=cache, bctx=bctx):
+                return block_apply(p_l, x, cfg, kind, positions=positions,
+                                   cache=cache, mode=mode, ctx=bctx,
+                                   chunk=chunk)[0]
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    body, p_l, x, use_reentrant=False)
+            else:
+                x = body(p_l, x)
             li_global += 1
     return x

@@ -52,6 +52,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 ATOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the suite runs several test workers on one
+    machine, and OpenMP threads spinning between this file's many small
+    ops would take the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
