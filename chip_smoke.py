@@ -27,7 +27,11 @@ Phases (each one that fails makes the script exit non-zero):
               bf16 out), `CachedTensor.read` profiled as one K6 launch;
               K2 paged decode and K5 contiguous decode (the split-key
               body) at their serving shapes and at hd 16 / G 4, hd 128
-              and misaligned planes, K3 chunked prefill at every
+              and misaligned planes, and (check_f3) K5 at bk 128 and K2
+              at page size 128 at F3_SHAPES (G 48 hd 128, G 8 and G 16
+              hd 256: a tile of 128 in chunks of 64 keys), within 1e-4 of
+              f64 and PLAIN_TOL of the plain version, timed beside SDPA
+              and the byte bound; K3 chunked prefill at every
               K3_SHAPES shape (hd 64 G 8, the serving shape; hd 16, hd 128
               at G 8 and G 48, bq * G = 128, page size 128, hd 256, hd 10,
               misaligned tensors, and the exact shapes of the cli and wide
@@ -49,6 +53,17 @@ Phases (each one that fails makes the script exit non-zero):
               the first decode update and chunk write of the warm-up run,
               replayed alone on their own inputs under the profiler,
               launch K4 and nothing else (`WriteCapture`)
+  preempt     the serve phase's requests through a pool of half the
+              uncontended peak: requeue under sequential admission (a
+              victim re-prefills alone and replays its tokens through K5
+              at bk 16), swap and auto under chunked; each run's tokens
+              equal the uncontended run's, every mode preempts, swap
+              bytes out = in = the swapped pages' planes plus two f32
+              scales a layer, exact K2 / K3 / K4 / K5 counts
+  prefix      a 256-token system prompt shared by 8 requests (tails of
+              16-128 tokens, 3 decode steps apart), chunked, page 16,
+              prefix cache off and on: equal tokens, 7 hits, K3 launches
+              down by 22 a hit, exact K2 / K3 / K4 counts
   scan        the same model, `DecodeEngine.generate` on batch 8, prompt
               256, gen 32 over the contiguous sparq cache: K1 = 7*22*32,
               K4 = 22*(2 + 31), K5 = 22*31, K2 = K3 = K6 = 0; the first
@@ -65,7 +80,8 @@ Phases (each one that fails makes the script exit non-zero):
   cli         `python -m repro_torch.launch.serve` (CLI_ARGS: the reduced
               tinyllama, paged chunked engine, sparq KV, 5opt) through its
               `main`: every request returns its tokens; K3 at every chunk's
-              layer (hd 16 G 4), K2 every decode step
+              layer (hd 16 G 4), K2 every decode step; then the same with
+              --preempt swap --oversubscribe 0.5 --prefix-cache
   wide        the same CLI at full width with --chunk-align 16
               --page-size 128 (WIDE_ARGS: 22 layers, K3 at 128 query rows
               a tile in two row blocks, two key tiles a page): the same
@@ -123,10 +139,11 @@ Phases (each one that fails makes the script exit non-zero):
               kernels on the device timeline (every decode update one K4
               launch, every chunk write two, nothing else)
 
-Each of serve, scan, sequential, cli, wide, cnn, train (its part c) and
-cnn_train resets the launch counters just before it drives its path and
-reads them just after; the plain versions of the KV codec must not run
-there at all. With all eight, every kernel must have launched on some
+Each of serve, preempt, prefix, scan, sequential, cli, wide, cnn, train
+(its part c) and cnn_train resets the launch counters just before it
+drives its path (each of its runs) and reads them just after; the plain
+versions of the KV codec must not run there at all. With all ten, every
+kernel must have launched on some
 path. The plain versions of the KV path
 (codec, `sparq_pack`, the three writes, the dequantizers) must not run on
 any path.
@@ -1267,20 +1284,50 @@ def check_k4(dev, results):
               f"64, both planes)", rows=rows)
 
 
-def profiled_kernels(fn):
+# small kernels queued around a profile's markers: on some H100 hosts
+# a profile lost its first few device activities (the first marker and
+# the kernels after it: 3 or 4 of them), so the bracketed records are
+# kept away from both ends
+PROFILE_PAD = 1024
+
+
+def profiled_kernels(fn, fresh=None, attempts=10):
     """Run fn under torch.profiler; the names of the device kernels it
-    launched, in order (memory copies and sets included). A MARK kernel
-    runs first, synchronised, so that the tracer is live before fn (a
-    profile can lose its first device activity)."""
+    launched, in order (memory copies and sets included). PROFILE_PAD
+    small kernels, a MARK kernel, fn, a MARK kernel and PROFILE_PAD small
+    kernels run in turn, each step synchronised: a profile can lose
+    device activity, and one that does not hold both markers is no
+    observation, so it is taken again, up to `attempts` times. With
+    `fresh`, each attempt runs fn(fresh()) on inputs made outside the
+    profile."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(MARK_CYCLES)
+    pad = torch.zeros((1,), device="cuda")
+
+    def padding():
+        for _ in range(PROFILE_PAD):
+            pad.zero_()
         torch.cuda.synchronize()
-        fn()
+    for _ in range(attempts):
+        arg = fresh() if fresh is not None else None
         torch.cuda.synchronize()
-    return [e.name for e in device_kernels(prof) if MARK not in e.name]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            padding()
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+            fn() if fresh is None else fn(arg)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+            padding()
+        evs = device_kernels(prof)
+        marks = [i for i, e in enumerate(evs) if MARK in e.name]
+        if len(marks) == 2:
+            return [e.name for e in evs[marks[0] + 1:marks[1]]]
+        log(f"profile without its two markers ({len(marks)} found, "
+            f"{len(evs)} device activities): taken again")
+    raise AssertionError(f"torch.profiler lost the markers around the "
+                         f"profiled call in {attempts} attempts")
 
 
 def check_k6(dev, results):
@@ -1473,6 +1520,90 @@ def check_k5(dev, results):
         f"{geo.n_splits})")
 
 
+# The head shapes (G, hd, one KV head) whose 128-key tile the split-key
+# body walks in chunks (`sparq_decode_attn.sub_keys`): K5 at bk 128 and K2
+# at page size 128 there
+F3_SHAPES = {"granite-20b": (48, 128), "paligemma-3b": (8, 256),
+             "recurrentgemma-9b": (16, 256)}
+
+
+def _decode_yardsticks(q, k, v, live, n_keys_live, extra_bytes):
+    """SDPA's time over the decoded keys (decode excluded) under the live
+    mask, and the byte / operation bound of one decode call: q and out f32,
+    4 bytes per live key and head dim (K and V data + meta)."""
+    import torch.nn.functional as F
+    B, KV, G, hd = q.shape
+    qh = q.reshape(B, KV * G, 1, hd)
+    kk = k.transpose(1, 2).repeat_interleave(G, 1)
+    vv = v.transpose(1, 2).repeat_interleave(G, 1)
+    mask = live[:, None, None, :]
+    lib_ms = bench(lambda: F.scaled_dot_product_attention(
+        qh, kk, vv, attn_mask=mask), [()])
+    nbytes = B * KV * G * hd * 4 * 2 + n_keys_live * KV * hd * 4 + extra_bytes
+    flops = 4 * n_keys_live * KV * G * hd
+    bound = max(nbytes / H100_BYTES_S, flops / H100_F32_FLOPS_S) * 1e3
+    by = "bytes" if nbytes / H100_BYTES_S >= flops / H100_F32_FLOPS_S \
+        else "operations"
+    return lib_ms, bound, by
+
+
+def check_f3(dev, results):
+    """K5 at bk 128 (the scan decode's 8 x 296 planes, cur 286, a ragged
+    last tile) and K2 at page size 128 (check_k2's slots) at F3_SHAPES,
+    without and with a window: within 1e-4 of decode_f64_reference and
+    PLAIN_TOL of the plain version; times beside SDPA's and the bound."""
+    from repro_torch.kernels import sparq_decode_attn as dec
+    gen = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    for arch, (G, hd) in F3_SHAPES.items():
+        k5s = [k5_case(gen, dev, G=G, hd=hd, KV=1)
+               for _ in range(n_sets(4 * 8 * 296 * hd))]
+        k2s = [k2_case(gen, dev, G=G, hd=hd, KV=1, ps=128, NB=5)
+               for _ in range(n_sets(4 * 20 * 128 * hd))]
+        k5, k2 = k5s[0], k2s[0]
+        errs = {}
+        for window in (0, K2_WINDOW):
+            got = dec.sparq_decode_attn_cuda(*k5, window=window, bk=128)
+            want = dec.ref_sparq_decode_attn(*k5, window=window, bk=128)
+            exact = decode_f64_reference(k5[0], *contig_keys(
+                *k5[1:], window=window))
+            errs[f"K5 window {window}"] = hold(
+                f"K5 {arch} bk 128, window {window}", got, want, exact,
+                PLAIN_TOL)
+            got = dec.sparq_paged_decode_attn_cuda(*k2, window=window)
+            want = dec.ref_sparq_paged_decode_attn(*k2, window=window)
+            exact = decode_f64_reference(k2[0], *paged_keys(
+                *k2[1:], window=window))
+            errs[f"K2 window {window}"] = hold(
+                f"K2 {arch} ps 128, window {window}", got, want, exact,
+                PLAIN_TOL)
+        _log_decode(f"F3 {arch} (G {G}, hd {hd})", errs)
+        row = dict(G=G, hd=hd, sub=dec.sub_keys(G, hd, 128),
+                   smem=dec.smem_bytes(G, hd, 128), errors=errs)
+        for name, fn, a, keys in (
+                ("K5", lambda *x: dec.sparq_decode_attn_cuda(*x, bk=128),
+                 k5s, contig_keys(*k5[1:])),
+                ("K2", dec.sparq_paged_decode_attn_cuda, k2s,
+                 paged_keys(*k2[1:]))):
+            ms = bench(fn, a)
+            a = a[0]
+            live = keys[2]
+            extra = a[7].numel() * 4 + 12
+            lib_ms, bound, by = _decode_yardsticks(
+                a[0], keys[0], keys[1], live, int(live.sum()), extra)
+            row[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=bound,
+                             bound_by=by)
+            err64 = max(e["f64"] for k, e in errs.items()
+                        if k.startswith(name))
+            row[name].update(max_abs_err_f64=err64)
+            log(f"F3 {arch} {name} (G {G}, hd {hd}, tile 128 in chunks of "
+                f"{row['sub']}): {ms:.4f} ms (SDPA {lib_ms:.4f} ms, bound "
+                f"{bound:.5f} ms, {int(live.sum())} live keys), max abs "
+                f"err vs f64 {err64:.2e}")
+        rows[arch] = row
+    results["f3"] = rows
+
+
 # ----------------------------------------------------------------------
 # phase: the main path end to end, full width
 # ----------------------------------------------------------------------
@@ -1614,9 +1745,9 @@ class WriteCapture:
                                  f"expected {sorted(want)}")
         out = {}
         for what, (saved, fn, a, k) in self.calls.items():
-            st = _clone_state(saved)
             n = self.LAUNCHES[what]
-            names = profiled_kernels(lambda: fn(st, *a, **k))
+            names = profiled_kernels(lambda st: fn(st, *a, **k),
+                                     fresh=lambda: _clone_state(saved))
             out[what] = names
             if len(names) != n or not all("sparq_quant_" in x
                                           for x in names):
@@ -1704,6 +1835,220 @@ def serve_full_width(dev, results):
 
 def sequential_full_width(dev, results):
     return _paged_full_width(dev, results, "sequential")
+
+
+# ----------------------------------------------------------------------
+# phases: preemption and the prefix cache, full width
+# ----------------------------------------------------------------------
+
+class SwapPagesSpy:
+    """Counts the pages each swap-out gathers (`paging.gather_slot_pages`
+    is called once per layer a swap)."""
+
+    def __enter__(self):
+        from repro_torch.models import paging
+        self.pages, self._orig = [], paging.gather_slot_pages
+
+        def spy(store, slot, pages, _orig=self._orig):
+            self.pages.append(int(pages.numel()))
+            return _orig(store, slot, pages)
+        paging.gather_slot_pages = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import paging
+        paging.gather_slot_pages = self._orig
+
+
+def _paged_engine(model, codec, scales, dev, prefill, n_pages, max_seq,
+                  policy=None, **kw):
+    from repro_torch.launch import serve
+    from repro_torch.models.common import QuantCtx
+    return serve.ContinuousBatchingEngine(
+        model, serve.make_cache_config("sparq", codec),
+        QuantCtx(mode="quantized", cfg=codec), scales, page_size=16,
+        n_pages=n_pages, max_active=8, max_seq_len=max_seq, policy=policy,
+        prefill=prefill, chunk_size=256, chunk_align=8, device=dev, **kw)
+
+
+def _same_tokens(what, got, want):
+    for rid in want:
+        if not np.array_equal(got[rid], want[rid]):
+            raise AssertionError(f"{what}: request {rid}'s tokens differ "
+                                 f"from the uncontended run's")
+
+
+def preempt_full_width(dev, results):
+    """The serve phase's 8 requests through an oversubscribed pool (half
+    the uncontended peak): requeue under sequential admission, swap and
+    auto under chunked. Tokens equal the uncontended runs'; every mode
+    preempts; swap bytes out = in = the swapped pages' planes plus their
+    scales; exact launch counts, K5 = 22 a replay step."""
+    from repro_torch.launch import serve
+    from repro_torch.models import paging
+    cfg, model, params, scales, codec = _full_width(dev)
+    L = cfg.n_layers
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 513, 8)
+    gen = 32
+    reqs = [serve.Request(rng.integers(0, cfg.vocab_size, int(n)), gen)
+            for n in lens]
+    max_seq = -(-(int(lens.max()) + gen - 1) // 16) * 16
+    full = sum(math.ceil((int(n) + gen - 1) / 16) for n in lens) + 8
+    ref, peak = {}, {}
+    for prefill in ("sequential", "chunked"):
+        eng = _paged_engine(model, codec, scales, dev, prefill, full,
+                            max_seq)
+        ref[prefill], st = eng.run(params, reqs)
+        peak[prefill] = st["peak_pages_used"]
+    n_pages = max(peak.values()) // 2
+    page_bytes = 4 * L * 16 * cfg.n_kv_heads * cfg.head_dim
+    total, rows = {}, {}
+    for mode, prefill in (("requeue", "sequential"), ("swap", "chunked"),
+                          ("auto", "chunked")):
+        eng = _paged_engine(model, codec, scales, dev, prefill, n_pages,
+                            max_seq, serve.SchedulerPolicy(preempt=mode))
+        with SwapPagesSpy() as spy:
+            (out, st), counts = _drive(lambda: eng.run(params, reqs))
+        _check_requests(cfg, reqs, out, gen)
+        _same_tokens(f"preempt {mode} ({prefill})", out, ref[prefill])
+        steps, chunks = st["decode_steps"], st["prefill_chunks"]
+        replays = st["replay_steps"]
+        if st["preemptions"] <= 0:
+            raise AssertionError(f"preempt {mode}: the pool of {n_pages} "
+                                 f"pages preempted nothing")
+        swapped = sum(spy.pages) // L
+        want_bytes = swapped * page_bytes + 8 * L * st["preempt_swap"]
+        if not st["swap_bytes_out"] == st["swap_bytes_in"] == want_bytes:
+            raise AssertionError(
+                f"preempt {mode}: swap bytes out {st['swap_bytes_out']}, "
+                f"in {st['swap_bytes_in']}, expected {want_bytes} "
+                f"({swapped} pages x {page_bytes} + scales)")
+        if mode == "swap" and st["preempt_swap"] == 0:
+            raise AssertionError("preempt swap: no victim was swapped")
+        assert st["free_pages_after"] == n_pages, "pages leaked"
+        if prefill == "sequential":
+            # prefills: every admission and every requeue resume; a replay
+            # step is one contiguous decode (K4 append, K5 at bk = 16)
+            prefills = len(reqs) + st["preempt_requeue"]
+            want = {"sparq_paged_decode_attn": L * steps,
+                    "sparq_decode_attn": L * replays,
+                    "sparq_chunked_prefill_attn": 0,
+                    "sparq_quant": L * (2 * prefills + steps + replays)}
+            if replays <= 0:
+                raise AssertionError("preempt requeue: nothing replayed")
+        else:
+            # chunked: re-prefills stream as chunks, replays ride the
+            # decode steps
+            prefills = chunks
+            want = {"sparq_paged_decode_attn": L * steps,
+                    "sparq_decode_attn": 0,
+                    "sparq_chunked_prefill_attn": L * chunks,
+                    "sparq_quant": L * (2 * chunks + steps)}
+        want["sparq_dequant"] = 0
+        for k, v in want.items():
+            if counts[k] != v:
+                raise AssertionError(f"preempt {mode}: {k} launched "
+                                     f"{counts[k]} times, expected {v} "
+                                     f"({counts})")
+        # a sequential replay step is a decode of its own; a chunked one
+        # rides a decode step
+        seq_replays = replays if prefill == "sequential" else 0
+        if counts["sparq_matmul"] < 7 * L * (steps + prefills + seq_replays):
+            raise AssertionError(f"preempt {mode}: K1 {counts}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        rows[mode] = dict(prefill=prefill, swapped_pages=swapped,
+                          launches=counts,
+                          **{k: v for k, v in st.items()
+                             if not isinstance(v, dict)})
+        log(f"preempt {mode} ({prefill}, {n_pages} of {full} pages, "
+            f"uncontended peak {peak[prefill]}): {st['preemptions']} "
+            f"preemptions ({st['preempt_requeue']} requeue, "
+            f"{st['preempt_swap']} swap), {replays} replay steps, swap "
+            f"{st['swap_bytes_out']} B out / {st['swap_bytes_in']} B in "
+            f"({swapped} pages), {steps} decode steps, {chunks} chunks, "
+            f"resume {st['resume_s']:.3f} s, decode "
+            f"{st['decode_tok_s']:.1f} tok/s; tokens equal the "
+            f"uncontended run's; launches {counts}")
+    results["preempt"] = dict(uncontended_peak=peak, runs=rows)
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def prefix_full_width(dev, results):
+    """A shared system prompt: a 256-token preamble (one prefix quantum:
+    16 pages, one chunk segment) and ragged 16-128-token tails, 8 requests
+    arriving 3 decode steps apart (each prefills alone), gen 32, chunked,
+    page 16. Tokens with --prefix-cache equal tokens without; every later
+    request hits; each hit skips exactly the preamble's chunk, so K3
+    launches drop by 22 a hit; exact K2, K3, K4 counts."""
+    from repro_torch.launch import serve
+    cfg, model, params, scales, codec = _full_width(dev)
+    L = cfg.n_layers
+    rng = np.random.default_rng(1)
+    pre = rng.integers(0, cfg.vocab_size, 256)
+    tails = rng.integers(16, 129, 8)
+    gen = 32
+    reqs = [serve.Request(np.concatenate(
+        [pre, rng.integers(0, cfg.vocab_size, int(t))]), gen,
+        arrive_at=3 * i) for i, t in enumerate(tails)]
+    lens = [len(r.tokens) for r in reqs]
+    max_seq = -(-(max(lens) + gen - 1) // 16) * 16
+    n_pages = sum(math.ceil((n + gen - 1) / 16) for n in lens) + 8
+    out, stats, counts = {}, {}, {}
+    for on in (False, True):
+        eng = _paged_engine(model, codec, scales, dev, "chunked", n_pages,
+                            max_seq, prefix_cache=on)
+        (out[on], stats[on]), counts[on] = _drive(
+            lambda: eng.run(params, reqs))
+        _check_requests(cfg, reqs, out[on], gen)
+        st, c = stats[on], counts[on]
+        steps, chunks = st["decode_steps"], st["prefill_chunks"]
+        want = {"sparq_paged_decode_attn": L * steps,
+                "sparq_chunked_prefill_attn": L * chunks,
+                "sparq_quant": L * (2 * chunks + steps),
+                "sparq_decode_attn": 0, "sparq_dequant": 0}
+        for k, v in want.items():
+            if c[k] != v:
+                raise AssertionError(f"prefix cache {on}: {k} launched "
+                                     f"{c[k]} times, expected {v} ({c})")
+        assert st["free_pages_after"] == n_pages, "pages leaked"
+    _same_tokens("prefix cache on", out[True], out[False])
+    hits = stats[True]["prefix_hits"]
+    if hits != len(reqs) - 1 or stats[True]["prefix_hit_tokens"] != \
+            256 * hits or stats[True]["preemptions"]:
+        raise AssertionError(f"prefix cache: {hits} hits, "
+                             f"{stats[True]['prefix_hit_tokens']} tokens "
+                             f"from cache; expected {len(reqs) - 1} hits "
+                             f"of 256 tokens")
+    if stats[False]["prefill_chunks"] != 2 * len(reqs):
+        raise AssertionError(f"prefix cache off: "
+                             f"{stats[False]['prefill_chunks']} chunks, "
+                             f"expected 2 a request (each alone)")
+    drop = counts[False]["sparq_chunked_prefill_attn"] - \
+        counts[True]["sparq_chunked_prefill_attn"]
+    if drop != L * hits:
+        raise AssertionError(f"prefix cache: K3 launches dropped by {drop}, "
+                             f"expected {L} x {hits} skipped chunks")
+    results["prefix"] = {str(on): dict(launches=counts[on], **{
+        k: v for k, v in stats[on].items() if not isinstance(v, dict)})
+        for on in (False, True)}
+    log(f"prefix {cfg.name} x{L}: 8 requests, 256-token shared preamble, "
+        f"tails {[int(t) for t in tails]}: {hits} hits, "
+        f"{stats[True]['prefix_shared_pages']} pages shared, chunks "
+        f"{stats[False]['prefill_chunks']} -> "
+        f"{stats[True]['prefill_chunks']}, K3 launches "
+        f"{counts[False]['sparq_chunked_prefill_attn']} -> "
+        f"{counts[True]['sparq_chunked_prefill_attn']}, prefill "
+        f"{stats[False]['prefill_s']:.3f} s -> "
+        f"{stats[True]['prefill_s']:.3f} s, decode steps "
+        f"{stats[False]['decode_steps']} / {stats[True]['decode_steps']}; "
+        f"tokens equal; launches off {counts[False]}, on {counts[True]}")
+    del params
+    torch.cuda.empty_cache()
+    return {k: counts[False][k] + counts[True][k] for k in counts[True]}
 
 
 def scan_full_width(dev, results):
@@ -1807,7 +2152,12 @@ def cli_k3_shape(argv):
             False, int(arg.get("--chunk-size", 32)))
 
 
-def _cli(dev, results, name, argv):
+# the oversubscribed, shared-prefix serve the CLI offers
+CLI_PREEMPT_FLAGS = ["--preempt", "swap", "--oversubscribe", "0.5",
+                     "--prefix-cache"]
+
+
+def _cli(dev, results, name, argv, key=None):
     """`python -m repro_torch.launch.serve` with argv, through its `main`
     (a warm-up run, then the timed one): every request returns `gen`
     tokens in [0, vocab); K3 runs at every chunk's layer (the tensor-core
@@ -1837,11 +2187,13 @@ def _cli(dev, results, name, argv):
         raise AssertionError(f"{name} launches {counts} (two runs of "
                              f"{chunks} chunks and {steps} steps), expected "
                              f"{want} and K1 > 0")
-    results[name] = dict(
+    results[key or name] = dict(
         argv=argv, arch=cfg.name, n_layers=L, head_dim=cfg.head_dim, G=G,
         k3_traits=tr._asdict(), launches=counts,
         **{k: v for k, v in stats.items() if not isinstance(v, dict)})
-    log(f"{name} {' '.join(argv)}: {len(toks)} requests x {gen} tokens | "
+    log(f"{key or name} {' '.join(argv)}: {len(toks)} requests x {gen} "
+        f"tokens | {stats['pool_pages']} pages, {stats['preemptions']} "
+        f"preemptions, {stats['prefix_hits']} prefix hits | "
         f"prefill {stats['prefill_s']:.3f} s ({chunks} chunks) | decode "
         f"{stats['decode_tok_s']:.1f} tok/s | K3 {tr} | launches (warm-up + "
         f"timed run) {counts}")
@@ -1849,7 +2201,12 @@ def _cli(dev, results, name, argv):
 
 
 def cli_reduced(dev, results):
-    return _cli(dev, results, "cli", CLI_ARGS)
+    """CLI_ARGS, then the same with CLI_PREEMPT_FLAGS (a pool of half the
+    batch's pages, swap preemption, the prefix cache)."""
+    a = _cli(dev, results, "cli", CLI_ARGS)
+    b = _cli(dev, results, "cli", CLI_ARGS + CLI_PREEMPT_FLAGS,
+             key="cli_preempt")
+    return {k: a[k] + b[k] for k in a}
 
 
 def cli_wide(dev, results):
@@ -2807,8 +3164,8 @@ def check_sass():
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,kernels,serve,scan,sequential,cli,wide,"
-                            "cnn,train,cnn_train,parity")
+                    default="build,kernels,serve,preempt,prefix,scan,"
+                            "sequential,cli,wide,cnn,train,cnn_train,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -2836,10 +3193,11 @@ def main(argv=None):
     results["sass"] = check_sass()
     if "kernels" in phases:
         for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
-                      check_k6):
+                      check_f3, check_k6):
             check(dev, results)
     by_path = {}
-    paths = (("serve", serve_full_width), ("scan", scan_full_width),
+    paths = (("serve", serve_full_width), ("preempt", preempt_full_width),
+             ("prefix", prefix_full_width), ("scan", scan_full_width),
              ("sequential", sequential_full_width), ("cli", cli_reduced),
              ("wide", cli_wide), ("cnn", cnn_full_width),
              ("train", train_full_width), ("cnn_train", cnn_train_full))

@@ -79,11 +79,13 @@ def instrumented_header() -> str:
         ("  if (__syncthreads_or(any)) {\n",
          "  const int any_ = __syncthreads_or(any);\n  P[1] = clock64();\n"
          "  if (any_) {\n"),
-        ("    // scores of every key of the split at once",
-         tick % 2 + "    // scores of every key of the split at once"),
-        ("    // the online-softmax updates of the split's tiles",
-         tick % 3 + "    // the online-softmax updates of the split's tiles"),
-        ("    // P V of every live tile", tick % 4 + "    // P V of every live tile"),
+        ("      // scores of every key of the chunk at once",
+         tick % 2 + "      // scores of every key of the chunk at once"),
+        ("      // the online-softmax updates of the chunk's units",
+         tick % 3
+         + "      // the online-softmax updates of the chunk's units"),
+        ("      // P V of every live unit",
+         tick % 4 + "      // P V of every live unit"),
         ("  } else {\n    for (int g = tid; g < G; g += THREADS) part[g] = "
          "-CUDART_INF_F;\n  }\n",
          tick % 5 + "  } else {\n    for (int g = tid; g < G; g += THREADS) "

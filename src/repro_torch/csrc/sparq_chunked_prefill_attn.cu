@@ -76,7 +76,10 @@
 //     the tiles kernels/sparq_prefill_attn.py::walk lists: page tiles
 //     holding a key x in [max(0, min_pos - window + 1), max_hist) on an
 //     allocated page, and chunk tiles holding a key of the tile's sequence
-//     with max(min_hist, that lower bound) <= kpos <= max_pos. Within a
+//     with max(min_hist, that lower bound) <= kpos <= max_pos. Chunk tiles
+//     are counted from the sequence's first row in the chunk, so a
+//     sequence's keys fall into the same tiles, and its rows round the
+//     same, wherever the packer placed its run. Within a
 //     visited tile the pages that are not live are zero-filled instead of
 //     loaded. walk is the rule; this kernel implements it.
 //   - Launch: cudaFuncSetAttribute runs once per device, instantiation and
@@ -252,9 +255,11 @@ chunked_prefill_kernel(const Args a) {
   int* flag = pg + NB;            // [npt + nct] tile visited?
   int* visit = flag + npt + nct;  // [npt + nct] u < npt: page tile u (keys
                                   // [u KT, (u + 1) KT)), else chunk tile
-                                  // u - npt
+                                  // u - npt (stream keys cb + [(u - npt)
+                                  // KT, (u - npt + 1) KT), cb the first
+                                  // stream row of the tile's sequence)
   __shared__ int s_kseq[2][KT], s_kpos[2][KT];  // each buffer's keys
-  __shared__ int s_bound[4];                    // min/max pos, min/max hist
+  __shared__ int s_bound[5];  // min/max pos, min/max hist, first row of ts
   __shared__ int s_nvisit;
   __shared__ __align__(8) uint64_t s_full[2], s_empty[2];
 
@@ -286,6 +291,7 @@ chunked_prefill_kernel(const Args a) {
     s_bound[1] = -BIG;
     s_bound[2] = BIG;
     s_bound[3] = 0;
+    s_bound[4] = BIG;
     for (int b = 0; b < 2; ++b) {
       mbar_init(&s_full[b], PT);
       mbar_init(&s_empty[b], CT);
@@ -346,16 +352,22 @@ chunked_prefill_kernel(const Args a) {
       mn_h = min(mn_h, hh);
       mx_h = max(mx_h, hh);
     }
+    // the first stream row of the tile's sequence: its run starts there
+    int mn_r = ksid == ts ? tid : BIG;
+    for (int j = tid + THREADS; j < C; j += THREADS)
+      if (a.seq_id[j] == ts) mn_r = min(mn_r, j);
     mn_p = warp_min(mn_p);
     mx_p = warp_max(mx_p);
     mn_h = warp_min(mn_h);
     mx_h = warp_max(mx_h);
+    mn_r = warp_min(mn_r);
     __syncthreads();  // s_bound's first values, the mbarriers
     if (lane == 0) {
       atomicMin(s_bound, mn_p);
       atomicMax(s_bound + 1, mx_p);
       atomicMin(s_bound + 2, mn_h);
       atomicMax(s_bound + 3, mx_h);
+      atomicMin(s_bound + 4, mn_r);
     }
   }
   __syncthreads();
@@ -364,6 +376,9 @@ chunked_prefill_kernel(const Args a) {
   const int mn_hist = s_bound[2], hi = s_bound[3];
   const int lo = window ? max(0, mn_pos - window + 1) : 0;
   const int lo_c = max(mn_hist, lo);
+  // chunk tiles start at the sequence's first row, so which of its keys
+  // share a tile does not depend on where the packer placed its run
+  const int cb = s_bound[4] == BIG ? 0 : s_bound[4];
   // page t (keys [t ps, (t + 1) ps)) is live when allocated and meeting
   // [lo, hi); it marks the tiles that hold its keys inside [lo, hi)
   for (int t = tid; t < NB; t += THREADS) {
@@ -379,7 +394,7 @@ chunked_prefill_kernel(const Args a) {
   for (int j = tid; j < C; j += THREADS) {
     const int sid = j == tid ? ksid : a.seq_id[j];
     const int p = j == tid ? kpos : a.pos[j];
-    if (sid == ts && p >= lo_c && p <= mx_pos) flag[npt + j / KT] = 1;
+    if (sid == ts && p >= lo_c && p <= mx_pos) flag[npt + (j - cb) / KT] = 1;
   }
   __syncthreads();
   if (warp == 0) {  // the visited tiles in order, 32 flags a ballot
@@ -445,8 +460,8 @@ chunked_prefill_kernel(const Args a) {
           raw[q][0] = make_uint4(dw[0], dw[1], dw[2], dw[3]);
           raw[q][1] = make_uint4(mw[0], mw[1], mw[2], mw[3]);
         }
-      } else {  // chunk tile: stream keys (u - npt) KT + j
-        const int jc = (u - npt) * KT + j;
+      } else {  // chunk tile: stream keys cb + (u - npt) KT + j
+        const int jc = cb + (u - npt) * KT + j;
         if (jc >= C) continue;
         const float* row = (which ? a.vc : a.kc) + ((size_t)jc * KV + h) * hd;
 #pragma unroll
@@ -470,7 +485,7 @@ chunked_prefill_kernel(const Args a) {
       }
     }
     if (u >= npt && t0 < KT) {
-      const int jc = (u - npt) * KT + t0;
+      const int jc = cb + (u - npt) * KT + t0;
       key_seq = jc < C ? a.seq_id[jc] : -1;
       key_pos = jc < C ? a.pos[jc] : 0;
     }

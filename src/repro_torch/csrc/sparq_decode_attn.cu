@@ -36,13 +36,14 @@ decode_attn_kernel(const float* __restrict__ q, const int8_t* __restrict__ kd,
                    const int* __restrict__ kpos, const int* __restrict__ cur,
                    float* __restrict__ out, float* __restrict__ ws,
                    int* __restrict__ counters, int KV, int G, int hd, int bk,
-                   int Tk, int window, int kps, int n_splits, int vec,
+                   int Tk, int window, int kps, int sub, int n_splits,
+                   int vec,
                    float sm_scale) {
   const int b = blockIdx.x, h = blockIdx.y;
   const splitkey::ContigRows rows{kpos + (size_t)b * Tk, (long long)b * Tk,
                                   Tk, cur[0], window, KV, h, hd};
   splitkey::split_decode(rows, q, kd, km, kscale[0], vd, vm, vscale[0], out,
-                         ws, counters, G, hd, bk, kps, n_splits, vec,
+                         ws, counters, G, hd, bk, kps, sub, n_splits, vec,
                          sm_scale);
 }
 
@@ -52,19 +53,20 @@ decode_attn_kernel(const float* __restrict__ q, const int8_t* __restrict__ kd,
 // kpos (B, Tk) int32; cur (1,) int32; out (B, KV, G, hd) f32;
 // ws: B * KV * n_splits * G * (hd + 2) f32 and counters: B * KV int32, all
 // 0, with n_splits = ceil(Tk / kps); kps: keys per split, a multiple of bk
-// (kernels/sparq_decode_attn.py::split_geometry); vec: the four planes
-// start 16-byte aligned.
+// (kernels/sparq_decode_attn.py::split_geometry); sub: keys of one chunk
+// (sub_keys); vec: the four planes start 16-byte aligned.
 extern "C" int sparq_decode_attn_launch(
     const void* q, const void* kd, const void* km, const void* kscale,
     const void* vd, const void* vm, const void* vscale, const void* kpos,
     const void* cur, void* out, void* ws, void* counters, int B, int KV,
-    int G, int hd, int bk, int Tk, int window, int kps, int vec,
+    int G, int hd, int bk, int Tk, int window, int kps, int sub, int vec,
     float sm_scale, void* stream) {
   if (B <= 0 || KV <= 0 || G <= 0 || hd <= 0 || bk <= 0 || Tk <= 0 ||
-      kps <= 0 || kps % bk)
+      kps <= 0 || kps % bk || sub <= 0 || kps % sub ||
+      (sub < kps && bk % sub))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_splits = (Tk + kps - 1) / kps;
-  const size_t smem = splitkey::smem_bytes(G, hd, bk, kps);
+  const size_t smem = splitkey::smem_bytes(G, hd, bk, kps, sub);
   static size_t attr_smem[64] = {};
   const cudaError_t e = set_smem_once(decode_attn_kernel, smem, attr_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -77,6 +79,6 @@ extern "C" int sparq_decode_attn_launch(
       static_cast<const float*>(vscale), static_cast<const int*>(kpos),
       static_cast<const int*>(cur), static_cast<float*>(out),
       static_cast<float*>(ws), static_cast<int*>(counters), KV, G, hd, bk,
-      Tk, window, kps, n_splits, vec && hd % 16 == 0, sm_scale);
+      Tk, window, kps, sub, n_splits, vec && hd % 16 == 0, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }

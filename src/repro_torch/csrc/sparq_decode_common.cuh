@@ -39,6 +39,14 @@
 //     partials (`combine`, below) and resets the counter to 0. The result
 //     does not depend on which block finishes last, and a call is one
 //     launch with no memset.
+//   - Chunks: when a split's whole layout does not fit one block's shared
+//     memory (a tile of 128 keys at G 48 / hd 128, or at hd 256), the
+//     split is walked in chunks of `sub` keys (kernels/sparq_decode_attn.py
+//     ::sub_keys halves the split until the layout fits): each chunk is
+//     loaded, scored and applied as its own online-softmax update, with the
+//     row statistics and the f32 accumulator kept in shared memory between
+//     chunks. A split that fits is one chunk and runs as before; K5 at bk =
+//     page size and K2 take the same chunks, so they still agree bit for bit.
 #pragma once
 
 #include "sparq_common.cuh"
@@ -58,16 +66,19 @@ __host__ __device__ inline int row_stride(int hd) {
 }
 
 // dynamic shared memory of one block (kernels/sparq_decode_attn.py::
-// smem_bytes): row offsets [kps] int64, q [G][hd] and the scores, then p,
-// [G][kps] f64 (each count rounded up to even), then f32 K and V
-// [kps][ld], corr [tiles][G], and the tiles' live flags (int)
-inline size_t smem_bytes(int G, int hd, int tile, int kps) {
-  const size_t ld = row_stride(hd), gk = (size_t)G * kps;
-  const size_t tps = kps / tile;
+// smem_bytes): row offsets [kps] int64, q [G][hd] and the chunk's scores,
+// then p, [G][sub] f64 (each count rounded up to even), then f32 K and V
+// [sub][ld], corr [units][G], the units' live flags (int) and, when the
+// split takes more than one chunk, the f32 accumulator [G][hd] and the row
+// statistics m [G], l [G]. A unit is min(tile, sub) keys: one online update
+inline size_t smem_bytes(int G, int hd, int tile, int kps, int sub) {
+  const size_t ld = row_stride(hd), gk = (size_t)G * sub;
+  const size_t tps = sub / (tile < sub ? tile : sub);
   return sizeof(double) * ((kps + (kps & 1)) + (size_t)G * hd + gk +
                            (gk & 1)) +
-         sizeof(float) * (2 * (size_t)kps * ld + tps * G) +
-         sizeof(int) * tps;
+         sizeof(float) * (2 * (size_t)sub * ld + tps * G) +
+         sizeof(int) * tps +
+         (sub < kps ? sizeof(float) * ((size_t)G * hd + 2 * G) : 0);
 }
 
 // K2's keys: logical position `key` of slot b through its block-table row
@@ -255,26 +266,31 @@ __device__ __forceinline__ void combine(const float* __restrict__ parts,
 // key's hd bytes for this block's head in every plane, or -1 when the key
 // is masked. ws holds per (slot, head, split) m [G], l [G], acc [G][hd];
 // counters one int per (slot, head), 0 between calls. vec: the planes
-// start 16-byte aligned and hd % 16 == 0.
+// start 16-byte aligned and hd % 16 == 0. sub: keys of one chunk, kps or
+// a divisor of tile when the split is one tile (sub_keys).
 template <class Rows>
 __device__ __forceinline__ void split_decode(
     const Rows& rows, const float* __restrict__ q,
     const int8_t* __restrict__ kd, const int8_t* __restrict__ km, float ks,
     const int8_t* __restrict__ vd, const int8_t* __restrict__ vm, float vs,
     float* __restrict__ out, float* __restrict__ ws,
-    int* __restrict__ counters, int G, int hd, int tile, int kps,
+    int* __restrict__ counters, int G, int hd, int tile, int kps, int sub,
     int n_splits, int vec, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldk = row_stride(hd);
-  const int tps = kps / tile;
   const bool v4 = (hd & 3) == 0;  // float4 reads of K rows
+  const int unit = min(tile, sub);  // keys of one online update
+  const int tps = sub / unit;       // units of a chunk
+  const int n_chunks = kps / sub;
   long long* koff = reinterpret_cast<long long*>(smem_raw);  // [kps]
   double* q64 = reinterpret_cast<double*>(koff + kps + (kps & 1));
-  double* sc = q64 + G * hd;             // [G][kps]: scores, then p
-  float* kt = reinterpret_cast<float*>(sc + G * kps + ((G * kps) & 1));
-  float* vt = kt + (size_t)kps * ldk;                        // [kps][ldk]
-  float* corr = vt + (size_t)kps * ldk;                      // [tps][G]
+  double* sc = q64 + G * hd;             // [G][sub]: scores, then p
+  float* kt = reinterpret_cast<float*>(sc + G * sub + ((G * sub) & 1));
+  float* vt = kt + (size_t)sub * ldk;                        // [sub][ldk]
+  float* corr = vt + (size_t)sub * ldk;                      // [tps][G]
   int* tile_live = reinterpret_cast<int*>(corr + tps * G);   // [tps]
+  float* acc_s = reinterpret_cast<float*>(tile_live + tps);  // [G][hd]
+  float* ml_s = acc_s + G * hd;                              // m [G], l [G]
   __shared__ int is_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -293,157 +309,166 @@ __device__ __forceinline__ void split_decode(
   if (__syncthreads_or(any)) {
     const size_t qbase = (size_t)bh * G * hd;
     for (int i = tid; i < G * hd; i += THREADS) q64[i] = q[qbase + i];
-    if (vec) {
-      const int nv = hd >> 4;
-      const int n = kps * nv;
-      for (int base = tid; base < n; base += THREADS * UNROLL) {
-        int4 a[UNROLL], am[UNROLL], b[UNROLL], bm[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int idx = base + u * THREADS;
-          const long long off = idx < n ? koff[idx / nv] : -1;
-          if (off >= 0) {
-            const long long e = off + 16 * (idx % nv);
-            a[u] = __ldg(reinterpret_cast<const int4*>(kd + e));
-            am[u] = __ldg(reinterpret_cast<const int4*>(km + e));
-            b[u] = __ldg(reinterpret_cast<const int4*>(vd + e));
-            bm[u] = __ldg(reinterpret_cast<const int4*>(vm + e));
-          } else {
-            a[u] = am[u] = b[u] = bm[u] = make_int4(0, 0, 0, 0);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int idx = base + u * THREADS;
-          if (idx < n) {
-            const int j = idx / nv, d0 = 16 * (idx % nv);
-            decode16(a[u], am[u], ks, kt + j * ldk + d0);
-            decode16(b[u], bm[u], vs, vt + j * ldk + d0);
-          }
-        }
-      }
-    } else {
-      for (int idx = tid; idx < kps * hd; idx += THREADS) {
-        const int j = idx / hd, d = idx - j * hd;
-        const long long off = koff[j];
-        float kv = 0.f, vv = 0.f;
-        if (off >= 0) {
-          kv = meta_decode(kd[off + d], km[off + d], d, ks);
-          vv = meta_decode(vd[off + d], vm[off + d], d, vs);
-        }
-        kt[j * ldk + d] = kv;
-        vt[j * ldk + d] = vv;
-      }
-    }
-    __syncthreads();
-
-    // scores of every key of the split at once (they do not depend on
-    // the softmax state): a thread takes one key and RG query rows
     const int ngr = (G + RG - 1) / RG;
-    for (int it = tid; it < kps * ngr; it += THREADS) {
-      const int j = it % kps, g0 = (it / kps) * RG;
-      const int nr = min(RG, G - g0);
-      const float* kr = kt + j * ldk;
-      const double* qr[RG];
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const long long* co = koff + ch * sub;  // this chunk's row offsets
+      const bool first = ch == 0, last = ch == n_chunks - 1;
+      if (!first) __syncthreads();  // the previous chunk's tiles are read
+      if (vec) {
+        const int nv = hd >> 4;
+        const int n = sub * nv;
+        for (int base = tid; base < n; base += THREADS * UNROLL) {
+          int4 a[UNROLL], am[UNROLL], b[UNROLL], bm[UNROLL];
 #pragma unroll
-      for (int r = 0; r < RG; ++r) qr[r] = q64 + (g0 + min(r, nr - 1)) * hd;
-      double a[RG];
+          for (int u = 0; u < UNROLL; ++u) {
+            const int idx = base + u * THREADS;
+            const long long off = idx < n ? co[idx / nv] : -1;
+            if (off >= 0) {
+              const long long e = off + 16 * (idx % nv);
+              a[u] = __ldg(reinterpret_cast<const int4*>(kd + e));
+              am[u] = __ldg(reinterpret_cast<const int4*>(km + e));
+              b[u] = __ldg(reinterpret_cast<const int4*>(vd + e));
+              bm[u] = __ldg(reinterpret_cast<const int4*>(vm + e));
+            } else {
+              a[u] = am[u] = b[u] = bm[u] = make_int4(0, 0, 0, 0);
+            }
+          }
 #pragma unroll
-      for (int r = 0; r < RG; ++r) a[r] = 0.0;
-      if (v4) {
-        for (int d = 0; d < hd; d += 4) {
-          const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
-          const double k0_ = k4.x, k1 = k4.y, k2 = k4.z, k3 = k4.w;
-#pragma unroll
-          for (int r = 0; r < RG; ++r) {
-            a[r] = fma(qr[r][d], k0_, a[r]);
-            a[r] = fma(qr[r][d + 1], k1, a[r]);
-            a[r] = fma(qr[r][d + 2], k2, a[r]);
-            a[r] = fma(qr[r][d + 3], k3, a[r]);
+          for (int u = 0; u < UNROLL; ++u) {
+            const int idx = base + u * THREADS;
+            if (idx < n) {
+              const int j = idx / nv, d0 = 16 * (idx % nv);
+              decode16(a[u], am[u], ks, kt + j * ldk + d0);
+              decode16(b[u], bm[u], vs, vt + j * ldk + d0);
+            }
           }
         }
       } else {
-        for (int d = 0; d < hd; ++d) {
-          const double kd_ = kr[d];
-#pragma unroll
-          for (int r = 0; r < RG; ++r) a[r] = fma(qr[r][d], kd_, a[r]);
+        for (int idx = tid; idx < sub * hd; idx += THREADS) {
+          const int j = idx / hd, d = idx - j * hd;
+          const long long off = co[j];
+          float kv = 0.f, vv = 0.f;
+          if (off >= 0) {
+            kv = meta_decode(kd[off + d], km[off + d], d, ks);
+            vv = meta_decode(vd[off + d], vm[off + d], d, vs);
+          }
+          kt[j * ldk + d] = kv;
+          vt[j * ldk + d] = vv;
         }
       }
-      const bool ok = koff[j] >= 0;
-      for (int r = 0; r < nr; ++r)
-        sc[(g0 + r) * kps + j] =
-            ok ? static_cast<float>(a[r]) * sm_scale : -CUDART_INF_F;
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // the online-softmax updates of the split's tiles, in order, a warp
-    // per query row; a tile without a live key is skipped (exact)
-    for (int g = warp; g < G; g += WARPS) {
-      double* srow = sc + g * kps;  // f32 scores, widened; then p
-      float mrow = -CUDART_INF_F, lrow = 0.f;
-      for (int t = 0; t < tps; ++t) {
-        const int j0 = t * tile;
-        int lv = 0;
-        for (int j = lane; j < tile; j += 32) lv |= koff[j0 + j] >= 0;
-        lv = __any_sync(0xffffffffu, lv);
-        if (warp == 0 && lane == 0) tile_live[t] = lv;
-        if (!lv) continue;
-        float mx = -CUDART_INF_F;
-        for (int j = lane; j < tile; j += 32)
-          mx = fmaxf(mx, static_cast<float>(srow[j0 + j]));
-        mx = warp_max(mx);
-        const float m_new = fmaxf(mrow, mx);
-        const float m_safe = (m_new == -CUDART_INF_F) ? 0.f : m_new;
-        double sum = 0.0;
-        for (int j = lane; j < tile; j += 32) {
-          const float x = static_cast<float>(srow[j0 + j]);
-          const float p = (x == -CUDART_INF_F) ? 0.f : expf(x - m_safe);
-          srow[j0 + j] = p;
-          sum += p;
-        }
-        sum = warp_sum(sum);
-        const float cr = (mrow == -CUDART_INF_F) ? 0.f : expf(mrow - m_safe);
-        lrow = lrow * cr + static_cast<float>(sum);
-        mrow = m_new;
-        if (lane == 0) corr[t * G + g] = cr;
-      }
-      if (lane == 0) {
-        part[g] = mrow;
-        part[G + g] = lrow;
-      }
-    }
-    __syncthreads();
-
-    // P V of every live tile, a thread taking one column and RG rows;
-    // acc = acc * corr + (p v of the tile), tile by tile in registers
-    for (int it = tid; it < hd * ngr; it += THREADS) {
-      const int d = it % hd, g0 = (it / hd) * RG;
-      const int nr = min(RG, G - g0);
-      int gr[RG];
+      // scores of every key of the chunk at once (they do not depend on
+      // the softmax state): a thread takes one key and RG query rows
+      for (int it = tid; it < sub * ngr; it += THREADS) {
+        const int j = it % sub, g0 = (it / sub) * RG;
+        const int nr = min(RG, G - g0);
+        const float* kr = kt + j * ldk;
+        const double* qr[RG];
 #pragma unroll
-      for (int r = 0; r < RG; ++r) gr[r] = g0 + min(r, nr - 1);
-      float av[RG];
-#pragma unroll
-      for (int r = 0; r < RG; ++r) av[r] = 0.f;
-      for (int t = 0; t < tps; ++t) {
-        if (!tile_live[t]) continue;
-        const int j0 = t * tile;
-        const float* v = vt + (size_t)j0 * ldk + d;
+        for (int r = 0; r < RG; ++r) qr[r] = q64 + (g0 + min(r, nr - 1)) * hd;
         double a[RG];
 #pragma unroll
         for (int r = 0; r < RG; ++r) a[r] = 0.0;
-#pragma unroll 4
-        for (int j = 0; j < tile; ++j) {
-          const double vj = v[j * ldk];
+        if (v4) {
+          for (int d = 0; d < hd; d += 4) {
+            const float4 k4 = *reinterpret_cast<const float4*>(kr + d);
+            const double k0_ = k4.x, k1 = k4.y, k2 = k4.z, k3 = k4.w;
 #pragma unroll
-          for (int r = 0; r < RG; ++r)
-            a[r] = fma(sc[gr[r] * kps + j0 + j], vj, a[r]);
+            for (int r = 0; r < RG; ++r) {
+              a[r] = fma(qr[r][d], k0_, a[r]);
+              a[r] = fma(qr[r][d + 1], k1, a[r]);
+              a[r] = fma(qr[r][d + 2], k2, a[r]);
+              a[r] = fma(qr[r][d + 3], k3, a[r]);
+            }
+          }
+        } else {
+          for (int d = 0; d < hd; ++d) {
+            const double kd_ = kr[d];
+#pragma unroll
+            for (int r = 0; r < RG; ++r) a[r] = fma(qr[r][d], kd_, a[r]);
+          }
         }
+        const bool ok = co[j] >= 0;
+        for (int r = 0; r < nr; ++r)
+          sc[(g0 + r) * sub + j] =
+              ok ? static_cast<float>(a[r]) * sm_scale : -CUDART_INF_F;
+      }
+      __syncthreads();
+
+      // the online-softmax updates of the chunk's units, in order, a warp
+      // per query row; a unit without a live key is skipped (exact)
+      for (int g = warp; g < G; g += WARPS) {
+        double* srow = sc + g * sub;  // f32 scores, widened; then p
+        float mrow = first ? -CUDART_INF_F : ml_s[g];
+        float lrow = first ? 0.f : ml_s[G + g];
+        for (int t = 0; t < tps; ++t) {
+          const int j0 = t * unit;
+          int lv = 0;
+          for (int j = lane; j < unit; j += 32) lv |= co[j0 + j] >= 0;
+          lv = __any_sync(0xffffffffu, lv);
+          if (warp == 0 && lane == 0) tile_live[t] = lv;
+          if (!lv) continue;
+          float mx = -CUDART_INF_F;
+          for (int j = lane; j < unit; j += 32)
+            mx = fmaxf(mx, static_cast<float>(srow[j0 + j]));
+          mx = warp_max(mx);
+          const float m_new = fmaxf(mrow, mx);
+          const float m_safe = (m_new == -CUDART_INF_F) ? 0.f : m_new;
+          double sum = 0.0;
+          for (int j = lane; j < unit; j += 32) {
+            const float x = static_cast<float>(srow[j0 + j]);
+            const float p = (x == -CUDART_INF_F) ? 0.f : expf(x - m_safe);
+            srow[j0 + j] = p;
+            sum += p;
+          }
+          sum = warp_sum(sum);
+          const float cr = (mrow == -CUDART_INF_F) ? 0.f : expf(mrow - m_safe);
+          lrow = lrow * cr + static_cast<float>(sum);
+          mrow = m_new;
+          if (lane == 0) corr[t * G + g] = cr;
+        }
+        if (lane == 0) {
+          float* dst = last ? part : ml_s;
+          dst[g] = mrow;
+          dst[G + g] = lrow;
+        }
+      }
+      __syncthreads();
+
+      // P V of every live unit, a thread taking one column and RG rows;
+      // acc = acc * corr + (p v of the unit), unit by unit in registers
+      for (int it = tid; it < hd * ngr; it += THREADS) {
+        const int d = it % hd, g0 = (it / hd) * RG;
+        const int nr = min(RG, G - g0);
+        int gr[RG];
+#pragma unroll
+        for (int r = 0; r < RG; ++r) gr[r] = g0 + min(r, nr - 1);
+        float av[RG];
 #pragma unroll
         for (int r = 0; r < RG; ++r)
-          av[r] = av[r] * corr[t * G + gr[r]] + static_cast<float>(a[r]);
+          av[r] = first ? 0.f : acc_s[gr[r] * hd + d];
+        for (int t = 0; t < tps; ++t) {
+          if (!tile_live[t]) continue;
+          const int j0 = t * unit;
+          const float* v = vt + (size_t)j0 * ldk + d;
+          double a[RG];
+#pragma unroll
+          for (int r = 0; r < RG; ++r) a[r] = 0.0;
+#pragma unroll 4
+          for (int j = 0; j < unit; ++j) {
+            const double vj = v[j * ldk];
+#pragma unroll
+            for (int r = 0; r < RG; ++r)
+              a[r] = fma(sc[gr[r] * sub + j0 + j], vj, a[r]);
+          }
+#pragma unroll
+          for (int r = 0; r < RG; ++r)
+            av[r] = av[r] * corr[t * G + gr[r]] + static_cast<float>(a[r]);
+        }
+        float* dst = last ? part + 2 * G : acc_s;
+        for (int r = 0; r < nr; ++r) dst[(g0 + r) * hd + d] = av[r];
       }
-      for (int r = 0; r < nr; ++r) part[2 * G + (g0 + r) * hd + d] = av[r];
     }
   } else {
     for (int g = tid; g < G; g += THREADS) part[g] = -CUDART_INF_F;

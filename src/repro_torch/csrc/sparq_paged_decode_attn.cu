@@ -36,13 +36,14 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kd,
                     const int* __restrict__ cur, float* __restrict__ out,
                     float* __restrict__ ws, int* __restrict__ counters,
                     int KV, int G, int hd, int ps, int NB, int window,
-                    int kps, int n_splits, int vec, float sm_scale) {
+                    int kps, int sub, int n_splits, int vec,
+                    float sm_scale) {
   const int b = blockIdx.x, h = blockIdx.y;
   const int c = cur[b];
   const splitkey::PagedRows rows{block_table + (size_t)b * NB, NB, ps, c,
                                  window, KV, h, hd};
   splitkey::split_decode(rows, q, kd, km, kscale[b], vd, vm, vscale[b], out,
-                         ws, counters, G, hd, ps, kps, n_splits, vec,
+                         ws, counters, G, hd, ps, kps, sub, n_splits, vec,
                          sm_scale);
 }
 
@@ -52,19 +53,20 @@ paged_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ kd,
 // block_table (S, NB) int32; cur (S,) int32; out (S, KV, G, hd) f32;
 // ws: S * KV * n_splits * G * (hd + 2) f32 and counters: S * KV int32, all
 // 0, with n_splits = ceil(NB * ps / kps); kps: keys per split, a multiple
-// of ps (kernels/sparq_decode_attn.py::split_geometry); vec: the four
-// pools start 16-byte aligned.
+// of ps (kernels/sparq_decode_attn.py::split_geometry); sub: keys of one
+// chunk (sub_keys); vec: the four pools start 16-byte aligned.
 extern "C" int sparq_paged_decode_attn_launch(
     const void* q, const void* kd, const void* km, const void* kscale,
     const void* vd, const void* vm, const void* vscale,
     const void* block_table, const void* cur, void* out, void* ws,
     void* counters, int S, int KV, int G, int hd, int ps, int NB,
-    int window, int kps, int vec, float sm_scale, void* stream) {
+    int window, int kps, int sub, int vec, float sm_scale, void* stream) {
   if (S <= 0 || KV <= 0 || G <= 0 || hd <= 0 || ps <= 0 || NB <= 0 ||
-      kps <= 0 || kps % ps)
+      kps <= 0 || kps % ps || sub <= 0 || kps % sub ||
+      (sub < kps && ps % sub))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_splits = (NB * ps + kps - 1) / kps;
-  const size_t smem = splitkey::smem_bytes(G, hd, ps, kps);
+  const size_t smem = splitkey::smem_bytes(G, hd, ps, kps, sub);
   static size_t attr_smem[64] = {};
   const cudaError_t e = set_smem_once(paged_decode_kernel, smem, attr_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -77,6 +79,6 @@ extern "C" int sparq_paged_decode_attn_launch(
       static_cast<const float*>(vscale), static_cast<const int*>(block_table),
       static_cast<const int*>(cur), static_cast<float*>(out),
       static_cast<float*>(ws), static_cast<int*>(counters), KV, G, hd, ps,
-      NB, window, kps, n_splits, vec && hd % 16 == 0, sm_scale);
+      NB, window, kps, sub, n_splits, vec && hd % 16 == 0, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }

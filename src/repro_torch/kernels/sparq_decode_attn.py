@@ -14,7 +14,9 @@ two kernels do.
 Both kernels are one split-key body (`csrc/sparq_decode_common.cuh`):
 `split_plan` is the rule by which they cut a slot's keys into splits, one
 block per (slot, KV head, split), and the last block of a (slot, head) to
-finish combines the splits' partial softmax states in split order."""
+finish combines the splits' partial softmax states in split order. A
+split whose layout does not fit shared memory is walked in chunks of
+`sub_keys`."""
 from __future__ import annotations
 
 import ctypes
@@ -28,8 +30,8 @@ from repro_torch.kernels.ref import _meta_decode32
 
 # q, k_data, k_meta, k_scale, v_data, v_meta, v_scale, block_table | kpos,
 # cur, out, workspace, counters; then the ints; sm_scale; the stream
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                          ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                           ctypes.c_void_p]
 
 KERNEL = _b.CudaKernel(
     "sparq_paged_decode_attn", "sparq_paged_decode_attn.cu",
@@ -138,17 +140,40 @@ def row_stride(hd: int) -> int:
     return -(-hd // 4) * 4 + 4
 
 
+def _layout_bytes(G: int, hd: int, tile: int, kps: int, sub: int) -> int:
+    """`smem_bytes` in the body for a split of kps keys walked in chunks of
+    sub: per key of a split its row offset (int64), q [G][hd] and the
+    chunk's scores / p [G][sub] in f64 (each count rounded up to even),
+    then f32 K and V [sub][row_stride(hd)], the correction factors
+    [units][G] and the units' live flags (int32), a unit being min(tile,
+    sub) keys; with more than one chunk, the f32 accumulator [G][hd] and
+    the row statistics m, l [G]."""
+    gk = G * sub
+    tps = sub // min(tile, sub)
+    return (8 * (kps + kps % 2 + G * hd + gk + gk % 2)
+            + 4 * (2 * sub * row_stride(hd) + tps * G) + 4 * tps
+            + (4 * (G * hd + 2 * G) if sub < kps else 0))
+
+
+def sub_keys(G: int, hd: int, tile: int) -> int:
+    """Keys of one chunk: the whole split when its layout fits one block's
+    shared memory (the serving shapes do); else, for a split of one tile,
+    the tile halved until the layout fits. Each chunk is then its own
+    online-softmax update, so the f32 statistics round per chunk, not per
+    tile. A split of several tiles is never cut."""
+    geo = split_geometry(1, tile)
+    kps = sub = geo.keys_per_split
+    while (_layout_bytes(G, hd, tile, kps, sub) > _b.SMEM_LIMIT
+           and geo.tiles_per_split == 1 and sub % 2 == 0):
+        sub //= 2
+    return sub
+
+
 def smem_bytes(G: int, hd: int, tile: int) -> int:
     """Dynamic shared memory of one block of the split-key body, as its
-    launcher computes it: per key of a split its row offset (int64), q
-    [G][hd] and the split's scores / p [G][keys] in f64 (each count
-    rounded up to even), then f32 K and V [keys][row_stride(hd)], the
-    correction factors [tiles][G] and the tiles' live flags (int32)."""
-    geo = split_geometry(1, tile)
-    kps, tps = geo.keys_per_split, geo.tiles_per_split
-    gk = G * kps
-    return (8 * (kps + kps % 2 + G * hd + gk + gk % 2)
-            + 4 * (2 * kps * row_stride(hd) + tps * G) + 4 * tps)
+    launcher computes it, at the chunk `sub_keys` picks."""
+    kps = split_geometry(1, tile).keys_per_split
+    return _layout_bytes(G, hd, tile, kps, sub_keys(G, hd, tile))
 
 
 def check_shape(G: int, hd: int, tile: int) -> None:
@@ -268,7 +293,7 @@ def sparq_paged_decode_attn_cuda(q, k_data, k_meta, k_scale, v_data, v_meta,
         _b.ptr(q), _b.ptr(k_data), _b.ptr(k_meta), _b.ptr(k_scale),
         _b.ptr(v_data), _b.ptr(v_meta), _b.ptr(v_scale), _b.ptr(block_table),
         _b.ptr(cur), _b.ptr(out), _b.ptr(ws), _b.ptr(cnt), B, KV, G, hd, ps,
-        NB, int(window), geo.keys_per_split,
+        NB, int(window), geo.keys_per_split, sub_keys(G, hd, ps),
         _vec(k_data, k_meta, v_data, v_meta), float(hd ** -0.5),
         _b.stream_ptr(q))
     return out
@@ -349,7 +374,7 @@ def sparq_decode_attn_cuda(q, k_data, k_meta, k_scale, v_data, v_meta,
         _b.ptr(q), _b.ptr(k_data), _b.ptr(k_meta), _b.ptr(k_scale),
         _b.ptr(v_data), _b.ptr(v_meta), _b.ptr(v_scale), _b.ptr(kpos),
         _b.ptr(cur), _b.ptr(out), _b.ptr(ws), _b.ptr(cnt), B, KV, G, hd, bk,
-        Tk, int(window), geo.keys_per_split,
+        Tk, int(window), geo.keys_per_split, sub_keys(G, hd, bk),
         _vec(k_data, k_meta, v_data, v_meta), float(hd ** -0.5),
         _b.stream_ptr(q))
     return out

@@ -90,10 +90,12 @@ def k3_traits(hd: int, G: int, bq: int, ps: int) -> Traits:
 class Visits(NamedTuple):
     """The key tiles one query tile visits, in the kernel's order: page
     tile u holds the keys at positions [u * key_tile, (u + 1) * key_tile)
-    of the sequence's pages, chunk tile u the stream keys [u * key_tile,
-    (u + 1) * key_tile) of the chunk."""
+    of the sequence's pages, chunk tile u the stream keys chunk_base + [u *
+    key_tile, (u + 1) * key_tile) of the chunk, chunk_base being the first
+    stream row of the tile's sequence (where its run starts)."""
     pages: Tuple[int, ...]
     chunk: Tuple[int, ...]
+    chunk_base: int = 0
 
 
 def walk(tile_seq, seq_id, pos, hist, block_table, ps: int,
@@ -111,11 +113,12 @@ def walk(tile_seq, seq_id, pos, hist, block_table, ps: int,
     key_tile a live page's tiles outside [lo, hi) are not visited). The
     kernel zero-fills the pages of a visited tile that are not live. A
     chunk tile is visited when it holds a key of the tile's sequence with
-    max(min_hist, lo) <= kpos <= max_pos. Padding tiles (tile_seq < 0) and
-    tiles without a valid row visit nothing. Nothing here depends on how
-    the runs were packed; each valid row of a query tile is taken to
-    belong to the tile's sequence, as the stream layout of
-    `launch/prefill.py` has it."""
+    max(min_hist, lo) <= kpos <= max_pos; chunk tiles count from the
+    sequence's first stream row, so the keys that share a tile, and the
+    rounding, do not depend on where the packer placed the run. Padding
+    tiles (tile_seq < 0) and tiles without a valid row visit nothing. Each
+    valid row of a query tile is taken to belong to the tile's sequence,
+    as the stream layout of `launch/prefill.py` has it."""
     tile_seq, seq_id, pos, hist, block_table = (
         np.asarray(a) for a in (tile_seq, seq_id, pos, hist, block_table))
     if ps < 1 or key_tile < 1:
@@ -141,10 +144,12 @@ def walk(tile_seq, seq_id, pos, hist, block_table, ps: int,
             last = (min((tp + 1) * ps, hi) - 1) // key_tile
             pages.update(range(first, last + 1))
         lo_c = max(int(qhist.min()), lo)
+        base = int(np.nonzero(seq_id == ts)[0].min())
         keys = (seq_id == ts) & (pos >= lo_c) & (pos <= int(qpos.max()))
         visits.append(Visits(
             tuple(sorted(pages)),
-            tuple(sorted(set((np.nonzero(keys)[0] // key_tile).tolist())))))
+            tuple(sorted(set(((np.nonzero(keys)[0] - base)
+                              // key_tile).tolist()))), base))
     return visits
 
 

@@ -36,6 +36,7 @@ class _Job:
     rid: int
     tokens: np.ndarray
     done: int = 0                       # prompt tokens already written
+    expect_tok0: Optional[int] = None   # requeue resume: recorded tok0
 
     @property
     def remaining(self) -> int:
@@ -51,7 +52,8 @@ class ChunkPlan(NamedTuple):
     tile_seq: np.ndarray    # [C/bq] slot per query tile (-1 = padding)
     last_rows: np.ndarray   # [S] stream row of the slot's final prompt
                             #     token (-1: prefill incomplete)
-    completed: List[Tuple[int, int]]    # (slot, rid)
+    completed: List[Tuple[int, int, Optional[int]]]
+    # ^ (slot, rid, expected tok0: the recorded one on a requeue resume)
     advanced: Dict[int, int]            # slot -> prompt tokens written
 
 
@@ -82,9 +84,22 @@ class PrefillScheduler:
     def reset(self) -> None:
         self.jobs = []
 
-    def add(self, slot: int, rid: int, tokens: np.ndarray) -> None:
+    def add(self, slot: int, rid: int, tokens: np.ndarray,
+            expect_tok0: Optional[int] = None, start: int = 0) -> None:
+        """Queue a prompt. `start` > 0 (shared-prefix admission) skips the
+        first `start` tokens, already backed by pages in the slot's block
+        table; it must be a segment boundary. `expect_tok0` (requeue
+        resume) is the first token recorded before the preemption."""
         assert not self.has(slot), f"slot {slot} already mid-prefill"
-        self.jobs.append(_Job(slot=slot, rid=rid, tokens=np.asarray(tokens)))
+        assert start % self.seg == 0, \
+            f"prefill start {start} must be a multiple of seg {self.seg}"
+        assert 0 <= start < len(tokens), (start, len(tokens))
+        self.jobs.append(_Job(slot=slot, rid=rid, tokens=np.asarray(tokens),
+                              done=start, expect_tok0=expect_tok0))
+
+    def cancel(self, slot: int) -> None:
+        """Drop a mid-prefill job (its slot was preempted)."""
+        self.jobs = [j for j in self.jobs if j.slot != slot]
 
     def has(self, slot: int) -> bool:
         return any(j.slot == slot for j in self.jobs)
@@ -95,6 +110,11 @@ class PrefillScheduler:
     @property
     def pending(self) -> bool:
         return bool(self.jobs)
+
+    @property
+    def pending_tokens(self) -> int:
+        """Prompt tokens still to stream across every queued job."""
+        return sum(j.remaining for j in self.jobs)
 
     def pages_outstanding(self, slot: int, host_bt: np.ndarray) -> int:
         """Pages this mid-prefill slot still needs to finish its prompt."""
@@ -151,7 +171,7 @@ class PrefillScheduler:
         hist = np.zeros(C, np.int64)
         tile_seq = np.full(C // bq, -1, np.int64)
         last_rows = np.full(self.S, -1, np.int64)
-        completed: List[Tuple[int, int]] = []
+        completed: List[Tuple[int, int, Optional[int]]] = []
         advanced: Dict[int, int] = {}
         for job, n, at in runs:
             tokens[at:at + n] = job.tokens[job.done:job.done + n]
@@ -164,7 +184,7 @@ class PrefillScheduler:
             job.done += n
             if job.remaining == 0:
                 last_rows[job.slot] = at + n - 1
-                completed.append((job.slot, job.rid))
+                completed.append((job.slot, job.rid, job.expect_tok0))
                 self.jobs.remove(job)
         return ChunkPlan(tokens=tokens, seq_id=seq_id, pos=pos, hist=hist,
                          tile_seq=tile_seq, last_rows=last_rows,

@@ -64,14 +64,21 @@ def test_constants_are_the_kernels():
     assert f"constexpr int THREADS = {dec.THREADS};" in src
     assert "return ((hd + 3) & ~3) + 4;" in src
     assert [dec.row_stride(h) for h in (16, 64, 128, 6)] == [20, 68, 132, 12]
-    # kps int64 offsets, q [G][hd] and scores [G][kps] in f64, then f32
-    # K and V [kps][ld], corr [tiles][G] and the tiles' flags (int32)
+    # kps int64 offsets, q [G][hd] and scores [G][sub] in f64, then f32
+    # K and V [sub][ld], corr [units][G] and the units' flags (int32);
+    # chunked, the accumulator [G][hd] and m, l [G] in f32
     assert dec.smem_bytes(8, 64, 16) == 8 * (32 + 8 * 64 + 8 * 32) + 4 * (
         2 * 32 * 68 + 2 * 8) + 4 * 2
+    assert dec.sub_keys(48, 128, 128) == 64
+    assert dec.smem_bytes(48, 128, 128) == 8 * (
+        128 + 48 * 128 + 48 * 64) + 4 * (2 * 64 * 132 + 48) + 4 + 4 * (
+        48 * 128 + 2 * 48)
     flat = " ".join(src.split())
     assert ("sizeof(double) * ((kps + (kps & 1)) + (size_t)G * hd + gk + "
-            "(gk & 1)) + sizeof(float) * (2 * (size_t)kps * ld + tps * G) + "
-            "sizeof(int) * tps") in flat
+            "(gk & 1)) + sizeof(float) * (2 * (size_t)sub * ld + tps * G) + "
+            "sizeof(int) * tps + (sub < kps ? sizeof(float) * ((size_t)G * "
+            "hd + 2 * G) : 0)") in flat
+    assert "const size_t tps = sub / (tile < sub ? tile : sub);" in flat
 
 
 # ----------------------------------------------------------------------
@@ -211,9 +218,12 @@ def _warp_sum(p):
 def emulate(q, k, v, live, tile):
     """The split-key body's order and rounding points in torch. q [B, KV,
     G, hd] f32; k, v decoded [B, n, KV, hd] f32; live [B, n] bool (the
-    kernels' mask). Returns f32 [B, KV, G, hd]."""
+    kernels' mask). A tile longer than the body's chunk (`sub_keys`) is
+    taken as its chunks, each an online update. Returns f32 [B, KV, G,
+    hd]."""
     B, KV, G, hd = q.shape
     n = k.shape[1]
+    unit = min(tile, dec.sub_keys(G, hd, tile))
     sm = torch.tensor(hd ** -0.5, dtype=torch.float32)
     ninf = float("-inf")
     out = torch.zeros((B, KV, G, hd))
@@ -223,13 +233,17 @@ def emulate(q, k, v, live, tile):
             m = torch.full((KV, G), ninf)
             l = torch.zeros((KV, G))
             acc = torch.zeros((KV, G, hd))
-            for u in sp.tiles:
-                keys = torch.arange(u * tile, (u + 1) * tile)
+            units = [(u * tile + j0, u * tile + j0 + unit)
+                     for u in sp.tiles for j0 in range(0, tile, unit)]
+            for lo, hi in units:
+                keys = torch.arange(lo, hi)
                 kk = keys.clamp(max=n - 1)
                 ok = (keys < n) & live[b, kk]
+                if not ok.any():
+                    continue                       # a dead unit: skipped
                 kt = torch.where(ok[:, None, None], k[b, kk], 0.0)
                 vt = torch.where(ok[:, None, None], v[b, kk], 0.0)
-                dot = torch.zeros((KV, G, tile), dtype=torch.float64)
+                dot = torch.zeros((KV, G, unit), dtype=torch.float64)
                 for d in range(hd):                # f64 sums in d order
                     dot += q[b, :, :, d, None].double() \
                         * kt[:, :, d].T[:, None, :].double()
@@ -242,7 +256,7 @@ def emulate(q, k, v, live, tile):
                 l = l * corr + _warp_sum(p).float()
                 m = m_new
                 pv = torch.zeros((KV, G, hd), dtype=torch.float64)
-                for j in range(tile):              # p.v, in key order
+                for j in range(unit):              # p.v, in key order
                     pv += p[..., j, None].double() * vt[j][:, None].double()
                 acc = acc * corr[..., None] + pv.float()
             parts.append((m, l, acc))
@@ -415,9 +429,72 @@ def test_ported_configs_fit_one_block(arch, reduced):
 
 
 def test_check_shape_raises_above_the_limit():
+    """A 128-key tile fits at every head shape the configs use: granite's
+    G 48 / hd 128 and hd 256 at G 8 (paligemma) and G 16 (recurrentgemma)
+    take the tile in chunks of 64 keys; a shape whose q and scores alone
+    exceed the card still raises."""
     dec.check_shape(8, 128, 128)       # hd 128 at the scan path's tile
     dec.check_shape(48, 128, 16)       # granite-class heads at ps 16
+    for G, hd in F3_SHAPES:
+        dec.check_shape(G, hd, 128)
+        assert dec.smem_bytes(G, hd, 128) <= SMEM_LIMIT
+        assert dec.sub_keys(G, hd, 128) == 64
+    dec.check_shape(8, 64, 512)        # a 512-key page, in chunks of 256
+    assert dec.sub_keys(8, 64, 512) == 256
     with pytest.raises(ValueError, match="shared memory"):
-        dec.check_shape(48, 128, 128)
+        dec.check_shape(512, 64, 16)
     with pytest.raises(ValueError, match="shared memory"):
-        dec.check_shape(8, 64, 512)
+        dec.check_shape(256, 256, 128)
+
+
+# the head shapes (G, hd) whose 128-key tile is walked in chunks
+F3_SHAPES = [(48, 128), (8, 256), (16, 256)]
+
+
+@pytest.mark.parametrize("shape", F3_SHAPES)
+def test_emulation_chunked_tile(shape):
+    """K5 at bk 128 over chunks of 64 keys (a ragged last tile, a ring
+    kpos with a -1 run): within 1e-4 of the f64 evaluation and PLAIN_TOL of
+    the plain version (which updates once per 128 keys); K2 at page size
+    128 over the same bytes equals it bit for bit."""
+    G, hd = shape
+    B, Tk, KV, ps = 2, 200, 1, 128
+    args = _k5_case(4, B=B, Tk=Tk, KV=KV, G=G, hd=hd, cur=190, ring=True)
+    q, kd, km, ks, vd, vm, vs, kpos, c = args
+    k, v, live = CS.contig_keys(*args[1:])
+    k5 = emulate(q, k, v, live, ps)
+    exact = CS.decode_f64_reference(q, k, v, live)
+    assert float((k5.double() - exact).abs().max()) <= ATOL
+    want = dec.ref_sparq_decode_attn(*args, bk=ps)
+    assert float((k5 - want).abs().max()) <= CS.PLAIN_TOL
+    # the same rows, linear, through a permuted block table
+    NB = -(-Tk // ps)
+    bt = torch.from_numpy(np.random.default_rng(5).permutation(
+        B * NB).reshape(B, NB).astype(np.int32))
+    lin = _k5_case(4, B=B, Tk=Tk, KV=KV, G=G, hd=hd, cur=190)
+    q, kd, km, ks, vd, vm, vs, kpos, c = lin
+
+    def paged(plane):
+        pad = torch.zeros((B, NB * ps - Tk, KV, hd), dtype=plane.dtype)
+        pool = torch.empty((B * NB, ps, KV, hd), dtype=plane.dtype)
+        pool[bt.reshape(-1).long()] = torch.cat([plane, pad], 1).reshape(
+            B * NB, ps, KV, hd)
+        return pool
+    k5 = emulate(q, *CS.contig_keys(*lin[1:]), ps)
+    k2 = emulate(q, *CS.paged_keys(
+        paged(kd), paged(km), ks.expand(B), paged(vd), paged(vm),
+        vs.expand(B), bt, c.expand(B)), ps)
+    assert torch.equal(k5, k2)
+
+
+def test_plain_k5_at_granite_heads_matches_jax():
+    """The port's plain K5 at G 48 / hd 128 / bk 128 (the tile the chunked
+    body takes in two updates) against the JAX package's reference K5 on
+    one seeded input."""
+    B, Tk, KV, G, hd = 2, 256, 1, 48, 128
+    args = _k5_case(6, B=B, Tk=Tk, KV=KV, G=G, hd=hd, cur=240, ring=True)
+    want = np.asarray(jref.ref_sparq_decode_attn(
+        *(jnp.asarray(a.numpy()) for a in args[:8]),
+        jnp.int32(int(args[8])), bk=128))
+    got = dec.ref_sparq_decode_attn(*args, bk=128).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

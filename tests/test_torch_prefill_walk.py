@@ -122,7 +122,8 @@ def _assert_covered(seq_id, pos, hist, tile_seq, bt, ps, window, key_tile):
         for kp in np.nonzero(page_ok[i])[0]:
             assert kp // key_tile in vis.pages, ("page", i, kp, vis)
         for j in np.nonzero(chunk_ok[i])[0]:
-            assert j // key_tile in vis.chunk, ("chunk", i, j, vis)
+            assert (j - vis.chunk_base) // key_tile in vis.chunk, \
+                ("chunk", i, j, vis)
     return visits
 
 
@@ -151,7 +152,7 @@ def _scheduler_chunks(seed, C=64, bq=8, ps=4, seg=10, S=4, n_req=9):
         plan = sch.plan(lambda: len(free), grant, host_bt)
         assert plan is not None
         chunks.append((plan, host_bt.copy()))
-        for slot, _ in plan.completed:
+        for slot, *_ in plan.completed:
             free.extend(int(p) for p in host_bt[slot] if p >= 0)
             host_bt[slot] = -1
             free_slots.append(slot)
@@ -248,15 +249,18 @@ def test_walk_covers_edge_cases(case, window):
 
 
 def test_walk_skips_the_causal_half():
-    """On check_k3's timed layout the chunk stage visits 48 of the 120
+    """On check_k3's timed layout the chunk stage visits 46 of the 120
     (query tile, chunk tile) pairs of the 30 non-padding query tiles (slot
-    0's tile k sees chunk tiles 0..(8 k + 7) // 64, slot 1's from tile 2
-    on), and the page stage only slot 0's four history tiles."""
+    0's tile k sees chunk tiles 0..(8 k + 7) // 64; slot 1's run starts at
+    row 144, from which its tiles count: its tile k sees 0..(8 k + 7) //
+    64), and the page stage only slot 0's four history tiles."""
     runs = CS.K3_LAYOUTS["timed"][0]
     seq_id, pos, hist, tile_seq = CS.k3_stream(runs, 256, 8)
     bt = np.zeros((8, 34), np.int32)
     visits = pre.walk(tile_seq, seq_id, pos, hist, bt, 16, 64)
-    assert sum(len(v.chunk) for v in visits) == 48
+    assert sum(len(v.chunk) for v in visits) == 46
+    assert {v.chunk_base for v in visits[:18]} == {0}
+    assert {v.chunk_base for v in visits[18:30]} == {144}
     assert [v.pages for v in visits[:18]] == [(0, 1, 2, 3)] * 18
     assert all(v.pages == () for v in visits[18:])
 
@@ -285,6 +289,7 @@ def _emulate_k3(args, window=0, key_tile=64):
         ts = int(tile_seq[qt])
         if ts < 0:
             continue
+        chunk_base = vis.chunk_base
         rows = slice(qt * bq, (qt + 1) * bq)
         q64 = q[rows].double()
         rok, rpos, rhist = sid[rows] >= 0, pos[rows], hist[rows]
@@ -306,7 +311,7 @@ def _emulate_k3(args, window=0, key_tile=64):
                 ok = rok[:, None] & live[None] & (kp[None] < rhist[:, None]) \
                     & win(kp)
                 return k, v, ok
-            j = u * key_tile + torch.arange(key_tile)
+            j = chunk_base + u * key_tile + torch.arange(key_tile)
             inside = j < C
             jc = j.clamp(max=C - 1)
             k = torch.where(inside[:, None, None], kc[jc], 0.0)
@@ -578,3 +583,32 @@ def test_fragment_index_math(HD, hd):
                 col = HD // 2 * h + 8 * dt + 2 * t + i % 2
                 O[g + 8 * (i // 2), col] = acc[dt, :, i]
     np.testing.assert_array_equal(O[:, :hd], P @ V[:, :hd])
+
+
+@pytest.mark.parametrize("window", [0, CS.K3_WINDOW])
+def test_emulation_does_not_depend_on_the_packing(window):
+    """A sequence's rows come out bit for bit the same whether its run
+    starts the chunk or follows another run (the timed layout's slot 1, a
+    fresh 96-token prompt at row 144, moved to row 0): its chunk tiles
+    count from its own first row. The engines' greedy tokens rest on this
+    when preemption or the prefix cache changes how prompts are packed."""
+    args = _case("timed")
+    q, kc, vc, kd, km, ks, vd, vm, vs, bt, sid, pos, hist, ts = args
+    rows = torch.nonzero(sid == 1)[:, 0]
+    n, bq = len(rows), len(sid) // len(ts)
+    alone = [t.clone() for t in args]
+    for i in (0, 1, 2):                   # q, kc, vc: slot 1's rows first
+        alone[i].zero_()
+        alone[i][:n] = args[i][rows]
+    alone[10].fill_(-1)
+    alone[10][:n] = 1
+    alone[11].zero_()
+    alone[11][:n] = pos[rows]
+    alone[12].zero_()
+    alone[12][:n] = hist[rows]
+    alone[13].fill_(-1)
+    alone[13][:-(-n // bq)] = 1
+    packed = _emulate_k3(args, window, _key_tile(args))[rows]
+    first = _emulate_k3(tuple(alone), window, _key_tile(args))[:n]
+    assert int(rows[0]) % 64 != 0         # the run does not start a tile
+    assert torch.equal(packed, first)

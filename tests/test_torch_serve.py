@@ -146,9 +146,14 @@ def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys):
     stats = tserve.main(base)
     assert stats["decode_tokens"] == 2 * (3 - 1) and stats["device"] == "cpu"
     assert "sample:" in capsys.readouterr().out
-    for extra in (["--preempt", "swap"], ["--prefix-cache"], ["--tp", "2"],
-                  ["--serve", "async"]):
+    stats = tserve.main(base + ["--preempt", "swap", "--oversubscribe",
+                                "0.5", "--prefix-cache"])
+    assert stats["pool_pages"] == 4 and stats["prefix_misses"] == 2
+    assert stats["decode_tokens"] == 2 * (3 - 1)
+    for extra in (["--tp", "2"], ["--serve", "async"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tserve.main(base + extra)
+    with pytest.raises(SystemExit):         # oversubscribed, no preemption
+        tserve.main(base + ["--oversubscribe", "0.5"])
     with pytest.raises(ValueError, match="packed"):   # pages are sparq
         tserve.main(base + ["--kv-cache", "fp32"])
