@@ -17,7 +17,9 @@ Phases (each one that fails makes the script exit non-zero):
               plan logged per row; and in its unsigned mode, uint8 x
               int8, for every codec of the paper's Tables 1, 2 and 4 at
               the cnn path's im2col shapes, K 216 / N 24, ragged K and
-              split-K, on post-ReLU data with codes above 127);
+              split-K, on post-ReLU data with codes above 127; and 5opt
+              at granite-20b's and starcoder2-3b's projections, M 8 and
+              256, FAMILY_PROJ);
               K4 sparq_quant bit-exact in its rows
               mode and in every KV-write mode (paged decode, chunk,
               contiguous) at every K4_WRITES shape, against its plain
@@ -27,15 +29,18 @@ Phases (each one that fails makes the script exit non-zero):
               bf16 out), `CachedTensor.read` profiled as one K6 launch;
               K2 paged decode and K5 contiguous decode (the split-key
               body) at their serving shapes and at hd 16 / G 4, hd 128
-              and misaligned planes, and (check_f3) K5 at bk 128 and K2
-              at page size 128 at F3_SHAPES (G 48 hd 128, G 8 and G 16
-              hd 256: a tile of 128 in chunks of 64 keys), within 1e-4 of
+              at G 8 and G 12 and misaligned planes, and (check_f3) K5
+              at bk 128 and K2 at page size 128 at F3_SHAPES (G 48 hd 128,
+              G 8 and G 16 hd 256: a tile of 128 in chunks of 64 keys;
+              G 12 hd 128 in one layout), within 1e-4 of
               f64 and PLAIN_TOL of the plain version, timed beside SDPA
               and the byte bound; K3 chunked prefill at every
               K3_SHAPES shape (hd 64 G 8, the serving shape; hd 16, hd 128
-              at G 8 and G 48, bq * G = 128, page size 128, hd 256, hd 10,
-              misaligned tensors, and the exact shapes of the cli and wide
-              paths, a 32-token chunk over a long history, each at the
+              at G 8, at G 48 (also at page 128 and 16-token query
+              tiles) and at G 12 over 2 and 8 KV heads, bq * G = 128,
+              page size 128, hd 256, hd 10, misaligned tensors, and the
+              exact shapes of the cli and wide paths, a 32-token chunk
+              over a long history, each at the
               instantiation k3_traits names) on the K3_LAYOUTS that
               fit the chunk (check_k3), all without and with a sliding
               window, each within 1e-4 of an f64 evaluation and of
@@ -52,7 +57,11 @@ Phases (each one that fails makes the script exit non-zero):
               at every KV write (22 per decode step, 2 x 22 per chunk);
               the first decode update and chunk write of the warm-up run,
               replayed alone on their own inputs under the profiler,
-              launch K4 and nothing else (`WriteCapture`)
+              launch K4 and nothing else (`WriteCapture`); then once more
+              with `Telemetry.tracing()`: tokens and launches equal the
+              untraced run's, the Prometheus text parses back to the stats
+              dict, the trace's B/E spans balance on every request's
+              track, the host overhead logged
   preempt     the serve phase's requests through a pool of half the
               uncontended peak: requeue under sequential admission (a
               victim re-prefills alone and replays its tokens through K5
@@ -77,11 +86,24 @@ Phases (each one that fails makes the script exit non-zero):
               K2, K4 at every write (2 x 22 per prefill), K3 = K5 = 0;
               the first prefill slab and decode update replayed alone: K4
               only
+  dense_family
+              granite-20b (52 layers), starcoder2-3b (30) and
+              mistral-large-123b (12 of 88: 122 GB of int8 codes at full
+              depth) at full width, weights drawn in bf16, calibrated on
+              one batch of 8 x 128 and quantized slice by slice, through
+              the serve phase's 8 requests on the paged chunked engine;
+              granite also at page 128 with --chunk-align 16 (K2's tile of
+              128 at G 48 walked in chunks of 64 keys): exact K2 / K3 / K4
+              counts, K5 = K6 = 0, every request's tokens, no page leaked;
+              decode tok/s, prefill s, peak pages and peak GB logged
   cli         `python -m repro_torch.launch.serve` (CLI_ARGS: the reduced
               tinyllama, paged chunked engine, sparq KV, 5opt) through its
               `main`: every request returns its tokens; K3 at every chunk's
               layer (hd 16 G 4), K2 every decode step; then the same with
-              --preempt swap --oversubscribe 0.5 --prefix-cache
+              --preempt swap --oversubscribe 0.5 --prefix-cache; then
+              granite-20b and starcoder2-3b reduced with --metrics-dump and
+              --trace-out under build/ (the dump parses back to the stats,
+              the trace balances)
   wide        the same CLI at full width with --chunk-align 16
               --page-size 128 (WIDE_ARGS: 22 layers, K3 at 128 query rows
               a tile in two row blocks, two key tiles a page): the same
@@ -126,7 +148,8 @@ Phases (each one that fails makes the script exit non-zero):
               chunk-align 16 and page size 128) and the scan engine give
               equal greedy tokens; on the card, the paged
               sequential engine equals the scan engine serving each request
-              alone with attn_bk = page_size
+              alone with attn_bk = page_size; a 2-layer full-width f32
+              granite-20b's paged chunked engine, card against CPU
   train_profile (not run by default) a full-width compressed train step
               split into forward + backward, compression and AdamW (host
               clock between synchronizations), then one plain and one
@@ -139,10 +162,11 @@ Phases (each one that fails makes the script exit non-zero):
               kernels on the device timeline (every decode update one K4
               launch, every chunk write two, nothing else)
 
-Each of serve, preempt, prefix, scan, sequential, cli, wide, cnn, train
-(its part c) and cnn_train resets the launch counters just before it
-drives its path (each of its runs) and reads them just after; the plain
-versions of the KV codec must not run there at all. With all ten, every
+Each of serve, preempt, prefix, scan, sequential, dense_family, cli,
+wide, cnn, train (its part c) and cnn_train resets the launch counters
+just before it drives its path (each of its runs) and reads them just
+after; the plain versions of the KV codec must not run there at all.
+With all eleven, every
 kernel must have launched on some
 path. The plain versions of the KV path
 (codec, `sparq_pack`, the three writes, the dequantizers) must not run on
@@ -272,10 +296,88 @@ K1_MS = (8, 256, 445, 2048)
 LAYER = {"wq/wo": 2, "wk/wv": 2, "gate/up": 2, "down": 1}
 
 
+# (K, N) of the four projections of granite-20b (MQA: k/v N 128; a
+# non-gated GELU, so one up projection) and starcoder2-3b, at decode and
+# chunk M, 5opt (the dense_family phase's codec)
+FAMILY_PROJ = {"granite-20b": {"wq/wo": (6144, 6144), "wk/wv": (6144, 128),
+                               "up": (6144, 24576), "down": (24576, 6144)},
+               "starcoder2-3b": {"wq/wo": (3072, 3072),
+                                 "wk/wv": (3072, 256),
+                                 "up": (3072, 12288),
+                                 "down": (12288, 3072)}}
+FAMILY_MS = (8, 256)
+
+
+def _k1_row(mm, kw, cfg, gen, dev, codec_name, proj, M, K, N):
+    """K1 at one shape: run twice, both bit-exact against the plain
+    version; timed beside the plain version, `_int_mm` on the codes plus
+    the scaling, and the bound. Returns the row."""
+    from repro_torch.kernels.ref import quantize_codes
+
+    def make():
+        x = torch.randn((M, K), generator=gen, device=dev)
+        x = torch.where(torch.rand((M, K), generator=gen,
+                                   device=dev) < 0.3, 0.0, x)
+        x = x.to(torch.bfloat16)
+        w = torch.randint(-127, 128, (K, N), generator=gen,
+                          device=dev, dtype=torch.int8)
+        c = torch.rand((N,), generator=gen, device=dev) * 1e-3
+        a = (x.abs().amax().float() / cfg.max_val).reshape(1)
+        return x, w, a, c
+    sets = [make() for _ in range(n_sets(K * N + M * K * 2))]
+    x, w, a, c = sets[0]
+    got = mm.sparq_matmul_cuda(x, w, a, c, **kw)
+    # split-K's slices finish in another order on each run
+    again = mm.sparq_matmul_cuda(x, w, a, c, **kw)
+    want = mm.ref_sparq_matmul(x, w, a, c, **kw)
+    torch.cuda.synchronize()
+    exact = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    if not exact:
+        raise AssertionError(
+            f"K1 {codec_name} {proj} M={M}: not bit-exact "
+            f"(max abs err {err})")
+    if not torch.equal(got, again):
+        raise AssertionError(
+            f"K1 {codec_name} {proj} M={M}: two runs differ")
+    p = mm.plan(M, N, K, mm.sm_count(dev))
+    ms = bench(lambda *s: mm.sparq_matmul_cuda(*s, **kw), sets)
+    plain_ms = bench(lambda *s: mm.ref_sparq_matmul(*s, **kw),
+                     sets, iters=5, warmup=1)
+    # yardstick: torch._int_mm on the codes + the scaling; _int_mm takes
+    # M > 16 and M a multiple of 8, so the codes are zero-padded to lib_m
+    # rows where M is not
+    lib_m = max(24, -(-M // 8) * 8)
+
+    def codes(s):
+        q = torch.zeros((lib_m, K), dtype=torch.int8, device=dev)
+        q[:M] = quantize_codes(s[0], s[2], True, 127)
+        return q, s[1], s[2], s[3]
+    lib_ms = bench(lambda xq, w_, a_, c_: (torch._int_mm(
+        xq, w_).float() * a_) * c_, [codes(s) for s in sets])
+    nbytes = M * K * 2 + K * N + N * 4 + M * N * 4
+    bound = max(nbytes / H100_BYTES_S,
+                2 * M * N * K / H100_INT8_OPS_S) * 1e3
+    row = dict(codec=codec_name, proj=proj, M=M, K=K, N=N,
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library_m=lib_m, bound_ms=bound,
+               bound_by="bytes" if nbytes / H100_BYTES_S
+               >= 2 * M * N * K / H100_INT8_OPS_S
+               else "operations", exact=exact, max_abs_err=err,
+               plan=dict(bm=p.bm, bn=p.bn, split_k=p.split_k,
+                         blocks=p.blocks))
+    log(f"K1 sparq_matmul {codec_name} {proj:7s} M={M:4d} "
+        f"K={K} N={N} [BM {p.bm} BN {p.bn} split {p.split_k} "
+        f"blocks {p.blocks}]: bit-exact x2, {ms:.4f} ms (plain "
+        f"{plain_ms:.3f} ms, _int_mm {lib_ms:.4f} ms"
+        f"{f' padded to M={lib_m}' if lib_m != M else ''}, "
+        f"bound {bound:.4f} ms)")
+    return row
+
+
 def check_k1(dev, results):
     from repro_torch.core.sparq import SparqConfig
     from repro_torch.kernels import sparq_matmul as mm
-    from repro_torch.kernels.ref import quantize_codes
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
     rows = []
@@ -288,67 +390,9 @@ def check_k1(dev, results):
                   enabled=cfg.enabled)
         for proj, (K, N) in PROJ.items():
             for M in K1_MS:
-                def make():
-                    x = torch.randn((M, K), generator=gen, device=dev)
-                    x = torch.where(torch.rand((M, K), generator=gen,
-                                               device=dev) < 0.3, 0.0, x)
-                    x = x.to(torch.bfloat16)
-                    w = torch.randint(-127, 128, (K, N), generator=gen,
-                                      device=dev, dtype=torch.int8)
-                    c = torch.rand((N,), generator=gen, device=dev) * 1e-3
-                    a = (x.abs().amax().float() / cfg.max_val).reshape(1)
-                    return x, w, a, c
-                sets = [make() for _ in range(n_sets(K * N + M * K * 2))]
-                x, w, a, c = sets[0]
-                got = mm.sparq_matmul_cuda(x, w, a, c, **kw)
-                # split-K's slices finish in another order on each run
-                again = mm.sparq_matmul_cuda(x, w, a, c, **kw)
-                want = mm.ref_sparq_matmul(x, w, a, c, **kw)
-                torch.cuda.synchronize()
-                exact = torch.equal(got, want)
-                err = float((got - want).abs().max())
-                worst = max(worst, err)
-                if not exact:
-                    raise AssertionError(
-                        f"K1 {codec_name} {proj} M={M}: not bit-exact "
-                        f"(max abs err {err})")
-                if not torch.equal(got, again):
-                    raise AssertionError(
-                        f"K1 {codec_name} {proj} M={M}: two runs differ")
-                p = mm.plan(M, N, K, mm.sm_count(dev))
-                ms = bench(lambda *s: mm.sparq_matmul_cuda(*s, **kw), sets)
-                plain_ms = bench(lambda *s: mm.ref_sparq_matmul(*s, **kw),
-                                 sets, iters=5, warmup=1)
-                # yardstick: torch._int_mm on the codes + the scaling;
-                # _int_mm takes M > 16 and M a multiple of 8, so the codes
-                # are zero-padded to lib_m rows where M is not
-                lib_m = max(24, -(-M // 8) * 8)
-
-                def codes(s):
-                    q = torch.zeros((lib_m, K), dtype=torch.int8,
-                                    device=dev)
-                    q[:M] = quantize_codes(s[0], s[2], True, 127)
-                    return q, s[1], s[2], s[3]
-                lib_ms = bench(lambda xq, w_, a_, c_: (torch._int_mm(
-                    xq, w_).float() * a_) * c_, [codes(s) for s in sets])
-                nbytes = M * K * 2 + K * N + N * 4 + M * N * 4
-                bound = max(nbytes / H100_BYTES_S,
-                            2 * M * N * K / H100_INT8_OPS_S) * 1e3
-                row = dict(codec=codec_name, proj=proj, M=M, K=K, N=N,
-                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           library_m=lib_m, bound_ms=bound,
-                           bound_by="bytes" if nbytes / H100_BYTES_S
-                           >= 2 * M * N * K / H100_INT8_OPS_S
-                           else "operations", exact=exact,
-                           plan=dict(bm=p.bm, bn=p.bn, split_k=p.split_k,
-                                     blocks=p.blocks))
-                rows.append(row)
-                log(f"K1 sparq_matmul {codec_name} {proj:7s} M={M:4d} "
-                    f"K={K} N={N} [BM {p.bm} BN {p.bn} split {p.split_k} "
-                    f"blocks {p.blocks}]: bit-exact x2, {ms:.4f} ms (plain "
-                    f"{plain_ms:.3f} ms, _int_mm {lib_ms:.4f} ms"
-                    f"{f' padded to M={lib_m}' if lib_m != M else ''}, "
-                    f"bound {bound:.4f} ms)")
+                rows.append(_k1_row(mm, kw, cfg, gen, dev, codec_name, proj,
+                                    M, K, N))
+                worst = max(worst, rows[-1]["max_abs_err"])
         layer = {k: sum(n * r[k] for r in rows for p_, n in LAYER.items()
                         if r["codec"] == codec_name and r["M"] == 8
                         and r["proj"] == p_)
@@ -378,6 +422,29 @@ def check_k1(dev, results):
             log(f"K1 sparq_matmul {codec_name} ragged M={M} K={K} N={N} f32 "
                 f"[BM {p.bm} BN {p.bn} split {p.split_k} blocks "
                 f"{p.blocks}]: bit-exact x2")
+    cfg = SparqConfig.opt5(signed=True)
+    kw = dict(bits=cfg.bits, opts_shifts=cfg.shifts, rounding=cfg.rounding,
+              vsparq=cfg.vsparq, signed=cfg.signed, max_val=cfg.max_val,
+              enabled=cfg.enabled)
+    family = []
+    for arch, projs in FAMILY_PROJ.items():
+        for proj, (K, N) in projs.items():
+            for M in FAMILY_MS:
+                family.append(dict(_k1_row(mm, kw, cfg, gen, dev, "5opt",
+                                           f"{arch} {proj}", M, K, N),
+                                   arch=arch))
+    results["sparq_matmul_family"] = family
+    for arch in FAMILY_PROJ:
+        layer = {k: sum(n * r[k] for r in family for p_, n in (
+            ("wq/wo", 2), ("wk/wv", 2), ("up", 1), ("down", 1))
+            if r["arch"] == arch and r["M"] == 8
+            and r["proj"] == f"{arch} {p_}")
+            for k in ("ms", "library_ms", "bound_ms")}
+        results.setdefault("sparq_matmul_layer_m8", {})[arch] = layer
+        log(f"K1 5opt one {arch} layer's six projections at M=8: "
+            f"{layer['ms']:.4f} ms (_int_mm padded {layer['library_ms']:.4f}"
+            f" ms, bound {layer['bound_ms']:.4f} ms)")
+    rows += family
     rows += k1_unsigned_rows(dev, gen, results)
     worst = max(worst, results["sparq_matmul_unsigned"]["max_abs_err"])
     # the JSON line's representative: one prefill-chunk gate/up
@@ -591,6 +658,7 @@ K2_CURS = [599, 433, 17, 300, -1, 511, 64, 250]
 # byte-wise load path, and a head dim that is not a multiple of 4 (the
 # scalar score loop)
 DECODE_SHAPES = {"hd 16 G 4": (4, 16, False), "hd 128 G 8": (8, 128, False),
+                 "hd 128 G 12": (12, 128, False),
                  "hd 64 G 8 unaligned": (8, 64, True),
                  "hd 10 G 4": (4, 10, False)}
 
@@ -874,6 +942,12 @@ K3_SHAPES = {"hd 64 G 8": ((4, 8, 64, 16, 8, False, 256), (64, 64, 64, 1)),
                             (128, 32, 64, 1)),
              "hd 128 G 48 KV 1": ((1, 48, 128, 16, 8, False, 256),
                                   (128, 32, 64, 6)),
+             "hd 128 G 48 KV 1 ps 128": ((1, 48, 128, 128, 16, False, 256),
+                                         (128, 32, 64, 12)),
+             "hd 128 G 12 KV 2": ((2, 12, 128, 16, 8, False, 256),
+                                  (128, 32, 64, 2)),
+             "hd 128 G 12 KV 8": ((8, 12, 128, 16, 8, False, 256),
+                                  (128, 32, 64, 2)),
              "bq*G 128": ((4, 8, 64, 16, 16, False, 256), (64, 64, 64, 2)),
              "ps 128": ((4, 8, 64, 128, 8, False, 256), (64, 64, 64, 1)),
              "hd 256 G 8": ((4, 8, 256, 16, 8, False, 256),
@@ -882,10 +956,12 @@ K3_SHAPES = {"hd 64 G 8": ((4, 8, 64, 16, 8, False, 256), (64, 64, 64, 1)),
              "hd 64 G 8 misaligned": ((4, 8, 64, 16, 8, True, 256),
                                       (64, 64, 64, 1)),
              "cli": ((2, 4, 16, 16, 8, False, 32), (16, 64, 32, 1)),
+             "cli granite": ((1, 8, 16, 16, 8, False, 32), (16, 64, 64, 1)),
              "wide": ((4, 8, 64, 128, 16, False, 32), (64, 64, 64, 2))}
 # the shapes timed, on the timed layout where it fits the chunk, else on
 # the long history (the serving shape is the JSON line's row)
 K3_TIMED = ("hd 64 G 8", "hd 16 G 4", "hd 128 G 8", "hd 128 G 48 KV 1",
+            "hd 128 G 48 KV 1 ps 128", "hd 128 G 12 KV 2", "hd 128 G 12 KV 8",
             "bq*G 128", "ps 128", "hd 256 G 8", "cli", "wide")
 
 
@@ -1003,7 +1079,7 @@ def check_k3(dev, results):
 
 
 # K4's write modes at the shapes the driven paths give them, and at hd 128
-# (granite, one KV head) and hd 10 (rows of 10 or 30 lanes: the kernel's
+# (granite, one KV head; mistral-large, eight) and hd 10 (rows of 10 or 30 lanes: the kernel's
 # scalar lane pairs): (mode, dims, K/V dtype, calibrated). Paged cases
 # cover inactive slots, unallocated blocks, calibrated and uncalibrated
 # slots; chunks mix first- and later-segment runs with padding; an
@@ -1036,6 +1112,10 @@ K4_WRITES = {
                      torch.float32, None),
     "hd 128 prefill": ("contiguous", dict(B=8, T=256, Tmax=296, KV=1,
                                           hd=128), torch.float32, False),
+    "hd 128 KV 8 decode": ("paged", dict(S=8, KV=8, hd=128, ps=16, NB=34),
+                           torch.bfloat16, None),
+    "hd 128 KV 8 chunk": ("chunk", dict(S=8, C=256, KV=8, hd=128, ps=16,
+                                        NB=34), torch.bfloat16, None),
     "hd 10 decode": ("paged", dict(S=8, KV=1, hd=10, ps=16, NB=34),
                      torch.float32, None),
     "hd 10 chunk": ("chunk", dict(S=8, C=64, KV=3, hd=10, ps=16, NB=34),
@@ -1520,11 +1600,12 @@ def check_k5(dev, results):
         f"{geo.n_splits})")
 
 
-# The head shapes (G, hd, one KV head) whose 128-key tile the split-key
-# body walks in chunks (`sparq_decode_attn.sub_keys`): K5 at bk 128 and K2
-# at page size 128 there
+# The head shapes (G, hd, one KV head) at a 128-key tile, K5 at bk 128
+# and K2 at page size 128: those whose tile the split-key body walks in
+# chunks (`sparq_decode_attn.sub_keys`, F3), and G 12 / hd 128
+# (starcoder2-3b and mistral-large-123b), whose tile fits one layout
 F3_SHAPES = {"granite-20b": (48, 128), "paligemma-3b": (8, 256),
-             "recurrentgemma-9b": (16, 256)}
+             "recurrentgemma-9b": (16, 256), "G 12 hd 128": (12, 128)}
 
 
 def _decode_yardsticks(q, k, v, live, n_keys_live, extra_bytes):
@@ -1577,14 +1658,26 @@ def check_f3(dev, results):
             errs[f"K2 window {window}"] = hold(
                 f"K2 {arch} ps 128, window {window}", got, want, exact,
                 PLAIN_TOL)
+        timed = [("K5", lambda *x: dec.sparq_decode_attn_cuda(*x, bk=128),
+                  k5s, contig_keys(*k5[1:])),
+                 ("K2", dec.sparq_paged_decode_attn_cuda, k2s,
+                  paged_keys(*k2[1:]))]
+        if hd == 128:
+            # the dense family's head shapes at their serving page size
+            k2p = [k2_case(gen, dev, G=G, hd=hd, KV=1)
+                   for _ in range(n_sets(4 * 300 * 16 * hd))]
+            got = dec.sparq_paged_decode_attn_cuda(*k2p[0])
+            errs["K2 ps 16 window 0"] = hold(
+                f"K2 {arch} ps 16", got,
+                dec.ref_sparq_paged_decode_attn(*k2p[0]),
+                decode_f64_reference(k2p[0][0], *paged_keys(*k2p[0][1:])),
+                PLAIN_TOL)
+            timed.append(("K2 ps 16", dec.sparq_paged_decode_attn_cuda, k2p,
+                          paged_keys(*k2p[0][1:])))
         _log_decode(f"F3 {arch} (G {G}, hd {hd})", errs)
         row = dict(G=G, hd=hd, sub=dec.sub_keys(G, hd, 128),
                    smem=dec.smem_bytes(G, hd, 128), errors=errs)
-        for name, fn, a, keys in (
-                ("K5", lambda *x: dec.sparq_decode_attn_cuda(*x, bk=128),
-                 k5s, contig_keys(*k5[1:])),
-                ("K2", dec.sparq_paged_decode_attn_cuda, k2s,
-                 paged_keys(*k2[1:]))):
+        for name, fn, a, keys in timed:
             ms = bench(fn, a)
             a = a[0]
             live = keys[2]
@@ -1594,10 +1687,12 @@ def check_f3(dev, results):
             row[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=bound,
                              bound_by=by)
             err64 = max(e["f64"] for k, e in errs.items()
-                        if k.startswith(name))
+                        if k.startswith(name + " w"))
             row[name].update(max_abs_err_f64=err64)
-            log(f"F3 {arch} {name} (G {G}, hd {hd}, tile 128 in chunks of "
-                f"{row['sub']}): {ms:.4f} ms (SDPA {lib_ms:.4f} ms, bound "
+            tile = 16 if name == "K2 ps 16" else 128
+            log(f"F3 {arch} {name} (G {G}, hd {hd}, tile {tile} in chunks "
+                f"of {dec.sub_keys(G, hd, tile)}): {ms:.4f} ms (SDPA "
+                f"{lib_ms:.4f} ms, bound "
                 f"{bound:.5f} ms, {int(live.sum())} live keys), max abs "
                 f"err vs f64 {err64:.2e}")
         rows[arch] = row
@@ -1608,45 +1703,67 @@ def check_f3(dev, results):
 # phase: the main path end to end, full width
 # ----------------------------------------------------------------------
 
-def _full_width(dev):
-    """tinyllama-1.1b at full width and depth (22 layers, bf16), random
-    weights (seed 0) as int8 codes, one calibration batch, 5opt."""
+def _full_width(dev, arch="tinyllama-1.1b", n_layers=None, dtype=None):
+    """`arch` at full width (and full depth unless `n_layers` cuts it),
+    bf16 compute, random weights (seed 0) drawn in `dtype` (default the
+    config's param_dtype) as int8 codes, one calibration batch of 8 x 128,
+    5opt. The float tree is dropped once the codes exist."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import Batcher, DataConfig
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
     from repro_torch.models.quantize import quantize_params
-    cfg = get_config("tinyllama-1.1b")
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     model = Model(cfg, device=dev)
-    params = model.init_params(seed=0)
+    params = model.init_params(seed=0, dtype=dtype)
     data = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
                               global_batch=8, seed=0))
     scales = model.calibrate(params, data.calib_batches(1))
     codec = serve.SPARQ_PRESETS["5opt"]
-    return cfg, model, quantize_params(params, codec.weight_bits), scales, \
-        codec
+    qparams = quantize_params(params, codec.weight_bits)
+    del params
+    return cfg, model, qparams, scales, codec
 
 
-def _serve_setup(dev, prefill="chunked"):
-    """The serve phase's workload: the full-width model, 8 requests of
-    seeded ragged lengths 64-512 and gen 32, and the paged engine (page
-    16, chunk 256) sized to hold them, with `prefill` admission."""
+def _serve_requests(cfg):
+    """The serve phase's 8 requests: seeded ragged lengths 64-512, gen 32.
+    Returns (requests, lengths, gen)."""
     from repro_torch.launch import serve
-    from repro_torch.models.common import QuantCtx
-    cfg, model, params, scales, codec = _full_width(dev)
     rng = np.random.default_rng(0)
     lens = rng.integers(64, 513, 8)
     gen = 32
     reqs = [serve.Request(rng.integers(0, cfg.vocab_size, int(L)), gen)
             for L in lens]
-    ps = 16
+    return reqs, lens, gen
+
+
+def _serve_engine(model, codec, scales, dev, lens, gen, prefill="chunked",
+                  ps=16, align=8, telemetry=None):
+    """The paged engine (chunk 256) with pages of `ps`, sized to hold the
+    requests of `lens` uncontended. Returns (engine, n_pages)."""
+    from repro_torch.launch import serve
+    from repro_torch.models.common import QuantCtx
     max_seq = -(-(int(lens.max()) + gen - 1) // ps) * ps
     n_pages = sum(math.ceil((int(L) + gen - 1) / ps) for L in lens) + 8
     engine = serve.ContinuousBatchingEngine(
         model, serve.make_cache_config("sparq", codec),
         QuantCtx(mode="quantized", cfg=codec), scales, page_size=ps,
         n_pages=n_pages, max_active=8, max_seq_len=max_seq,
-        prefill=prefill, chunk_size=256, chunk_align=8, device=dev)
+        prefill=prefill, chunk_size=256, chunk_align=align, device=dev,
+        telemetry=telemetry)
+    return engine, n_pages
+
+
+def _serve_setup(dev, prefill="chunked"):
+    """The serve phase's workload: the full-width model, 8 requests of
+    seeded ragged lengths 64-512 and gen 32, and the paged engine (page
+    16, chunk 256) sized to hold them, with `prefill` admission."""
+    cfg, model, params, scales, codec = _full_width(dev)
+    reqs, lens, gen = _serve_requests(cfg)
+    engine, n_pages = _serve_engine(model, codec, scales, dev, lens, gen,
+                                    prefill)
     return cfg, engine, params, reqs, lens, gen, n_pages
 
 
@@ -1783,8 +1900,10 @@ def _check_requests(cfg, reqs, out, gen):
 
 def _paged_full_width(dev, results, prefill):
     t0 = time.perf_counter()
-    cfg, engine, params, reqs, lens, gen, n_pages = _serve_setup(dev,
-                                                                 prefill)
+    cfg, model, params, scales, codec = _full_width(dev)
+    reqs, lens, gen = _serve_requests(cfg)
+    engine, n_pages = _serve_engine(model, codec, scales, dev, lens, gen,
+                                    prefill)
     L = cfg.n_layers
     torch.cuda.synchronize()
     t_setup = time.perf_counter() - t0
@@ -1814,10 +1933,17 @@ def _paged_full_width(dev, results, prefill):
     else:
         assert chunks == 0 and counts["sparq_chunked_prefill_attn"] == 0
     name = "serve" if prefill == "chunked" else "sequential"
+    traced = None
+    if prefill == "chunked":
+        from repro_torch.obs import Telemetry
+        traced = _traced_serve(
+            _serve_engine(model, codec, scales, dev, lens, gen, prefill,
+                          telemetry=Telemetry.tracing())[0],
+            engine, params, reqs, out, stats, counts)
     results[name] = dict(
         arch=cfg.name, n_layers=L, dtype=str(cfg.dtype),
         prompt_lens=[int(x) for x in lens], gen=gen, chunk_size=256,
-        setup_s=t_setup, launches=counts, k4_alone=alone,
+        setup_s=t_setup, launches=counts, k4_alone=alone, traced=traced,
         **{k: v for k, v in stats.items() if not isinstance(v, dict)})
     log(f"{name} {cfg.name} x{L} layers bf16 5opt int8-weights, "
         f"{prefill} prefill: prefill {stats['prefill_s']:.3f} s "
@@ -1829,12 +1955,181 @@ def _paged_full_width(dev, results, prefill):
     return counts
 
 
+def _traced_serve(engine, plain, params, reqs, out, stats, counts):
+    """The serve run once more on an engine with `Telemetry.tracing()`
+    (kernels built, so no warm-up): tokens and every launch count equal
+    the untraced run's; the registry's Prometheus text parses back with
+    the port's `parse_prometheus` and its counters equal the stats dict;
+    the trace is valid JSON whose B/E spans balance on every request's
+    track. The host overhead is the traced run's wall time over the
+    untraced one's, each the mean of two runs taken in turns (untraced,
+    traced, traced, untraced) on the engines `plain` and `engine`."""
+    from repro_torch.obs import export
+    (tout, tstats), tcounts = _drive(lambda: engine.run(params, reqs))
+    for rid in out:
+        if not np.array_equal(tout[rid], out[rid]):
+            raise AssertionError(f"traced serve: request {rid}'s tokens "
+                                 f"differ from the untraced run's")
+    if tcounts != counts:
+        raise AssertionError(f"traced serve launches {tcounts}, untraced "
+                             f"{counts}")
+    reg = engine.telemetry.registry
+    parsed = export.parse_prometheus(export.prometheus_text(reg))
+    for metric, key in (("engine_decode_steps_total", "decode_steps"),
+                        ("engine_decode_tokens_total", "decode_tokens"),
+                        ("engine_prefill_chunks_total", "prefill_chunks"),
+                        ("engine_resumes_total", "resumes"),
+                        ("pool_pages_peak", "peak_pages_used")):
+        if parsed[(metric, "")] != tstats[key]:
+            raise AssertionError(f"traced serve: {metric} "
+                                 f"{parsed[(metric, '')]} != stats[{key!r}]"
+                                 f" {tstats[key]}")
+    if tstats["decode_steps"] != stats["decode_steps"] or \
+            parsed[("engine_step_phase_seconds_count", 'phase="decode"')] \
+            != tstats["decode_steps"]:
+        raise AssertionError("traced serve: step counts differ")
+    blob = json.loads(json.dumps(export.trace_json(engine.telemetry.tracer)))
+    depth, tids = {}, set()
+    for e in blob["traceEvents"]:
+        if e["ph"] == "B":
+            depth[e["tid"]] = depth.get(e["tid"], 0) + 1
+            tids.add(e["tid"])
+        elif e["ph"] == "E":
+            depth[e["tid"]] = depth.get(e["tid"], 0) - 1
+            if depth[e["tid"]] < 0:
+                raise AssertionError(f"trace: E without B on {e['tid']}")
+    if any(depth.values()) or tids != {rid + 1 for rid in out}:
+        raise AssertionError(f"trace: open spans {depth}, request tracks "
+                             f"{sorted(tids)}")
+    runs = {"untraced": [], "traced": []}
+    for which in ("untraced", "traced", "traced", "untraced"):
+        eng = plain if which == "untraced" else engine
+        runs[which].append(eng.run(params, reqs)[1]["run_s"])
+    t_run, u_run = (sum(runs[k]) / 2 for k in ("traced", "untraced"))
+    overhead = t_run / u_run - 1
+    log(f"serve traced (Telemetry.tracing()): tokens and launches equal the "
+        f"untraced run's; {len(blob['traceEvents'])} trace events, "
+        f"{len(parsed)} Prometheus samples; in turns, run {t_run:.3f} s "
+        f"traced against {u_run:.3f} s untraced ({overhead:+.1%}; runs "
+        f"{runs})")
+    return dict(run_s=t_run, untraced_run_s=u_run, runs=runs,
+                host_overhead=overhead, decode_tok_s=tstats["decode_tok_s"],
+                prefill_s=tstats["prefill_s"],
+                trace_events=len(blob["traceEvents"]),
+                prometheus_samples=len(parsed))
+
+
 def serve_full_width(dev, results):
     return _paged_full_width(dev, results, "chunked")
 
 
 def sequential_full_width(dev, results):
     return _paged_full_width(dev, results, "sequential")
+
+
+# ----------------------------------------------------------------------
+# phase: the rest of the dense family, full width
+# ----------------------------------------------------------------------
+
+# arch: (layers served, None for all; the (page size, chunk alignment) of
+# each run). Granite-20b runs at page 16 and at page 128 with 16-token
+# query tiles: at page 128 K2's 128-key tile at G 48 / hd 128 does not fit
+# one block and is walked in chunks of 64 keys (F3's repair). Mistral-
+# large-123b keeps 12 of its 88 layers: its int8 codes alone take 122 GB
+# at full depth, 12 layers 16.6 GB beside 33 GB of bf16 weights.
+DENSE_FAMILY = {"granite-20b": (None, ((16, 8), (128, 16))),
+                "starcoder2-3b": (None, ((16, 8),)),
+                "mistral-large-123b": (12, ((16, 8),))}
+
+
+def dense_k3_shape(cfg, ps, align):
+    """K3's shape on a dense_family run, as K3_SHAPES writes it."""
+    return (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim, ps,
+            align, False, 256)
+
+
+def dense_family(dev, results):
+    """Each DENSE_FAMILY model at full width, weights drawn in bf16 (f32
+    granite-20b would take 80 GB) and calibrated in bf16 on one batch of 8
+    x 128, quantized slice by slice to int8 codes, the float tree dropped;
+    then the serve phase's 8 requests through the paged chunked engine
+    (5opt, sparq KV, chunk 256) at each of its (page size, alignment): a
+    warm-up run, then the timed run with exact counts (K2 = L x steps, K3
+    = L x chunks, K4 = L x (2 x chunks + steps), K5 = K6 = 0), every
+    request's tokens, no page leaked. Logs decode tok/s, prefill s, peak
+    pages and peak GB (`max_memory_allocated` from the model's init)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import sparq_decode_attn as dec
+    from repro_torch.kernels import sparq_prefill_attn as pre
+    from repro_torch.models.ffn import GATED
+    total = {k: 0 for k in build.KERNELS}
+    rows = {}
+    for arch, (depth, runs) in DENSE_FAMILY.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, model, params, scales, codec = _full_width(
+            dev, arch, depth, torch.bfloat16)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        setup_gb = torch.cuda.max_memory_allocated() / 1e9
+        reqs, lens, gen = _serve_requests(cfg)
+        L, G, hd = cfg.n_layers, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+        n_proj = 7 if cfg.mlp_type in GATED else 6
+        for ps, align in runs:
+            name = f"{arch} ps {ps}"
+            k3 = dense_k3_shape(cfg, ps, align)
+            if not any(v[0] == k3 for v in K3_SHAPES.values()):
+                raise AssertionError(f"{name}: K3 runs at {k3}, which "
+                                     f"check_k3 does not hold")
+            engine, n_pages = _serve_engine(model, codec, scales, dev, lens,
+                                            gen, ps=ps, align=align)
+            engine.run(params, reqs)                 # warm-up, untimed
+            (out, stats), counts = _drive(lambda: engine.run(params, reqs))
+            _check_requests(cfg, reqs, out, gen)
+            if stats["free_pages_after"] != n_pages:
+                raise AssertionError(f"{name}: pages leaked")
+            steps, chunks = stats["decode_steps"], stats["prefill_chunks"]
+            want = {"sparq_paged_decode_attn": L * steps,
+                    "sparq_chunked_prefill_attn": L * chunks,
+                    "sparq_quant": L * (2 * chunks + steps),
+                    "sparq_decode_attn": 0, "sparq_dequant": 0}
+            got = {k: counts[k] for k in want}
+            # K1 at every projection of every layer, each step and chunk
+            want["sparq_matmul"] = n_proj * L * (steps + chunks)
+            got = {k: counts[k] for k in want}
+            if got != want or chunks == 0:
+                raise AssertionError(f"{name}: launches {counts} ({steps} "
+                                     f"steps, {chunks} chunks), expected "
+                                     f"{want}")
+            for k, v in counts.items():
+                total[k] += v
+            sub = dec.sub_keys(G, hd, ps)
+            rows[name] = dict(
+                arch=arch, n_layers=L, of_layers=get_config(arch).n_layers,
+                param_dtype="bfloat16", chunk_align=align,
+                k2_sub_keys=sub, k2_smem=dec.smem_bytes(G, hd, ps),
+                k3_shape=list(k3),
+                k3_traits=pre.k3_traits(hd, G, align, ps)._asdict(),
+                setup_s=t_setup, setup_peak_gb=setup_gb,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=counts,
+                **{k: v for k, v in stats.items()
+                   if not isinstance(v, dict)})
+            log(f"dense_family {name}: {L} of {get_config(arch).n_layers} "
+                f"layers, G {G} hd {hd} KV {cfg.n_kv_heads}, {cfg.mlp_type}"
+                f" {cfg.norm_type}: prefill {stats['prefill_s']:.3f} s "
+                f"({chunks} chunks) | decode {stats['decode_tok_s']:.1f} "
+                f"tok/s ({steps} steps) | peak pages "
+                f"{stats['peak_pages_used']}/{n_pages} | K2 tile {ps} in "
+                f"chunks of {sub} keys | setup {t_setup:.1f} s, peak "
+                f"{setup_gb:.1f} GB at setup, "
+                f"{rows[name]['peak_gb']:.1f} GB | launches {counts}")
+            del engine
+        del params, model, scales
+    results["dense_family"] = rows
+    return total
 
 
 # ----------------------------------------------------------------------
@@ -2157,6 +2452,51 @@ CLI_PREEMPT_FLAGS = ["--preempt", "swap", "--oversubscribe", "0.5",
                      "--prefix-cache"]
 
 
+def _family_cli_args(arch, tag):
+    """CLI_ARGS for `arch`, reduced, with the registry and the trace
+    written under the ignored build/ directory."""
+    out = ROOT / "build" / "cli_telemetry"
+    args = list(CLI_ARGS)
+    args[args.index("--arch") + 1] = arch
+    return args + ["--metrics-dump", str(out / f"{tag}.prom"),
+                   "--trace-out", str(out / f"{tag}.trace.json")]
+
+
+# the reduced granite-20b (MQA: K3 at hd 16, G 8, one KV head) and
+# starcoder2-3b (the cli shape) through the CLI with its telemetry flags,
+# by the K3_SHAPES case each drives
+CLI_FAMILY = {"cli granite": _family_cli_args("granite-20b", "granite"),
+              "cli": _family_cli_args("starcoder2-3b", "starcoder2")}
+
+
+def _check_cli_telemetry(argv, stats):
+    """The files `--metrics-dump` and `--trace-out` wrote: the dump parses
+    back with the port's `parse_prometheus` to the stats dict's counts;
+    the trace is JSON whose B/E spans balance, a track a request."""
+    from repro_torch.obs import export
+    arg = {f: argv[argv.index(f) + 1] for f in ("--metrics-dump",
+                                                "--trace-out")}
+    parsed = export.parse_prometheus(
+        pathlib.Path(arg["--metrics-dump"]).read_text())
+    for metric, key in (("engine_decode_steps_total", "decode_steps"),
+                        ("engine_prefill_chunks_total", "prefill_chunks"),
+                        ("pool_pages_peak", "peak_pages_used")):
+        if parsed[(metric, "")] != stats[key]:
+            raise AssertionError(f"{arg['--metrics-dump']}: {metric} "
+                                 f"{parsed[(metric, '')]}, stats {key} "
+                                 f"{stats[key]}")
+    events = json.loads(pathlib.Path(arg["--trace-out"]).read_text())[
+        "traceEvents"]
+    depth = {}
+    for e in events:
+        if e["ph"] in "BE":
+            depth[e["tid"]] = depth.get(e["tid"], 0) + (
+                1 if e["ph"] == "B" else -1)
+    if any(depth.values()) or len(depth) != len(stats["tokens"]):
+        raise AssertionError(f"{arg['--trace-out']}: spans {depth}")
+    return dict(prometheus_samples=len(parsed), trace_events=len(events))
+
+
 def _cli(dev, results, name, argv, key=None):
     """`python -m repro_torch.launch.serve` with argv, through its `main`
     (a warm-up run, then the timed one): every request returns `gen`
@@ -2173,6 +2513,8 @@ def _cli(dev, results, name, argv, key=None):
         raise AssertionError(f"{name}: K3 runs at {shape}, but check_k3 "
                              f"holds {K3_SHAPES[name][0]}")
     tr = pre.k3_traits(hd, G, bq, ps)
+    if "--metrics-dump" in argv:
+        (ROOT / "build" / "cli_telemetry").mkdir(parents=True, exist_ok=True)
     stats, counts = _drive(lambda: serve.main(argv))
     toks = stats["tokens"]
     gen = 32                                  # the CLI's --gen default
@@ -2187,9 +2529,11 @@ def _cli(dev, results, name, argv, key=None):
         raise AssertionError(f"{name} launches {counts} (two runs of "
                              f"{chunks} chunks and {steps} steps), expected "
                              f"{want} and K1 > 0")
+    telemetry = _check_cli_telemetry(argv, stats) \
+        if "--metrics-dump" in argv else None
     results[key or name] = dict(
         argv=argv, arch=cfg.name, n_layers=L, head_dim=cfg.head_dim, G=G,
-        k3_traits=tr._asdict(), launches=counts,
+        k3_traits=tr._asdict(), launches=counts, telemetry=telemetry,
         **{k: v for k, v in stats.items() if not isinstance(v, dict)})
     log(f"{key or name} {' '.join(argv)}: {len(toks)} requests x {gen} "
         f"tokens | {stats['pool_pages']} pages, {stats['preemptions']} "
@@ -2202,11 +2546,16 @@ def _cli(dev, results, name, argv, key=None):
 
 def cli_reduced(dev, results):
     """CLI_ARGS, then the same with CLI_PREEMPT_FLAGS (a pool of half the
-    batch's pages, swap preemption, the prefix cache)."""
-    a = _cli(dev, results, "cli", CLI_ARGS)
-    b = _cli(dev, results, "cli", CLI_ARGS + CLI_PREEMPT_FLAGS,
-             key="cli_preempt")
-    return {k: a[k] + b[k] for k in a}
+    batch's pages, swap preemption, the prefix cache), then CLI_FAMILY
+    (granite-20b and starcoder2-3b reduced, with --metrics-dump and
+    --trace-out)."""
+    runs = [_cli(dev, results, "cli", CLI_ARGS),
+            _cli(dev, results, "cli", CLI_ARGS + CLI_PREEMPT_FLAGS,
+                 key="cli_preempt")]
+    for name, argv in CLI_FAMILY.items():
+        runs.append(_cli(dev, results, name, argv,
+                         key=f"cli_{_cli_config(argv).name}"))
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
 def cli_wide(dev, results):
@@ -3124,6 +3473,52 @@ def parity_two_layers(dev, results):
         f"chunk-align 16 and page size 128) and a scan "
         f"batch of {scan['cpu'].shape[0]}; paged sequential == scan "
         f"(attn_bk {ps}) on the card for all {len(reqs)} requests")
+    parity_granite(dev, results)
+
+
+def parity_granite(dev, results):
+    """A 2-layer full-width f32 granite-20b (MQA, G 48, hd 128, LayerNorm,
+    GELU, tied head) with the same weights on the card and on the CPU: the
+    paged chunked engine gives equal greedy tokens on both."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.launch import serve
+    from repro_torch.models.common import QuantCtx
+    from repro_torch.models.model import Model
+    from repro_torch.models.quantize import quantize_params
+    cfg = get_config("granite-20b").replace(n_layers=2, dtype=torch.float32)
+    codec = serve.SPARQ_PRESETS["5opt"]
+    cc = serve.make_cache_config("sparq", codec)
+    ctx = QuantCtx(mode="quantized", cfg=codec)
+    gpu = Model(cfg, device=dev)
+    params = gpu.init_params(seed=1)
+    scales = gpu.calibrate(params, Batcher(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+        seed=1)).calib_batches(1))
+    params = quantize_params(params, codec.weight_bits)
+    rng = np.random.default_rng(1)
+    reqs = [serve.Request(rng.integers(0, cfg.vocab_size, L), 8)
+            for L in (40, 100, 20, 70)]
+    out = {}
+    for name, model, p, sc in (
+            ("cuda", gpu, params, scales),
+            ("cpu", Model(cfg, device="cpu"), _to_cpu(params),
+             _to_cpu(scales))):
+        out[name], _ = serve.ContinuousBatchingEngine(
+            model, cc, ctx, sc, device=model.device, prefill="chunked",
+            page_size=16, n_pages=40, max_active=3, max_seq_len=112,
+            chunk_size=64, chunk_align=8).run(p, reqs)
+    for rid in out["cpu"]:
+        if not np.array_equal(out["cuda"][rid], out["cpu"][rid]):
+            raise AssertionError(
+                f"parity granite-20b, request {rid}: kernels "
+                f"{out['cuda'][rid].tolist()} vs plain "
+                f"{out['cpu'][rid].tolist()}")
+    results["parity_granite"] = {str(r): out["cuda"][r].tolist()
+                                 for r in out["cpu"]}
+    log(f"parity 2-layer full-width f32 granite-20b: kernels == plain "
+        f"versions on {len(reqs)} paged chunked requests "
+        f"({sum(len(t) for t in out['cpu'].values())} tokens)")
 
 
 # opcodes that must (True) or must not (False) appear in a kernel
@@ -3165,7 +3560,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,kernels,serve,preempt,prefix,scan,"
-                            "sequential,cli,wide,cnn,train,cnn_train,parity")
+                            "sequential,dense_family,cli,wide,cnn,train,"
+                            "cnn_train,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -3198,7 +3594,8 @@ def main(argv=None):
     by_path = {}
     paths = (("serve", serve_full_width), ("preempt", preempt_full_width),
              ("prefix", prefix_full_width), ("scan", scan_full_width),
-             ("sequential", sequential_full_width), ("cli", cli_reduced),
+             ("sequential", sequential_full_width),
+             ("dense_family", dense_family), ("cli", cli_reduced),
              ("wide", cli_wide), ("cnn", cnn_full_width),
              ("train", train_full_width), ("cnn_train", cnn_train_full))
     for name, run in paths:

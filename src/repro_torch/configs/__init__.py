@@ -9,6 +9,9 @@ from typing import Dict
 
 _REGISTRY: Dict[str, str] = {
     "tinyllama-1.1b": "repro_torch.configs.tinyllama_1_1b",
+    "granite-20b": "repro_torch.configs.granite_20b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
     "paper-resnet": "repro_torch.configs.paper_resnet",  # paper's own family
 }
 

@@ -63,7 +63,7 @@ class PrefillScheduler:
 
     def __init__(self, model, ctx=None, scales_groups=None, *,
                  chunk_size: int = 32, align: int = 8, page_size: int,
-                 n_slots: int, seg: Optional[int] = None):
+                 n_slots: int, seg: Optional[int] = None, telemetry=None):
         if chunk_size % align:
             raise ValueError(f"chunk_size {chunk_size} must be a multiple "
                              f"of the query-tile alignment {align}")
@@ -80,6 +80,14 @@ class PrefillScheduler:
         self.ps = page_size
         self.S = n_slots
         self.jobs: List[_Job] = []          # FIFO
+        # non-pad fraction of each chunk's C stream rows (repro_torch.obs):
+        # low fill means admission pays a whole chunk for a sliver of prompt
+        self._h_fill = None
+        if telemetry is not None:
+            self._h_fill = telemetry.registry.histogram(
+                "prefill_chunk_fill_ratio",
+                "non-pad fraction of each chunk's token stream",
+                buckets=tuple(i / 10 for i in range(1, 11))).series()
 
     def reset(self) -> None:
         self.jobs = []
@@ -194,6 +202,9 @@ class PrefillScheduler:
             seq_pos_after: np.ndarray) -> torch.Tensor:
         """Execute one planned chunk on the model's device (the caches are
         written in place). Returns tok0 [S] int32 on the device."""
+        if self._h_fill is not None:
+            # the plan is host numpy: a host-side observation
+            self._h_fill.observe(int((plan.seq_id >= 0).sum()) / self.C)
         dev = self.model.device
         i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
         meta = ChunkMeta(seq_id=i32(plan.seq_id), pos=i32(plan.pos),

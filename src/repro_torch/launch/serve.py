@@ -27,8 +27,12 @@ contiguous cache, and paged continuous batching.
       admissions. With `prefix_cache` (chunked only) prompts that share a
       prefix share its full pages.
 
-Not ported yet: tensor parallelism, the async front-end, the live
-mailboxes and telemetry; their flags raise.
+The paged engine keeps every scheduling counter and timing in a
+`repro_torch.obs` registry (its stats dict is read from it) and, with
+`Telemetry.tracing()`, records request and step spans; `--metrics-dump`
+writes the registry as Prometheus text and `--trace-out` the spans as
+Chrome/Perfetto trace JSON. Not ported yet: tensor parallelism, the async
+front-end and the live mailboxes; their flags raise.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --reduced --batch 4 --prompt-len 64 --gen 16 --sparq 5opt \\
@@ -36,6 +40,7 @@ mailboxes and telemetry; their flags raise.
     ... --engine paged --prefill sequential|chunked             # paged engine
     ... --engine paged --prefill chunked --preempt swap --oversubscribe 0.5 \\
         --prefix-cache                            # oversubscribed, shared
+    ... --engine paged --metrics-dump m.prom --trace-out t.json  # telemetry
 """
 from __future__ import annotations
 
@@ -59,6 +64,8 @@ from repro_torch.models import paging
 from repro_torch.models.cache import CacheConfig
 from repro_torch.models.common import QuantCtx
 from repro_torch.models.model import Model
+from repro_torch.obs import Telemetry
+from repro_torch.obs import export as obs_export
 
 SPARQ_PRESETS = {
     "off": None,
@@ -305,9 +312,11 @@ class ContinuousBatchingEngine:
     `PoolExhausted`; with a `SchedulerPolicy` it preempts a victim, which
     resumes bit-exactly before any new admission. `prefix_cache` (chunked
     only) shares the full pages of cached prompt prefixes;
-    `prefill_priority` meters chunks per decode step. Runs on the model's
-    device; `device` (default `cuda`) must name it, so a CPU run is
-    always asked for explicitly."""
+    `prefill_priority` meters chunks per decode step. `telemetry` (a
+    `repro_torch.obs.Telemetry`; default counters only) holds every
+    counter and timing of a run, and its spans when tracing. Runs on the
+    model's device; `device` (default `cuda`) must name it, so a CPU run
+    is always asked for explicitly."""
 
     def __init__(self, model: Model, cache_cfg: CacheConfig,
                  ctx: Optional[QuantCtx] = None, scales_groups=None, *,
@@ -317,7 +326,8 @@ class ContinuousBatchingEngine:
                  prefill: str = "sequential", chunk_size: int = 32,
                  chunk_align: int = 8, chunk_seg: Optional[int] = None,
                  prefix_cache: bool = False, prefix_min_pages: int = 1,
-                 prefill_priority: float = 1.0, device=None):
+                 prefill_priority: float = 1.0, device=None,
+                 telemetry: Optional[Telemetry] = None):
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} != model device "
@@ -359,12 +369,16 @@ class ContinuousBatchingEngine:
         # per layer), the figure the "auto" cost model charges
         self._page_bytes = int(4 * cfg.n_layers * page_size
                                * cfg.n_kv_heads * cfg.head_dim)
+        # the registry is the one store of a run's counters and timings
+        # (one float add an event); spans and phase histograms only when
+        # the caller attaches them (docs/observability.md)
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
         self._sched = None
         if prefill == "chunked":
             self._sched = PrefillScheduler(
                 model, ctx, scales_groups, chunk_size=chunk_size,
                 align=chunk_align, page_size=page_size, n_slots=max_active,
-                seg=chunk_seg)
+                seg=chunk_seg, telemetry=self.telemetry)
         self.prefix_cache = prefix_cache
         self.prefix_min_pages = max(1, prefix_min_pages)
         # prefix-match granularity: whole pages and whole prefill segments
@@ -489,6 +503,77 @@ class ContinuousBatchingEngine:
         for i, r in requests.items():
             self._validate_request(r, f"request {i}")
 
+        # ---- telemetry: every counter and timing of this run lives in
+        # the registry (the stats dict below is read from it); series
+        # handles are bound once, so an event costs one float add. The
+        # reset gives each run fresh stats, as its pool is fresh.
+        tel = self.telemetry
+        reg = tel.registry
+        sp = tel.spans
+        reg.reset()
+        c_preempt = reg.counter("engine_preemptions_total",
+                                "sequences preempted, by resolved mode",
+                                labelnames=("mode",))
+        c_pre_req = c_preempt.series(mode="requeue")
+        c_pre_swap = c_preempt.series(mode="swap")
+        c_resumes = reg.counter("engine_resumes_total",
+                                "preempted sequences rebuilt").series()
+        c_replay = reg.counter("engine_replay_steps_total",
+                               "teacher-forced replay decode steps"
+                               ).series()
+        c_cancel = reg.counter("engine_cancelled_total",
+                               "requests cancelled mid-flight").series()
+        c_steps = reg.counter("engine_decode_steps_total",
+                              "jitted decode steps executed").series()
+        c_tokens = reg.counter("engine_decode_tokens_total",
+                               "greedy tokens emitted by decode steps"
+                               ).series()
+        c_chunks = reg.counter("engine_prefill_chunks_total",
+                               "chunked-prefill chunk programs run"
+                               ).series()
+        c_t_prefill = reg.counter("engine_prefill_seconds_total",
+                                  "time admitting prompts (prefill)",
+                                  unit="seconds").series()
+        c_t_resume = reg.counter("engine_resume_seconds_total",
+                                 "time rebuilding preempted sequences",
+                                 unit="seconds").series()
+        c_phit = reg.counter("prefix_cache_hits_total",
+                             "admissions adopting cached prefix pages"
+                             ).series()
+        c_pmiss = reg.counter("prefix_cache_misses_total",
+                              "admissions with no usable cached prefix"
+                              ).series()
+        c_ptok = reg.counter("prefix_cache_hit_tokens_total",
+                             "prompt tokens served from cached pages"
+                             ).series()
+        c_pshared = reg.counter("prefix_cache_shared_pages_total",
+                                "whole pages adopted from the cache"
+                                ).series()
+        c_cow = reg.counter("prefix_cache_cow_copies_total",
+                            "copy-on-write boundary-page duplications"
+                            ).series()
+        c_refuse = reg.counter("engine_swap_refusals_total",
+                               "swap preemptions demoted to requeue "
+                               "(victim held shared pages)").series()
+        g_pages = reg.gauge("pool_pages_in_use",
+                            "pages currently allocated", unit="pages"
+                            ).series()
+        g_peak = reg.gauge("pool_pages_peak",
+                           "high-water allocated pages", unit="pages"
+                           ).series()
+        g_active = reg.gauge("engine_active_slots",
+                             "slots decoding this step").series()
+        g_queued = reg.gauge("engine_queue_depth",
+                             "requests waiting for admission").series()
+        h_phase = reg.histogram("engine_step_phase_seconds",
+                                "scheduler-iteration phase durations",
+                                unit="seconds", labelnames=("phase",))
+        h_retire = h_phase.series(phase="retire")
+        h_admit = h_phase.series(phase="admit")
+        h_prefill = h_phase.series(phase="prefill")
+        h_decode = h_phase.series(phase="decode")
+        timed = tel.step_timing or sp.on
+
         allocator = paging.PageAllocator(self.n_pages)
         index = paging.PrefixIndex(self._quantum, ps) \
             if self.prefix_cache else None
@@ -500,24 +585,22 @@ class ContinuousBatchingEngine:
         queue = [(float(r.arrive_at), rid, r) for rid, r in requests.items()]
         heapq.heapify(queue)
         resume_q: List[_Preempted] = []
-        swap = paging.SwapStore()
+        swap = paging.SwapStore(registry=reg)
         first_tok: Dict[int, torch.Tensor] = {}   # rid -> device scalar
         outputs: Dict[int, List[int]] = {rid: [] for rid in requests}
         # replay-divergence checks, read after the loop in one fetch
         deferred_checks: List[torch.Tensor] = []
         deferred_expect: List[Tuple[int, str]] = []
-        n = dict(steps=0, tokens=0, chunks=0, requeue=0, swap=0, resumes=0,
-                 replay=0, refusals=0, hits=0, misses=0, hit_tokens=0,
-                 shared_pages=0, cow=0, peak=0)
+        n_steps = 0                 # numbers the trace snapshots only
         join_seq = 0
         clock = 0.0
-        prefill_s = resume_s = 0.0
         chunk_credit = 0.0          # fractional prefill chunks banked
         self._debug_state = {"allocator": allocator, "slots": slots,
                              "swap": swap, "prefix_index": index}
 
-        def note_peak():
-            n["peak"] = max(n["peak"], allocator.used_count)
+        def note_pages():
+            g_pages.set(allocator.used_count)
+            g_peak.set_max(allocator.used_count)
 
         def prefilling(s: int) -> bool:
             return sched is not None and sched.has(s)
@@ -581,23 +664,29 @@ class ContinuousBatchingEngine:
                 # pages shared with other sequences stay live in the pool:
                 # parking them would fork their bytes, so requeue instead
                 mode = "requeue"
-                n["refusals"] += 1
+                c_refuse.inc()
             if mid_prefill:
                 sched.cancel(s)
             rec = _Preempted(rid=st.rid, req=requests[st.rid], toks=toks,
                              swapped=mode == "swap")
             if rec.swapped:
+                t_sw0 = time.perf_counter() if sp.on else 0.0
                 pages_dev = torch.tensor(st.pages, dtype=torch.int64,
                                          device=dev)
-                swap.put(st.rid, [paging.gather_slot_pages(c, s, pages_dev)
-                                  for c in caches], int(host_pos[s]))
+                nbytes = swap.put(st.rid, [
+                    paging.gather_slot_pages(c, s, pages_dev)
+                    for c in caches], int(host_pos[s]))
+                if sp.on:
+                    sp.swap(st.rid, t_sw0, time.perf_counter(), "out",
+                            nbytes)
             paging.evict_slot(caches, s)
             drop_pages(st.pages)
             host_bt[s] = -1
             host_pos[s] = -1
             slots[s] = None
             resume_q.append(rec)
-            n["swap" if rec.swapped else "requeue"] += 1
+            (c_pre_swap if rec.swapped else c_pre_req).inc()
+            sp.preempted(st.rid, mode=mode)
 
         def bind_slot(s: int, rid: int, req: Request, pages: List[int],
                       pos: int, generated: int, last_tok):
@@ -634,9 +723,8 @@ class ContinuousBatchingEngine:
         def resume(s: int, rec: _Preempted):
             """Rebuild a preempted sequence in slot s; the caller checked
             that the pool holds `resume_need(rec)` pages."""
-            nonlocal resume_s
             t0 = time.perf_counter()
-            n["resumes"] += 1
+            c_resumes.inc()
             if rec.swapped:
                 pages = allocator.alloc(swap.n_pages(rec.rid))
                 planes, pos = swap.pop(rec.rid, dev)
@@ -649,7 +737,8 @@ class ContinuousBatchingEngine:
                 # path, then the emitted tokens replay through the decode
                 # steps: the programs that wrote the original bytes
                 bind_prefilling(s, rec.rid, rec.req, recorded=rec.toks)
-                resume_s += time.perf_counter() - t0
+                c_t_resume.inc(time.perf_counter() - t0)
+                sp.resumed(rec.rid, phase="prefill")
                 return
             else:
                 L, done = len(rec.req.tokens), len(rec.toks)
@@ -661,11 +750,16 @@ class ContinuousBatchingEngine:
                 deferred_expect.append((
                     rec.toks[0], "requeue replay diverged at prefill — "
                     "greedy decode is no longer deterministic"))
-                n["replay"] += done - 1
+                c_replay.inc(done - 1)
             bind_slot(s, rec.rid, rec.req, pages, pos,
                       generated=len(rec.toks), last_tok=rec.toks[-1])
             _sync(dev)
-            resume_s += time.perf_counter() - t0
+            t1 = time.perf_counter()
+            c_t_resume.inc(t1 - t0)
+            if sp.on:
+                sp.resume_work(rec.rid, t0, t1,
+                               mode="swap" if rec.swapped else "replay")
+                sp.resumed(rec.rid, phase="decode", t=t1)
 
         def growth_debt() -> int:
             """Pages the running sequences need before the next step."""
@@ -759,16 +853,26 @@ class ContinuousBatchingEngine:
             return bool(queue) and queue[0][0] <= clock
 
         def prefix_stats():
-            return {"prefix_hits": n["hits"], "prefix_misses": n["misses"],
-                    "prefix_hit_tokens": n["hit_tokens"],
-                    "prefix_shared_pages": n["shared_pages"],
-                    "cow_copies": n["cow"], "swap_refusals": n["refusals"]}
+            """The prefix and refusal counters, as registry reads."""
+            return {"prefix_hits": int(c_phit.value()),
+                    "prefix_misses": int(c_pmiss.value()),
+                    "prefix_hit_tokens": int(c_ptok.value()),
+                    "prefix_shared_pages": int(c_pshared.value()),
+                    "cow_copies": int(c_cow.value()),
+                    "swap_refusals": int(c_refuse.value())}
 
         t_run0 = time.perf_counter()
+        sp.run_begin(t_run0)
+        if sp.on:
+            for rid in sorted(requests):
+                sp.submitted(rid, t_run0)
         while True:
+            it_t0 = time.perf_counter() if timed else 0.0
             # ---- evict finished sequences: references dropped
             while (fin := finished_slot()) is not None:
+                sp.finished(slots[fin].rid)
                 evict(fin)
+            t_admit0 = time.perf_counter() if timed else 0.0
 
             # ---- resume preempted sequences, then admit arrivals. While
             # a preempted sequence waits, nothing younger is admitted.
@@ -809,30 +913,36 @@ class ContinuousBatchingEngine:
                             for c in caches:
                                 paging.copy_page(c, cow_src, pg)
                             hit_pages.append(pg)
-                            n["cow"] += 1
+                            c_cow.inc()
                         for c, (k_sc, v_sc) in zip(caches, sc):
                             paging.adopt_prefix_scales(c, s, k_sc, v_sc)
                         bind_prefilling(s, rid, req, start=T,
                                         pages=hit_pages)
-                        n["hits"] += 1
-                        n["hit_tokens"] += T
-                        n["shared_pages"] += len(shared)
+                        c_phit.inc()
+                        c_ptok.inc(T)
+                        c_pshared.inc(len(shared))
+                        sp.admitted(rid, mode="chunked")
                         continue
                     if index is not None:
-                        n["misses"] += 1
+                        c_pmiss.inc()
                     bind_prefilling(s, rid, req)
+                    sp.admitted(rid, mode="chunked")
                     continue
                 # sequential: the whole prompt now, alone, then adoption
-                pages = allocator.alloc(nbp)
                 t0 = time.perf_counter()
+                sp.admitted(rid, t0, mode="sequential")
+                pages = allocator.alloc(nbp)
                 tok0 = self._prefill_alone(params, req.tokens, caches, s,
                                            pages)
                 first_tok[rid] = tok0[0]
                 bind_slot(s, rid, req, pages, pos=L, generated=1,
                           last_tok=tok0[0])
                 _sync(dev)
-                prefill_s += time.perf_counter() - t0
-            note_peak()
+                t1 = time.perf_counter()
+                c_t_prefill.inc(t1 - t0)
+                sp.first_token(rid, t1)
+            note_pages()
+            t_prefill0 = time.perf_counter() if timed else 0.0
 
             # ---- chunked prefill, metered by prefill_priority: each
             # iteration banks that many chunk credits (capped at
@@ -866,9 +976,13 @@ class ContinuousBatchingEngine:
                     t0 = time.perf_counter()
                     am = sched.run(params, caches, plan, spa)
                     _sync(dev)
-                    prefill_s += time.perf_counter() - t0
-                    n["chunks"] += 1
+                    t1 = time.perf_counter()
+                    c_t_prefill.inc(t1 - t0)
+                    c_chunks.inc()
                     chunk_ran = True
+                    if sp.on:
+                        for s2, adv in plan.advanced.items():
+                            sp.chunk(slots[s2].rid, t0, t1, tokens=adv)
                     for s2, adv in plan.advanced.items():
                         host_pos[s2] += adv
                     for s2, rid2, expect in plan.completed:
@@ -878,13 +992,15 @@ class ContinuousBatchingEngine:
                                 expect, "chunked re-prefill diverged from "
                                 "the recorded first token — greedy decode "
                                 "is no longer deterministic"))
+                            sp.decoding(rid2, t1)
                         else:
                             first_tok[rid2] = am[s2]
                             slots[s2].generated = 1
+                            sp.first_token(rid2, t1)
                         tok[s2, 0] = am[s2]
                         if index is not None:
                             register_prefix(s2, rid2)
-                    note_peak()
+                    note_pages()
 
             if not any(slots):
                 if resume_q or arrived():
@@ -893,6 +1009,7 @@ class ContinuousBatchingEngine:
                     clock = max(clock, queue[0][0])     # idle fast-forward
                     continue
                 break                                   # drained
+            t_decode0 = time.perf_counter() if timed else 0.0
 
             # ---- allocate the page each next token is written into; a dry
             # pool evicts a finished slot, else preempts a victim
@@ -907,6 +1024,7 @@ class ContinuousBatchingEngine:
                 while allocator.free_count < 1:
                     fin = finished_slot()
                     if fin is not None:
+                        sp.finished(slots[fin].rid)
                         evict(fin)
                         dirty = True
                         continue
@@ -926,7 +1044,7 @@ class ContinuousBatchingEngine:
                 st.pages.append(pg)
                 host_bt[s, blk] = pg
                 dirty = True
-            note_peak()
+            note_pages()
             if dirty:
                 push_block_table()
             check_page_accounting()
@@ -959,18 +1077,28 @@ class ContinuousBatchingEngine:
                             f"requeue|swap")
                     preempt(victim)
                 continue
-            if trace_hook is not None:
-                trace_hook(self._snapshot(
-                    n["steps"], allocator, slots, host_bt, host_pos, caches,
+            if trace_hook is not None or sp.on:
+                snap = self._snapshot(
+                    n_steps, allocator, slots, host_bt, host_pos, caches,
                     queue, resume_q, swap, prefilling=in_prefill,
                     replaying=replaying,
-                    prefix=prefix_stats() if index is not None else None))
+                    prefix=prefix_stats() if index is not None else None)
+                if trace_hook is not None:
+                    trace_hook(snap)
+                # the tracer's counter tracks (pool occupancy and load)
+                sp.snapshot({"pages_in_use": allocator.used_count,
+                             "free_pages": allocator.free_count,
+                             "active": len(active),
+                             "queued": len(snap["queued"]),
+                             "swapped": len(snap["swapped_rids"])})
 
             tok = self._step(params, tok, caches, caches[0].seq_pos)
             toks = tok[:, 0].tolist()                   # one D2H copy
-            n["steps"] += 1
+            t_step = time.perf_counter() if sp.on else 0.0
+            n_steps += 1
+            c_steps.inc()
+            c_tokens.inc(len(active))
             clock += 1
-            n["tokens"] += len(active)
             for s, rid in active:
                 outputs[rid].append(toks[s])
                 slots[s].generated += 1
@@ -978,10 +1106,31 @@ class ContinuousBatchingEngine:
             for s in replaying:
                 host_pos[s] += 1
                 tok[s, 0] = slots[s].replay.pop(0)
-                n["replay"] += 1
+                c_replay.inc()
+            if sp.on:
+                # per-token instants at the step's host stamp: the tokens
+                # are already on the host (the step's one copy)
+                for _, rid in active:
+                    sp.token(rid, t_step)
+            if timed:
+                # host clock around queued work: no phase waits on the card
+                t_it1 = time.perf_counter()
+                g_active.set(len(active))
+                g_queued.set(len(queue))
+                h_retire.observe(t_admit0 - it_t0)
+                h_admit.observe(t_prefill0 - t_admit0)
+                h_prefill.observe(t_decode0 - t_prefill0)
+                h_decode.observe(t_it1 - t_decode0)
+                sp.step(it_t0, t_it1,
+                        phases=(("retire", it_t0, t_admit0),
+                                ("admit", t_admit0, t_prefill0),
+                                ("prefill", t_prefill0, t_decode0),
+                                ("decode", t_decode0, t_it1)),
+                        active=len(active))
 
         _sync(dev)
         t_total = time.perf_counter() - t_run0
+        sp.run_end()
         if deferred_checks:
             got = torch.stack(deferred_checks).tolist()
             for g, (want, msg) in zip(got, deferred_expect):
@@ -992,49 +1141,61 @@ class ContinuousBatchingEngine:
                    for rid in requests}
         for rid, req in requests.items():
             assert len(results[rid]) == req.gen, (rid, len(results[rid]))
+        # every stats entry is a registry read (or a config echo), as in
+        # the reference; "device", "decode_tokens" and "free_pages_after"
+        # are the port's own
+        prefill_s = c_t_prefill.value()
+        resume_s = c_t_resume.value()
         decode_s = max(t_total - prefill_s - resume_s, 1e-9)
         pool = paging.modeled_pool_bytes(caches)
         pstats = prefix_stats()
+        c_swap_bytes = reg.counter("swap_bytes_total", labelnames=("dir",))
         stats = {
             "device": str(dev),
             "prefill_mode": self.prefill_mode,
             "prefill_priority": self.prefill_priority,
             "prefill_s": prefill_s,
-            "prefill_chunks": n["chunks"],
+            "prefill_chunks": int(c_chunks.value()),
+            # the port runs no compiled chunk program (the reference's
+            # jit cache size)
+            "prefill_compile_count": None,
             "run_s": t_total,
             "resume_s": resume_s,
             "decode_s": decode_s,
-            "decode_steps": n["steps"],
-            "decode_tokens": n["tokens"],
-            "decode_tok_s": n["tokens"] / decode_s,
+            "decode_steps": int(c_steps.value()),
+            "decode_tokens": int(c_tokens.value()),
+            "decode_tok_s": c_tokens.value() / decode_s,
+            "clock_mode": "step",
             "pool_pages": self.n_pages,
             "page_size": ps,
-            "peak_pages_used": n["peak"],
+            "pool_slots": self.n_pages * ps,
+            "peak_pages_used": int(g_peak.value()),
+            "peak_pool_utilization": g_peak.value() / max(self.n_pages, 1),
             "free_pages_after": allocator.free_count,
             "total_tokens_served": sum(len(r.tokens) + r.gen - 1
                                        for r in requests.values()),
-            "preemptions": n["requeue"] + n["swap"],
-            "preempt_requeue": n["requeue"],
-            "preempt_swap": n["swap"],
-            "resumes": n["resumes"],
-            "replay_steps": n["replay"],
-            "swap_bytes_out": swap.bytes_out,
-            "swap_bytes_in": swap.bytes_in,
-            "swap_peak_bytes": swap.peak,
+            "cancelled": int(c_cancel.value()),
+            "preemptions": int(c_pre_req.value() + c_pre_swap.value()),
+            "preempt_requeue": int(c_pre_req.value()),
+            "preempt_swap": int(c_pre_swap.value()),
+            "resumes": int(c_resumes.value()),
+            "replay_steps": int(c_replay.value()),
+            "swap_bytes_out": int(c_swap_bytes.value(dir="out")),
+            "swap_bytes_in": int(c_swap_bytes.value(dir="in")),
+            "swap_peak_bytes": int(reg.gauge("swap_peak_bytes").value()),
             "prefix_cache": self.prefix_cache,
             **pstats,
             "prefix_hit_rate": pstats["prefix_hits"] / max(
                 pstats["prefix_hits"] + pstats["prefix_misses"], 1),
             "cache_bytes_per_value": cache_mod.bytes_per_value(self.cc),
             "cache_total_bytes": pool["total_bytes"],
+            "tp": 1,
+            "pool_bytes_per_device": pool["total_bytes"],
         }
         return results, stats
 
 
-_NOT_PORTED = {
-    "tp": 1, "serve": "sync", "metrics_dump": None, "trace_out": None,
-    "metrics_port": None,
-}
+_NOT_PORTED = {"tp": 1, "serve": "sync", "metrics_port": None}
 
 
 def main(argv=None):
@@ -1096,11 +1257,17 @@ def main(argv=None):
                     help="paged engine, chunked prefill: prefill chunks per "
                          "decode-loop iteration (< 1 favours decode, > 1 "
                          "the first token)")
+    ap.add_argument("--metrics-dump", metavar="PATH", default=None,
+                    help="paged engine: write the telemetry registry as "
+                         "a Prometheus text-exposition dump after the "
+                         "run (docs/observability.md)")
+    ap.add_argument("--trace-out", metavar="PATH", default=None,
+                    help="paged engine: enable full span tracing and "
+                         "write Chrome trace-event JSON after the run "
+                         "(load in Perfetto / chrome://tracing)")
     # flags of the JAX CLI that this port does not serve yet: each raises
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--serve", default="sync")
-    ap.add_argument("--metrics-dump", default=None)
-    ap.add_argument("--trace-out", default=None)
     ap.add_argument("--metrics-port", type=int, default=None)
     args = ap.parse_args(argv)
 
@@ -1109,6 +1276,9 @@ def main(argv=None):
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not yet ported to "
                 f"repro_torch (see ROADMAP.md)")
+    if (args.metrics_dump or args.trace_out) and args.engine != "paged":
+        ap.error("--metrics-dump/--trace-out/--metrics-port read the "
+                 "paged engine's telemetry registry; add --engine paged")
     if args.engine == "paged":
         if args.prefix_cache and args.prefill != "chunked":
             ap.error("--prefix-cache relies on the chunked path's "
@@ -1171,10 +1341,18 @@ def main(argv=None):
         chunk_size=args.chunk_size, chunk_align=args.chunk_align,
         chunk_seg=args.chunk_seg or None, prefix_cache=args.prefix_cache,
         prefix_min_pages=args.prefix_min_pages,
-        prefill_priority=args.prefill_priority, device=device)
+        prefill_priority=args.prefill_priority, device=device,
+        telemetry=Telemetry.tracing() if args.trace_out else Telemetry())
     reqs = [Request(batch["tokens"][b], args.gen) for b in range(args.batch)]
     engine.run(params, reqs)            # warm-up: builds kernels, untimed
     results, stats = engine.run(params, reqs)
+    if args.metrics_dump:
+        obs_export.write_prometheus(engine.telemetry.registry,
+                                    args.metrics_dump)
+        print(f"metrics dump: {args.metrics_dump}")
+    if args.trace_out:
+        obs_export.write_trace(engine.telemetry.tracer, args.trace_out)
+        print(f"trace (Perfetto/chrome://tracing): {args.trace_out}")
     print(f"prefill {stats['prefill_s']*1e3:.1f} ms | decode "
           f"{stats['decode_tok_s']:.1f} tok/s | pool "
           f"{stats['peak_pages_used']}/{stats['pool_pages']} pages "

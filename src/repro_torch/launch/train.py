@@ -136,7 +136,9 @@ def main(argv=None, metrics: Optional[list] = None):
     data = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                               global_batch=args.batch, seed=args.seed))
 
-    params = model.init_params(args.seed)
+    # f32 master weights for every arch, as the reference's trainer
+    # initialises them (its `init_params` default)
+    params = model.init_params(args.seed, dtype=torch.float32)
     opt_state = opt.init(params)
     comp_state = compressor.init(params) if compressor else None
     start_step = 0

@@ -170,12 +170,13 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     return dense(params["wo"], _merge_heads(out), "attn_out", ctx), cache
 
 
-def attention_init(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+def attention_init(gen: torch.Generator, cfg: ModelConfig, device,
+                   dtype=torch.float32) -> Dict:
     d, hd = cfg.d_model, cfg.head_dim
     return {
-        "wq": init_dense(gen, d, cfg.n_heads * hd, device),
-        "wk": init_dense(gen, d, cfg.n_kv_heads * hd, device),
-        "wv": init_dense(gen, d, cfg.n_kv_heads * hd, device),
+        "wq": init_dense(gen, d, cfg.n_heads * hd, device, dtype=dtype),
+        "wk": init_dense(gen, d, cfg.n_kv_heads * hd, device, dtype=dtype),
+        "wv": init_dense(gen, d, cfg.n_kv_heads * hd, device, dtype=dtype),
         "wo": init_dense(gen, cfg.n_heads * hd, d, device,
-                         scale=1.0 / (2 * cfg.n_layers) ** 0.5),
+                         scale=1.0 / (2 * cfg.n_layers) ** 0.5, dtype=dtype),
     }

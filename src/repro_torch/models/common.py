@@ -32,8 +32,8 @@ class ModelConfig:
     n_kv_heads: int
     d_ff: int
     vocab_size: int
-    mlp_type: str = "swiglu"
-    norm_type: str = "rmsnorm"
+    mlp_type: str = "swiglu"     # swiglu | gelu | geglu
+    norm_type: str = "rmsnorm"   # rmsnorm | layernorm
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-5
@@ -42,6 +42,7 @@ class ModelConfig:
     attn_chunk: int = 1024       # flash-style KV chunk in train/prefill
     train_microbatches: int = 1  # gradient accumulation (activation memory)
     remat: bool = True           # recompute each layer in the backward
+    param_dtype: Any = torch.float32   # of the weights; bf16 for >100B
 
     @property
     def head_dim(self) -> int:
@@ -109,18 +110,26 @@ def dense(w, x: torch.Tensor, site: str,
 # ----------------------------------------------------------------------
 
 def norm(params: Dict, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
-    """RMSNorm with the reference's `1 + scale` gain, computed in f32."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm_type {kind!r} is not ported")
+    """RMSNorm with the reference's `1 + scale` gain, or LayerNorm with
+    scale and bias (population variance, as `jnp.var`), computed in f32."""
     xf = x.to(torch.float32)
-    xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
-    return (xf * (1.0 + params["scale"].to(torch.float32))).to(x.dtype)
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+        return (xf * (1.0 + params["scale"].to(torch.float32))).to(x.dtype)
+    if kind != "layernorm":
+        raise ValueError(f"unknown norm_type {kind!r}")
+    xc = xf - torch.mean(xf, -1, keepdim=True)
+    xf = xc * torch.rsqrt(torch.mean(xc * xc, -1, keepdim=True) + eps)
+    return (xf * params["scale"].to(torch.float32)
+            + params["bias"].to(torch.float32)).to(x.dtype)
 
 
 def norm_init(d: int, kind: str, device) -> Dict:
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm_type {kind!r} is not ported")
-    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+    if kind == "rmsnorm":
+        return {"scale": torch.zeros((d,), dtype=torch.float32,
+                                     device=device)}
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -31,22 +31,25 @@ class Model:
         self.groups_meta = tr._group_runs(self.kinds)
 
     # ------------------------------------------------------------ init
-    def init_params(self, seed: int = 0) -> Dict:
-        """Random f32 params at any width, drawn from a torch.Generator
-        seeded with `seed` on the model's device (the layout of the JAX
-        params; the values differ from jax.random's)."""
+    def init_params(self, seed: int = 0, dtype=None) -> Dict:
+        """Random params at any width, drawn from a torch.Generator seeded
+        with `seed` on the model's device (the layout of the JAX params;
+        the values differ from jax.random's). Weights and embeddings are
+        in `dtype` (default `cfg.param_dtype`), norms in f32; every draw
+        is f32, one layer at a time, cast as it is stored."""
         cfg, dev = self.cfg, self.device
+        dtype = cfg.param_dtype if dtype is None else dtype
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params: Dict[str, Any] = {
             "embed": trunc_normal((cfg.vocab_size, cfg.d_model), 0.02, gen,
-                                  dev),
-            "blocks": tr.stack_init(gen, cfg, self.kinds, dev),
+                                  dev, dtype),
+            "blocks": tr.stack_init(gen, cfg, self.kinds, dev, dtype),
             "final_norm": norm_init(cfg.d_model, cfg.norm_type, dev),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = trunc_normal((cfg.d_model, cfg.vocab_size),
-                                             0.02, gen, dev)
+                                             0.02, gen, dev, dtype)
         return params
 
     # ------------------------------------------------------------ pieces

@@ -544,15 +544,32 @@ class SwapStore:
     layer), and the sequence's position. `put` moves a swap-out in one
     device-to-host copy and `pop(key, device)` a swap-in in one
     host-to-device copy. `bytes_out`, `bytes_in` and `peak` (the largest
-    host residency) count the traffic."""
+    host residency) count the traffic. `registry`, when given, is a
+    `repro_torch.obs` MetricsRegistry the counters are mirrored into
+    (`swap_bytes_total{dir=out|in}`, `swap_resident_bytes`,
+    `swap_peak_bytes`); the attributes stay authoritative, and
+    `reset_counters` pairs with `registry.reset()`."""
 
     _ORDER = ("k_scale", "v_scale") + _SWAP_PLANES
 
-    def __init__(self):
+    def __init__(self, registry=None):
         self._entries: Dict[int, dict] = {}
         self.bytes_out = 0
         self.bytes_in = 0
         self.peak = 0
+        self._c_out = self._c_in = self._g_res = self._g_peak = None
+        if registry is not None:
+            c = registry.counter("swap_bytes_total",
+                                 "packed swap traffic by direction",
+                                 unit="bytes", labelnames=("dir",))
+            self._c_out = c.series(dir="out")
+            self._c_in = c.series(dir="in")
+            self._g_res = registry.gauge(
+                "swap_resident_bytes",
+                "packed bytes parked host-side", unit="bytes").series()
+            self._g_peak = registry.gauge(
+                "swap_peak_bytes",
+                "peak host-side swap residency", unit="bytes").series()
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -583,6 +600,10 @@ class SwapStore:
                               "n_groups": len(groups), "pos": int(pos)}
         self.bytes_out += flat.nbytes
         self.peak = max(self.peak, self.resident_bytes)
+        if self._c_out is not None:
+            self._c_out.inc(flat.nbytes)
+            self._g_res.set(self.resident_bytes)
+            self._g_peak.set_max(self.peak)
         return flat.nbytes
 
     def pos(self, key: int) -> int:
@@ -608,6 +629,9 @@ class SwapStore:
         after one host-to-device copy. Drops the entry."""
         e = self._entries.pop(key)
         self.bytes_in += e["flat"].nbytes
+        if self._c_in is not None:
+            self._c_in.inc(e["flat"].nbytes)
+            self._g_res.set(self.resident_bytes)
         if device is None:
             layout = [(g, name, _NP_DTYPE[dt], shape, n)
                       for g, name, dt, shape, n in e["layout"]]
@@ -618,7 +642,20 @@ class SwapStore:
     def discard(self, key: int) -> int:
         """Forget a parked entry without a swap-in (no traffic charged).
         Returns the bytes released."""
-        return int(self._entries.pop(key)["flat"].nbytes)
+        nbytes = int(self._entries.pop(key)["flat"].nbytes)
+        if self._g_res is not None:
+            self._g_res.set(self.resident_bytes)
+        return nbytes
+
+    def reset_counters(self) -> None:
+        """Zero the traffic counters and restart the residency peak at the
+        current footprint (the counterpart of `registry.reset()`)."""
+        self.bytes_out = 0
+        self.bytes_in = 0
+        self.peak = self.resident_bytes
+        if self._g_res is not None:
+            self._g_res.set(self.resident_bytes)
+            self._g_peak.set(self.peak)
 
 
 _NP_DTYPE = {torch.int8: np.int8, torch.float32: np.float32}

@@ -24,13 +24,18 @@ def _quantize_leaf(leaf: torch.Tensor, weight_bits: int) -> dict:
         qs = weight_scale(leaf, weight_bits)
         return {"q": quantize(leaf, qs).to(torch.int8),
                 "s": qs.scale.to(torch.float32)}
-    # stacked [L, din, dout]: per-layer per-channel scales [L, dout]
-    s = div_qmax(torch.amax(torch.abs(leaf), dim=1),
-                 (1 << (weight_bits - 1)) - 1)
-    s = torch.clamp(s, min=1e-8)
-    codes = torch.clamp(torch.round(leaf / s[:, None, :]),
-                        -127, 127).to(torch.int8)
-    return {"q": codes, "s": s.to(torch.float32)}
+    # stacked [L, din, dout]: per-layer per-channel scales [L, dout], one
+    # layer slice at a time, so that no whole-leaf float temporary of
+    # `leaf / s` is held (the reference's formula, element for element)
+    qmax = (1 << (weight_bits - 1)) - 1
+    codes = torch.empty(leaf.shape, dtype=torch.int8, device=leaf.device)
+    scales = []
+    for li in range(leaf.shape[0]):
+        s = torch.clamp(div_qmax(torch.amax(torch.abs(leaf[li]), dim=0),
+                                 qmax), min=1e-8)
+        codes[li] = torch.clamp(torch.round(leaf[li] / s), -127, 127)
+        scales.append(s)
+    return {"q": codes, "s": torch.stack(scales).to(torch.float32)}
 
 
 def quantize_params(params: Any, weight_bits: int = 8) -> Any:

@@ -19,14 +19,17 @@ from repro_torch.models.common import ModelConfig, QuantCtx, norm, norm_init
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
-               device) -> Dict:
+               device, dtype=torch.float32) -> Dict:
+    """One layer's params: weights drawn in f32 and cast to `dtype`, norms
+    in f32 (as the reference's)."""
     if kind != "dense":
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
     d, nt = cfg.d_model, cfg.norm_type
     return {"ln1": norm_init(d, nt, device),
-            "attn": attn_mod.attention_init(gen, cfg, device),
+            "attn": attn_mod.attention_init(gen, cfg, device, dtype),
             "ln2": norm_init(d, nt, device),
-            "ffn": ffn_mod.ffn_init(gen, d, cfg.d_ff, cfg.n_layers, device)}
+            "ffn": ffn_mod.ffn_init(gen, d, cfg.d_ff, cfg.mlp_type,
+                                    cfg.n_layers, device, dtype)}
 
 
 def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
@@ -80,16 +83,31 @@ def unstack_layers(stacked, count: int) -> list:
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, kinds: list[str],
-               device) -> list:
+               device, dtype=torch.float32) -> list:
+    """Per group of same-kind layers, its [L, ...] leaves, filled in place
+    one layer at a time: only one layer's f32 draws are alive at once."""
     out = []
     for kind, count in _group_runs(kinds):
-        layers = [block_init(gen, cfg, kind, device) for _ in range(count)]
+        first = block_init(gen, cfg, kind, device, dtype)
 
-        def stack(*xs):
-            if isinstance(xs[0], dict):
-                return {k: stack(*[x[k] for x in xs]) for k in xs[0]}
-            return torch.stack(xs)
-        out.append(stack(*layers))
+        def alloc(x):
+            if isinstance(x, dict):
+                return {k: alloc(v) for k, v in x.items()}
+            return torch.empty((count,) + tuple(x.shape), dtype=x.dtype,
+                               device=x.device)
+
+        def fill(dst, src, li):
+            if isinstance(src, dict):
+                for k in src:
+                    fill(dst[k], src[k], li)
+            else:
+                dst[li].copy_(src)
+        stacked = alloc(first)
+        fill(stacked, first, 0)
+        del first
+        for li in range(1, count):
+            fill(stacked, block_init(gen, cfg, kind, device, dtype), li)
+        out.append(stacked)
     return out
 
 

@@ -423,6 +423,32 @@ def test_driven_k3_shapes_are_checked(argv):
     assert CS.k3_layouts(C, bq) == ["long history"]
 
 
+@pytest.mark.parametrize("name", sorted(CS.CLI_FAMILY))
+def test_cli_family_k3_shapes_are_checked(name):
+    """The reduced granite-20b and starcoder2-3b the cli phase serves run
+    K3 at the K3_SHAPES case of their CLI_FAMILY name."""
+    shape = CS.cli_k3_shape(CS.CLI_FAMILY[name])
+    cfg, want = CS.K3_SHAPES[name]
+    assert cfg == shape
+    KV, G, hd, ps, bq, _, C = shape
+    t = pre.k3_traits(hd, G, bq, ps)
+    assert (t.hd, t.key_tile, t.rows, t.row_blocks) == want
+
+
+@pytest.mark.parametrize("arch", sorted(CS.DENSE_FAMILY))
+def test_dense_family_k3_shapes_are_checked(arch):
+    """Each run of the dense_family phase (full width, its page size and
+    query-tile alignment, chunk 256) drives K3 at a K3_SHAPES case, whose
+    traits k3_traits gives."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    for ps, align in CS.DENSE_FAMILY[arch][1]:
+        shape = CS.dense_k3_shape(cfg, ps, align)
+        (want,) = [w for c, w in CS.K3_SHAPES.values() if c == shape]
+        t = pre.k3_traits(cfg.head_dim, shape[1], align, ps)
+        assert (t.hd, t.key_tile, t.rows, t.row_blocks) == want
+
+
 def test_serving_k3_shape_is_checked():
     """The serve phase's K3 shape (full tinyllama, page 16, chunk 256 at
     chunk-align 8) is check_k3's serving shape."""

@@ -13,6 +13,7 @@ prompts attend their earlier segments through packed pages (the chunked
 attention's page stage).
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models.common import QuantCtx as TCtx
 from repro_torch.models.model import Model as TModel
 from repro_torch.models.paging import PoolExhausted
+from repro_torch.obs import export as obs_export
 
 PS = 4
 ENGINE_KW = dict(page_size=PS, n_pages=24, max_active=3, max_seq_len=24,
@@ -138,7 +140,7 @@ def test_engine_pool_exhaustion_raises(models):
                          tserve.Request(np.arange(2) + 5, 12)])
 
 
-def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys):
+def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys, tmp_path):
     base = ["--reduced", "--batch", "2", "--prompt-len", "12", "--gen", "3",
             "--page-size", "4", "--n-pages", "16", "--chunk-size", "16",
             "--chunk-align", "4", "--calibrate", "1", "--prequantize",
@@ -150,7 +152,15 @@ def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys):
                                 "0.5", "--prefix-cache"])
     assert stats["pool_pages"] == 4 and stats["prefix_misses"] == 2
     assert stats["decode_tokens"] == 2 * (3 - 1)
-    for extra in (["--tp", "2"], ["--serve", "async"]):
+    prom, trace = tmp_path / "m.prom", tmp_path / "t.json"
+    stats = tserve.main(base + ["--metrics-dump", str(prom),
+                                "--trace-out", str(trace)])
+    parsed = obs_export.parse_prometheus(prom.read_text())
+    assert parsed[("engine_decode_steps_total", "")] == stats["decode_steps"]
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert {e["tid"] for e in events if e["ph"] == "B"} == {1, 2}
+    for extra in (["--tp", "2"], ["--serve", "async"],
+                  ["--metrics-port", "0"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tserve.main(base + extra)
     with pytest.raises(SystemExit):         # oversubscribed, no preemption
