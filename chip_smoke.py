@@ -18,8 +18,8 @@ Phases (each one that fails makes the script exit non-zero):
               int8, for every codec of the paper's Tables 1, 2 and 4 at
               the cnn path's im2col shapes, K 216 / N 24, ragged K and
               split-K, on post-ReLU data with codes above 127; and 5opt
-              at granite-20b's and starcoder2-3b's projections, M 8 and
-              256, FAMILY_PROJ);
+              at granite-20b's, starcoder2-3b's and dbrx-132b's
+              projections, M 8 and 256, FAMILY_PROJ);
               K4 sparq_quant bit-exact in its rows
               mode and in every KV-write mode (paged decode, chunk,
               contiguous) at every K4_WRITES shape, against its plain
@@ -29,15 +29,18 @@ Phases (each one that fails makes the script exit non-zero):
               bf16 out), `CachedTensor.read` profiled as one K6 launch;
               K2 paged decode and K5 contiguous decode (the split-key
               body) at their serving shapes and at hd 16 / G 4, hd 128
-              at G 8 and G 12 and misaligned planes, and (check_f3) K5
-              at bk 128 and K2 at page size 128 at F3_SHAPES (G 48 hd 128,
+              at G 8, G 12 and G 6 (dbrx) and misaligned planes, and
+              (check_f3) K5 at bk 128 and K2 at page size 128 at
+              F3_SHAPES (G 48 hd 128,
               G 8 and G 16 hd 256: a tile of 128 in chunks of 64 keys;
-              G 12 hd 128 in one layout), within 1e-4 of
+              G 12 and G 6 (dbrx) hd 128 in one layout; each hd 128
+              shape also timed at page 16), within 1e-4 of
               f64 and PLAIN_TOL of the plain version, timed beside SDPA
               and the byte bound; K3 chunked prefill at every
               K3_SHAPES shape (hd 64 G 8, the serving shape; hd 16, hd 128
               at G 8, at G 48 (also at page 128 and 16-token query
-              tiles) and at G 12 over 2 and 8 KV heads, bq * G = 128,
+              tiles), at G 12 over 2 and 8 KV heads and at G 6 over 8
+              (dbrx), bq * G = 128,
               page size 128, hd 256, hd 10, misaligned tensors, and the
               exact shapes of the cli and wide paths, a 32-token chunk
               over a long history, each at the
@@ -62,6 +65,17 @@ Phases (each one that fails makes the script exit non-zero):
               untraced run's, the Prometheus text parses back to the stats
               dict, the trace's B/E spans balance on every request's
               track, the host overhead logged
+  frontend    the async front end (`launch.frontend.play_trace`, a
+              warm-up replay set apart by `reset_stats`) over the serve
+              phase's engine and requests: (a) all at 0, (b) poisson and
+              (c) bursty (4 a burst) at 16 req/s, (d) one request
+              cancelled after its 4th streamed token; every streamed
+              token equals the sync run's, events ordered with one
+              final, the cancel frees every page, GET /metrics over
+              127.0.0.1 during (b) parses with one TTFT a request, (b)'s
+              device-to-host copies beyond one a decode step at most the
+              sync runs' plus one a chunk step that finished a prompt,
+              exact K1-K4 counts; TTFT / ITL p50 and p99 logged
   preempt     the serve phase's requests through a pool of half the
               uncontended peak: requeue under sequential admission (a
               victim re-prefills alone and replays its tokens through K5
@@ -96,6 +110,14 @@ Phases (each one that fails makes the script exit non-zero):
               128 at G 48 walked in chunks of 64 keys): exact K2 / K3 / K4
               counts, K5 = K6 = 0, every request's tokens, no page leaked;
               decode tok/s, prefill s, peak pages and peak GB logged
+  moe         dbrx-132b at its published widths (16 experts of d_ff
+              10752, top-4, GQA 48 over 8, LayerNorm), 8 of its 40 layers
+              (50.7 GB of bf16 expert banks), attention quantized to int8
+              codes: the serve requests through the paged engine,
+              chunked and sequential, and the scan engine (8 x 256, gen
+              32), each warm-up and timed run with equal tokens, no page
+              leaked, exact counts (K1 = 4 a layer a step, chunk or
+              prefill; K2, K3, K4 as in dense_family; K5 on scan)
   cli         `python -m repro_torch.launch.serve` (CLI_ARGS: the reduced
               tinyllama, paged chunked engine, sparq KV, 5opt) through its
               `main`: every request returns its tokens; K3 at every chunk's
@@ -103,7 +125,9 @@ Phases (each one that fails makes the script exit non-zero):
               --preempt swap --oversubscribe 0.5 --prefix-cache; then
               granite-20b and starcoder2-3b reduced with --metrics-dump and
               --trace-out under build/ (the dump parses back to the stats,
-              the trace balances)
+              the trace balances); dbrx-132b reduced (CLI_DBRX); the
+              reduced tinyllama with --serve async --arrival-trace poisson
+              --metrics-port 0 (CLI_ASYNC)
   wide        the same CLI at full width with --chunk-align 16
               --page-size 128 (WIDE_ARGS: 22 layers, K3 at 128 query rows
               a tile in two row blocks, two key tiles a page): the same
@@ -149,7 +173,9 @@ Phases (each one that fails makes the script exit non-zero):
               equal greedy tokens; on the card, the paged
               sequential engine equals the scan engine serving each request
               alone with attn_bk = page_size; a 2-layer full-width f32
-              granite-20b's paged chunked engine, card against CPU
+              granite-20b's paged chunked engine, card against CPU; a
+              1-layer full-width f32 dbrx-132b's (about 15 GB a side),
+              card against CPU, its smallest routing margin logged
   train_profile (not run by default) a full-width compressed train step
               split into forward + backward, compression and AdamW (host
               clock between synchronizations), then one plain and one
@@ -162,11 +188,12 @@ Phases (each one that fails makes the script exit non-zero):
               kernels on the device timeline (every decode update one K4
               launch, every chunk write two, nothing else)
 
-Each of serve, preempt, prefix, scan, sequential, dense_family, cli,
-wide, cnn, train (its part c) and cnn_train resets the launch counters
-just before it drives its path (each of its runs) and reads them just
-after; the plain versions of the KV codec must not run there at all.
-With all eleven, every
+Each of serve, frontend, preempt, prefix, scan, sequential, dense_family,
+moe, cli, wide, cnn, train (its part c) and cnn_train resets the launch
+counters just before it drives its path (each of its runs) and reads
+them just after (frontend also at each replay's warm-up boundary); the
+plain versions of the KV codec must not run there at all. With all
+thirteen, every
 kernel must have launched on some
 path. The plain versions of the KV path
 (codec, `sparq_pack`, the three writes, the dequantizers) must not run on
@@ -304,7 +331,11 @@ FAMILY_PROJ = {"granite-20b": {"wq/wo": (6144, 6144), "wk/wv": (6144, 128),
                "starcoder2-3b": {"wq/wo": (3072, 3072),
                                  "wk/wv": (3072, 256),
                                  "up": (3072, 12288),
-                                 "down": (12288, 3072)}}
+                                 "down": (12288, 3072)},
+               # dbrx-132b: only the attention projections are quantized
+               # (the experts and the router stay float, as in the
+               # reference), so K1 runs four times a layer
+               "dbrx-132b": {"wq/wo": (6144, 6144), "wk/wv": (6144, 1024)}}
 FAMILY_MS = (8, 256)
 
 
@@ -434,14 +465,16 @@ def check_k1(dev, results):
                                            f"{arch} {proj}", M, K, N),
                                    arch=arch))
     results["sparq_matmul_family"] = family
-    for arch in FAMILY_PROJ:
-        layer = {k: sum(n * r[k] for r in family for p_, n in (
-            ("wq/wo", 2), ("wk/wv", 2), ("up", 1), ("down", 1))
-            if r["arch"] == arch and r["M"] == 8
-            and r["proj"] == f"{arch} {p_}")
-            for k in ("ms", "library_ms", "bound_ms")}
+    for arch, projs in FAMILY_PROJ.items():
+        counts = {p_: n for p_, n in (("wq/wo", 2), ("wk/wv", 2), ("up", 1),
+                                      ("down", 1)) if p_ in projs}
+        layer = {k: sum(n * r[k] for r in family for p_, n in counts.items()
+                        if r["arch"] == arch and r["M"] == 8
+                        and r["proj"] == f"{arch} {p_}")
+                 for k in ("ms", "library_ms", "bound_ms")}
         results.setdefault("sparq_matmul_layer_m8", {})[arch] = layer
-        log(f"K1 5opt one {arch} layer's six projections at M=8: "
+        log(f"K1 5opt one {arch} layer's {sum(counts.values())} "
+            f"projections at M=8: "
             f"{layer['ms']:.4f} ms (_int_mm padded {layer['library_ms']:.4f}"
             f" ms, bound {layer['bound_ms']:.4f} ms)")
     rows += family
@@ -659,6 +692,7 @@ K2_CURS = [599, 433, 17, 300, -1, 511, 64, 250]
 # scalar score loop)
 DECODE_SHAPES = {"hd 16 G 4": (4, 16, False), "hd 128 G 8": (8, 128, False),
                  "hd 128 G 12": (12, 128, False),
+                 "hd 128 G 6": (6, 128, False),          # dbrx-132b
                  "hd 64 G 8 unaligned": (8, 64, True),
                  "hd 10 G 4": (4, 10, False)}
 
@@ -948,6 +982,8 @@ K3_SHAPES = {"hd 64 G 8": ((4, 8, 64, 16, 8, False, 256), (64, 64, 64, 1)),
                                   (128, 32, 64, 2)),
              "hd 128 G 12 KV 8": ((8, 12, 128, 16, 8, False, 256),
                                   (128, 32, 64, 2)),
+             "hd 128 G 6 KV 8": ((8, 6, 128, 16, 8, False, 256),
+                                 (128, 32, 64, 1)),         # dbrx-132b
              "bq*G 128": ((4, 8, 64, 16, 16, False, 256), (64, 64, 64, 2)),
              "ps 128": ((4, 8, 64, 128, 8, False, 256), (64, 64, 64, 1)),
              "hd 256 G 8": ((4, 8, 256, 16, 8, False, 256),
@@ -962,7 +998,7 @@ K3_SHAPES = {"hd 64 G 8": ((4, 8, 64, 16, 8, False, 256), (64, 64, 64, 1)),
 # the long history (the serving shape is the JSON line's row)
 K3_TIMED = ("hd 64 G 8", "hd 16 G 4", "hd 128 G 8", "hd 128 G 48 KV 1",
             "hd 128 G 48 KV 1 ps 128", "hd 128 G 12 KV 2", "hd 128 G 12 KV 8",
-            "bq*G 128", "ps 128", "hd 256 G 8", "cli", "wide")
+            "hd 128 G 6 KV 8", "bq*G 128", "ps 128", "hd 256 G 8", "cli", "wide")
 
 
 def k3_timed_layout(C):
@@ -1371,7 +1407,7 @@ def check_k4(dev, results):
 PROFILE_PAD = 1024
 
 
-def profiled_kernels(fn, fresh=None, attempts=10):
+def profiled_kernels(fn, fresh=None, attempts=10, cpu=True):
     """Run fn under torch.profiler; the names of the device kernels it
     launched, in order (memory copies and sets included). PROFILE_PAD
     small kernels, a MARK kernel, fn, a MARK kernel and PROFILE_PAD small
@@ -1379,7 +1415,8 @@ def profiled_kernels(fn, fresh=None, attempts=10):
     device activity, and one that does not hold both markers is no
     observation, so it is taken again, up to `attempts` times. With
     `fresh`, each attempt runs fn(fresh()) on inputs made outside the
-    profile."""
+    profile. `cpu=False` records device activity only (a long run's CPU
+    ops take minutes to read back)."""
     from torch.profiler import ProfilerActivity, profile
     pad = torch.zeros((1,), device="cuda")
 
@@ -1390,8 +1427,8 @@ def profiled_kernels(fn, fresh=None, attempts=10):
     for _ in range(attempts):
         arg = fresh() if fresh is not None else None
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU] * cpu
+                     + [ProfilerActivity.CUDA]) as prof:
             padding()
             torch.cuda._sleep(MARK_CYCLES)
             torch.cuda.synchronize()
@@ -1605,7 +1642,8 @@ def check_k5(dev, results):
 # chunks (`sparq_decode_attn.sub_keys`, F3), and G 12 / hd 128
 # (starcoder2-3b and mistral-large-123b), whose tile fits one layout
 F3_SHAPES = {"granite-20b": (48, 128), "paligemma-3b": (8, 256),
-             "recurrentgemma-9b": (16, 256), "G 12 hd 128": (12, 128)}
+             "recurrentgemma-9b": (16, 256), "G 12 hd 128": (12, 128),
+             "dbrx-132b": (6, 128)}
 
 
 def _decode_yardsticks(q, k, v, live, n_keys_live, extra_bytes):
@@ -2133,6 +2171,402 @@ def dense_family(dev, results):
 
 
 # ----------------------------------------------------------------------
+# phase: the async front end over the paged engine, full width
+# ----------------------------------------------------------------------
+
+# the front end's replays of the serve phase's 8 requests: every request
+# at 0, poisson and bursty (4 a burst) at the reference CLI's default
+# offered load
+FRONTEND_RATE = 16.0
+
+
+def frontend_traces(n):
+    from repro_torch.launch import frontend
+    return {"all at 0": [0.0] * n,
+            "poisson": frontend.arrival_times(
+                "poisson", n, FRONTEND_RATE, rng=np.random.default_rng(0)),
+            "bursty": frontend.arrival_times("bursty", n, FRONTEND_RATE,
+                                             burst=4)}
+
+
+class WarmupBoundary:
+    """Wraps an engine's `reset_stats` (play_trace's warm-up/measure
+    boundary, called while the engine is idle): records the warm-up's
+    decode steps and chunks from the registry, then sets the launch
+    counters to 0, so that the counts read after the replay are the
+    trace's alone. Also counts the chunk plans that complete a prompt for
+    the first time (one batched copy of first tokens each, in emit
+    mode), over the warm-up and the trace."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.warmup = None
+        self.completing = 0
+
+    def __enter__(self):
+        from repro_torch.kernels import build
+        eng = self.engine
+        self._reset, self._plan = eng.reset_stats, eng._sched.plan
+
+        def reset():
+            reg = eng.telemetry.registry
+            self.warmup = {k: int(reg.counter(n).value()) for k, n in (
+                ("steps", "engine_decode_steps_total"),
+                ("chunks", "engine_prefill_chunks_total"))}
+            build.reset_launch_counts()
+            self._reset()
+
+        def plan(*a, **k):
+            p = self._plan(*a, **k)
+            if p is not None and any(e is None for _, _, e in p.completed):
+                self.completing += 1
+            return p
+        eng.reset_stats, eng._sched.plan = reset, plan
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine.reset_stats, self.engine._sched.plan
+
+
+def d2h_copies(fn, fresh=None):
+    """Device-to-host copies fn makes, from a profile of the device's
+    activity (whichever thread queued them); `fresh` as profiled_kernels
+    takes it, called before each attempt."""
+    return sum("Memcpy DtoH" in n
+               for n in profiled_kernels(fn, fresh, cpu=False))
+
+
+async def scrape_metrics(server):
+    """GET /metrics from the front end's server over 127.0.0.1; the text
+    parsed by the port's `parse_prometheus`."""
+    import asyncio
+    from repro_torch.obs import export
+    reader, writer = await asyncio.open_connection("127.0.0.1", server.port)
+    writer.write(b"GET /metrics HTTP/1.1\r\nHost: 127.0.0.1\r\n\r\n")
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(), 30)
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    if not head.startswith(b"HTTP/1.1 200"):
+        raise AssertionError(f"GET /metrics: {head[:80]!r}")
+    return export.parse_prometheus(body.decode())
+
+
+def _frontend_counts(name, counts, stats, L):
+    steps, chunks = stats["decode_steps"], stats["prefill_chunks"]
+    want = {"sparq_matmul": 7 * L * (steps + chunks),
+            "sparq_paged_decode_attn": L * steps,
+            "sparq_chunked_prefill_attn": L * chunks,
+            "sparq_quant": L * (2 * chunks + steps),
+            "sparq_decode_attn": 0, "sparq_dequant": 0}
+    if counts != want or chunks == 0:
+        raise AssertionError(f"frontend {name}: launches {counts} ({steps} "
+                             f"steps, {chunks} chunks), expected {want}")
+
+
+def _cancel_replay(engine, params, rows, warm, victim, after=4):
+    """(d): the trace of `rows` through an `AsyncFrontend` of its own,
+    warmed up and reset as play_trace does, with the stream of row
+    `victim` cancelled once it has streamed `after` tokens (play_trace
+    takes no cancellation). Returns (handles, stats)."""
+    import asyncio
+    from repro_torch.launch import frontend
+
+    async def run():
+        fe = frontend.AsyncFrontend(engine, params)
+        await fe.start()
+        for h in [fe.submit(t, g) for t, g in warm]:
+            await h.drain()
+        await asyncio.sleep(0.05)
+        engine.reset_stats()
+        base = time.perf_counter() - fe.t_origin
+        hs = [fe.submit(t, g, at=base + at) for t, g, at in rows]
+        async for _ in hs[victim]:
+            if len(hs[victim].events) >= after:
+                hs[victim].cancel()
+        for i, h in enumerate(hs):
+            if i != victim:
+                await h.drain()
+        _, stats = await fe.stop()
+        return hs, stats
+    return asyncio.run(run())
+
+
+def frontend_full_width(dev, results):
+    """The async front end (`launch.frontend.play_trace`, warm-up
+    included) over the serve phase's engine and requests: tinyllama-1.1b
+    at full width (22 layers, bf16, 5opt, int8 weights, sparq KV, paged
+    chunked, page 16, chunk 256). The sync `engine.run` first, then the
+    replays of `frontend_traces`: (a) all at 0, (b) poisson and (c)
+    bursty at 16 req/s; and (d) all at 0 with one request cancelled
+    after its 4th streamed token (an `AsyncFrontend` of its own: play_trace
+    takes no cancellation). Gates: in (a)-(c) every request's streamed tokens
+    equal the sync run's, events in order with exactly one final; in (d)
+    the others' tokens unchanged, the victim's a prefix, cancelled 1 and
+    every page free after; during (b) a GET /metrics over 127.0.0.1
+    parses and counts one TTFT a request; the device-to-host copies of
+    a replay of (b) beyond one a decode step are at most a sync run's
+    beyond one a decode step plus one for each chunk step that finished a
+    prompt (both profiled warm, without warm-up);
+    K1-K4 counts exact over each trace (the warm-up's set apart at the
+    boundary). TTFT and ITL p50 / p99 and decode tok/s logged."""
+    from repro_torch.launch import frontend
+    t0 = time.perf_counter()
+    cfg, model, params, scales, codec = _full_width(dev)
+    reqs, lens, gen = _serve_requests(cfg)
+    engine, n_pages = _serve_engine(model, codec, scales, dev, lens, gen)
+    L = cfg.n_layers
+    rows = [(r.tokens, r.gen) for r in reqs]
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    engine.run(params, reqs)                        # warm-up, untimed
+    sync, sync_stats = engine.run(params, reqs)
+    # the engine's own cost of streaming, without the asyncio thread: the
+    # same run on the wall clock with a no-op emit
+    emit_out, emit_stats = engine.run(params, reqs, clock_mode="wall",
+                                      emit=lambda *a: None)
+    for rid in sync:
+        if not np.array_equal(emit_out[rid], sync[rid]):
+            raise AssertionError(f"frontend: emit mode changed request "
+                                 f"{rid}'s tokens")
+    log(f"frontend sync run: decode {sync_stats['decode_tok_s']:.1f} tok/s, "
+        f"prefill {sync_stats['prefill_s']:.3f} s; with emit on the wall "
+        f"clock (same thread): {emit_stats['decode_tok_s']:.1f} tok/s, "
+        f"{emit_stats['prefill_s']:.3f} s")
+    sync_run = []
+    sync_d2h = d2h_copies(lambda _: sync_run.append(engine.run(params, reqs)),
+                          fresh=sync_run.clear)
+    sync_steps = sync_run[-1][1]["decode_steps"]
+    out_rows, total = {}, {k: 0 for k in ("sparq_matmul",
+                                          "sparq_paged_decode_attn",
+                                          "sparq_chunked_prefill_attn",
+                                          "sparq_quant",
+                                          "sparq_decode_attn",
+                                          "sparq_dequant")}
+    for name, ats in frontend_traces(len(reqs)).items():
+        trace = [(t, g, at) for (t, g), at in zip(rows, ats)]
+        scraped = {}
+
+        async def scrape(server):
+            scraped.update(await scrape_metrics(server))
+        kw = dict(metrics_port=0, after_trace=scrape) \
+            if name == "poisson" else {}
+        with WarmupBoundary(engine) as wb:
+            (out, slo, stats), counts = _drive(
+                lambda: frontend.play_trace(engine, params, trace,
+                                            warmup=rows, **kw))
+        _frontend_counts(name, counts, stats, L)
+        for k in total:
+            total[k] += counts[k]
+        for rid in range(len(reqs)):
+            if not np.array_equal(out[rid], sync[rid]):
+                raise AssertionError(f"frontend {name}: request {rid}'s "
+                                     f"streamed tokens differ from the "
+                                     f"sync run's")
+        if slo["ttft"]["n"] != len(reqs) or \
+                slo["itl"]["n"] != len(reqs) * (gen - 1):
+            raise AssertionError(f"frontend {name}: slo {slo}")
+        if stats["free_pages_after"] != n_pages or stats["cancelled"]:
+            raise AssertionError(f"frontend {name}: pages or cancels")
+        row = dict(arrivals=[float(a) for a in ats], slo=slo,
+                   launches=counts, warmup=wb.warmup,
+                   **{k: v for k, v in stats.items()
+                      if not isinstance(v, dict)})
+        if name == "poisson":
+            n_ttft = scraped.get(("frontend_ttft_seconds_count", ""))
+            if n_ttft != len(reqs):
+                raise AssertionError(f"GET /metrics: frontend_ttft_seconds"
+                                     f"_count {n_ttft}, expected "
+                                     f"{len(reqs)}")
+            with WarmupBoundary(engine) as wb2:
+                # the replay warm, without its warm-up; a profile that
+                # lost its markers is taken again: count the completing
+                # chunk steps of the last attempt only
+                async_d2h = d2h_copies(
+                    lambda _: frontend.play_trace(engine, params, trace),
+                    fresh=lambda: setattr(wb2, "completing", 0))
+            async_steps = engine.telemetry.registry.counter(
+                "engine_decode_steps_total").value()
+            extra, sync_extra = async_d2h - async_steps, \
+                sync_d2h - sync_steps
+            if extra > sync_extra + wb2.completing:
+                raise AssertionError(
+                    f"frontend poisson: {async_d2h} D2H copies over "
+                    f"{async_steps:.0f} decode steps ({extra:.0f} beyond "
+                    f"one a step), sync {sync_d2h} over {sync_steps} "
+                    f"({sync_extra} beyond), {wb2.completing} chunk steps "
+                    f"finished prompts")
+            row.update(metrics_samples=len(scraped), d2h=dict(
+                async_copies=async_d2h, async_steps=async_steps,
+                sync_copies=sync_d2h, sync_steps=sync_steps,
+                completing_chunk_steps=wb2.completing))
+            log(f"frontend poisson: GET /metrics parsed ({len(scraped)} "
+                f"samples, frontend_ttft_seconds_count {n_ttft:.0f}); D2H "
+                f"copies {async_d2h} over {async_steps:.0f} decode steps "
+                f"(the replay, profiled), sync {sync_d2h} over "
+                f"{sync_steps} steps (one run, profiled), "
+                f"{wb2.completing} chunk steps finished prompts")
+        out_rows[name] = row
+        log(f"frontend {name}: {len(reqs)} requests, streamed tokens == "
+            f"sync | ttft p50 {slo['ttft']['p50_ms']:.1f} ms p99 "
+            f"{slo['ttft']['p99_ms']:.1f} ms | itl p50 "
+            f"{slo['itl']['p50_ms']:.2f} ms p99 {slo['itl']['p99_ms']:.2f} "
+            f"ms | decode {stats['decode_tok_s']:.1f} tok/s "
+            f"({stats['decode_steps']} steps, {stats['prefill_chunks']} "
+            f"chunks) | launches {counts}")
+    victim = 3
+    trace = [(t, g, 0.0) for t, g in rows]
+    with WarmupBoundary(engine) as wb:
+        (hs, stats), counts = _drive(lambda: _cancel_replay(
+            engine, params, trace, rows, victim))
+    _frontend_counts("cancel", counts, stats, L)
+    for k in total:
+        total[k] += counts[k]
+    v = hs[victim]
+    if not (v.cancelled and 4 <= len(v.events) < gen
+            and np.array_equal(v.tokens, sync[victim][:len(v.events)])):
+        raise AssertionError(f"frontend cancel: victim streamed "
+                             f"{len(v.events)} tokens, cancelled "
+                             f"{v.cancelled}")
+    for i, h in enumerate(hs):
+        if i != victim and not np.array_equal(h.tokens, sync[i]):
+            raise AssertionError(f"frontend cancel: request {i}'s tokens "
+                                 f"changed")
+    used = engine._debug_state["allocator"].used_count
+    if stats["cancelled"] != 1 or stats["free_pages_after"] != n_pages \
+            or used:
+        raise AssertionError(f"frontend cancel: cancelled "
+                             f"{stats['cancelled']}, {used} pages in use")
+    out_rows["cancel"] = dict(victim=victim, victim_tokens=len(v.events),
+                              launches=counts,
+                              **{k: v_ for k, v_ in stats.items()
+                                 if not isinstance(v_, dict)})
+    log(f"frontend cancel: request {victim} cancelled after "
+        f"{len(v.events)} streamed tokens (a prefix of its sync tokens); "
+        f"the other {len(reqs) - 1} equal the sync run's; cancelled 1; all "
+        f"{n_pages} pages free | launches {counts}")
+    results["frontend"] = dict(
+        arch=cfg.name, n_layers=L, setup_s=t_setup,
+        sync_decode_tok_s=sync_stats["decode_tok_s"],
+        sync_prefill_s=sync_stats["prefill_s"],
+        emit_decode_tok_s=emit_stats["decode_tok_s"],
+        emit_prefill_s=emit_stats["prefill_s"], traces=out_rows)
+    del params, engine
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------------
+# phase: the MoE family, dbrx-132b at its published widths
+# ----------------------------------------------------------------------
+
+# dbrx-132b keeps 8 of its 40 layers: 8 layers hold about 50.7 GB of bf16
+# expert banks beside 0.7 GB of int8 codes and a 1.2 GB embedding; all 40
+# would take about 254 GB of experts
+MOE_LAYERS = 8
+
+
+def _moe_counts(name, counts, want):
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"moe {name}: launches {counts}, expected "
+                             f"{want}")
+
+
+def moe_full_width(dev, results):
+    """dbrx-132b at its published widths (d 6144, 48 heads over 8 KV
+    heads, hd 128, 16 experts of d_ff 10752, top-4, vocab 100352,
+    LayerNorm, tied head), cut to MOE_LAYERS layers, weights drawn in
+    bf16, calibrated on one batch of 8 x 128 and the attention projections
+    quantized to int8 codes (experts and router stay float, as in the
+    reference). The serve phase's 8 requests through the paged engine,
+    chunked and sequential (page 16, chunk 256), and the scan engine on a
+    batch of 8 x 256, gen 32: each a warm-up and a timed run with equal
+    tokens, no page leaked, exact counts (K1 = 4 L a decode step, chunk or
+    prefill; K2 = L a decode step; K3 = L a chunk; K4 as in dense_family;
+    K5 = L a scan decode step). Decode tok/s, prefill s, peak pages and
+    peak GB logged."""
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.launch import serve
+    from repro_torch.models.common import QuantCtx
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params, scales, codec = _full_width(
+        dev, "dbrx-132b", MOE_LAYERS, torch.bfloat16)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    setup_gb = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.n_layers
+    k3 = dense_k3_shape(cfg, 16, 8)
+    if not any(v[0] == k3 for v in K3_SHAPES.values()):
+        raise AssertionError(f"moe: K3 runs at {k3}, which check_k3 does "
+                             f"not hold")
+    reqs, lens, gen = _serve_requests(cfg)
+    rows, total = {}, {}
+    for prefill in ("chunked", "sequential"):
+        engine, n_pages = _serve_engine(model, codec, scales, dev, lens, gen,
+                                        prefill)
+        warm, _ = engine.run(params, reqs)
+        (out, stats), counts = _drive(lambda: engine.run(params, reqs))
+        _check_requests(cfg, reqs, out, gen)
+        for rid in warm:
+            if not np.array_equal(out[rid], warm[rid]):
+                raise AssertionError(f"moe {prefill}: request {rid}'s "
+                                     f"tokens differ between runs")
+        if stats["free_pages_after"] != n_pages:
+            raise AssertionError(f"moe {prefill}: pages leaked")
+        steps, chunks = stats["decode_steps"], stats["prefill_chunks"]
+        prefills = chunks if prefill == "chunked" else len(reqs)
+        _moe_counts(prefill, counts, {
+            "sparq_matmul": 4 * L * (steps + prefills),
+            "sparq_paged_decode_attn": L * steps,
+            "sparq_chunked_prefill_attn": L * chunks,
+            "sparq_quant": L * (2 * prefills + steps),
+            "sparq_decode_attn": 0, "sparq_dequant": 0})
+        if (chunks > 0) != (prefill == "chunked"):
+            raise AssertionError(f"moe {prefill}: {chunks} chunks")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        rows[prefill] = dict(launches=counts,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                             **{k: v for k, v in stats.items()
+                                if not isinstance(v, dict)})
+        log(f"moe dbrx-132b x{L} of 40 layers, paged {prefill}: prefill "
+            f"{stats['prefill_s']:.3f} s ({chunks} chunks) | decode "
+            f"{stats['decode_tok_s']:.1f} tok/s ({steps} steps) | peak "
+            f"pages {stats['peak_pages_used']}/{n_pages} | peak "
+            f"{rows[prefill]['peak_gb']:.1f} GB | launches {counts}")
+        del engine
+    B, T = 8, 256
+    batch = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=T,
+                               global_batch=B, seed=1)).global_batch(0)
+    eng = serve.DecodeEngine(model, serve.make_cache_config("sparq", codec),
+                             QuantCtx(mode="quantized", cfg=codec), scales)
+    warm, _ = eng.generate(params, batch, gen, warmup=False)
+    (toks, stats), counts = _drive(
+        lambda: eng.generate(params, batch, gen, warmup=False))
+    if not np.array_equal(toks, warm) or toks.shape != (B, gen):
+        raise AssertionError("moe scan: tokens differ between runs")
+    _moe_counts("scan", counts, {
+        "sparq_matmul": 4 * L * gen, "sparq_quant": L * (gen + 1),
+        "sparq_decode_attn": L * (gen - 1), "sparq_paged_decode_attn": 0,
+        "sparq_chunked_prefill_attn": 0, "sparq_dequant": 0})
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    rows["scan"] = dict(launches=counts, batch=B, prompt_len=T,
+                        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        **stats)
+    log(f"moe dbrx-132b x{L} scan B={B} prompt={T} gen={gen}: prefill "
+        f"{stats['prefill_s']:.3f} s | decode {stats['decode_tok_s']:.1f} "
+        f"tok/s | peak {rows['scan']['peak_gb']:.1f} GB | launches {counts}")
+    results["moe"] = dict(arch=cfg.name, n_layers=L, of_layers=40,
+                          setup_s=t_setup, setup_peak_gb=setup_gb,
+                          k3_shape=list(k3), runs=rows)
+    del params, model, scales, eng
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------------
 # phases: preemption and the prefix cache, full width
 # ----------------------------------------------------------------------
 
@@ -2467,6 +2901,12 @@ def _family_cli_args(arch, tag):
 # by the K3_SHAPES case each drives
 CLI_FAMILY = {"cli granite": _family_cli_args("granite-20b", "granite"),
               "cli": _family_cli_args("starcoder2-3b", "starcoder2")}
+# the reduced dbrx-132b (hd 16, G 4: the cli shape) through the paged
+# chunked engine, and the reduced tinyllama through the async front end
+# (a poisson replay at 16 req/s after a warm-up replay, /metrics served)
+CLI_DBRX = [a if a != "tinyllama-1.1b" else "dbrx-132b" for a in CLI_ARGS]
+CLI_ASYNC = CLI_ARGS + ["--serve", "async", "--arrival-trace", "poisson",
+                        "--metrics-port", "0"]
 
 
 def _check_cli_telemetry(argv, stats):
@@ -2544,17 +2984,56 @@ def _cli(dev, results, name, argv, key=None):
     return counts
 
 
+def _cli_async(dev, results):
+    """CLI_ASYNC through `main`: every request streams its tokens, the SLO
+    summary counts one TTFT a request and one ITL a later token, the
+    clock is the wall clock, no page leaked; K2 / K3 / K4 launched in
+    whole layers (a warm-up replay, then the trace), K3 at least a layer
+    a chunk of the trace, K5 = K6 = 0."""
+    from repro_torch.launch import serve
+    cfg = _cli_config(CLI_ASYNC)
+    L = cfg.n_layers
+    stats, counts = _drive(lambda: serve.main(CLI_ASYNC))
+    toks, slo = stats["tokens"], stats["slo"]
+    _check_requests(cfg, range(len(toks)), toks, 32)
+    if slo["ttft"]["n"] != len(toks) or slo["itl"]["n"] != 31 * len(toks) \
+            or stats["clock_mode"] != "wall" \
+            or stats["free_pages_after"] != stats["pool_pages"]:
+        raise AssertionError(f"cli async: slo {slo}, stats {stats}")
+    chunks, steps = stats["prefill_chunks"], stats["decode_steps"]
+    if any(counts[k] % L for k in ("sparq_paged_decode_attn",
+                                   "sparq_chunked_prefill_attn",
+                                   "sparq_quant")) \
+            or counts["sparq_chunked_prefill_attn"] < L * chunks \
+            or counts["sparq_paged_decode_attn"] < L * steps \
+            or counts["sparq_decode_attn"] or counts["sparq_dequant"] \
+            or counts["sparq_matmul"] == 0:
+        raise AssertionError(f"cli async launches {counts} ({chunks} "
+                             f"chunks, {steps} steps in the trace)")
+    results["cli_async"] = dict(argv=CLI_ASYNC, launches=counts, slo=slo,
+                                **{k: v for k, v in stats.items()
+                                   if not isinstance(v, dict)})
+    log(f"cli_async {' '.join(CLI_ASYNC)}: {len(toks)} requests x 32 "
+        f"tokens streamed | ttft p50 {slo['ttft']['p50_ms']:.1f} ms p99 "
+        f"{slo['ttft']['p99_ms']:.1f} ms | itl p50 {slo['itl']['p50_ms']:.2f}"
+        f" ms p99 {slo['itl']['p99_ms']:.2f} ms | launches (warm-up and "
+        f"trace) {counts}")
+    return counts
+
+
 def cli_reduced(dev, results):
     """CLI_ARGS, then the same with CLI_PREEMPT_FLAGS (a pool of half the
     batch's pages, swap preemption, the prefix cache), then CLI_FAMILY
     (granite-20b and starcoder2-3b reduced, with --metrics-dump and
-    --trace-out)."""
+    --trace-out), CLI_DBRX and CLI_ASYNC."""
     runs = [_cli(dev, results, "cli", CLI_ARGS),
             _cli(dev, results, "cli", CLI_ARGS + CLI_PREEMPT_FLAGS,
                  key="cli_preempt")]
     for name, argv in CLI_FAMILY.items():
         runs.append(_cli(dev, results, name, argv,
                          key=f"cli_{_cli_config(argv).name}"))
+    runs.append(_cli(dev, results, "cli", CLI_DBRX, key="cli_dbrx"))
+    runs.append(_cli_async(dev, results))
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
@@ -3519,6 +3998,77 @@ def parity_granite(dev, results):
     log(f"parity 2-layer full-width f32 granite-20b: kernels == plain "
         f"versions on {len(reqs)} paged chunked requests "
         f"({sum(len(t) for t in out['cpu'].values())} tokens)")
+    parity_dbrx(dev, results)
+
+
+def parity_dbrx(dev, results):
+    """A 1-layer full-width f32 dbrx-132b (16 experts of d_ff 10752,
+    top-4; about 15 GB on the card and as much on the host) with the same
+    weights on the card and on the CPU: the paged chunked engine gives
+    equal greedy tokens on both. Each side's smallest routing margin (the
+    gap between the 4th and 5th router probabilities of any token it
+    routed) is logged: a near-tie that the two f32 routers could break
+    apart is the first suspect when the tokens differ."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.launch import serve
+    from repro_torch.models.common import QuantCtx
+    from repro_torch.models.model import Model
+    from repro_torch.models.quantize import quantize_params
+    t0 = time.perf_counter()
+    cfg = get_config("dbrx-132b").replace(n_layers=1, dtype=torch.float32)
+    codec = serve.SPARQ_PRESETS["5opt"]
+    cc = serve.make_cache_config("sparq", codec)
+    ctx = QuantCtx(mode="quantized", cfg=codec)
+    gpu = Model(cfg, device=dev)
+    params = gpu.init_params(seed=1, dtype=torch.float32)
+    scales = gpu.calibrate(params, Batcher(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+        seed=1)).calib_batches(1))
+    params = quantize_params(params, codec.weight_bits)
+    rng = np.random.default_rng(1)
+    reqs = [serve.Request(rng.integers(0, cfg.vocab_size, L), 8)
+            for L in (40, 100, 20, 70)]
+    from repro_torch.models import moe
+    route, out, margin = moe.route, {}, {}
+    K = cfg.experts_per_token
+
+    def spy(x2, router, k):
+        got = route(x2, router, k)
+        top = torch.sort(got[1], -1, descending=True)[0]
+        gap = float((top[:, K - 1] - top[:, K]).min())
+        margin[side] = min(margin.get(side, math.inf), gap)
+        return got
+    moe.route = spy
+    try:
+        for side, model, p, sc in (
+                ("cuda", gpu, params, scales),
+                ("cpu", Model(cfg, device="cpu"), _to_cpu(params),
+                 _to_cpu(scales))):
+            out[side], _ = serve.ContinuousBatchingEngine(
+                model, cc, ctx, sc, device=model.device, prefill="chunked",
+                page_size=16, n_pages=40, max_active=3, max_seq_len=112,
+                chunk_size=64, chunk_align=8).run(p, reqs)
+            del p
+    finally:
+        moe.route = route
+    for rid in out["cpu"]:
+        if not np.array_equal(out["cuda"][rid], out["cpu"][rid]):
+            raise AssertionError(
+                f"parity dbrx-132b, request {rid}: kernels "
+                f"{out['cuda'][rid].tolist()} vs plain "
+                f"{out['cpu'][rid].tolist()}; smallest routing margin "
+                f"{margin}")
+    results["parity_dbrx"] = dict(
+        tokens={str(r): out["cuda"][r].tolist() for r in out["cpu"]},
+        routing_margin=margin)
+    log(f"parity 1-layer full-width f32 dbrx-132b: kernels == plain "
+        f"versions on {len(reqs)} paged chunked requests "
+        f"({sum(len(t) for t in out['cpu'].values())} tokens; smallest "
+        f"4th-5th routing margin {margin}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del gpu, params, scales
+    torch.cuda.empty_cache()
 
 
 # opcodes that must (True) or must not (False) appear in a kernel
@@ -3559,9 +4109,9 @@ def check_sass():
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,kernels,serve,preempt,prefix,scan,"
-                            "sequential,dense_family,cli,wide,cnn,train,"
-                            "cnn_train,parity")
+                    default="build,kernels,serve,frontend,preempt,prefix,"
+                            "scan,sequential,dense_family,moe,cli,wide,cnn,"
+                            "train,cnn_train,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -3588,14 +4138,19 @@ def main(argv=None):
     log(f"build: {len(logs)} kernel libraries in {results['build_s']:.1f} s")
     results["sass"] = check_sass()
     if "kernels" in phases:
+        t0 = time.perf_counter()
         for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
                       check_f3, check_k6):
             check(dev, results)
+        results["kernels_phase_s"] = time.perf_counter() - t0
+        log(f"phase kernels: {results['kernels_phase_s']:.1f} s")
     by_path = {}
-    paths = (("serve", serve_full_width), ("preempt", preempt_full_width),
+    paths = (("serve", serve_full_width), ("frontend", frontend_full_width),
+             ("preempt", preempt_full_width),
              ("prefix", prefix_full_width), ("scan", scan_full_width),
              ("sequential", sequential_full_width),
-             ("dense_family", dense_family), ("cli", cli_reduced),
+             ("dense_family", dense_family), ("moe", moe_full_width),
+             ("cli", cli_reduced),
              ("wide", cli_wide), ("cnn", cnn_full_width),
              ("train", train_full_width), ("cnn_train", cnn_train_full))
     for name, run in paths:
@@ -3613,7 +4168,10 @@ def main(argv=None):
                                  f"{idle}")
     results["launches_by_path"] = by_path
     if "parity" in phases:
+        t0 = time.perf_counter()
         parity_two_layers(dev, results)
+        results["parity_phase_s"] = time.perf_counter() - t0
+        log(f"phase parity: {results['parity_phase_s']:.1f} s")
     if "profile" in phases:
         profile_serve(dev, results)
     if "train_profile" in phases:

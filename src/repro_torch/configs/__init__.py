@@ -12,6 +12,7 @@ _REGISTRY: Dict[str, str] = {
     "granite-20b": "repro_torch.configs.granite_20b",
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "paper-resnet": "repro_torch.configs.paper_resnet",  # paper's own family
 }
 

@@ -31,8 +31,13 @@ The paged engine keeps every scheduling counter and timing in a
 `repro_torch.obs` registry (its stats dict is read from it) and, with
 `Telemetry.tracing()`, records request and step spans; `--metrics-dump`
 writes the registry as Prometheus text and `--trace-out` the spans as
-Chrome/Perfetto trace JSON. Not ported yet: tensor parallelism, the async
-front-end and the live mailboxes; their flags raise.
+Chrome/Perfetto trace JSON. The paged engine also takes live traffic:
+`submit()` / `cancel()` mailboxes drained once an iteration, per-token
+`emit` streaming from the step's one device-to-host copy, and a wall-clock
+serve-forever mode (`clock_mode="wall"`, `drain=False`) that
+`launch.frontend`'s asyncio front end drives (`--serve async`, arrival
+traces, `--metrics-port`). Both engines serve the dense and the MoE
+families. Not ported yet: tensor parallelism (`--tp`), which raises.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --reduced --batch 4 --prompt-len 64 --gen 16 --sparq 5opt \\
@@ -41,6 +46,8 @@ front-end and the live mailboxes; their flags raise.
     ... --engine paged --prefill chunked --preempt swap --oversubscribe 0.5 \\
         --prefix-cache                            # oversubscribed, shared
     ... --engine paged --metrics-dump m.prom --trace-out t.json  # telemetry
+    ... --engine paged --prefill chunked --serve async \\
+        --arrival-trace poisson --metrics-port 0     # streaming, TTFT/ITL
 """
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ import argparse
 import dataclasses
 import heapq
 import math
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -213,9 +221,10 @@ def serve(model: Model, params, batch, gen: int,
 @dataclasses.dataclass
 class Request:
     """A prompt and a total token budget (`gen` includes the token the
-    prefill emits). `arrive_at` delays admission until the engine's step
-    clock (decode steps, plus idle fast-forwards) reaches it; it changes
-    when a request is served, never its tokens."""
+    prefill emits). `arrive_at` delays admission until the engine's
+    clock reaches it: decode steps plus idle fast-forwards in step mode,
+    seconds since the run started in wall mode. It changes when a request
+    is served, never its tokens."""
     tokens: np.ndarray
     gen: int
     arrive_at: float = 0.0
@@ -335,8 +344,9 @@ class ContinuousBatchingEngine:
         if cache_cfg.layout != "sparq":
             raise ValueError("the paged engine stores packed §5.1 pages; "
                              "use --kv-cache sparq")
-        if any(k != "dense" for k in model.kinds):
-            raise ValueError("paged serving is ported for dense stacks only")
+        if any(k not in ("dense", "moe") for k in model.kinds):
+            raise ValueError(f"paged serving supports standard-KV attention "
+                             f"stacks only (got kinds {model.kinds})")
         if max_seq_len % page_size:
             raise ValueError(f"max_seq_len {max_seq_len} must be a multiple "
                              f"of page_size {page_size}")
@@ -390,6 +400,20 @@ class ContinuousBatchingEngine:
         self._cc_replay = dataclasses.replace(cache_cfg, attn_bk=page_size)
         self.prefill_priority = float(prefill_priority)
         self._debug_state: dict = {}     # last run's allocator/slots (tests)
+        # live traffic: submit() / cancel() may be called from any thread
+        # while run() loops; the loop drains both under the lock once an
+        # iteration, so the rest of the loop stays single-threaded. `_wake`
+        # cuts an idle wait short when traffic lands; `_run_live` is set
+        # while a run accepts submissions.
+        self._mbox_lock = threading.Lock()
+        self._inbox: List[Tuple[int, Request, Optional[float]]] = []
+        self._cancel_box: set = set()
+        self._wake = threading.Event()
+        self._run_live = threading.Event()
+        self._stop_flag = False
+        self._next_rid = 0
+        self._t_origin: Optional[float] = None   # wall t0 of the live run
+        self._live: Optional[dict] = None        # what reset_stats() zeroes
 
     # ------------------------------------------------------------ device
     def _init_stores(self) -> Tuple[list, torch.Tensor]:
@@ -481,18 +505,102 @@ class ContinuousBatchingEngine:
                 f"but the engine serves at most {self.n_blocks * ps} "
                 f"slots/sequence from {self.n_pages} pages")
 
-    # ------------------------------------------------------------ public
-    def run(self, params, requests: Sequence[Request], trace_hook=None
-            ) -> Tuple[Dict[int, np.ndarray], dict]:
-        """Serve every request to completion. Returns ({request index:
-        int32 [gen] greedy tokens}, stats). Each run starts from a fresh
-        pool, fresh (uncalibrated) cache scales and a fresh prefix index.
-        `trace_hook`, if given, gets a scheduler-state snapshot before
-        every decode step."""
-        with torch.no_grad():
-            return self._run(params, requests, trace_hook)
+    # ------------------------------------------------------ live traffic
+    def submit(self, req, at: Optional[float] = None) -> int:
+        """Hand a request to a running `run()` loop; thread-safe. Returns
+        the id its results and stream use. `at` is its arrival on the
+        engine clock (None: the clock when the mailbox is drained, i.e.
+        now); the request's own `arrive_at` is ignored. Raises when no run
+        loop is live to serve it."""
+        req = req if hasattr(req, "tokens") else Request(*req)
+        self._validate_request(req, "submitted request")
+        if not self._run_live.wait(timeout=5.0):
+            raise RuntimeError("submit() requires a live run() loop: start "
+                               "the engine (e.g. through "
+                               "launch.frontend.AsyncFrontend) first")
+        with self._mbox_lock:
+            rid = self._next_rid
+            self._next_rid += 1
+            self._inbox.append((rid, req, None if at is None else float(at)))
+        self._wake.set()
+        return rid
 
-    def _run(self, params, requests, trace_hook):
+    def cancel(self, rid: int) -> None:
+        """Cancel a request by id; thread-safe, idempotent, best-effort (a
+        finished request is left as it is). A queued request is dropped; a
+        mid-prefill one loses its prefill job and granted pages; an active
+        or preempted one is evicted (shared prefix pages released by
+        refcount, swapped planes discarded with no swap-in). Its partial
+        tokens stay in the results."""
+        with self._mbox_lock:
+            self._cancel_box.add(rid)
+        self._wake.set()
+
+    def request_stop(self) -> None:
+        """Ask a serve-forever (`drain=False`) loop to exit at its next
+        iteration; thread-safe. Requests in flight are abandoned with
+        their partial results. Draining runs ignore it."""
+        self._stop_flag = True
+        self._wake.set()
+
+    def reset_stats(self) -> None:
+        """Zero the live run's measurements in place: the warm-up/measure
+        boundary. Counters, timings and histograms restart, the page and
+        swap watermarks restart from the current occupancy; the prefix
+        index and the built kernels stay. Call it from the engine thread
+        (a trace_hook) or while the loop is idle."""
+        lv = self._live
+        if lv is None:
+            return
+        reg = self.telemetry.registry
+        reg.reset()
+        reg.gauge("pool_pages_in_use").set(lv["allocator"].used_count)
+        reg.gauge("pool_pages_peak").set(lv["allocator"].used_count)
+        lv["acc"].update(t0=time.perf_counter())
+        lv["allocator"].reset_peak()
+        lv["swap"].reset_counters()
+
+    # ------------------------------------------------------------ public
+    def run(self, params, requests: Sequence[Request], trace_hook=None,
+            emit=None, clock_mode: str = "step", drain: bool = True
+            ) -> Tuple[Dict[int, np.ndarray], dict]:
+        """Serve every request to completion. Returns ({request id: int32
+        [gen] greedy tokens}, stats); ids 0..n-1 are `requests`' indices,
+        `submit()` numbers the rest. Each run starts from a fresh pool,
+        fresh (uncalibrated) cache scales and a fresh prefix index.
+        `trace_hook`, if given, gets a scheduler-state snapshot before
+        every decode step.
+
+        `emit(rid, token, final, t)`, if given, streams every greedy token
+        from the engine thread as host ints (`t` a perf_counter stamp):
+        the first tokens of a chunk step from one batched copy of that
+        step's tokens, a sequential prefill's from its own copy, and the
+        decode tokens from the step's one existing copy. The results are
+        then those host copies.
+
+        `clock_mode`: "step" (the default) counts decode steps and
+        fast-forwards over idle gaps (deterministic); "wall" reads seconds
+        since the run started and waits for arrivals in real time.
+        `drain=False` (wall clock only) keeps serving `submit()` traffic
+        when nothing is left, until `request_stop()`; requests in flight
+        then return their partial tokens."""
+        if clock_mode not in ("step", "wall"):
+            raise ValueError(f"unknown clock_mode {clock_mode!r}")
+        if not drain and clock_mode != "wall":
+            raise ValueError("drain=False (serve-forever) needs "
+                             "clock_mode='wall': a step clock cannot wait "
+                             "for traffic")
+        try:
+            with torch.no_grad():           # thread-local: the run's thread
+                return self._run(params, requests, trace_hook, emit,
+                                 clock_mode, drain)
+        finally:
+            # a finished (or dead) loop takes no more traffic
+            self._run_live.clear()
+            self._live = None
+
+    def _run(self, params, requests, trace_hook, emit, clock_mode, drain):
+        wall = clock_mode == "wall"
         requests = {i: (r if hasattr(r, "tokens") else Request(*r))
                     for i, r in enumerate(requests)}
         ps, NB, S = self.page_size, self.n_blocks, self.max_active
@@ -582,11 +690,15 @@ class ContinuousBatchingEngine:
         slots: List[Optional[_Slot]] = [None] * S
         host_bt = np.full((S, NB), -1, np.int64)
         host_pos = np.full((S,), -1, np.int64)
+        # admission order: arrival, then id; a heap, as submit() pushes
+        # mid-run and the idle wait must see the earliest arrival first
         queue = [(float(r.arrive_at), rid, r) for rid, r in requests.items()]
         heapq.heapify(queue)
+        cancelled: set = set()      # cancelled ids; queue entries skip lazily
         resume_q: List[_Preempted] = []
         swap = paging.SwapStore(registry=reg)
         first_tok: Dict[int, torch.Tensor] = {}   # rid -> device scalar
+        first_host: Dict[int, int] = {}           # emit mode: host copies
         outputs: Dict[int, List[int]] = {rid: [] for rid in requests}
         # replay-divergence checks, read after the loop in one fetch
         deferred_checks: List[torch.Tensor] = []
@@ -595,8 +707,15 @@ class ContinuousBatchingEngine:
         join_seq = 0
         clock = 0.0
         chunk_credit = 0.0          # fractional prefill chunks banked
+        acc = {"t0": 0.0}           # run start; reset_stats restamps it
         self._debug_state = {"allocator": allocator, "slots": slots,
                              "swap": swap, "prefix_index": index}
+        self._live = {"acc": acc, "allocator": allocator, "swap": swap}
+        with self._mbox_lock:
+            self._next_rid = len(requests)
+            self._inbox.clear()
+            self._cancel_box.clear()
+        self._stop_flag = False
 
         def note_pages():
             g_pages.set(allocator.used_count)
@@ -611,9 +730,11 @@ class ContinuousBatchingEngine:
         # ------------------------------------------ preemption machinery
         def emitted_toks(rid: int) -> List[int]:
             """Every greedy token rid has emitted, in order: the first
-            token's one device fetch, then the host copies of the decode
-            steps' tokens."""
-            return [int(first_tok[rid].item())] + outputs[rid]
+            token (its one device fetch, or its host copy in emit mode),
+            then the host copies of the decode steps' tokens."""
+            first = first_host[rid] if emit is not None \
+                else int(first_tok[rid].item())
+            return [first] + outputs[rid]
 
         def drop_pages(pages: List[int]):
             """Release one reference per page; index entries naming a
@@ -628,6 +749,45 @@ class ContinuousBatchingEngine:
             host_bt[s] = -1
             host_pos[s] = -1
             slots[s] = None
+
+        def drain_mailboxes():
+            """Fold submit() / cancel() traffic into the run state, once an
+            iteration. An arrival stamped None arrives at the current
+            clock. A cancellation releases what the request holds: its
+            queue entry (skipped lazily), its slot (evicted; shared pages
+            released by refcount) with its prefill job and granted pages,
+            or its resume record (swapped planes discarded)."""
+            with self._mbox_lock:
+                arrivals, self._inbox = self._inbox, []
+                cxl, self._cancel_box = self._cancel_box, set()
+            self._wake.clear()
+            for rid, req, at in arrivals:
+                requests[rid] = req
+                outputs[rid] = []
+                heapq.heappush(queue, (clock if at is None else at, rid,
+                                       req))
+                sp.submitted(rid)
+            for rid in cxl:
+                if rid in cancelled:
+                    continue
+                hit = any(q_rid == rid for _, q_rid, _ in queue)
+                s = next((i for i, st in enumerate(slots)
+                          if st is not None and st.rid == rid), None)
+                if s is not None:
+                    if prefilling(s):
+                        sched.cancel(s)
+                    evict(s)
+                    hit = True
+                rec = next((r for r in resume_q if r.rid == rid), None)
+                if rec is not None:
+                    resume_q.remove(rec)
+                    if rec.swapped:
+                        swap.discard(rid)
+                    hit = True
+                if hit:
+                    cancelled.add(rid)
+                    c_cancel.inc()
+                    sp.cancelled(rid)
 
         def finished_slot() -> Optional[int]:
             return next((s for s, st in enumerate(slots)
@@ -849,8 +1009,16 @@ class ContinuousBatchingEngine:
                         f"slot {s}: next write targets shared page " \
                         f"{int(host_bt[s, blk])}"
 
+        def q_peek():
+            """The earliest pending (arrive_at, rid, req), dropping
+            cancelled entries; None when the queue is empty."""
+            while queue and queue[0][1] in cancelled:
+                heapq.heappop(queue)
+            return queue[0] if queue else None
+
         def arrived():
-            return bool(queue) and queue[0][0] <= clock
+            head = q_peek()
+            return head is not None and head[0] <= clock
 
         def prefix_stats():
             """The prefix and refusal counters, as registry reads."""
@@ -862,16 +1030,25 @@ class ContinuousBatchingEngine:
                     "swap_refusals": int(c_refuse.value())}
 
         t_run0 = time.perf_counter()
+        acc["t0"] = t_run0
+        self._t_origin = t_run0
         sp.run_begin(t_run0)
         if sp.on:
             for rid in sorted(requests):
                 sp.submitted(rid, t_run0)
+        self._run_live.set()
         while True:
+            if wall:
+                clock = time.perf_counter() - t_run0
             it_t0 = time.perf_counter() if timed else 0.0
-            # ---- evict finished sequences: references dropped
+            drain_mailboxes()
+            # ---- evict finished sequences: references dropped (before the
+            # stop check, so a stop right after a final token frees it)
             while (fin := finished_slot()) is not None:
                 sp.finished(slots[fin].rid)
                 evict(fin)
+            if self._stop_flag and not drain:
+                break                               # serve-forever: stop
             t_admit0 = time.perf_counter() if timed else 0.0
 
             # ---- resume preempted sequences, then admit arrivals. While
@@ -888,7 +1065,7 @@ class ContinuousBatchingEngine:
                     resume_q.pop(0)
                     resume(s, rec)
                     continue
-                _, rid, req = queue[0]
+                _, rid, req = q_peek()
                 L = len(req.tokens)
                 nbp = math.ceil(L / ps)
                 hit = match_prefix(req.tokens) if index is not None \
@@ -941,6 +1118,10 @@ class ContinuousBatchingEngine:
                 t1 = time.perf_counter()
                 c_t_prefill.inc(t1 - t0)
                 sp.first_token(rid, t1)
+                if emit is not None:
+                    first_host[rid] = int(tok0[0].item())   # one copy
+                    emit(rid, first_host[rid], req.gen <= 1,
+                         time.perf_counter())
             note_pages()
             t_prefill0 = time.perf_counter() if timed else 0.0
 
@@ -985,6 +1166,10 @@ class ContinuousBatchingEngine:
                             sp.chunk(slots[s2].rid, t0, t1, tokens=adv)
                     for s2, adv in plan.advanced.items():
                         host_pos[s2] += adv
+                    # emit mode: the step's first tokens in one copy
+                    am_host = am.tolist() if emit is not None and any(
+                        e is None for _, _, e in plan.completed) else None
+                    t_am = time.perf_counter()
                     for s2, rid2, expect in plan.completed:
                         if expect is not None:
                             deferred_checks.append(am[s2])
@@ -997,6 +1182,10 @@ class ContinuousBatchingEngine:
                             first_tok[rid2] = am[s2]
                             slots[s2].generated = 1
                             sp.first_token(rid2, t1)
+                            if am_host is not None:
+                                first_host[rid2] = am_host[s2]
+                                emit(rid2, am_host[s2],
+                                     slots[s2].target <= 1, t_am)
                         tok[s2, 0] = am[s2]
                         if index is not None:
                             register_prefix(s2, rid2)
@@ -1005,8 +1194,18 @@ class ContinuousBatchingEngine:
             if not any(slots):
                 if resume_q or arrived():
                     continue
-                if queue:
-                    clock = max(clock, queue[0][0])     # idle fast-forward
+                head = q_peek()
+                if head is not None:
+                    # idle until the earliest pending arrival, never past it
+                    if wall:
+                        self._wake.wait(timeout=max(head[0] - clock, 0.0))
+                    else:
+                        clock = max(clock, head[0])     # idle fast-forward
+                    continue
+                if not drain:
+                    # serve forever: wait for traffic or a stop; the bound
+                    # catches a stop that raced the wake-clear above
+                    self._wake.wait(timeout=0.05)
                     continue
                 break                                   # drained
             t_decode0 = time.perf_counter() if timed else 0.0
@@ -1080,7 +1279,8 @@ class ContinuousBatchingEngine:
             if trace_hook is not None or sp.on:
                 snap = self._snapshot(
                     n_steps, allocator, slots, host_bt, host_pos, caches,
-                    queue, resume_q, swap, prefilling=in_prefill,
+                    [e for e in queue if e[1] not in cancelled], resume_q,
+                    swap, prefilling=in_prefill,
                     replaying=replaying,
                     prefix=prefix_stats() if index is not None else None)
                 if trace_hook is not None:
@@ -1094,15 +1294,20 @@ class ContinuousBatchingEngine:
 
             tok = self._step(params, tok, caches, caches[0].seq_pos)
             toks = tok[:, 0].tolist()                   # one D2H copy
-            t_step = time.perf_counter() if sp.on else 0.0
+            t_step = time.perf_counter() if sp.on or emit is not None \
+                else 0.0
             n_steps += 1
             c_steps.inc()
             c_tokens.inc(len(active))
-            clock += 1
+            if not wall:
+                clock += 1
             for s, rid in active:
                 outputs[rid].append(toks[s])
                 slots[s].generated += 1
                 host_pos[s] += 1
+                if emit is not None:
+                    emit(rid, toks[s], slots[s].generated >= slots[s].target,
+                         t_step)
             for s in replaying:
                 host_pos[s] += 1
                 tok[s, 0] = slots[s].replay.pop(0)
@@ -1116,7 +1321,7 @@ class ContinuousBatchingEngine:
                 # host clock around queued work: no phase waits on the card
                 t_it1 = time.perf_counter()
                 g_active.set(len(active))
-                g_queued.set(len(queue))
+                g_queued.set(sum(1 for e in queue if e[1] not in cancelled))
                 h_retire.observe(t_admit0 - it_t0)
                 h_admit.observe(t_prefill0 - t_admit0)
                 h_prefill.observe(t_decode0 - t_prefill0)
@@ -1129,18 +1334,28 @@ class ContinuousBatchingEngine:
                         active=len(active))
 
         _sync(dev)
-        t_total = time.perf_counter() - t_run0
+        t_total = time.perf_counter() - acc["t0"]
         sp.run_end()
         if deferred_checks:
             got = torch.stack(deferred_checks).tolist()
             for g, (want, msg) in zip(got, deferred_expect):
                 assert g == want, msg
-        firsts = dict(zip(first_tok, torch.stack(list(first_tok.values()))
-                          .tolist())) if first_tok else {}
+        # a request's tokens: its first (one deferred copy of every first
+        # token, or the emitted host copies) and its decode steps'
+        if emit is not None:
+            firsts = first_host
+        else:
+            firsts = dict(zip(first_tok, torch.stack(list(
+                first_tok.values())).tolist())) if first_tok else {}
         results = {rid: np.asarray([firsts[rid]] + outputs[rid], np.int32)
-                   for rid in requests}
-        for rid, req in requests.items():
-            assert len(results[rid]) == req.gen, (rid, len(results[rid]))
+                   for rid in requests if rid in firsts}
+        if drain:
+            # every request not cancelled ran to its end (a stopped
+            # serve-forever loop returns partial streams)
+            for rid, req in requests.items():
+                if rid not in cancelled:
+                    assert len(results[rid]) == req.gen, \
+                        (rid, len(results.get(rid, ())))
         # every stats entry is a registry read (or a config echo), as in
         # the reference; "device", "decode_tokens" and "free_pages_after"
         # are the port's own
@@ -1165,7 +1380,7 @@ class ContinuousBatchingEngine:
             "decode_steps": int(c_steps.value()),
             "decode_tokens": int(c_tokens.value()),
             "decode_tok_s": c_tokens.value() / decode_s,
-            "clock_mode": "step",
+            "clock_mode": clock_mode,
             "pool_pages": self.n_pages,
             "page_size": ps,
             "pool_slots": self.n_pages * ps,
@@ -1195,7 +1410,7 @@ class ContinuousBatchingEngine:
         return results, stats
 
 
-_NOT_PORTED = {"tp": 1, "serve": "sync", "metrics_port": None}
+_NOT_PORTED = {"tp": 1}
 
 
 def main(argv=None):
@@ -1265,10 +1480,26 @@ def main(argv=None):
                     help="paged engine: enable full span tracing and "
                          "write Chrome trace-event JSON after the run "
                          "(load in Perfetto / chrome://tracing)")
-    # flags of the JAX CLI that this port does not serve yet: each raises
+    ap.add_argument("--serve", choices=("sync", "async"), default="sync",
+                    help="sync: one blocking engine.run over the batch; "
+                         "async: the asyncio streaming front end "
+                         "(launch.frontend) replays a timed arrival trace "
+                         "through a serve-forever engine loop and reports "
+                         "TTFT / ITL percentiles (paged engine only)")
+    ap.add_argument("--arrival-trace", choices=("none", "poisson", "bursty"),
+                    default="none",
+                    help="async serving: arrival process of the replay "
+                         "(none: every request arrives at t=0)")
+    ap.add_argument("--arrival-rate", type=float, default=16.0,
+                    help="async serving: offered load in requests/s for "
+                         "--arrival-trace poisson|bursty")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    metavar="PORT",
+                    help="async serving: serve GET /metrics (Prometheus "
+                         "text) on 127.0.0.1 while the trace plays (0: an "
+                         "ephemeral port)")
+    # a flag of the JAX CLI that this port does not serve yet: it raises
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--serve", default="sync")
-    ap.add_argument("--metrics-port", type=int, default=None)
     args = ap.parse_args(argv)
 
     for name, default in _NOT_PORTED.items():
@@ -1276,9 +1507,19 @@ def main(argv=None):
             raise NotImplementedError(
                 f"--{name.replace('_', '-')} is not yet ported to "
                 f"repro_torch (see ROADMAP.md)")
-    if (args.metrics_dump or args.trace_out) and args.engine != "paged":
+    if args.serve == "async" and args.engine != "paged":
+        ap.error("--serve async streams from the paged engine's decode "
+                 "loop; add --engine paged")
+    if (args.metrics_dump or args.trace_out or args.metrics_port
+            is not None) and args.engine != "paged":
         ap.error("--metrics-dump/--trace-out/--metrics-port read the "
                  "paged engine's telemetry registry; add --engine paged")
+    if args.metrics_port is not None and args.serve != "async":
+        ap.error("--metrics-port scrapes from the asyncio front end; add "
+                 "--serve async")
+    if args.arrival_trace != "none" and args.serve != "async":
+        ap.error("--arrival-trace replays through the async front end; add "
+                 "--serve async")
     if args.engine == "paged":
         if args.prefix_cache and args.prefill != "chunked":
             ap.error("--prefix-cache relies on the chunked path's "
@@ -1344,15 +1585,40 @@ def main(argv=None):
         prefill_priority=args.prefill_priority, device=device,
         telemetry=Telemetry.tracing() if args.trace_out else Telemetry())
     reqs = [Request(batch["tokens"][b], args.gen) for b in range(args.batch)]
+
+    def dump_telemetry():
+        if args.metrics_dump:
+            obs_export.write_prometheus(engine.telemetry.registry,
+                                        args.metrics_dump)
+            print(f"metrics dump: {args.metrics_dump}")
+        if args.trace_out:
+            obs_export.write_trace(engine.telemetry.tracer, args.trace_out)
+            print(f"trace (Perfetto/chrome://tracing): {args.trace_out}")
+
+    if args.serve == "async":
+        from repro_torch.launch import frontend
+        ats = [0.0] * args.batch if args.arrival_trace == "none" \
+            else frontend.arrival_times(
+                args.arrival_trace, args.batch, args.arrival_rate,
+                rng=np.random.default_rng(args.seed))
+        trace = [(r.tokens, r.gen, at) for r, at in zip(reqs, ats)]
+        # the warm-up replay builds the kernels on the engine thread
+        results, slo, stats = frontend.play_trace(
+            engine, params, trace, warmup=[(r.tokens, r.gen) for r in reqs],
+            metrics_port=args.metrics_port)
+        stats["slo"] = slo
+        dump_telemetry()
+        print(f"async {args.arrival_trace} trace ({len(trace)} requests): "
+              f"ttft p50 {slo['ttft']['p50_ms']:.1f} ms / p99 "
+              f"{slo['ttft']['p99_ms']:.1f} ms | itl p50 "
+              f"{slo['itl']['p50_ms']:.2f} ms / p99 "
+              f"{slo['itl']['p99_ms']:.2f} ms | decode "
+              f"{stats['decode_tok_s']:.1f} tok/s")
+        print("sample:", results[0][:16])
+        return {**stats, "tokens": results}
     engine.run(params, reqs)            # warm-up: builds kernels, untimed
     results, stats = engine.run(params, reqs)
-    if args.metrics_dump:
-        obs_export.write_prometheus(engine.telemetry.registry,
-                                    args.metrics_dump)
-        print(f"metrics dump: {args.metrics_dump}")
-    if args.trace_out:
-        obs_export.write_trace(engine.telemetry.tracer, args.trace_out)
-        print(f"trace (Perfetto/chrome://tracing): {args.trace_out}")
+    dump_telemetry()
     print(f"prefill {stats['prefill_s']*1e3:.1f} ms | decode "
           f"{stats['decode_tok_s']:.1f} tok/s | pool "
           f"{stats['peak_pages_used']}/{stats['pool_pages']} pages "

@@ -22,10 +22,10 @@ from repro_torch.kernels.ops import quantized_matmul
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Dense decoder configuration (the fields of the JAX ModelConfig that
-    the dense family reads)."""
+    """Decoder configuration (the fields of the JAX ModelConfig that the
+    dense and MoE families read; MLA's are not ported)."""
     name: str
-    family: str                  # dense (the only family ported so far)
+    family: str                  # dense | moe (the families ported so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -35,6 +35,13 @@ class ModelConfig:
     mlp_type: str = "swiglu"     # swiglu | gelu | geglu
     norm_type: str = "rmsnorm"   # rmsnorm | layernorm
     rope_theta: float = 10000.0
+    # --- MoE ---
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    first_dense_layers: int = 0  # deepseek: first k layers use dense FFN
+    capacity_factor: float = 1.25
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-5
     tie_embeddings: bool = True

@@ -1,4 +1,4 @@
-"""Public model API (port of `repro.models.model`, dense decoders):
+"""Public model API (port of `repro.models.model`, dense and MoE decoders):
 init / forward / loss / calibrate / contiguous-cache prefill / chunked
 prefill / decode step.
 
@@ -36,7 +36,8 @@ class Model:
         with `seed` on the model's device (the layout of the JAX params;
         the values differ from jax.random's). Weights and embeddings are
         in `dtype` (default `cfg.param_dtype`), norms in f32; every draw
-        is f32, one layer at a time, cast as it is stored."""
+        is f32, one layer at a time (an MoE expert bank one expert at a
+        time), cast as it is stored."""
         cfg, dev = self.cfg, self.device
         dtype = cfg.param_dtype if dtype is None else dtype
         gen = torch.Generator(device=dev)
@@ -67,17 +68,22 @@ class Model:
         return torch.arange(T, device=self.device)[None].expand(B, T)
 
     # ------------------------------------------------------------ train
-    def forward(self, params, batch: Dict, ctx: Optional[QuantCtx] = None,
-                scales_groups=None) -> torch.Tensor:
-        """Full-sequence hidden states (pre-head). batch["tokens"] [B, T]."""
+    def _forward(self, params, batch: Dict, ctx, scales_groups):
+        """(hidden states, the stack's summed aux terms)."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         x = self._embed_in(params, tokens, cfg.dtype)
-        x = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
-                           positions=self._positions(*tokens.shape),
-                           mode="train", ctx=ctx,
-                           scales_groups=scales_groups)
-        return norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+        x, aux = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
+                                positions=self._positions(*tokens.shape),
+                                mode="train", ctx=ctx,
+                                scales_groups=scales_groups)
+        return norm(params["final_norm"], x, cfg.norm_type,
+                    cfg.norm_eps), aux
+
+    def forward(self, params, batch: Dict, ctx: Optional[QuantCtx] = None,
+                scales_groups=None) -> torch.Tensor:
+        """Full-sequence hidden states (pre-head). batch["tokens"] [B, T]."""
+        return self._forward(params, batch, ctx, scales_groups)[0]
 
     def logits(self, params, batch, ctx=None, scales_groups=None):
         return self._head(params, self.forward(params, batch, ctx,
@@ -87,16 +93,15 @@ class Model:
              scales_groups=None) -> Tuple[torch.Tensor, Dict]:
         """Next-token CE of batch["tokens"] against batch["labels"] (-1
         ignored), the vocab projection `cfg.logit_chunk` positions at a
-        time. Returns (total, metrics); the dense family's load-balance
-        and z terms are 0, so total == lm_loss."""
+        time, plus LB_COEF x the MoE layers' load-balance loss and Z_COEF
+        x their router z-loss (both 0 for a dense stack). Returns (total,
+        metrics)."""
         cfg = self.cfg
-        x = self.forward(params, batch, ctx, scales_groups)
+        x, aux = self._forward(params, batch, ctx, scales_groups)
         labels = torch.as_tensor(batch["labels"], device=self.device)
         head = params["embed"].T if cfg.tie_embeddings \
             else params["lm_head"]
         lm = chunked_lm_loss(head, x, labels, cfg.logit_chunk or x.shape[1])
-        aux = {"lb_loss": torch.zeros((), device=self.device),
-               "z_loss": torch.zeros((), device=self.device)}
         total = lm + LB_COEF * aux["lb_loss"] + Z_COEF * aux["z_loss"]
         return total, {"lm_loss": lm, **aux}
 
@@ -118,10 +123,10 @@ class Model:
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         x = self._embed_in(params, tokens, cfg.dtype)
-        x = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
-                           positions=self._positions(*tokens.shape),
-                           caches=caches, mode="prefill", ctx=ctx,
-                           scales_groups=scales_groups)
+        x, _ = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
+                              positions=self._positions(*tokens.shape),
+                              caches=caches, mode="prefill", ctx=ctx,
+                              scales_groups=scales_groups)
         x = norm(params["final_norm"], x[:, -1:], cfg.norm_type,
                  cfg.norm_eps)
         return self._head(params, x)[:, 0]
@@ -136,10 +141,10 @@ class Model:
         prompt row (garbage where last_rows < 0)."""
         cfg = self.cfg
         x = self._embed_in(params, tokens, cfg.dtype)
-        x = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
-                           positions=chunk.pos[None, :], caches=caches,
-                           mode="chunk_prefill", ctx=ctx,
-                           scales_groups=scales_groups, chunk=chunk)
+        x, _ = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
+                              positions=chunk.pos[None, :], caches=caches,
+                              mode="chunk_prefill", ctx=ctx,
+                              scales_groups=scales_groups, chunk=chunk)
         rows = x[0, torch.clamp(last_rows, min=0).long()]        # [S, d]
         h = norm(params["final_norm"], rows, cfg.norm_type, cfg.norm_eps)
         return torch.argmax(self._head(params, h), -1).to(torch.int32)
@@ -152,14 +157,17 @@ class Model:
         cfg = self.cfg
         x = self._embed_in(params, tokens, cfg.dtype)
         positions = pos.reshape(-1, 1).expand(x.shape[0], 1)
-        x = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
-                           positions=positions, caches=caches, mode="decode",
-                           ctx=ctx, scales_groups=scales_groups)
+        x, _ = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
+                              positions=positions, caches=caches,
+                              mode="decode", ctx=ctx,
+                              scales_groups=scales_groups)
         x = norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
         return self._head(params, x)[:, 0]
 
     # ------------------------------------------------------------ PTQ
     def quant_sites(self) -> List[str]:
+        """Every `dense` site name of the family (the reference lists the
+        FFN sites for MoE too, though its experts never reach `dense`)."""
         return ["attn_q", "attn_k", "attn_v", "attn_out",
                 "ffn_gate", "ffn_up", "ffn_down"]
 
@@ -180,9 +188,9 @@ class Model:
                 for li in range(count):
                     ctx = QuantCtx(mode="calibrate", collect=bank,
                                    site_prefix=f"g{gi}.l{li}/")
-                    x, _ = tr.block_apply(tr.layer_params(stacked, li), x,
-                                          cfg, kind, positions=positions,
-                                          mode="train", ctx=ctx)
+                    x, _, _ = tr.block_apply(
+                        tr.layer_params(stacked, li), x, cfg, kind,
+                        positions=positions, mode="train", ctx=ctx)
         groups = []
         for gi, (kind, count) in enumerate(self.groups_meta):
             sites: Dict[str, list] = {}

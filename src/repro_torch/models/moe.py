@@ -1,0 +1,172 @@
+"""Mixture-of-Experts with capacity-based slotting (port of
+`repro.models.moe`).
+
+Top-k token-choice routing over an f32 router. Each (token, k) assignment
+takes the next free slot of its expert, in the order of the flattened
+[N, K] assignments; assignments past an expert's capacity C drop to the
+residual path. Tokens are gathered into an (E, C, D) buffer, the experts
+run as batched matrix products, and each token sums its kept expert
+outputs. The expert products are plain batched products in the reference
+too (no Pallas kernel), so they stay `torch.bmm`. Aux terms: the
+Switch-style load balance and the router z-loss.
+
+Two behaviours of the reference's scatters are kept exactly:
+  * the slot table is written with the dropped assignments pointing at
+    slot C - 1 with the empty marker, after the kept ones, so an expert
+    that overflows loses its last kept slot too;
+  * the combine adds each token's expert outputs in ascending expert
+    order, rounding to the activation dtype after each add. Here that is
+    K vector adds in a fixed order, never an atomic scatter-add, so the
+    sum is the same on every run and every device.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import (ModelConfig, QuantCtx, init_dense,
+                                       trunc_normal)
+from repro_torch.models.ffn import GATED
+
+
+def _expert_ffn(wg, wu, wd, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    """x [E, C, D]; weights [E, D, F] / [E, F, D] in any dtype."""
+    up = torch.bmm(x, wu.to(x.dtype))
+    if mlp_type in GATED:
+        gate = torch.bmm(x, wg.to(x.dtype))
+        act = F.silu(gate) if mlp_type == "swiglu" else \
+            F.gelu(gate, approximate="tanh")
+        h = act * up
+    elif mlp_type == "gelu":
+        h = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp_type {mlp_type!r}")
+    return torch.bmm(h, wd.to(x.dtype))
+
+
+def route(x2: torch.Tensor, router: torch.Tensor, K: int):
+    """(logits [N, E] f32, probs [N, E], gates [N, K] renormalised,
+    expert ids [N, K] int64). Ties go to the lower expert id, as
+    `lax.top_k` breaks them: a stable descending sort."""
+    logits = torch.matmul(x2.to(torch.float32), router.to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_ids = vals[:, :K], ids[:, :K]
+    gate_vals = gate_vals / torch.clamp(
+        torch.sum(gate_vals, -1, keepdim=True), min=1e-9)
+    return logits, probs, gate_vals, expert_ids
+
+
+def capacity(N: int, cfg: ModelConfig, exact: bool) -> int:
+    if exact:
+        return N
+    return min(N, max(int(N * cfg.experts_per_token / cfg.n_experts
+                          * cfg.capacity_factor), 1))
+
+
+def slot_assignments(expert_ids: torch.Tensor, E: int, C: int):
+    """(slot [N*K], kept [N*K] bool): each flattened assignment's place
+    in its expert's queue, and whether it lands in the slot table."""
+    flat = expert_ids.reshape(-1)
+    onehot = F.one_hot(flat, E).to(torch.int32)
+    slot = torch.sum((torch.cumsum(onehot, 0) - 1) * onehot, -1)
+    # the dropped assignments of an overflowing expert overwrite its slot
+    # C - 1 with the empty marker (the reference's scatter, last write wins)
+    overflow = torch.sum(onehot, 0) > C                       # [E]
+    kept = (slot < C) & ~((slot == C - 1) & overflow[flat])
+    return slot, kept
+
+
+def combine(out_buf: torch.Tensor, gate_vals: torch.Tensor,
+            expert_ids: torch.Tensor, slot: torch.Tensor,
+            kept: torch.Tensor) -> torch.Tensor:
+    """y [N, D] in out_buf's dtype: per token, its kept expert outputs,
+    each times its gate cast to that dtype, summed in ascending expert
+    order with a rounding after each add (the reference's scatter-add)."""
+    E, C, D = out_buf.shape
+    N, K = expert_ids.shape
+    dt = out_buf.dtype
+    rows = out_buf.reshape(E * C, D)
+    idx = (expert_ids.reshape(-1) * C + torch.clamp(slot, max=C - 1))
+    prod = rows[idx] * gate_vals.reshape(-1).to(dt)[:, None]
+    contrib = torch.where(kept[:, None], prod,
+                          torch.zeros((), dtype=dt, device=prod.device)
+                          ).reshape(N, K, D)
+    order = torch.argsort(expert_ids, dim=-1)
+    contrib = torch.gather(contrib, 1, order[:, :, None].expand(N, K, D))
+    y = torch.zeros((N, D), dtype=dt, device=out_buf.device)
+    for k in range(K):
+        y = y + contrib[:, k]
+    return y
+
+
+def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+              ctx: Optional[QuantCtx] = None, exact_capacity: bool = False):
+    """x [B, T, D]. Returns (y [B, T, D] in x's dtype, {"lb_loss",
+    "z_loss"}). `exact_capacity` (decode, chunked prefill): C = N, so no
+    token drops and one token's routing never depends on another's.
+    `ctx` is accepted as the reference's is: the router and the experts
+    run in float in every mode."""
+    B, T, D = x.shape
+    E, K = cfg.n_experts, cfg.experts_per_token
+    N = B * T
+    C = capacity(N, cfg, exact_capacity)
+    xt = x.reshape(N, D)
+    logits, probs, gate_vals, expert_ids = route(xt, params["router"], K)
+    slot, kept = slot_assignments(expert_ids, E, C)
+
+    # the slot table: which token feeds each (expert, slot), -1 empty.
+    # Kept assignments have distinct (expert, slot) cells; the others all
+    # write one trash cell past the table, so no shape depends on the
+    # data and nothing waits on the device
+    tokens = torch.arange(N, device=x.device).repeat_interleave(K)
+    cell = torch.where(kept, expert_ids.reshape(-1) * C + slot, E * C)
+    table = torch.full((E * C + 1,), -1, dtype=torch.int64, device=x.device)
+    table = table.index_put((cell,), tokens)[:E * C].reshape(E, C)
+    buf = xt[torch.clamp(table, min=0)] * (table >= 0)[..., None].to(x.dtype)
+    out_buf = _expert_ffn(params["w_gate"], params["w_up"],
+                          params["w_down"], buf, cfg.mlp_type)
+    y = combine(out_buf, gate_vals, expert_ids, slot, kept)
+    if cfg.n_shared_experts:
+        sh = _expert_ffn(params["sh_gate"], params["sh_up"],
+                         params["sh_down"], xt[None], cfg.mlp_type)
+        y = y + sh[0]
+
+    density = torch.mean(F.one_hot(expert_ids, E).to(torch.float32),
+                         dim=(0, 1))
+    lb_loss = E * torch.sum(density * torch.mean(probs, 0))
+    z_loss = torch.mean(torch.logsumexp(logits, -1) ** 2)
+    return y.reshape(B, T, D).to(x.dtype), {"lb_loss": lb_loss,
+                                            "z_loss": z_loss}
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device,
+             dtype=torch.float32) -> Dict:
+    """One layer's MoE params in the reference's layout: the router in
+    f32, expert banks [E, D, F] / [E, F, D] in `dtype`, each expert drawn
+    in f32 and cast as it is stored (one expert's f32 draw alive at a
+    time), and the shared experts fused into one [1, D, F * S] expert."""
+    D, Fd, E = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    out_scale = 1.0 / (2 * cfg.n_layers) ** 0.5
+
+    def experts(d_in, d_out, scale=1.0):
+        bank = torch.empty((E, d_in, d_out), dtype=dtype, device=device)
+        for e in range(E):
+            bank[e] = trunc_normal((d_in, d_out), scale / d_in ** 0.5, gen,
+                                   device, dtype)
+        return bank
+
+    p = {"router": init_dense(gen, D, E, device),
+         "w_up": experts(D, Fd),
+         "w_gate": experts(D, Fd) if cfg.mlp_type in GATED else
+         torch.zeros((E, 1, 1), dtype=dtype, device=device),
+         "w_down": experts(Fd, D, out_scale)}
+    if cfg.n_shared_experts:
+        Fs = Fd * cfg.n_shared_experts
+        p["sh_up"] = init_dense(gen, D, Fs, device, dtype=dtype)[None]
+        p["sh_gate"] = init_dense(gen, D, Fs, device, dtype=dtype)[None]
+        p["sh_down"] = init_dense(gen, Fs, D, device, scale=out_scale,
+                                  dtype=dtype)[None]
+    return p

@@ -2,7 +2,10 @@
 
 `quantize_params` replaces every projection weight leaf `w` with
 {"q": int8 codes, "s": f32 per-output-channel scales}; embeddings, the LM
-head and norms stay float (the paper leaves boundary layers intact).
+head and norms stay float (the paper leaves boundary layers intact), and
+so do an MoE layer's router (not a projection key) and its stacked expert
+banks ([L, E, D, F]: 4-D, outside the 2-D / 3-D rule), as the
+reference's `quantize_params` leaves them.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
 """Block assembly and the layer stack (port of `repro.models.transformer`,
-dense kind only). Layers are grouped into homogeneous runs with stacked
-[L, ...] params as in the JAX package; the stack runs as a Python loop over
-layers, each with its own calibrated scales and its own cache store. In
-training (mode "train" with gradients on and `cfg.remat`) each layer is
-recomputed in the backward (`torch.utils.checkpoint`, the reference's
-`jax.checkpoint` of the scan body)."""
+kinds "dense" and "moe"). Layers are grouped into homogeneous runs with
+stacked [L, ...] params as in the JAX package; the stack runs as a Python
+loop over layers, each with its own calibrated scales and its own cache
+store, and sums the MoE layers' aux terms. In training (mode "train" with
+gradients on and `cfg.remat`) each layer is recomputed in the backward
+(`torch.utils.checkpoint`, the reference's `jax.checkpoint` of the scan
+body)."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,29 +16,41 @@ import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, QuantCtx, norm, norm_init
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                device, dtype=torch.float32) -> Dict:
     """One layer's params: weights drawn in f32 and cast to `dtype`, norms
-    in f32 (as the reference's)."""
-    if kind != "dense":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+    (and the MoE router) in f32, as the reference's."""
+    _check_kind(kind)
     d, nt = cfg.d_model, cfg.norm_type
-    return {"ln1": norm_init(d, nt, device),
-            "attn": attn_mod.attention_init(gen, cfg, device, dtype),
-            "ln2": norm_init(d, nt, device),
-            "ffn": ffn_mod.ffn_init(gen, d, cfg.d_ff, cfg.mlp_type,
-                                    cfg.n_layers, device, dtype)}
+    p = {"ln1": norm_init(d, nt, device),
+         "attn": attn_mod.attention_init(gen, cfg, device, dtype),
+         "ln2": norm_init(d, nt, device)}
+    if kind == "moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg, device, dtype)
+    else:
+        p["ffn"] = ffn_mod.ffn_init(gen, d, cfg.d_ff, cfg.mlp_type,
+                                    cfg.n_layers, device, dtype)
+    return p
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in ("dense", "moe"):
+        raise NotImplementedError(f"layer kind {kind!r} is not ported")
 
 
 def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions: torch.Tensor, cache=None, mode: str = "train",
                 ctx: Optional[QuantCtx] = None, chunk=None):
-    """Pre-norm residual block. Returns (x, cache)."""
-    if kind != "dense":
-        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+    """Pre-norm residual block. Returns (x, cache, aux): aux holds an MoE
+    layer's {"lb_loss", "z_loss"} and is empty for a dense layer. An MoE
+    layer's capacity is exact in decode and chunked prefill (a chunk mixes
+    tokens of several sequences, so capacity dropping would couple one
+    prompt's routing to another's) and not exact otherwise."""
+    _check_kind(kind)
     nt, eps = cfg.norm_type, cfg.norm_eps
     h = norm(params["ln1"], x, nt, eps)
     o, cache = attn_mod.attention_block(
@@ -45,13 +58,21 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         ctx=ctx, chunk=chunk)
     x = x + o.to(x.dtype)
     h = norm(params["ln2"], x, nt, eps)
-    x = x + ffn_mod.ffn_apply(params["ffn"], h, cfg.mlp_type, ctx).to(x.dtype)
-    return x, cache
+    aux = {}
+    if kind == "moe":
+        o, aux = moe_mod.moe_apply(
+            params["moe"], h, cfg, ctx,
+            exact_capacity=mode in ("decode", "chunk_prefill"))
+    else:
+        o = ffn_mod.ffn_apply(params["ffn"], h, cfg.mlp_type, ctx)
+    return x + o.to(x.dtype), cache, aux
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
     if cfg.family == "dense":
         return ["dense"] * cfg.n_layers
+    if cfg.family == "moe":
+        return ["moe"] * cfg.n_layers
     raise NotImplementedError(f"family {cfg.family!r} is not ported")
 
 
@@ -117,8 +138,7 @@ def stack_cache_init(cfg: ModelConfig, kinds: list[str], batch: int,
     flat list `stack_apply` indexes)."""
     out = []
     for kind in kinds:
-        if kind != "dense":
-            raise NotImplementedError(f"layer kind {kind!r} is not ported")
+        _check_kind(kind)              # an MoE layer's cache is a dense one
         out.append(attn_mod.cache_init(cfg, batch, max_len, device,
                                        cache_cfg))
     return out
@@ -131,8 +151,12 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
                 scales_groups: Optional[list] = None, chunk=None):
     """Apply every layer in order. `caches` is the flat per-layer list of
     cache stores (written in place); `scales_groups[g][site]` holds the
-    group's per-layer calibrated spans. Returns x."""
+    group's per-layer calibrated spans. Returns (x, aux): the layers'
+    "lb_loss" and "z_loss" summed in layer order (f32 zeros for a dense
+    stack)."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    zl = torch.zeros((), dtype=torch.float32, device=x.device)
     li_global = 0
     for gi, ((kind, count), stacked) in enumerate(zip(groups_meta, blocks)):
         scales_g = scales_groups[gi] if scales_groups is not None else None
@@ -144,13 +168,16 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
             cache = caches[li_global] if caches is not None else None
 
             def body(p_l, x, kind=kind, cache=cache, bctx=bctx):
-                return block_apply(p_l, x, cfg, kind, positions=positions,
-                                   cache=cache, mode=mode, ctx=bctx,
-                                   chunk=chunk)[0]
+                x, _, aux = block_apply(p_l, x, cfg, kind,
+                                        positions=positions, cache=cache,
+                                        mode=mode, ctx=bctx, chunk=chunk)
+                return x, aux.get("lb_loss"), aux.get("z_loss")
             if remat:
-                x = torch.utils.checkpoint.checkpoint(
+                x, lb_l, zl_l = torch.utils.checkpoint.checkpoint(
                     body, p_l, x, use_reentrant=False)
             else:
-                x = body(p_l, x)
+                x, lb_l, zl_l = body(p_l, x)
+            if lb_l is not None:
+                lb, zl = lb + lb_l, zl + zl_l
             li_global += 1
-    return x
+    return x, {"lb_loss": lb, "z_loss": zl}

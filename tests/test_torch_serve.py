@@ -159,10 +159,15 @@ def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys, tmp_path):
     assert parsed[("engine_decode_steps_total", "")] == stats["decode_steps"]
     events = json.loads(trace.read_text())["traceEvents"]
     assert {e["tid"] for e in events if e["ph"] == "B"} == {1, 2}
-    for extra in (["--tp", "2"], ["--serve", "async"],
-                  ["--metrics-port", "0"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tserve.main(base + extra)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tserve.main(base + ["--tp", "2"])
+    # --serve async and --metrics-port are ported; the port is served by
+    # the async front end only
+    with pytest.raises(SystemExit):
+        tserve.main(base + ["--metrics-port", "0"])
+    stats = tserve.main(base + ["--serve", "async"])
+    assert stats["clock_mode"] == "wall"
+    assert stats["decode_tokens"] == 2 * (3 - 1)
     with pytest.raises(SystemExit):         # oversubscribed, no preemption
         tserve.main(base + ["--oversubscribe", "0.5"])
     with pytest.raises(ValueError, match="packed"):   # pages are sparq
