@@ -5,7 +5,7 @@ the port still starts on the card).
     python3 chip_smoke.py --phases build,kernels
 
 Phases (each one that fails makes the script exit non-zero):
-  build       nvcc-build the six hand-written kernels from
+  build       nvcc-build the seven hand-written kernels from
               src/repro_torch/csrc, one nvcc per source, all at once;
               cuobjdump -sass of K1's library must show IMMA (integer
               tensor cores) with S8 x S8 and with U8 x S8 operands and no
@@ -24,7 +24,14 @@ Phases (each one that fails makes the script exit non-zero):
               mode and in every KV-write mode (paged decode, chunk,
               contiguous) at every K4_WRITES shape, against its plain
               version (every pool byte but the trash page's, every scale
-              and position); K6
+              and position), the contiguous mode also with planes of two
+              widths (MLA's c_kv and k_pe at r 512 / dr 64 and 32 / 16,
+              T = 1 and 256); K7 sparq_mla_decode at K7_SHAPES (deepseek-
+              v2-lite's H 16, r 512, dr 64 and the reduced widths, 8 x 296
+              slots) at pos 287 and 256, over planes K4 wrote with
+              uncalibrated and calibrated scales and on misaligned planes,
+              within 1e-4 of mla_f64_reference and PLAIN_TOL of its plain
+              version, timed beside SDPA over the dequantized planes; K6
               sparq_dequant bit-exact in codes and float modes (f32 and
               bf16 out), `CachedTensor.read` profiled as one K6 launch;
               K2 paged decode and K5 contiguous decode (the split-key
@@ -118,6 +125,19 @@ Phases (each one that fails makes the script exit non-zero):
               32), each warm-up and timed run with equal tokens, no page
               leaked, exact counts (K1 = 4 a layer a step, chunk or
               prefill; K2, K3, K4 as in dense_family; K5 on scan)
+  mla         deepseek-v2-lite-16b at its published widths and all 27
+              layers (MLA r 512 / dr 64, 64 experts of d_ff 1408 top-6 and
+              2 shared, layer 0 dense), weights drawn in bf16, attention
+              and layer 0's FFN quantized to int8 codes, calibrated on one
+              batch: `DecodeEngine.generate` on 8 x 256 prompts, gen 32,
+              over the 5opt sparq latent cache, warm-up and timed passes
+              with equal tokens; exact launches (`mla_counts`: K1 3 a
+              layer a decode step + 3 and 5 a layer in prefill + 3; K4 one
+              a layer a step and two in prefill; K7 one a layer a step;
+              K2 = K3 = K5 = K6 = 0); the first prefill slab and decode
+              append replayed alone: K4 only; decode tok/s, prefill s,
+              peak GB and the modeled cache a token (576 values a layer
+              against GQA-16's 4096) logged
   cli         `python -m repro_torch.launch.serve` (CLI_ARGS: the reduced
               tinyllama, paged chunked engine, sparq KV, 5opt) through its
               `main`: every request returns its tokens; K3 at every chunk's
@@ -127,7 +147,10 @@ Phases (each one that fails makes the script exit non-zero):
               --trace-out under build/ (the dump parses back to the stats,
               the trace balances); dbrx-132b reduced (CLI_DBRX); the
               reduced tinyllama with --serve async --arrival-trace poisson
-              --metrics-port 0 (CLI_ASYNC)
+              --metrics-port 0 (CLI_ASYNC); the reduced deepseek-v2-lite
+              through the scan engine (CLI_DEEPSEEK: exact K1 / K4 / K7),
+              and with --engine paged, which must exit with the
+              "standard-KV" refusal
   wide        the same CLI at full width with --chunk-align 16
               --page-size 128 (WIDE_ARGS: 22 layers, K3 at 128 query rows
               a tile in two row blocks, two key tiles a page): the same
@@ -175,7 +198,10 @@ Phases (each one that fails makes the script exit non-zero):
               alone with attn_bk = page_size; a 2-layer full-width f32
               granite-20b's paged chunked engine, card against CPU; a
               1-layer full-width f32 dbrx-132b's (about 15 GB a side),
-              card against CPU, its smallest routing margin logged
+              card against CPU, its smallest routing margin logged; a
+              2-layer full-width f32 deepseek-v2-lite-16b's scan engine
+              (one mla_dense and one mla_moe layer), card against CPU,
+              its smallest routing margin logged
   train_profile (not run by default) a full-width compressed train step
               split into forward + backward, compression and AdamW (host
               clock between synchronizations), then one plain and one
@@ -189,11 +215,11 @@ Phases (each one that fails makes the script exit non-zero):
               launch, every chunk write two, nothing else)
 
 Each of serve, frontend, preempt, prefix, scan, sequential, dense_family,
-moe, cli, wide, cnn, train (its part c) and cnn_train resets the launch
+moe, mla, cli, wide, cnn, train (its part c) and cnn_train resets the launch
 counters just before it drives its path (each of its runs) and reads
 them just after (frontend also at each replay's warm-up boundary); the
 plain versions of the KV codec must not run there at all. With all
-thirteen, every
+fourteen, every
 kernel must have launched on some
 path. The plain versions of the KV path
 (codec, `sparq_pack`, the three writes, the dequantizers) must not run on
@@ -1162,6 +1188,20 @@ K4_WRITES = {
     "scan prefill, unaligned": ("contiguous", dict(B=8, T=256, Tmax=296,
                                                    KV=4, hd=64),
                                 torch.float32, False),
+    # MLA's latent cache: c_kv rows of r beside k_pe rows of dr, each plane
+    # its own scale (the mla phase's deepseek-v2-lite widths, the reduced)
+    "mla prefill": ("contiguous", dict(B=8, T=256, Tmax=296, r=512, dr=64),
+                    torch.bfloat16, False),
+    "mla decode": ("contiguous", dict(B=8, T=1, Tmax=296, r=512, dr=64),
+                   torch.bfloat16, True),
+    "mla decode, uncalibrated": ("contiguous", dict(B=8, T=1, Tmax=296,
+                                                    r=512, dr=64),
+                                 torch.bfloat16, False),
+    "mla reduced prefill": ("contiguous", dict(B=8, T=256, Tmax=296, r=32,
+                                               dr=16), torch.bfloat16,
+                            False),
+    "mla reduced decode": ("contiguous", dict(B=8, T=1, Tmax=296, r=32,
+                                              dr=16), torch.bfloat16, True),
 }
 # the case whose numbers stand for K4 in the kernels line: the serve path's
 # decode write, K4's most frequent launch on the main path
@@ -1198,9 +1238,12 @@ def k4_write_case(gen, dev, mode, d, dtype, calibrated):
     last block unallocated."""
     i32 = dict(dtype=torch.int32, device=dev)
     if mode == "contiguous":
-        B, T, Tmax, KV, hd = (d[k] for k in ("B", "T", "Tmax", "KV", "hd"))
-        x = [_kv_slab(gen, dev, (B, T, KV, hd), dtype) for _ in range(2)]
-        planes = _bytes(gen, dev, (B, Tmax, KV, hd))
+        B, T, Tmax = (d[k] for k in ("B", "T", "Tmax"))
+        rows = [(d["KV"], d["hd"])] * 2 if "hd" in d else [(d["r"],),
+                                                          (d["dr"],)]
+        x = [_kv_slab(gen, dev, (B, T) + w, dtype) for w in rows]
+        planes = _bytes(gen, dev, (B, Tmax) + rows[0])[:2] + \
+            _bytes(gen, dev, (B, Tmax) + rows[1])[:2]
         sc = [torch.full((), 0.02 * (i + 1) if calibrated else 0.0,
                          device=dev) for i in range(2)]
         pos = torch.tensor(0 if T > 1 else Tmax - 6, **i32)
@@ -1265,10 +1308,12 @@ def k4_write_bytes(mode, d, dtype, other):
     slot at decode, one a distinct (slot, block) of a chunk's tokens), and
     the scale pass's maxima (an int a token of a chunk, a plane's 8 rows of
     a contiguous slab), written once and read back once."""
-    vals = 2 * math.prod(d[k] for k in (("B", "T", "KV", "hd")
-                                         if mode == "contiguous" else
-                                         ("S", "KV", "hd") if mode == "paged"
-                                         else ("C", "KV", "hd")))
+    if mode == "contiguous" and "r" in d:        # MLA: c_kv and k_pe rows
+        vals = d["B"] * d["T"] * (d["r"] + d["dr"])
+    else:
+        vals = 2 * math.prod(d[k] for k in (
+            ("B", "T", "KV", "hd") if mode == "contiguous" else
+            ("S", "KV", "hd") if mode == "paged" else ("C", "KV", "hd")))
     moved = vals * (torch.finfo(dtype).bits // 8 + 2)
     if mode == "contiguous":
         rows = d["B"] * d["T"]
@@ -1307,7 +1352,9 @@ def _k4_writes(dev, rows):
             torch.cuda.synchronize()
             live = (slice(None),) if mode == "contiguous" \
                 else (slice(0, -1),)              # the trash page is free
-            for what, g, w in zip(("k_data", "k_meta", "v_data", "v_meta"),
+            for what, g, w in zip(("k_data", "k_meta", "v_data", "v_meta")
+                                  if "r" not in d else
+                                  ("c_data", "c_meta", "pe_data", "pe_meta"),
                                   st, st_plain):
                 if not torch.equal(g[live], w[live]):
                     raise AssertionError(
@@ -1737,6 +1784,129 @@ def check_f3(dev, results):
     results["f3"] = rows
 
 
+# K7's shapes (B, H, r, dr, Tk): the mla phase's scan decode (deepseek-v2-
+# lite at its published widths, 8 x (256 + 32 + 8) slots) and the reduced
+# deepseek's heads and widths over the same slots
+K7_SHAPES = {"full width": (8, 16, 512, 64, 296),
+             "reduced": (8, 4, 32, 16, 296)}
+# pos after the append: the scan decode's last step (287: inside a split
+# of 32 keys and a plain tile of 128) and a tile boundary (256)
+K7_POS = (287, 256)
+
+
+def k7_case(gen, dev, B, H, r, dr, Tk, pos, calibrated, misalign=False):
+    """K7's inputs: latent planes [B, Tk, r] and [B, Tk, dr] whose first
+    `pos` slots K4's two-width write fills from random latents (RoPE keys
+    at 4 x the latents' range), under scales it resolves from the slab
+    (uncalibrated) or keeps (calibrated), the rest random bytes that the
+    mask must drop; random f32 q_lat [B, H, r] and q_pe [B, H, dr]. With
+    `misalign` each plane starts a byte past a 16-byte boundary (the
+    kernel's byte-wise loads)."""
+    from repro_torch.core.sparq import SparqConfig
+    from repro_torch.kernels import sparq_quant as qk
+    from repro_torch.kernels.ops import _codec_kw
+    planes = _bytes(gen, dev, (B, Tk, r))[:2] + _bytes(gen, dev,
+                                                        (B, Tk, dr))[:2]
+    sc = [torch.full((), v if calibrated else 0.0, device=dev)
+          for v in (0.021, 0.083)]
+    c = _kv_slab(gen, dev, (B, pos, r), torch.bfloat16)
+    pe = (_kv_slab(gen, dev, (B, pos, dr), torch.float32) * 4).to(
+        torch.bfloat16)
+    cs, ps, _ = qk.kv_write_contiguous_cuda(
+        c, pe, *planes, *sc, torch.zeros((), dtype=torch.int32, device=dev),
+        **_codec_kw(SparqConfig.opt5(signed=True)))
+    if misalign:
+        planes = [_offset_copy(t, 1) for t in planes]
+    q_lat = torch.randn((B, H, r), generator=gen, device=dev)
+    q_pe = torch.randn((B, H, dr), generator=gen, device=dev)
+    return (q_lat, q_pe, planes[0], planes[1], cs.reshape(1), planes[2],
+            planes[3], ps.reshape(1),
+            torch.tensor([pos], dtype=torch.int32, device=dev))
+
+
+def mla_f64_reference(q_lat, q_pe, cd, cm, cs, pd, pm, ps, pos, sm_scale):
+    """K7's function with the plain version's rounding points up to the
+    scores (the planes decoded and scaled in f32, q . [c, pe] rounded to
+    f32, times the f32 scale) and everything after in f64: one softmax a
+    head over the keys t < pos, whose values are the latent rows."""
+    from repro_torch.kernels.ref import _meta_decode32
+    n = int(pos)
+    c = _meta_decode32(cd[:, :n], cm[:, :n], cs.reshape(())).double()
+    pe = _meta_decode32(pd[:, :n], pm[:, :n], ps.reshape(())).double()
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.double(), c)
+         + torch.einsum("bhe,bse->bhs", q_pe.double(), pe)).float()
+    s = (s * torch.tensor(sm_scale, dtype=torch.float32,
+                          device=s.device)).double()
+    return torch.einsum("bhs,bsr->bhr", torch.softmax(s, -1), c)
+
+
+def check_k7(dev, results):
+    """K7 (the absorbed-MLA latent decode) at K7_SHAPES, at K7_POS, over
+    planes written by K4 with uncalibrated and calibrated scales, and on
+    misaligned planes: within 1e-4 of mla_f64_reference and of its plain
+    version (PLAIN_TOL beyond the full-width calibrated case). Timed at
+    the scan decode's last step beside its plain version, SDPA over the
+    dequantized planes (key [c, pe], value c, scale sm_scale; the decode
+    excluded) and the byte bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import sparq_mla_decode as k7
+    from repro_torch.kernels.ref import _meta_decode32
+    gen = torch.Generator(device=dev).manual_seed(7)
+    errs = {}
+    for name, (B, H, r, dr, Tk) in K7_SHAPES.items():
+        sm = (128 + dr) ** -0.5 if name == "full width" else (32 + dr) ** -0.5
+        for pos in K7_POS:
+            for calibrated in (False, True):
+                for misalign in ((False, True) if pos == K7_POS[0]
+                                 else (False,)):
+                    a = k7_case(gen, dev, B, H, r, dr, Tk, pos, calibrated,
+                                misalign)
+                    what = (f"{name} pos {pos} "
+                            f"{'calibrated' if calibrated else 'uncal.'}"
+                            f"{' unaligned' if misalign else ''}")
+                    got = k7.sparq_mla_decode_cuda(*a, sm_scale=sm)
+                    want = k7.ref_sparq_mla_decode(*a, sm_scale=sm)
+                    exact = mla_f64_reference(*a, sm)
+                    timed = name == "full width" and calibrated \
+                        and pos == K7_POS[0] and not misalign
+                    errs[what] = hold(f"K7 {what}", got, want, exact,
+                                      1e-4 if timed else PLAIN_TOL)
+    _log_decode("K7", errs)
+    B, H, r, dr, Tk = K7_SHAPES["full width"]
+    pos = K7_POS[0]
+    sm = (128 + dr) ** -0.5
+    err = errs[f"full width pos {pos} calibrated"]["plain"]
+    n_bytes_set = B * Tk * (r + dr) * 2
+    sets = [k7_case(gen, dev, B, H, r, dr, Tk, pos, True)
+            for _ in range(n_sets(n_bytes_set))]
+    ms = bench(lambda *a: k7.sparq_mla_decode_cuda(*a, sm_scale=sm), sets)
+    plain_ms = bench(lambda *a: k7.ref_sparq_mla_decode(*a, sm_scale=sm),
+                     sets, iters=5, warmup=1)
+    q_lat, q_pe, cd, cm, cs, pd, pm, ps, _ = sets[0]
+    c = _meta_decode32(cd[:, :pos], cm[:, :pos], cs.reshape(()))
+    pe = _meta_decode32(pd[:, :pos], pm[:, :pos], ps.reshape(()))
+    key = torch.cat([c, pe], -1)[:, None].expand(B, H, pos,
+                                                 r + dr).contiguous()
+    val = c[:, None].expand(B, H, pos, r).contiguous()
+    q = torch.cat([q_lat, q_pe], -1)[:, :, None]
+    lib_ms = bench(lambda: F.scaled_dot_product_attention(q, key, val,
+                                                          scale=sm), [()])
+    nbytes = (B * pos * (r + dr) * 2 + B * H * (r + dr) * 4 + B * H * r * 4
+              + 3 * 4)
+    flops = 2 * B * H * pos * (2 * r + dr)
+    bound = max(nbytes / H100_BYTES_S, flops / H100_F32_FLOPS_S) * 1e3
+    kps = k7.split_keys(H, r, dr)
+    results["sparq_mla_decode"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=bound, bound_by="bytes" if nbytes / H100_BYTES_S
+        >= flops / H100_F32_FLOPS_S else "operations", errors=errs,
+        grid=[B, -(-Tk // kps)], smem_bytes=k7.smem_bytes(H, r, dr),
+        shape=f"B={B} H={H} r={r} dr={dr} Tk={Tk} pos={pos} 5opt planes")
+    log(f"K7 sparq_mla_decode: max abs err {err:.2e}, {ms:.4f} ms (plain "
+        f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound {bound:.5f} ms, "
+        f"grid {B}x{-(-Tk // kps)}, {k7.smem_bytes(H, r, dr)} B shared)")
+
+
 # ----------------------------------------------------------------------
 # phase: the main path end to end, full width
 # ----------------------------------------------------------------------
@@ -1859,13 +2029,16 @@ class WriteCapture:
 
     WRITES = (("paging", "PagedCacheStore", "update"),
               ("paging", "PagedCacheStore", "write_chunk"),
-              ("cache", "CacheStore", "update"))
+              ("cache", "CacheStore", "update"),
+              ("cache", "MLACache", "update"))
     # K4 launches of each write: one at decode, two for a chunk or a
     # contiguous prefill slab (scale pass, write pass)
     LAUNCHES = {"PagedCacheStore.update": 1,
                 "PagedCacheStore.write_chunk": 2,
                 "CacheStore.update (decode)": 1,
-                "CacheStore.update (prefill slab)": 2}
+                "CacheStore.update (prefill slab)": 2,
+                "MLACache.update (decode)": 1,
+                "MLACache.update (prefill slab)": 2}
 
     def __enter__(self):
         import importlib
@@ -1877,7 +2050,7 @@ class WriteCapture:
             self._orig.append((cls, meth, orig))
 
             def spy(st, *a, _orig=orig, _name=f"{cls_name}.{meth}", **k):
-                if _name == "CacheStore.update":
+                if _name in ("CacheStore.update", "MLACache.update"):
                     _name += " (decode)" if a[0].shape[1] == 1 else \
                         " (prefill slab)"
                 if _name not in self.calls:
@@ -2132,7 +2305,8 @@ def dense_family(dev, results):
             want = {"sparq_paged_decode_attn": L * steps,
                     "sparq_chunked_prefill_attn": L * chunks,
                     "sparq_quant": L * (2 * chunks + steps),
-                    "sparq_decode_attn": 0, "sparq_dequant": 0}
+                    "sparq_decode_attn": 0, "sparq_dequant": 0,
+                    "sparq_mla_decode": 0}
             got = {k: counts[k] for k in want}
             # K1 at every projection of every layer, each step and chunk
             want["sparq_matmul"] = n_proj * L * (steps + chunks)
@@ -2258,7 +2432,8 @@ def _frontend_counts(name, counts, stats, L):
             "sparq_paged_decode_attn": L * steps,
             "sparq_chunked_prefill_attn": L * chunks,
             "sparq_quant": L * (2 * chunks + steps),
-            "sparq_decode_attn": 0, "sparq_dequant": 0}
+            "sparq_decode_attn": 0, "sparq_dequant": 0,
+            "sparq_mla_decode": 0}
     if counts != want or chunks == 0:
         raise AssertionError(f"frontend {name}: launches {counts} ({steps} "
                              f"steps, {chunks} chunks), expected {want}")
@@ -2523,7 +2698,8 @@ def moe_full_width(dev, results):
             "sparq_paged_decode_attn": L * steps,
             "sparq_chunked_prefill_attn": L * chunks,
             "sparq_quant": L * (2 * prefills + steps),
-            "sparq_decode_attn": 0, "sparq_dequant": 0})
+            "sparq_decode_attn": 0, "sparq_dequant": 0,
+            "sparq_mla_decode": 0})
         if (chunks > 0) != (prefill == "chunked"):
             raise AssertionError(f"moe {prefill}: {chunks} chunks")
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
@@ -2550,7 +2726,8 @@ def moe_full_width(dev, results):
     _moe_counts("scan", counts, {
         "sparq_matmul": 4 * L * gen, "sparq_quant": L * (gen + 1),
         "sparq_decode_attn": L * (gen - 1), "sparq_paged_decode_attn": 0,
-        "sparq_chunked_prefill_attn": 0, "sparq_dequant": 0})
+        "sparq_chunked_prefill_attn": 0, "sparq_dequant": 0,
+        "sparq_mla_decode": 0})
     total = {k: total.get(k, 0) + v for k, v in counts.items()}
     rows["scan"] = dict(launches=counts, batch=B, prompt_len=T,
                         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -2564,6 +2741,101 @@ def moe_full_width(dev, results):
     del params, model, scales, eng
     torch.cuda.empty_cache()
     return total
+
+
+# ----------------------------------------------------------------------
+# phase: MLA, deepseek-v2-lite-16b at full width and depth
+# ----------------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-lite-16b"
+# values a token and a layer of a GQA-16 cache of hd 128 (K and V), beside
+# an MLA latent cache's r + dr (576 at deepseek-v2-lite's widths)
+GQA16_VALUES = 2 * 16 * 128
+
+
+def mla_counts(L, dense_layers, gen):
+    """Exact launches of one `DecodeEngine.generate` over an MLA stack of
+    L layers, the first `dense_layers` with a dense FFN, at gen tokens
+    (a prefill and gen - 1 decode steps). K1: the prefill's naive form runs
+    five projections a layer (mla_q, mla_dkv, mla_uk, mla_uv, mla_out), a
+    decode step's absorbed form three (W_uk and W_uv fold into plain
+    products), plus a dense layer's three FFN projections either way (the
+    experts, router and shared experts run in float); K4: the two-width
+    write, two launches a layer for the prefill slab and one a decode
+    step; K7: one a layer a decode step; nothing else."""
+    ffn = 3 * dense_layers
+    return {"sparq_matmul": 5 * L + ffn + (gen - 1) * (3 * L + ffn),
+            "sparq_quant": L * (gen + 1), "sparq_mla_decode": L * (gen - 1),
+            "sparq_paged_decode_attn": 0, "sparq_chunked_prefill_attn": 0,
+            "sparq_decode_attn": 0, "sparq_dequant": 0}
+
+
+def mla_full_width(dev, results):
+    """deepseek-v2-lite-16b at its published widths (d 2048, 16 heads, MLA
+    r 512 / dr 64 / dn 128 / dv 128, 64 experts of d_ff 1408 top-6 and 2
+    shared, layer 0's dense FFN of 10944, vocab 102400, tied head) and all
+    27 layers: weights drawn in bf16 one layer at a time, calibrated on one
+    batch of 8 x 128, attention and layer 0's FFN quantized to int8 codes.
+    `DecodeEngine.generate` on 8 x 256-token prompts, gen 32, over the
+    5opt sparq latent cache: a warm-up and a timed pass with equal tokens,
+    exact launches (`mla_counts`), and the first prefill slab and decode
+    append of the warm-up replayed alone under the profiler: K4 only.
+    Decode tok/s, prefill s, peak GB and the modeled cache per token
+    logged."""
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.launch import serve
+    from repro_torch.models.cache import MLACache
+    from repro_torch.models.common import QuantCtx
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params, scales, codec = _full_width(dev, MLA_ARCH, None,
+                                                    torch.bfloat16)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    setup_gb = torch.cuda.max_memory_allocated() / 1e9
+    L, B, T, gen = cfg.n_layers, 8, 256, 32
+    batch = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=T,
+                               global_batch=B, seed=1)).global_batch(0)
+    engine = serve.DecodeEngine(model, serve.make_cache_config("sparq", codec),
+                                QuantCtx(mode="quantized", cfg=codec), scales)
+    with WriteCapture() as cap:
+        warm, _ = engine.generate(params, batch, gen, warmup=False)
+    (toks, stats), counts = _drive(
+        lambda: engine.generate(params, batch, gen, warmup=False))
+    alone = cap.replay_alone(["MLACache.update (prefill slab)",
+                              "MLACache.update (decode)"])
+    if not np.array_equal(toks, warm) or toks.shape != (B, gen):
+        raise AssertionError("mla: tokens differ between runs")
+    assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+    want = mla_counts(L, cfg.first_dense_layers, gen)
+    if counts != want:
+        raise AssertionError(f"mla launches {counts}, expected {want}")
+    caches = engine.last_caches
+    if not all(isinstance(c, MLACache) for c in caches):
+        raise AssertionError("mla: a layer's cache is not an MLACache")
+    slots = B * (T + gen + 8)
+    per_token = stats["cache_total_bytes"] / slots
+    values = sum(p.n_values for c in caches for p in c.planes) / (slots * L)
+    if values != cfg.kv_lora_rank + cfg.qk_rope_dim:
+        raise AssertionError(f"mla: {values} cached values a token and a "
+                             f"layer, expected r + dr")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    results["mla"] = dict(
+        arch=cfg.name, n_layers=L, batch=B, prompt_len=T, gen=gen,
+        setup_s=t_setup, setup_peak_gb=setup_gb, peak_gb=peak,
+        launches=counts, k4_alone=alone, cache_bytes_per_token=per_token,
+        cache_values_per_token_layer=values,
+        gqa16_values_per_token_layer=GQA16_VALUES, **stats)
+    log(f"mla {cfg.name} x{L} layers bf16 5opt int8-weights sparq latent "
+        f"cache, B={B} prompt={T} gen={gen}: prefill "
+        f"{stats['prefill_s']:.3f} s | decode {stats['decode_tok_s']:.1f} "
+        f"tok/s | peak {peak:.1f} GB (setup {t_setup:.1f} s) | cache "
+        f"{per_token:.1f} B a token modeled ({values:.0f} values a layer "
+        f"against GQA-16's {GQA16_VALUES}) | launches {counts}")
+    del params, engine, caches, model, scales
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -2738,7 +3010,8 @@ def prefix_full_width(dev, results):
         want = {"sparq_paged_decode_attn": L * steps,
                 "sparq_chunked_prefill_attn": L * chunks,
                 "sparq_quant": L * (2 * chunks + steps),
-                "sparq_decode_attn": 0, "sparq_dequant": 0}
+                "sparq_decode_attn": 0, "sparq_dequant": 0,
+                "sparq_mla_decode": 0}
         for k, v in want.items():
             if c[k] != v:
                 raise AssertionError(f"prefix cache {on}: {k} launched "
@@ -2812,7 +3085,8 @@ def scan_full_width(dev, results):
     # K4: two launches a layer at the prefill slab, one per decode step
     want = {"sparq_matmul": 7 * L * gen, "sparq_quant": L * (gen + 1),
             "sparq_decode_attn": L * (gen - 1), "sparq_paged_decode_attn": 0,
-            "sparq_chunked_prefill_attn": 0, "sparq_dequant": 0}
+            "sparq_chunked_prefill_attn": 0, "sparq_dequant": 0,
+            "sparq_mla_decode": 0}
     if counts != want:
         raise AssertionError(f"scan launches {counts}, expected {want}")
     caches = engine.last_caches
@@ -2905,6 +3179,12 @@ CLI_FAMILY = {"cli granite": _family_cli_args("granite-20b", "granite"),
 # chunked engine, and the reduced tinyllama through the async front end
 # (a poisson replay at 16 req/s after a warm-up replay, /metrics served)
 CLI_DBRX = [a if a != "tinyllama-1.1b" else "dbrx-132b" for a in CLI_ARGS]
+# the MLA path's command at reduced size (deepseek-v2-lite reduced: 3
+# layers, r 32, dr 16, 4 heads) through the scan engine; the paged engine
+# refuses it
+CLI_DEEPSEEK = ["--arch", "deepseek-v2-lite-16b", "--reduced", "--engine",
+                "scan", "--kv-cache", "sparq", "--sparq", "5opt",
+                "--prequantize", "--device", "cuda"]
 CLI_ASYNC = CLI_ARGS + ["--serve", "async", "--arrival-trace", "poisson",
                         "--metrics-port", "0"]
 
@@ -2963,7 +3243,8 @@ def _cli(dev, results, name, argv, key=None):
     want = {"sparq_chunked_prefill_attn": 2 * L * chunks,
             "sparq_paged_decode_attn": 2 * L * steps,
             "sparq_quant": 2 * L * (2 * chunks + steps),
-            "sparq_decode_attn": 0, "sparq_dequant": 0}
+            "sparq_decode_attn": 0, "sparq_dequant": 0,
+            "sparq_mla_decode": 0}
     got = {k: counts[k] for k in want}
     if got != want or counts["sparq_matmul"] == 0 or chunks == 0:
         raise AssertionError(f"{name} launches {counts} (two runs of "
@@ -3021,11 +3302,47 @@ def _cli_async(dev, results):
     return counts
 
 
+def _cli_mla(dev, results):
+    """CLI_DEEPSEEK through `main` (the scan engine's warm-up pass, then
+    the timed one): the batch's tokens, exact launches (twice
+    `mla_counts`); then the same with --engine paged must exit with the
+    reference's "standard-KV" refusal."""
+    from repro_torch.launch import serve
+    cfg = _cli_config(CLI_DEEPSEEK)
+    stats, counts = _drive(lambda: serve.main(CLI_DEEPSEEK))
+    toks = stats["tokens"]
+    if toks.shape != (4, 32) or not ((toks >= 0)
+                                     & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"cli deepseek: tokens {toks.shape}")
+    want = {k: 2 * v for k, v in mla_counts(
+        cfg.n_layers, cfg.first_dense_layers, 32).items()}
+    if counts != want:
+        raise AssertionError(f"cli deepseek launches {counts}, expected "
+                             f"{want}")
+    try:
+        serve.main(CLI_DEEPSEEK + ["--engine", "paged"])
+    except ValueError as e:
+        if "standard-KV" not in str(e):
+            raise
+        refusal = str(e)
+    else:
+        raise AssertionError("cli deepseek: the paged engine served MLA")
+    results["cli_deepseek"] = dict(
+        argv=CLI_DEEPSEEK, launches=counts, paged_refusal=refusal,
+        tokens=toks.tolist(), **{k: v for k, v in stats.items()
+                                 if k != "tokens"})
+    log(f"cli_deepseek {' '.join(CLI_DEEPSEEK)}: 4 x 32 tokens | prefill "
+        f"{stats['prefill_s']:.3f} s | decode {stats['decode_tok_s']:.1f} "
+        f"tok/s | launches (warm-up + timed) {counts} | --engine paged: "
+        f"{refusal}")
+    return counts
+
+
 def cli_reduced(dev, results):
     """CLI_ARGS, then the same with CLI_PREEMPT_FLAGS (a pool of half the
     batch's pages, swap preemption, the prefix cache), then CLI_FAMILY
     (granite-20b and starcoder2-3b reduced, with --metrics-dump and
-    --trace-out), CLI_DBRX and CLI_ASYNC."""
+    --trace-out), CLI_DBRX, CLI_ASYNC and CLI_DEEPSEEK."""
     runs = [_cli(dev, results, "cli", CLI_ARGS),
             _cli(dev, results, "cli", CLI_ARGS + CLI_PREEMPT_FLAGS,
                  key="cli_preempt")]
@@ -3034,6 +3351,7 @@ def cli_reduced(dev, results):
                          key=f"cli_{_cli_config(argv).name}"))
     runs.append(_cli(dev, results, "cli", CLI_DBRX, key="cli_dbrx"))
     runs.append(_cli_async(dev, results))
+    runs.append(_cli_mla(dev, results))
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
@@ -3667,7 +3985,8 @@ KERNEL_GROUPS = (("sparq_matmul", "sparq_matmul_"),
                  ("sparq_chunked_prefill_attn", "chunked_prefill_kernel"),
                  ("sparq_quant", "sparq_quant_"),
                  ("sparq_decode_attn", "decode_attn_kernel"),
-                 ("sparq_dequant", "sparq_dequant_kernel"))
+                 ("sparq_dequant", "sparq_dequant_kernel"),
+                 ("sparq_mla_decode", "mla_decode_kernel"))
 
 
 # torch.cuda._sleep's kernel, queued at the start and at the end of every
@@ -4069,6 +4388,71 @@ def parity_dbrx(dev, results):
         f"{time.perf_counter() - t0:.1f} s")
     del gpu, params, scales
     torch.cuda.empty_cache()
+    parity_deepseek(dev, results)
+
+
+def parity_deepseek(dev, results):
+    """A 2-layer full-width f32 deepseek-v2-lite-16b (one mla_dense layer,
+    one mla_moe layer of 64 experts top-6 and 2 shared; about 3.5 GB a
+    side) with the same weights on the card (K1, K4's two-width write, K7)
+    and on the CPU (the plain versions): the scan engine over the 5opt
+    latent cache gives equal greedy tokens on both. Each side's smallest
+    routing margin (the gap between the 6th and 7th router probabilities
+    of any token it routed) is logged, as parity_dbrx does."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    from repro_torch.models.common import QuantCtx
+    from repro_torch.models.model import Model
+    from repro_torch.models.quantize import quantize_params
+    t0 = time.perf_counter()
+    cfg = get_config(MLA_ARCH).replace(n_layers=2, dtype=torch.float32)
+    codec = serve.SPARQ_PRESETS["5opt"]
+    cc = serve.make_cache_config("sparq", codec)
+    ctx = QuantCtx(mode="quantized", cfg=codec)
+    gpu = Model(cfg, device=dev)
+    params = gpu.init_params(seed=1, dtype=torch.float32)
+    scales = gpu.calibrate(params, Batcher(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+        seed=1)).calib_batches(1))
+    params = quantize_params(params, codec.weight_bits)
+    batch = {"tokens": np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 48))}
+    route, out, margin = moe.route, {}, {}
+    K = cfg.experts_per_token
+
+    def spy(x2, router, k):
+        got = route(x2, router, k)
+        top = torch.sort(got[1], -1, descending=True)[0]
+        gap = float((top[:, K - 1] - top[:, K]).min())
+        margin[side] = min(margin.get(side, math.inf), gap)
+        return got
+    moe.route = spy
+    try:
+        for side, model, p, sc in (
+                ("cuda", gpu, params, scales),
+                ("cpu", Model(cfg, device="cpu"), _to_cpu(params),
+                 _to_cpu(scales))):
+            out[side], _ = serve.DecodeEngine(model, cc, ctx, sc).generate(
+                p, batch, 8, warmup=False)
+            del p
+    finally:
+        moe.route = route
+    if not np.array_equal(out["cuda"], out["cpu"]):
+        raise AssertionError(
+            f"parity deepseek-v2-lite-16b: kernels {out['cuda'].tolist()} "
+            f"vs plain {out['cpu'].tolist()}; smallest routing margin "
+            f"{margin}")
+    results["parity_deepseek"] = dict(tokens=out["cuda"].tolist(),
+                                      routing_margin=margin)
+    log(f"parity 2-layer full-width f32 deepseek-v2-lite-16b: kernels == "
+        f"plain versions on a scan batch of {out['cpu'].shape[0]} x 8 "
+        f"tokens (smallest margin between the {K}th and {K + 1}th router "
+        f"probabilities {margin}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del gpu, params, scales
+    torch.cuda.empty_cache()
 
 
 # opcodes that must (True) or must not (False) appear in a kernel
@@ -4110,8 +4494,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,kernels,serve,frontend,preempt,prefix,"
-                            "scan,sequential,dense_family,moe,cli,wide,cnn,"
-                            "train,cnn_train,parity")
+                            "scan,sequential,dense_family,moe,mla,cli,wide,"
+                            "cnn,train,cnn_train,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -4140,7 +4524,7 @@ def main(argv=None):
     if "kernels" in phases:
         t0 = time.perf_counter()
         for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
-                      check_f3, check_k6):
+                      check_f3, check_k6, check_k7):
             check(dev, results)
         results["kernels_phase_s"] = time.perf_counter() - t0
         log(f"phase kernels: {results['kernels_phase_s']:.1f} s")
@@ -4150,7 +4534,7 @@ def main(argv=None):
              ("prefix", prefix_full_width), ("scan", scan_full_width),
              ("sequential", sequential_full_width),
              ("dense_family", dense_family), ("moe", moe_full_width),
-             ("cli", cli_reduced),
+             ("mla", mla_full_width), ("cli", cli_reduced),
              ("wide", cli_wide), ("cnn", cnn_full_width),
              ("train", train_full_width), ("cnn_train", cnn_train_full))
     for name, run in paths:

@@ -3,8 +3,9 @@
 The package imports torch and numpy only. Plain tensor code runs on any
 device; the six kernels of the JAX package (quantized matmul, paged and
 contiguous flash-decode, chunked-prefill attention, the KV-write quantizer
-and the KV read-back meta-decode) are hand-written CUDA C++ for Hopper
-under `csrc/`, built with nvcc at first use. Dispatch goes by the device of the
+and the KV read-back meta-decode), and MLA's latent decode beside them, are
+hand-written CUDA C++ for Hopper under `csrc/`, built with nvcc at first
+use. Dispatch goes by the device of the
 tensors: CPU tensors take the plain PyTorch versions, CUDA tensors take
 the kernels, anything else raises.
 """

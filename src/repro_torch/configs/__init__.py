@@ -13,6 +13,7 @@ _REGISTRY: Dict[str, str] = {
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "paper-resnet": "repro_torch.configs.paper_resnet",  # paper's own family
 }
 

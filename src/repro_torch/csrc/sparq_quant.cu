@@ -31,7 +31,10 @@
 //   CONTIG_ONE    CacheStore.update for both planes in one launch (the
 //                 decode append, T = 1): one scale a plane (the slab's range
 //                 while the stored scale is 0), rows min(pos, Tmax - T) + t,
-//                 pos + T. One block a plane holds the whole slab.
+//                 pos + T. One block a plane holds the whole slab. The two
+//                 planes may have rows of different widths (n and n_v: an
+//                 MLA layer's latent c_kv beside its RoPE key k_pe,
+//                 models/cache.py::MLACache.update).
 //   CONTIG_SCALE  the same for a large slab (the prefill append) in two
 //   CONTIG_WRITE  launches: per-block |x| maxima, then the write, each block
 //                 folding the maxima itself.
@@ -95,6 +98,8 @@ struct KvArgs {
   signed char* meta[2];
   int rows;                  // rows of x a plane: M, S, C or B*T
   int n;                     // values a row: K, or KV * hd
+  int n_v;                   // values a row of the second plane (contiguous
+                             // modes may differ from n; else n)
   int per_row;               // ROWS: one scale per row
   int n_slots;               // S
   int T, Tmax;               // contiguous: tokens a batch row, capacity
@@ -199,6 +204,11 @@ __device__ __forceinline__ float block_max(float m, float* red) {
   return warp_max(m);
 }
 
+// values a row of plane p
+__device__ __forceinline__ int width(const KvArgs& g, int p) {
+  return p ? g.n_v : g.n;
+}
+
 // frozen once calibrated (> 0), else max(amax, 1e-8) / max_val in IEEE f32
 __device__ __forceinline__ float resolve(float stored, float amax,
                                          int max_val) {
@@ -208,11 +218,13 @@ __device__ __forceinline__ float resolve(float stored, float amax,
 }
 
 // element offset of row r's first lane in a contiguous plane
-// [B, Tmax, KV, hd]: batch row r / T, time min(pos, Tmax - T) + r % T
-__device__ __forceinline__ long long contig_row(const KvArgs& g, int r) {
+// [B, Tmax, n] (n values a row): batch row r / T, time
+// min(pos, Tmax - T) + r % T
+__device__ __forceinline__ long long contig_row(const KvArgs& g, int r,
+                                                int n) {
   const int b = r / g.T, t = r - b * g.T;
   const int start = min(g.pos[0], g.Tmax - g.T);
-  return (static_cast<long long>(b) * g.Tmax + start + t) * g.n;
+  return (static_cast<long long>(b) * g.Tmax + start + t) * n;
 }
 
 // element offset of a pool row: page block_table[s, min(pos / ps, NB - 1)],
@@ -238,7 +250,7 @@ sparq_quant_group_kernel(KvArgs g) {
   __shared__ float red[32];
   const int p = blockIdx.y, row = blockIdx.x;
   const bool paged = g.mode == PAGED;
-  const int nv = g.n / VEC;
+  const int n = width(g, p), nv = n / VEC;
   const float stored = g.scale_in[p][paged ? row : 0];
   float a = stored;
   if (!(stored > 0.f)) {
@@ -256,11 +268,11 @@ sparq_quant_group_kernel(KvArgs g) {
   }
   const int pos = g.pos[paged ? row : 0];
   const long long dst = paged ? page_row(g, row, pos, pos >= 0)
-                              : contig_row(g, row);
+                              : contig_row(g, row, n);
   for (int i = threadIdx.x; i < nv; i += blockDim.x) {
     float v[VEC];
     load_lanes<VEC, BF16>(
-        g.x[p], static_cast<long long>(row) * g.n + i * VEC, v);
+        g.x[p], static_cast<long long>(row) * n + i * VEC, v);
     encode_store<VEC, true>(v, a, g.codec, g.data[p], g.meta[p],
                             dst + i * VEC);
   }
@@ -284,7 +296,7 @@ sparq_quant_amax_kernel(KvArgs g) {
   __shared__ float red[WARPS];
   const int p = blockIdx.y, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + w;
-  const int nv = g.n / VEC;
+  const int n = width(g, p), nv = n / VEC;
   bool take = row < g.rows;
   if (g.mode == CHUNK_SCALE && take)
     take = g.seq_id[row] >= 0 && g.hist[row] == 0;
@@ -293,7 +305,7 @@ sparq_quant_amax_kernel(KvArgs g) {
     for (int i = lane; i < nv; i += 32) {
       float v[VEC];
       load_lanes<VEC, BF16>(g.x[p],
-                            static_cast<long long>(row) * g.n + i * VEC, v);
+                            static_cast<long long>(row) * n + i * VEC, v);
 #pragma unroll
       for (int j = 0; j < VEC; ++j) m = fmaxf(m, fabsf(v[j]));
     }
@@ -353,7 +365,7 @@ sparq_quant_write_kernel(KvArgs g) {
       a = resolve(stored, block_max(m, red), g.codec.max_val);
     }
   }
-  const int nv = g.n / VEC;
+  const int n = width(g, p), nv = n / VEC;
   const int nvec = g.rows * nv;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < nvec;
        i += gridDim.x * blockDim.x) {
@@ -363,18 +375,17 @@ sparq_quant_write_kernel(KvArgs g) {
     long long dst;
     if (g.mode == ROWS) {
       sc = g.scale_in[0][g.per_row ? r : 0];
-      dst = static_cast<long long>(r) * g.n;
+      dst = static_cast<long long>(r) * n;
     } else if (g.mode == CHUNK_WRITE) {
       const int sid = g.seq_id[r], s = max(sid, 0);
       sc = slot_scale[s];
       dst = page_row(g, s, g.pos[r], sid >= 0);
     } else {
       sc = a;
-      dst = contig_row(g, r);
+      dst = contig_row(g, r, n);
     }
     float v[VEC];
-    load_lanes<VEC, BF16>(g.x[p], static_cast<long long>(r) * g.n + lane0,
-                          v);
+    load_lanes<VEC, BF16>(g.x[p], static_cast<long long>(r) * n + lane0, v);
     encode_store<VEC, STORED>(v, sc, g.codec, g.data[p], g.meta[p],
                               dst + lane0);
   }
@@ -397,13 +408,14 @@ sparq_quant_write_kernel(KvArgs g) {
 template <bool BF16>
 cudaError_t launch_mode(const KvArgs& g, bool vec8, cudaStream_t st) {
   const int planes = g.mode == ROWS ? 1 : 2;
-  const int pair_blocks = (g.rows * (g.n / 2) + THREADS - 1) / THREADS;
-  const int slab_blocks = (g.rows * (g.n / 8) + THREADS - 1) / THREADS;
+  const int n = max(g.n, g.n_v);  // the wider plane sizes the grid
+  const int pair_blocks = (g.rows * (n / 2) + THREADS - 1) / THREADS;
+  const int slab_blocks = (g.rows * (n / 8) + THREADS - 1) / THREADS;
   const dim3 amax_grid((g.rows + WARPS - 1) / WARPS, planes);
   switch (g.mode) {
     case PAGED:
     case CONTIG_ONE: {
-      const int threads = min(THREADS, max(32, (g.n / 2 + 31) / 32 * 32));
+      const int threads = min(THREADS, max(32, (n / 2 + 31) / 32 * 32));
       sparq_quant_group_kernel<2, BF16>
           <<<dim3(g.rows, planes), threads, 0, st>>>(g);
       break;
@@ -446,6 +458,8 @@ bool aligned(const void* p, int bytes) {
 
 // One launch of mode `mode` (see the header). Pointers a mode does not use
 // may be null. x_bf16: K/V are bf16 (else f32; ROWS takes f32 only).
+// n_v: values a row of the second plane (v); equal to n but in the
+// contiguous modes.
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // mode or a size the kernels do not take).
 extern "C" int sparq_quant_launch(
@@ -454,12 +468,14 @@ extern "C" int sparq_quant_launch(
     const void* block_table, const void* pos, void* pos_out,
     const void* seq_id, const void* hist, const void* pos_after,
     void* k_data, void* k_meta, void* v_data, void* v_meta, int rows, int n,
-    int n_slots, int T, int Tmax, int ps, int NB, int trash, int bits,
+    int n_v, int n_slots, int T, int Tmax, int ps, int NB, int trash, int bits,
     int shift_mask, int shift_max, int rounding, int vsparq, int is_signed,
     int max_val, int enabled, void* stream) {
-  if (mode < ROWS || mode > CONTIG_WRITE || n % 2 || n_slots > MAX_SLOTS ||
+  const bool contig = mode >= CONTIG_ONE;
+  if (mode < ROWS || mode > CONTIG_WRITE || n % 2 || n_v % 2 ||
+      (!contig && n_v != n) || n_slots > MAX_SLOTS ||
       (mode == ROWS && x_bf16) ||
-      static_cast<long long>(rows) * n > 0x7fffffffLL)
+      static_cast<long long>(rows) * max(n, n_v) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0 || n == 0) return 0;
   KvArgs g;
@@ -482,6 +498,7 @@ extern "C" int sparq_quant_launch(
   g.meta[1] = static_cast<signed char*>(v_meta);
   g.rows = rows;
   g.n = n;
+  g.n_v = n_v;
   g.per_row = per_row;
   g.n_slots = n_slots;
   g.T = T;
@@ -494,7 +511,7 @@ extern "C" int sparq_quant_launch(
   // 8 lanes a thread on the contiguous prefill slab when every row start and
   // pointer stays 16-byte aligned; a lane pair needs its own alignment only
   const int planes = mode == ROWS ? 1 : 2, esize = x_bf16 ? 2 : 4;
-  bool al16 = n % 8 == 0;
+  bool al16 = n % 8 == 0 && n_v % 8 == 0;
   for (int q = 0; q < planes; ++q) {
     if (!aligned(g.x[q], 2 * esize) || !aligned(g.data[q], 2) ||
         !aligned(g.meta[q], 2))

@@ -6,10 +6,11 @@ The functions take numpy arrays — the caller converts a JAX tree with
 trees keep their layout: `params["blocks"][g]` holds layer-stacked
 [L, ...] leaves (an MoE layer's "moe" subtree: the f32 router, the
 [L, E, ...] expert banks `w_up` / `w_gate` / `w_down`, and `sh_*` with
-shared experts), and prequantized weights are {"q": int8, "s": f32}
-dicts, as `quantize_params` makes them in either package; the CNN's tree
-(nested lists under "stages", a bare array under "head", BN statistics
-in its dicts) carries across as it is.
+shared experts; an MLA layer's "attn" subtree: `wq`, `w_dkv`, `w_uk`,
+`w_uv`, `wo` and the f32 `c_norm`), and prequantized weights are
+{"q": int8, "s": f32} dicts, as `quantize_params` makes them in either
+package; the CNN's tree (nested lists under "stages", a bare array under
+"head", BN statistics in its dicts) carries across as it is.
 """
 from __future__ import annotations
 
@@ -47,12 +48,13 @@ def scales_from_jax(np_scales_groups, device="cpu") -> list:
 
 def cache_from_jax(np_caches, cache_cfg, device="cpu") -> list:
     """JAX contiguous caches (as numpy: `Model.init_cache`'s list of
-    layer-stacked `CacheStore`s, leaves [L, ...]) -> the port's flat
-    per-layer list of `CacheStore`s with the same bytes, scales and
+    layer-stacked `CacheStore`s or MLA `MLACache`s, leaves [L, ...]) ->
+    the port's flat per-layer list of `CacheStore`s (k, v, pos) or
+    `MLACache`s (c_kv, k_pe, pos) with the same bytes, scales and
     positions. `cache_cfg` is the port's `CacheConfig` of the same layout
     (it supplies the codec and attention tile; the JAX tree is read by
     attribute only)."""
-    from repro_torch.models.cache import CachedTensor, CacheStore
+    from repro_torch.models.cache import CachedTensor, CacheStore, MLACache
 
     def plane(ct, li):
         meta = None if ct.meta is None else to_torch(ct.meta[li], device)
@@ -66,7 +68,11 @@ def cache_from_jax(np_caches, cache_cfg, device="cpu") -> list:
     out = []
     for group in np_caches:
         for li in range(np.asarray(group.pos).shape[0]):
-            out.append(CacheStore(
-                k=plane(group.k, li), v=plane(group.v, li),
-                pos=to_torch(np.asarray(group.pos[li], np.int32), device)))
+            pos = to_torch(np.asarray(group.pos[li], np.int32), device)
+            if hasattr(group, "c_kv"):
+                out.append(MLACache(c_kv=plane(group.c_kv, li),
+                                    k_pe=plane(group.k_pe, li), pos=pos))
+            else:
+                out.append(CacheStore(k=plane(group.k, li),
+                                      v=plane(group.v, li), pos=pos))
     return out

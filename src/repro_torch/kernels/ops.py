@@ -17,6 +17,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparq_decode_attn as _dec
 from repro_torch.kernels import sparq_dequant as _dq
 from repro_torch.kernels import sparq_matmul as _mm
+from repro_torch.kernels import sparq_mla_decode as _mla
 from repro_torch.kernels import sparq_prefill_attn as _pre
 from repro_torch.kernels import sparq_quant as _q
 
@@ -157,8 +158,10 @@ def kv_write_chunk(k_new, v_new, k_data, k_meta, v_data, v_meta, k_scale,
 def kv_write_contiguous(k_new, v_new, k_data, k_meta, v_data, v_meta,
                         k_scale, v_scale, pos, cfg: SparqConfig):
     """Both planes of a contiguous sparq append (`models.cache.CacheStore.
-    update`): float [B, T, KV, hd] K/V at time offset `pos`, written in
-    place. Returns the new (k_scale, v_scale, pos). On the card one K4
+    update`, `MLACache.update`): float [B, T, ...] slabs at time offset
+    `pos`, written in place; each plane's rows have their own width (K/V
+    [B, T, KV, hd], or MLA's c_kv [B, T, r] and k_pe [B, T, dr]) and its
+    own scale. Returns the new (k_scale, v_scale, pos). On the card one K4
     launch at T = 1, two (scale pass, write pass) otherwise."""
     args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, pos)
     if _route(k_new) == "plain":
@@ -187,6 +190,26 @@ def sparq_dequantize(store: torch.Tensor, meta: torch.Tensor, scale=None,
         out = _dq.sparq_dequant_cuda(s2.contiguous(), m2.contiguous(),
                                      scale, dtype)
     return out.reshape(*lead, K)
+
+
+def sparq_mla_decode(q_lat, q_pe, c_data, c_meta, c_scale, pe_data,
+                     pe_meta, pe_scale, pos, *, sm_scale: float, out_dtype,
+                     bk: int = 128) -> torch.Tensor:
+    """Absorbed-MLA flash-decode over the packed latent planes (K7 on the
+    card). q_lat (B, 1, H, r), q_pe (B, 1, H, dr); c planes (B, Tk, r),
+    pe planes (B, Tk, dr) int8; each plane's f32 scale and pos (the
+    position after this step's append; keys t < pos attend) as device
+    scalars. `bk` is the plain version's tile (the reference's 128).
+    Returns (B, 1, H, r) in `out_dtype`."""
+    args = (q_lat[:, 0].to(torch.float32).contiguous(),
+            q_pe[:, 0].to(torch.float32).contiguous(), c_data, c_meta,
+            c_scale.to(torch.float32), pe_data, pe_meta,
+            pe_scale.to(torch.float32), pos.to(torch.int32))
+    if _route(q_lat) == "plain":
+        out = _mla.ref_sparq_mla_decode(*args, sm_scale=sm_scale, bk=bk)
+    else:
+        out = _mla.sparq_mla_decode_cuda(*args, sm_scale=sm_scale)
+    return out[:, None].to(out_dtype)
 
 
 def sparq_decode_attention(q, k_data, k_meta, k_scale, v_data, v_meta,

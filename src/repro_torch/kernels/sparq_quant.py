@@ -17,7 +17,9 @@ One kernel, `csrc/sparq_quant.cu`, launched in one of four ways:
               and a write pass.
   contiguous  `kv_write_contiguous_cuda`: both planes of a contiguous
               cache append, one launch at T = 1, else a scale pass and a
-              write pass.
+              write pass. The planes' rows may differ in width: a GQA
+              layer's K and V [B, T, KV, hd], or an MLA layer's latent
+              c_kv [B, T, r] beside its RoPE key k_pe [B, T, dr].
 
 The write modes quantize, pack to the stored form (`ref.sparq_pack`),
 scatter into the pools or planes in place, and return the new scales and
@@ -29,6 +31,7 @@ arithmetic, so kernel and plain version agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -47,7 +50,7 @@ KERNEL = _b.CudaKernel(
     "sparq_quant", "sparq_quant.cu", "sparq_quant_launch",
     [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 12
-    + [ctypes.c_int] * 16 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 17 + [ctypes.c_void_p],
     replaces="src/repro/kernels/sparq_quant.py:79")
 
 X_DTYPES = (torch.float32, torch.bfloat16)
@@ -152,11 +155,13 @@ def ref_kv_write_chunk(k_new, v_new, k_data, k_meta, v_data, v_meta,
 
 def ref_kv_write_contiguous(k_new, v_new, k_data, k_meta, v_data, v_meta,
                             k_scale, v_scale, pos, **codec):
-    """Plain contiguous append: k_new/v_new float [B, T, KV, hd] at time
+    """Plain contiguous append: k_new/v_new float [B, T, ...] at time
     offset pos (int32 0-d), the start clamped so the slab fits (the
-    reference's dynamic_update_slice); one scale a plane, frozen once
-    calibrated, else the slab's range. Writes the planes in place; returns
-    the new (k_scale, v_scale, pos + T)."""
+    reference's dynamic_update_slice); the two planes' trailing shapes may
+    differ (K/V [B, T, KV, hd], or MLA's c_kv [B, T, r] and k_pe [B, T,
+    dr]). One scale a plane, frozen once calibrated, else the slab's range
+    (`CachedTensor.append` of the reference, one plane at a time). Writes
+    the planes in place; returns the new (k_scale, v_scale, pos + T)."""
     T_new = k_new.shape[1]
     start = torch.clamp(pos.to(torch.int64), max=k_data.shape[1] - T_new)
     idx = start + torch.arange(T_new, device=k_data.device)
@@ -183,7 +188,8 @@ def _codec_args(bits=4, opts_shifts=(0, 1, 2, 3, 4), rounding=True,
             int(rounding), int(vsparq), int(signed), max_val, int(enabled))
 
 
-def _launch(mode, codec, x, rows, n, *, v=None, k_scale=None, v_scale=None,
+def _launch(mode, codec, x, rows, n, *, n_v=None, v=None, k_scale=None,
+            v_scale=None,
             per_row=0, scale_out=None, maxima=None, block_table=None,
             pos=None, pos_out=None, seq_id=None, hist=None, pos_after=None,
             k_data=None, k_meta=None, v_data=None, v_meta=None, n_slots=0,
@@ -193,25 +199,31 @@ def _launch(mode, codec, x, rows, n, *, v=None, k_scale=None, v_scale=None,
         mode, p(x), p(v), int(x.dtype == torch.bfloat16), p(k_scale),
         p(v_scale), per_row, p(scale_out), p(maxima), p(block_table), p(pos),
         p(pos_out), p(seq_id), p(hist), p(pos_after), p(k_data), p(k_meta),
-        p(v_data), p(v_meta), rows, n, n_slots, T, Tmax, ps, NB, trash,
+        p(v_data), p(v_meta), rows, n, n if n_v is None else n_v, n_slots, T,
+        Tmax, ps, NB, trash,
         *_codec_args(**codec), _b.stream_ptr(x))
 
 
-def _check_kv(k_new, v_new, shape, dev):
+def _check_kv(k_new, v_new, shape, dev, v_shape=None):
+    """K and V of `shape` (V of `v_shape` when its rows differ), in one
+    float dtype the kernel reads, lane pairs aligned."""
+    v_shape = shape if v_shape is None else v_shape
     if k_new.dtype not in X_DTYPES:
         raise ValueError(f"K/V dtype {k_new.dtype}: the kernel reads "
                          f"float32 or bfloat16")
-    if shape[-1] % 2:
-        raise ValueError(f"vSPARQ pairs adjacent lanes; hd={shape[-1]} is "
-                         f"odd")
+    for s in (shape, v_shape):
+        if s[-1] % 2:
+            raise ValueError(f"vSPARQ pairs adjacent lanes; the last dim "
+                             f"{s[-1]} is odd")
     _b.check(k_new, "k_new", k_new.dtype, shape, dev)
-    _b.check(v_new, "v_new", k_new.dtype, shape, dev)
+    _b.check(v_new, "v_new", k_new.dtype, v_shape, dev)
     _check_pair_aligned(k_new, "k_new")
     _check_pair_aligned(v_new, "v_new")
 
 
-def _check_pools(planes, shape, dev):
-    for name, t in zip(("k_data", "k_meta", "v_data", "v_meta"), planes):
+def _check_pools(planes, shape, dev, which="kv"):
+    names = [f"{p}_{part}" for p in which for part in ("data", "meta")]
+    for name, t in zip(names, planes):
         _b.check(t, name, torch.int8, shape, dev)
         _check_pair_aligned(t, name)
 
@@ -310,28 +322,33 @@ def kv_write_contiguous_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
                              k_scale, v_scale, pos, **codec):
     """Both planes of a contiguous append (contract of
     `ref_kv_write_contiguous`): one launch at T = 1, else a scale pass and
-    a write pass. k_new/v_new f32 or bf16 [B, T, KV, hd]; planes int8 [B,
-    Tmax, KV, hd]; scales f32 and pos int32, 0-d."""
+    a write pass. k_new/v_new f32 or bf16 [B, T, ...] (each plane's rows
+    of its own width: K/V [B, T, KV, hd], or MLA's c_kv [B, T, r] and
+    k_pe [B, T, dr]); planes int8 [B, Tmax, ...] of the same trailing
+    shapes; scales f32 and pos int32, 0-d."""
     dev = k_new.device
-    B, T, KV, hd = k_new.shape
-    _check_kv(k_new, v_new, (B, T, KV, hd), dev)
+    B, T = k_new.shape[:2]
+    k_rest, v_rest = tuple(k_new.shape[2:]), tuple(v_new.shape[2:])
+    _check_kv(k_new, v_new, (B, T) + k_rest, dev, (B, T) + v_rest)
     Tmax = k_data.shape[1]
     if T > Tmax:
         raise ValueError(f"a slab of {T} tokens exceeds the cache's {Tmax}")
-    _check_pools((k_data, k_meta, v_data, v_meta), (B, Tmax, KV, hd), dev)
+    _check_pools((k_data, k_meta), (B, Tmax) + k_rest, dev, "k")
+    _check_pools((v_data, v_meta), (B, Tmax) + v_rest, dev, "v")
     _b.check(k_scale, "k_scale", torch.float32, (), dev)
     _b.check(v_scale, "v_scale", torch.float32, (), dev)
     _b.check(pos, "pos", torch.int32, (), dev)
     scale_out = torch.empty((2,), dtype=torch.float32, device=dev)
     pos_out = torch.empty((), dtype=torch.int32, device=dev)
-    args = dict(v=v_new, k_scale=k_scale, v_scale=v_scale,
+    n_k, n_v = math.prod(k_rest), math.prod(v_rest)
+    args = dict(n_v=n_v, v=v_new, k_scale=k_scale, v_scale=v_scale,
                 scale_out=scale_out, pos=pos, pos_out=pos_out, k_data=k_data,
                 k_meta=k_meta, v_data=v_data, v_meta=v_meta, T=T, Tmax=Tmax)
     if T == 1:
-        _launch(CONTIG_ONE, codec, k_new, B, KV * hd, **args)
+        _launch(CONTIG_ONE, codec, k_new, B, n_k, **args)
     else:
         args["maxima"] = torch.empty((2, B * T), dtype=torch.int32,
                                      device=dev)
-        _launch(CONTIG_SCALE, codec, k_new, B * T, KV * hd, **args)
-        _launch(CONTIG_WRITE, codec, k_new, B * T, KV * hd, **args)
+        _launch(CONTIG_SCALE, codec, k_new, B * T, n_k, **args)
+        _launch(CONTIG_WRITE, codec, k_new, B * T, n_k, **args)
     return scale_out[0], scale_out[1], pos_out

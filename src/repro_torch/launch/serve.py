@@ -37,7 +37,10 @@ Chrome/Perfetto trace JSON. The paged engine also takes live traffic:
 serve-forever mode (`clock_mode="wall"`, `drain=False`) that
 `launch.frontend`'s asyncio front end drives (`--serve async`, arrival
 traces, `--metrics-port`). Both engines serve the dense and the MoE
-families. Not ported yet: tensor parallelism (`--tp`), which raises.
+families; MLA (deepseek-v2-lite-16b) keeps the scan engine, whose sparq
+decode then attends through K7 over the latent planes, and the paged
+engine refuses it, as the reference's does. Not ported yet: tensor
+parallelism (`--tp`), which raises.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --reduced --batch 4 --prompt-len 64 --gen 16 --sparq 5opt \\
@@ -110,7 +113,8 @@ class DecodeEngine:
     """Greedy batched generation over a contiguous cache on the model's
     device: a prefill, then `gen - 1` decode steps. With the sparq layout
     each step quantizes on write (K4) and attends through the fused
-    packed-cache decode kernel (K5); no plane is dequantized whole."""
+    packed-cache decode kernel (K5; K7 for an MLA layer's latent planes);
+    no plane is dequantized whole."""
 
     def __init__(self, model: Model, cache_cfg: Optional[CacheConfig] = None,
                  ctx: Optional[QuantCtx] = None, scales_groups=None):
@@ -344,9 +348,12 @@ class ContinuousBatchingEngine:
         if cache_cfg.layout != "sparq":
             raise ValueError("the paged engine stores packed §5.1 pages; "
                              "use --kv-cache sparq")
-        if any(k not in ("dense", "moe") for k in model.kinds):
-            raise ValueError(f"paged serving supports standard-KV attention "
-                             f"stacks only (got kinds {model.kinds})")
+        bad = [k for k in model.kinds if k not in ("dense", "moe")]
+        if bad:
+            raise ValueError(
+                f"paged serving supports standard-KV attention stacks only "
+                f"(got kinds {sorted(set(bad))}); use the scan engine for "
+                f"MLA/recurrent/enc-dec/VLM architectures")
         if max_seq_len % page_size:
             raise ValueError(f"max_seq_len {max_seq_len} must be a multiple "
                              f"of page_size {page_size}")

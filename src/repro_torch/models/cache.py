@@ -10,10 +10,12 @@
          by tile.
 
 `CachedTensor` is one [B, Tmax, ...] plane, `CacheStore` the (k, v, pos)
-cache of one attention layer. Unlike the JAX pytrees, both are written in
-place at the device-side position (`CacheStore.update`: K4 quantizes and
-writes both sparq planes in one pass; fp planes take `index_copy_`), so
-the decode loop never reads a position back to the host.
+cache of one attention layer, `MLACache` the (c_kv, k_pe, pos) latent cache
+of one MLA layer (two planes of different widths, each under its own
+scale). Unlike the JAX pytrees, they are written in place at the
+device-side position (`CacheStore.update`, `MLACache.update`: K4 quantizes
+and writes both sparq planes in one pass; fp planes take `index_copy_`),
+so the decode loop never reads a position back to the host.
 `CachedTensor.read()` (K6's full-plane meta-decode with the scale) is the
 read-back path only: decode attention consumes the packed planes
 directly.
@@ -127,8 +129,10 @@ class CachedTensor:
         0-d device tensor) into an fp plane, in place. The start is clamped
         so the slab fits, as the reference's dynamic_update_slice does;
         callers check the capacity host-side (DecodeEngine.generate).
-        Sparq planes are written in pairs by `CacheStore.update`."""
-        assert self.layout == "fp", "sparq planes: use CacheStore.update"
+        Sparq planes are written in pairs by `CacheStore.update` and
+        `MLACache.update`."""
+        assert self.layout == "fp", \
+            "sparq planes: use CacheStore.update or MLACache.update"
         T_new = x_new.shape[1]
         start = torch.clamp(pos.to(torch.int64),
                             max=self.data.shape[1] - T_new)
@@ -183,14 +187,62 @@ class CacheStore:
         """Full dequantized (k, v) planes: the read-back path only."""
         return self.k.read(dtype), self.v.read(dtype)
 
+    @property
+    def planes(self) -> tuple:
+        return (self.k, self.v)
 
-def modeled_cache_bytes(caches: Sequence[CacheStore]) -> dict:
-    """Modeled §5.1 residency of a list of layer caches: planes charged
-    `bytes_per_value` (+ the ShiftCtrl plane), positions their size."""
+
+@dataclasses.dataclass
+class MLACache:
+    """The latent cache of one MLA layer (port of `repro.models.mla.
+    MLACache`): the rank-r latent c_kv [B, Tmax, r] and the RoPE key k_pe
+    [B, Tmax, dr] shared by all heads (576 values a token at deepseek-v2-
+    lite's widths, against 4096 for GQA-16), each a `CachedTensor` with its
+    own per-site scale, and the write position (int32 0-d device tensor)."""
+    c_kv: CachedTensor
+    k_pe: CachedTensor
+    pos: torch.Tensor
+
+    @staticmethod
+    def init(batch: int, max_len: int, rank: int, rope_dim: int,
+             cc: CacheConfig, device) -> "MLACache":
+        return MLACache(
+            c_kv=CachedTensor.init((batch, max_len, rank), cc, device),
+            k_pe=CachedTensor.init((batch, max_len, rope_dim), cc, device),
+            pos=torch.zeros((), dtype=torch.int32, device=device))
+
+    def update(self, c_kv: torch.Tensor, k_pe: torch.Tensor) -> "MLACache":
+        """Append float c_kv [B, T_new, r] and k_pe [B, T_new, dr] at
+        `pos`; advances pos. The sparq layout quantizes both planes on
+        write through K4 (`ops.kv_write_contiguous` with planes of two
+        widths: one launch at T_new = 1, two otherwise), each plane's scale
+        resolved and frozen at its first write, as the reference's
+        `CachedTensor.append` does plane by plane."""
+        c, p = self.c_kv, self.k_pe
+        if not c.is_sparq:
+            c.append(c_kv, self.pos)
+            p.append(k_pe, self.pos)
+            self.pos = self.pos + c_kv.shape[1]
+            return self
+        from repro_torch.kernels.ops import kv_write_contiguous
+        c.scale, p.scale, self.pos = kv_write_contiguous(
+            c_kv, k_pe, c.data, c.meta, p.data, p.meta, c.scale, p.scale,
+            self.pos, c.codec)
+        return self
+
+    @property
+    def planes(self) -> tuple:
+        return (self.c_kv, self.k_pe)
+
+
+def modeled_cache_bytes(caches: Sequence) -> dict:
+    """Modeled §5.1 residency of a list of layer caches (`CacheStore`s or
+    `MLACache`s): planes charged `bytes_per_value` (+ the ShiftCtrl
+    plane), positions their size."""
     tally = {"data_bytes": 0.0, "ctrl_bytes": 0.0, "values": 0,
              "other_bytes": 0.0}
     for store in caches:
-        for plane in (store.k, store.v):
+        for plane in store.planes:
             cc = CacheConfig(layout="sparq", sparq=plane.codec) \
                 if plane.is_sparq else \
                 CacheConfig(layout="fp", dtype=plane.data.dtype)

@@ -23,9 +23,9 @@ from repro_torch.kernels.ops import quantized_matmul
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Decoder configuration (the fields of the JAX ModelConfig that the
-    dense and MoE families read; MLA's are not ported)."""
+    dense and MoE families read, MLA's among them)."""
     name: str
-    family: str                  # dense | moe (the families ported so far)
+    family: str                  # dense | moe (MLA: moe with kv_lora_rank)
     n_layers: int
     d_model: int
     n_heads: int
@@ -42,6 +42,11 @@ class ModelConfig:
     moe_d_ff: int = 0
     first_dense_layers: int = 0  # deepseek: first k layers use dense FFN
     capacity_factor: float = 1.25
+    # --- MLA (deepseek) ---
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-5
     tie_embeddings: bool = True

@@ -1,6 +1,6 @@
-"""Public model API (port of `repro.models.model`, dense and MoE decoders):
-init / forward / loss / calibrate / contiguous-cache prefill / chunked
-prefill / decode step.
+"""Public model API (port of `repro.models.model`, dense and MoE decoders,
+MLA among them): init / forward / loss / calibrate / contiguous-cache
+prefill / chunked prefill / decode step.
 
 `Model(cfg, device)` runs on `cuda` unless the caller asks for another
 device, and raises when no GPU is present and none was asked for.
@@ -167,7 +167,11 @@ class Model:
     # ------------------------------------------------------------ PTQ
     def quant_sites(self) -> List[str]:
         """Every `dense` site name of the family (the reference lists the
-        FFN sites for MoE too, though its experts never reach `dense`)."""
+        FFN sites for MoE too, though its experts never reach `dense`;
+        with MLA they are the first dense layers' FFN)."""
+        if self.cfg.kv_lora_rank:
+            return ["mla_q", "mla_dkv", "mla_uk", "mla_uv", "mla_out",
+                    "ffn_gate", "ffn_up", "ffn_down"]
         return ["attn_q", "attn_k", "attn_v", "attn_out",
                 "ffn_gate", "ffn_up", "ffn_down"]
 

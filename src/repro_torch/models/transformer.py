@@ -1,8 +1,9 @@
 """Block assembly and the layer stack (port of `repro.models.transformer`,
-kinds "dense" and "moe"). Layers are grouped into homogeneous runs with
-stacked [L, ...] params as in the JAX package; the stack runs as a Python
-loop over layers, each with its own calibrated scales and its own cache
-store, and sums the MoE layers' aux terms. In training (mode "train" with
+kinds "dense", "moe", and MLA's "mla_dense" and "mla_moe"). Layers are
+grouped into homogeneous runs with stacked [L, ...] params as in the JAX
+package; the stack runs as a Python loop over layers, each with its own
+calibrated scales and its own cache store, and sums the MoE layers' aux
+terms. In training (mode "train" with
 gradients on and `cfg.remat`) each layer is recomputed in the backward
 (`torch.utils.checkpoint`, the reference's `jax.checkpoint` of the scan
 body)."""
@@ -16,6 +17,7 @@ import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import ModelConfig, QuantCtx, norm, norm_init
 
@@ -26,10 +28,12 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
     (and the MoE router) in f32, as the reference's."""
     _check_kind(kind)
     d, nt = cfg.d_model, cfg.norm_type
+    attn_init = mla_mod.mla_init if kind in MLA_KINDS \
+        else attn_mod.attention_init
     p = {"ln1": norm_init(d, nt, device),
-         "attn": attn_mod.attention_init(gen, cfg, device, dtype),
+         "attn": attn_init(gen, cfg, device, dtype),
          "ln2": norm_init(d, nt, device)}
-    if kind == "moe":
+    if kind in ("moe", "mla_moe"):
         p["moe"] = moe_mod.moe_init(gen, cfg, device, dtype)
     else:
         p["ffn"] = ffn_mod.ffn_init(gen, d, cfg.d_ff, cfg.mlp_type,
@@ -37,8 +41,11 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
     return p
 
 
+MLA_KINDS = ("mla_dense", "mla_moe")
+
+
 def _check_kind(kind: str) -> None:
-    if kind not in ("dense", "moe"):
+    if kind not in ("dense", "moe") + MLA_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
 
 
@@ -46,23 +53,31 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions: torch.Tensor, cache=None, mode: str = "train",
                 ctx: Optional[QuantCtx] = None, chunk=None):
     """Pre-norm residual block. Returns (x, cache, aux): aux holds an MoE
-    layer's {"lb_loss", "z_loss"} and is empty for a dense layer. An MoE
-    layer's capacity is exact in decode and chunked prefill (a chunk mixes
-    tokens of several sequences, so capacity dropping would couple one
-    prompt's routing to another's) and not exact otherwise."""
+    layer's {"lb_loss", "z_loss"} and is empty for a dense layer. A GQA
+    MoE layer's capacity is exact in decode and chunked prefill (a chunk
+    mixes tokens of several sequences, so capacity dropping would couple
+    one prompt's routing to another's) and not exact otherwise; an MLA MoE
+    layer's is exact in decode only (MLA has no chunked prefill), as in
+    the reference."""
     _check_kind(kind)
     nt, eps = cfg.norm_type, cfg.norm_eps
     h = norm(params["ln1"], x, nt, eps)
-    o, cache = attn_mod.attention_block(
-        params["attn"], h, cfg, positions=positions, cache=cache, mode=mode,
-        ctx=ctx, chunk=chunk)
+    if kind in MLA_KINDS:
+        o, cache = mla_mod.mla_block(params["attn"], h, cfg,
+                                     positions=positions, cache=cache,
+                                     mode=mode, ctx=ctx)
+    else:
+        o, cache = attn_mod.attention_block(
+            params["attn"], h, cfg, positions=positions, cache=cache,
+            mode=mode, ctx=ctx, chunk=chunk)
     x = x + o.to(x.dtype)
     h = norm(params["ln2"], x, nt, eps)
     aux = {}
-    if kind == "moe":
-        o, aux = moe_mod.moe_apply(
-            params["moe"], h, cfg, ctx,
-            exact_capacity=mode in ("decode", "chunk_prefill"))
+    if kind in ("moe", "mla_moe"):
+        exact = mode in (("decode",) if kind == "mla_moe"
+                         else ("decode", "chunk_prefill"))
+        o, aux = moe_mod.moe_apply(params["moe"], h, cfg, ctx,
+                                   exact_capacity=exact)
     else:
         o = ffn_mod.ffn_apply(params["ffn"], h, cfg.mlp_type, ctx)
     return x + o.to(x.dtype), cache, aux
@@ -72,6 +87,10 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
     if cfg.family == "dense":
         return ["dense"] * cfg.n_layers
     if cfg.family == "moe":
+        if cfg.kv_lora_rank:
+            dense_n = cfg.first_dense_layers
+            return ["mla_dense"] * dense_n + \
+                ["mla_moe"] * (cfg.n_layers - dense_n)
         return ["moe"] * cfg.n_layers
     raise NotImplementedError(f"family {cfg.family!r} is not ported")
 
@@ -134,13 +153,18 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, kinds: list[str],
 
 def stack_cache_init(cfg: ModelConfig, kinds: list[str], batch: int,
                      max_len: int, device, cache_cfg=None) -> list:
-    """One contiguous (k, v, pos) cache per layer, in layer order (the
-    flat list `stack_apply` indexes)."""
+    """One contiguous cache per layer, in layer order (the flat list
+    `stack_apply` indexes): a (k, v, pos) `CacheStore`, or an MLA layer's
+    (c_kv, k_pe, pos) `MLACache`."""
     out = []
     for kind in kinds:
         _check_kind(kind)              # an MoE layer's cache is a dense one
-        out.append(attn_mod.cache_init(cfg, batch, max_len, device,
-                                       cache_cfg))
+        if kind in MLA_KINDS:
+            out.append(mla_mod.mla_cache_init(cfg, batch, max_len, device,
+                                              cache_cfg))
+        else:
+            out.append(attn_mod.cache_init(cfg, batch, max_len, device,
+                                           cache_cfg))
     return out
 
 

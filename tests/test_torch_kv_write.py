@@ -223,9 +223,9 @@ def emu_contiguous(planes, data, scales, pos, c):
             amax = pad.reshape(-1, 8).max(axis=1).max()
         a = emu_resolve(scales[p], np.float32(amax), c)
         d, m = emu_encode_rows(x, np.full(B * T, a, np.float32), c)
-        data[2 * p][:, start:start + T] = d.reshape(B, T, *data[0].shape[2:])
-        data[2 * p + 1][:, start:start + T] = \
-            m.reshape(B, T, *data[0].shape[2:])
+        rest = data[2 * p].shape[2:]      # the planes' rows may differ
+        data[2 * p][:, start:start + T] = d.reshape(B, T, *rest)
+        data[2 * p + 1][:, start:start + T] = m.reshape(B, T, *rest)
         out.append(np.float32(a))
     return out[0], out[1], np.int32(pos + T)
 
