@@ -26,16 +26,24 @@ Phases (each one that fails makes the script exit non-zero):
               version (every pool byte but the trash page's, every scale
               and position), the contiguous mode also with planes of two
               widths (MLA's c_kv and k_pe at r 512 / dr 64 and 32 / 16,
-              T = 1 and 256); K7 sparq_mla_decode at K7_SHAPES (deepseek-
-              v2-lite's H 16, r 512, dr 64 and the reduced widths, 8 x 296
-              slots) at pos 287 and 256, over planes K4 wrote with
+              T = 1 and 256), and in its ring mode at K4_RING
+              (recurrentgemma-9b's 8 x 2048-slot ring of hd 256: a decode
+              write into slot 2047 and the next wrapping to slot 0, the
+              2048-token prefill slab from ring pos 52, calibrated and
+              not, f32 and bf16; the reduced ring of 32 slots), planes,
+              slot_pos, scales and pos bit-exact; K7 sparq_mla_decode
+              at K7_SHAPES (deepseek-v2-lite's H 16, r 512, dr 64 and the
+              reduced widths, 8 x 296 slots) at pos 287 and 256, over planes K4 wrote with
               uncalibrated and calibrated scales and on misaligned planes,
               within 1e-4 of mla_f64_reference and PLAIN_TOL of its plain
               version, timed beside SDPA over the dequantized planes; K6
               sparq_dequant bit-exact in codes and float modes (f32 and
               bf16 out), `CachedTensor.read` profiled as one K6 launch;
               K2 paged decode and K5 contiguous decode (the split-key
-              body) at their serving shapes and at hd 16 / G 4, hd 128
+              body) at their serving shapes, K5 at the recurrent phase's
+              ring (K5_RING: G 16, hd 256, 2048 slots, window 2048, the
+              slot positions rotated after 2100 + s writes; timed beside
+              SDPA and the bound), and at hd 16 / G 4, hd 128
               at G 8, G 12 and G 6 (dbrx) and misaligned planes, and
               (check_f3) K5 at bk 128 and K2 at page size 128 at
               F3_SHAPES (G 48 hd 128,
@@ -138,6 +146,23 @@ Phases (each one that fails makes the script exit non-zero):
               append replayed alone: K4 only; decode tok/s, prefill s,
               peak GB and the modeled cache a token (576 values a layer
               against GQA-16's 4096) logged
+  recurrent   recurrentgemma-9b at its published widths and all 38 layers
+              (26 RG-LRU, 12 local attention over a 2048-slot ring; MQA
+              hd 256) and rwkv6-7b at its published widths and all 32
+              layers, weights drawn in bf16, calibrated on one batch and
+              quantized to int8 codes: `DecodeEngine.generate` on 8
+              prompts of 2100 tokens (recurrentgemma: longer than the
+              window, so the prefill primes a rotated ring and every
+              decode write evicts a slot) or 256 (rwkv6), gen 32, over the
+              5opt sparq layout; warm-up and timed passes with equal
+              tokens, exact launches (`recurrent_counts`: K1 8 a
+              recurrent layer and 6 an attention layer a step or
+              prefill, K4 2 + 1 a step and K5 1 a step an attention
+              layer, nothing else), recurrentgemma's first ring prefill
+              slab and decode write replayed alone (K4 only) and every
+              ring holding the last 2048 positions; decode tok/s, prefill
+              s, peak GB and the modeled cache (the same at any prompt
+              length) logged
   cli         `python -m repro_torch.launch.serve` (CLI_ARGS: the reduced
               tinyllama, paged chunked engine, sparq KV, 5opt) through its
               `main`: every request returns its tokens; K3 at every chunk's
@@ -150,7 +175,9 @@ Phases (each one that fails makes the script exit non-zero):
               --metrics-port 0 (CLI_ASYNC); the reduced deepseek-v2-lite
               through the scan engine (CLI_DEEPSEEK: exact K1 / K4 / K7),
               and with --engine paged, which must exit with the
-              "standard-KV" refusal
+              "standard-KV" refusal; the same for the reduced
+              recurrentgemma-9b and rwkv6-7b (CLI_RECURRENT: exact K1 /
+              K4 / K5)
   wide        the same CLI at full width with --chunk-align 16
               --page-size 128 (WIDE_ARGS: 22 layers, K3 at 128 query rows
               a tile in two row blocks, two key tiles a page): the same
@@ -201,7 +228,10 @@ Phases (each one that fails makes the script exit non-zero):
               card against CPU, its smallest routing margin logged; a
               2-layer full-width f32 deepseek-v2-lite-16b's scan engine
               (one mla_dense and one mla_moe layer), card against CPU,
-              its smallest routing margin logged
+              its smallest routing margin logged; a 3-layer (rg_rec,
+              rg_rec, rg_attn) full-width f32 recurrentgemma-9b and a
+              2-layer full-width f32 rwkv6-7b, the scan engine card
+              against CPU
   train_profile (not run by default) a full-width compressed train step
               split into forward + backward, compression and AdamW (host
               clock between synchronizations), then one plain and one
@@ -215,14 +245,14 @@ Phases (each one that fails makes the script exit non-zero):
               launch, every chunk write two, nothing else)
 
 Each of serve, frontend, preempt, prefix, scan, sequential, dense_family,
-moe, mla, cli, wide, cnn, train (its part c) and cnn_train resets the launch
-counters just before it drives its path (each of its runs) and reads
-them just after (frontend also at each replay's warm-up boundary); the
-plain versions of the KV codec must not run there at all. With all
-fourteen, every
+moe, mla, recurrent, cli, wide, cnn, train (its part c) and cnn_train
+resets the launch counters just before it drives its path (each of its
+runs) and reads them just after (frontend also at each replay's warm-up
+boundary); the plain versions of the KV codec must not run there at all.
+With all fifteen, every
 kernel must have launched on some
 path. The plain versions of the KV path
-(codec, `sparq_pack`, the three writes, the dequantizers) must not run on
+(codec, `sparq_pack`, the four writes, the dequantizers) must not run on
 any path.
 
 Output: progress lines, then the card's name and power limit, one JSON line
@@ -1207,6 +1237,29 @@ K4_WRITES = {
 # decode write, K4's most frequent launch on the main path
 K4_REP = "serve decode"
 
+# K4's ring mode (B, W, KV, hd, T, ring pos, dtype, calibrated, writes): the
+# recurrent phase's recurrentgemma-9b ring (8 x 2048 slots, one KV head of
+# 256) at a decode write into the last slot followed by one that wraps to
+# slot 0, uncalibrated, in f32 (the parity model), and its prefill slab
+# (the last 2048 tokens of a 2100-token prompt: ring pos 52, every slot
+# rotated) uncalibrated and calibrated; the reduced ring (32 slots, hd 32;
+# a 40-token prompt, then a wrapping decode)
+K4_RING = {
+    "ring decode 2047, 2048": (8, 2048, 1, 256, 1, 2047, torch.bfloat16,
+                               True, 2),
+    "ring decode, uncalibrated": (8, 2048, 1, 256, 1, 2048, torch.bfloat16,
+                                  False, 1),
+    "ring decode f32": (8, 2048, 1, 256, 1, 4095, torch.float32, True, 1),
+    "ring prefill from 52": (8, 2048, 1, 256, 2048, 52, torch.bfloat16,
+                             False, 1),
+    "ring prefill, calibrated": (8, 2048, 1, 256, 2048, 52, torch.bfloat16,
+                                 True, 1),
+    "reduced ring prefill": (4, 32, 1, 32, 32, 8, torch.bfloat16, False, 1),
+    "reduced ring decode": (4, 32, 1, 32, 1, 63, torch.bfloat16, True, 2),
+}
+# the ring case whose numbers the recurrent phase's decode write has
+K4_RING_REP = "ring decode 2047, 2048"
+
 
 def _kv_slab(gen, dev, shape, dtype):
     x = torch.randn(shape, generator=gen, device=dev) * 2
@@ -1381,6 +1434,92 @@ def _k4_writes(dev, rows):
                 f"{plain_ms:.3f} ms, bound {bound:.3e} ms)")
 
 
+def k4_ring_case(gen, dev, d):
+    """Inputs of one K4 ring write at K4_RING's d: random K/V, random
+    bytes in the planes, the scales, and the slot_pos of a ring that has
+    seen positions 0 .. pos - 1 (slot s holds the last p < pos with
+    p % W == s, -1 if none): (x, state the write changes in place, other
+    args)."""
+    B, W, KV, hd, T, pos, dtype, calibrated, _ = d
+    x = [_kv_slab(gen, dev, (B, T, KV, hd), dtype) for _ in range(2)]
+    planes = _bytes(gen, dev, (B, W, KV, hd))
+    sc = [torch.full((), 0.02 * (i + 1) if calibrated else 0.0, device=dev)
+          for i in range(2)]
+    held = (pos - 1) - ((pos - 1) - torch.arange(W, device=dev)) % W
+    slot_pos = torch.where(held >= 0, held, -1).to(torch.int32)[None] \
+        .expand(B, W).contiguous()
+    return x, planes + [slot_pos], sc + [torch.tensor(pos, dtype=torch.int32,
+                                                      device=dev)]
+
+
+def _k4_ring_writes(dev, rows):
+    """K4's ring mode at every K4_RING case, 5opt and a8w8, against
+    `ref_kv_write_ring` on the card from the same inputs: every plane
+    byte, slot_pos, the scales and pos equal, write after write."""
+    from repro_torch.core.sparq import SparqConfig
+    from repro_torch.kernels import sparq_quant as qk
+    from repro_torch.kernels.ops import _codec_kw
+    gen = torch.Generator(device=dev).manual_seed(45)
+    for name, d in K4_RING.items():
+        B, W, KV, hd, T, pos, dtype, _, writes = d
+        for codec_name, cfg in (("5opt", SparqConfig.opt5(signed=True)),
+                                ("a8w8", SparqConfig(enabled=False,
+                                                     signed=True))):
+            kw = _codec_kw(cfg)
+
+            def kern(x, st, o):
+                return qk.kv_write_ring_cuda(*x, *st[:4], o[0], o[1], st[4],
+                                             o[2], **kw)
+
+            def plain(x, st, o):
+                return qk.ref_kv_write_ring(*x, *st[:4], o[0], o[1], st[4],
+                                            o[2], **kw)
+            x, st, other = k4_ring_case(gen, dev, d)
+            st_plain = [t.clone() for t in st]
+            o_plain = list(other)
+            slots = []
+            for w in range(writes):
+                if w:
+                    x = [_kv_slab(gen, dev, (B, T, KV, hd), dtype)
+                         for _ in range(2)]
+                slots.append(int(other[2]) % W)
+                got = kern(x, st, other)
+                want = plain(x, st_plain, o_plain)
+                torch.cuda.synchronize()
+                for what, g, w_ in zip(("k_data", "k_meta", "v_data",
+                                        "v_meta", "slot_pos"), st,
+                                       st_plain):
+                    if not torch.equal(g, w_):
+                        raise AssertionError(
+                            f"K4 {name} {codec_name}, write {w}: {what} "
+                            f"differs from the plain write "
+                            f"({int((g != w_).sum())} entries)")
+                for what, g, w_ in zip(("k_scale", "v_scale", "pos"), got,
+                                       want):
+                    if not torch.equal(g, w_.to(g.dtype)):
+                        raise AssertionError(
+                            f"K4 {name} {codec_name}, write {w}: {what} "
+                            f"{g.tolist()} != plain {w_.tolist()}")
+                other, o_plain = list(got), list(want)
+            vals = 2 * B * T * KV * hd
+            nbytes = (vals * (torch.finfo(dtype).bits // 8 + 2) + B * T * 4
+                      + 2 * 4 * 2 + 4 * 2
+                      + (2 * 2 * -(-B * T // 8) * 4 if T > 1 else 0))
+            sets = [k4_ring_case(gen, dev, d)
+                    for _ in range(n_sets(nbytes))]
+            ms = bench(kern, sets)
+            plain_ms = bench(plain, sets[:1], iters=5, warmup=1)
+            bound = max(nbytes / H100_BYTES_S,
+                        vals / H100_F32_FLOPS_S) * 1e3
+            rows.append(dict(codec=codec_name, case=name, mode="ring",
+                             dims=dict(B=B, W=W, KV=KV, hd=hd, T=T, pos=pos),
+                             dtype=str(dtype), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, slots=slots, exact=True))
+            log(f"K4 ring write {codec_name} {name:26s} "
+                f"{str(dtype)[6:]:8s} slots {slots}: bit-exact, {ms:.4f} "
+                f"ms (plain {plain_ms:.3f} ms, bound {bound:.3e} ms)")
+
+
 def check_k4(dev, results):
     """K4's rows mode (the Pallas contract) at the old per-write shapes,
     5opt and a8w8, bit-exact; then every write mode at K4_WRITES against
@@ -1438,6 +1577,7 @@ def check_k4(dev, results):
                 f"{' per-row' if per_row else ''}: bit-exact, {ms:.4f} ms "
                 f"(plain {plain_ms:.3f} ms, bound {bound:.3e} ms)")
     _k4_writes(dev, rows)
+    _k4_ring_writes(dev, rows)
     rep = next(r for r in rows if r["codec"] == "5opt"
                and r["case"] == K4_REP)
     results["sparq_quant"] = dict(
@@ -1682,6 +1822,60 @@ def check_k5(dev, results):
         f"{diff_k2} at {list(diffs)}, {ms:.4f} ms (plain {plain_ms:.3f} "
         f"ms, SDPA {lib_ms:.4f} ms, bound {bound:.5f} ms, grid {B}x{KV}x"
         f"{geo.n_splits})")
+
+
+# K5 at the recurrent phase's ring: recurrentgemma-9b's G 16 over one KV
+# head of 256 (F3's chunked split) on 8 x 2048 slots, window 2048, bk 128,
+# the slot positions rotated as after 2100 + s writes
+K5_RING = dict(B=8, W=2048, G=16, hd=256, writes=(2100, 2101, 2107, 4096))
+
+
+def check_k5_ring(dev, results):
+    """K5 on K5_RING's ring after each count of writes (a rotated kpos:
+    slot i holds the last position p <= cur with p % W == i), held by
+    `hold` to f64 (1e-4) and its plain version (PLAIN_TOL); timed after
+    2100 writes beside SDPA over the dequantized window and the bound."""
+    from repro_torch.kernels import sparq_decode_attn as dec
+    gen = torch.Generator(device=dev).manual_seed(25)
+    B, W, G, hd = (K5_RING[k] for k in ("B", "W", "G", "hd"))
+    i32 = torch.int32
+
+    def case(writes):
+        kd, km = _pools(gen, dev, B, W, 1, hd)
+        vd, vm = _pools(gen, dev, B, W, 1, hd)
+        q = torch.randn((B, 1, G, hd), generator=gen, device=dev)
+        ks = torch.rand((1,), generator=gen, device=dev) * 0.02 + 0.005
+        vs = torch.rand((1,), generator=gen, device=dev) * 0.02 + 0.005
+        cur = writes - 1
+        kpos = (cur - (cur - torch.arange(W, device=dev)) % W).to(i32)
+        return (q, kd, km, ks, vd, vm, vs, kpos[None].expand(B, W)
+                .contiguous(), torch.tensor([cur], dtype=i32, device=dev))
+    errs = {}
+    for writes in K5_RING["writes"]:
+        a = case(writes)
+        got = dec.sparq_decode_attn_cuda(*a, window=W, bk=128)
+        want = dec.ref_sparq_decode_attn(*a, window=W, bk=128)
+        exact = decode_f64_reference(a[0], *contig_keys(*a[1:], window=W))
+        errs[f"after {writes} writes"] = hold(
+            f"K5 ring after {writes} writes", got, want, exact, PLAIN_TOL)
+    _log_decode("K5 ring (G 16, hd 256, W 2048)", errs)
+    sets = [case(2100) for _ in range(n_sets(4 * B * W * hd))]
+    a = sets[0]
+    ms = bench(lambda *x: dec.sparq_decode_attn_cuda(*x, window=W, bk=128),
+               sets)
+    plain_ms = bench(lambda *x: dec.ref_sparq_decode_attn(*x, window=W,
+                                                          bk=128),
+                     sets[:1], iters=5, warmup=1)
+    k, v, live = contig_keys(*a[1:], window=W)
+    lib_ms, bound, by = _decode_yardsticks(a[0], k, v, live, int(live.sum()),
+                                           B * W * 4 + 12)
+    results["k5_ring"] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+        bound_by=by, errors=errs, sub=dec.sub_keys(G, hd, 128),
+        shape=f"B={B} W={W} KV=1 G={G} hd={hd} bk=128 window={W}")
+    log(f"K5 ring B={B} W={W} G={G} hd={hd} (tile 128 in chunks of "
+        f"{dec.sub_keys(G, hd, 128)}): {ms:.4f} ms (plain {plain_ms:.3f} "
+        f"ms, SDPA {lib_ms:.4f} ms, bound {bound:.5f} ms by {by})")
 
 
 # The head shapes (G, hd, one KV head) at a 128-key tile, K5 at bk 128
@@ -1978,7 +2172,7 @@ def _serve_setup(dev, prefill="chunked"):
 class PlainCodecSpy:
     """Counts calls of the KV path's plain versions while a path runs on
     the card, where every KV write must go through K4 and every read-back
-    through K6 instead: the plain codec, `sparq_pack`, the three plain
+    through K6 instead: the plain codec, `sparq_pack`, the four plain
     writes and the plain dequantizers."""
 
     NAMES = (("ref", "ref_sparq_quant"), ("sparq_quant", "ref_sparq_quant"),
@@ -1986,6 +2180,7 @@ class PlainCodecSpy:
              ("sparq_quant", "ref_kv_write_paged"),
              ("sparq_quant", "ref_kv_write_chunk"),
              ("sparq_quant", "ref_kv_write_contiguous"),
+             ("sparq_quant", "ref_kv_write_ring"),
              ("sparq_dequant", "ref_sparq_dequant"),
              ("sparq_dequant", "ref_sparq_dequant_float"))
 
@@ -2030,7 +2225,8 @@ class WriteCapture:
     WRITES = (("paging", "PagedCacheStore", "update"),
               ("paging", "PagedCacheStore", "write_chunk"),
               ("cache", "CacheStore", "update"),
-              ("cache", "MLACache", "update"))
+              ("cache", "MLACache", "update"),
+              ("cache", "RingKVCache", "insert"))
     # K4 launches of each write: one at decode, two for a chunk or a
     # contiguous prefill slab (scale pass, write pass)
     LAUNCHES = {"PagedCacheStore.update": 1,
@@ -2038,7 +2234,9 @@ class WriteCapture:
                 "CacheStore.update (decode)": 1,
                 "CacheStore.update (prefill slab)": 2,
                 "MLACache.update (decode)": 1,
-                "MLACache.update (prefill slab)": 2}
+                "MLACache.update (prefill slab)": 2,
+                "RingKVCache.insert (decode)": 1,
+                "RingKVCache.insert (prefill slab)": 2}
 
     def __enter__(self):
         import importlib
@@ -2050,7 +2248,8 @@ class WriteCapture:
             self._orig.append((cls, meth, orig))
 
             def spy(st, *a, _orig=orig, _name=f"{cls_name}.{meth}", **k):
-                if _name in ("CacheStore.update", "MLACache.update"):
+                if _name in ("CacheStore.update", "MLACache.update",
+                             "RingKVCache.insert"):
                     _name += " (decode)" if a[0].shape[1] == 1 else \
                         " (prefill slab)"
                 if _name not in self.calls:
@@ -2839,6 +3038,122 @@ def mla_full_width(dev, results):
 
 
 # ----------------------------------------------------------------------
+# phase: the recurrent families at full width and depth
+# ----------------------------------------------------------------------
+
+# arch: prompt length of the recurrent phase's 8 prompts; recurrentgemma's
+# 2100 passes its 2048-slot window, so the prefill primes a rotated ring
+# and every decode write evicts the oldest slot
+RECURRENT = {"recurrentgemma-9b": 2100, "rwkv6-7b": 256}
+
+
+def recurrent_counts(kinds, gen):
+    """Exact launches of one `DecodeEngine.generate` of gen tokens (a
+    prefill and gen - 1 decode steps) over a stack of recurrent layer
+    kinds. K1: an rg_rec layer runs five RG-LRU projections and a GeGLU
+    FFN's three, an rg_attn layer q, k, v and the FFN's three (its output
+    projection is a float product, as in the reference), an rwkv layer
+    five time-mix and three channel-mix projections, in prefill as in
+    decode; K4: the ring's write, two launches a layer for the prefill
+    slab and one a decode step; K5: one an rg_attn layer a decode step;
+    nothing else (the recurrences are plain torch)."""
+    rec, att, rw = (kinds.count(k) for k in ("rg_rec", "rg_attn", "rwkv"))
+    return {"sparq_matmul": (8 * rec + 6 * att + 8 * rw) * gen,
+            "sparq_quant": att * (gen + 1),
+            "sparq_decode_attn": att * (gen - 1),
+            "sparq_paged_decode_attn": 0, "sparq_chunked_prefill_attn": 0,
+            "sparq_dequant": 0, "sparq_mla_decode": 0}
+
+
+def recurrent_full_width(dev, results):
+    """recurrentgemma-9b (d 4096, 16 heads over one KV head of 256, RG-LRU
+    width 4096, GeGLU 12288, window 2048, vocab 256000; 38 layers: 26
+    rg_rec and 12 rg_attn) and rwkv6-7b (d 4096, 64 heads of 64, d_ff
+    14336, vocab 65536, LayerNorm; 32 layers), each at its published
+    widths and full depth: weights drawn in bf16 one layer at a time,
+    calibrated on one batch of 8 x 128, the projections quantized to int8
+    codes. `DecodeEngine.generate` on 8 prompts of RECURRENT's length, gen
+    32, over the 5opt sparq layout (recurrentgemma's rings; both
+    families' states in bf16): a warm-up and a timed pass with equal
+    tokens, exact launches (`recurrent_counts`); for recurrentgemma the
+    first ring prefill slab and decode write replayed alone (K4 only),
+    and every ring holding the last 2048 positions at the end. Decode
+    tok/s, prefill s, peak GB and the modeled cache logged; the cache is
+    the same at any prompt length (a ring of W slots, fixed states)."""
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.launch import serve
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models.cache import RingKVCache
+    from repro_torch.models.common import QuantCtx
+    rows, total = {}, {}
+    for arch, T in RECURRENT.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, model, params, scales, codec = _full_width(dev, arch, None,
+                                                        torch.bfloat16)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        setup_gb = torch.cuda.max_memory_allocated() / 1e9
+        B, gen = 8, 32
+        batch = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=T,
+                                   global_batch=B, seed=1)).global_batch(0)
+        cc = serve.make_cache_config("sparq", codec)
+        engine = serve.DecodeEngine(model, cc, QuantCtx(mode="quantized",
+                                                        cfg=codec), scales)
+        with WriteCapture() as cap:
+            warm, _ = engine.generate(params, batch, gen, warmup=False)
+        (toks, stats), counts = _drive(
+            lambda: engine.generate(params, batch, gen, warmup=False))
+        rings = [c for c in engine.last_caches if isinstance(c, RingKVCache)]
+        alone = cap.replay_alone(
+            ["RingKVCache.insert (prefill slab)",
+             "RingKVCache.insert (decode)"] if rings else [])
+        if not np.array_equal(toks, warm) or toks.shape != (B, gen):
+            raise AssertionError(f"recurrent {arch}: tokens differ between "
+                                 f"runs")
+        assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+        want = recurrent_counts(model.kinds, gen)
+        if counts != want:
+            raise AssertionError(f"recurrent {arch} launches {counts}, "
+                                 f"expected {want}")
+        last = T + gen - 1                   # positions written: 0 .. last-1
+        W = cfg.local_window
+        for ring in rings:
+            held = torch.sort(ring.slot_pos, dim=1)[0].cpu()
+            if int(ring.pos) != last or not torch.equal(
+                    held.long(),
+                    torch.arange(last - W, last)[None].expand(B, W)):
+                raise AssertionError(f"recurrent {arch}: a ring holds "
+                                     f"{held[0, [0, -1]].tolist()}, pos "
+                                     f"{int(ring.pos)}")
+        other_len = cache_mod.modeled_cache_bytes(model.init_cache(
+            B, 64, cache_cfg=cc))["total_bytes"]
+        if other_len != stats["cache_total_bytes"]:
+            raise AssertionError(f"recurrent {arch}: the modeled cache "
+                                 f"depends on the prompt length")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rows[arch] = dict(
+            n_layers=cfg.n_layers, kinds={k: model.kinds.count(k)
+                                          for k in set(model.kinds)},
+            batch=B, prompt_len=T, gen=gen, setup_s=t_setup,
+            setup_peak_gb=setup_gb, peak_gb=peak, launches=counts,
+            k4_alone=alone, rings=len(rings), **stats)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        log(f"recurrent {arch} x{cfg.n_layers} layers bf16 5opt "
+            f"int8-weights, B={B} prompt={T} gen={gen}: prefill "
+            f"{stats['prefill_s']:.3f} s | decode "
+            f"{stats['decode_tok_s']:.1f} tok/s | peak {peak:.1f} GB "
+            f"(setup {t_setup:.1f} s, {setup_gb:.1f} GB) | cache "
+            f"{stats['cache_total_bytes'] / 1e6:.2f} MB modeled, the same "
+            f"at prompt 64 | launches {counts}")
+        del params, engine, model, scales, rings
+        torch.cuda.empty_cache()
+    results["recurrent"] = rows
+    return total
+
+
+# ----------------------------------------------------------------------
 # phases: preemption and the prefix cache, full width
 # ----------------------------------------------------------------------
 
@@ -3185,6 +3500,13 @@ CLI_DBRX = [a if a != "tinyllama-1.1b" else "dbrx-132b" for a in CLI_ARGS]
 CLI_DEEPSEEK = ["--arch", "deepseek-v2-lite-16b", "--reduced", "--engine",
                 "scan", "--kv-cache", "sparq", "--sparq", "5opt",
                 "--prequantize", "--device", "cuda"]
+# the recurrent paths' commands at reduced size through the scan engine
+# (recurrentgemma reduced: 3 layers, window 32 under the 64-token prompts;
+# rwkv6 reduced: 2 layers); the paged engine refuses both
+CLI_RECURRENT = {arch: ["--arch", arch, "--reduced", "--engine", "scan",
+                        "--kv-cache", "sparq", "--sparq", "5opt",
+                        "--prequantize", "--device", "cuda"]
+                 for arch in RECURRENT}
 CLI_ASYNC = CLI_ARGS + ["--serve", "async", "--arrival-trace", "poisson",
                         "--metrics-port", "0"]
 
@@ -3338,11 +3660,51 @@ def _cli_mla(dev, results):
     return counts
 
 
+def _cli_recurrent(dev, results):
+    """CLI_RECURRENT through `main` (the scan engine's warm-up pass, then
+    the timed one): the batch's tokens, exact launches (twice
+    `recurrent_counts`); then each with --engine paged must exit with the
+    reference's "standard-KV" refusal."""
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import layer_kinds
+    runs = []
+    for arch, argv in CLI_RECURRENT.items():
+        cfg = _cli_config(argv)
+        stats, counts = _drive(lambda: serve.main(argv))
+        toks = stats["tokens"]
+        if toks.shape != (4, 32) or not ((toks >= 0)
+                                         & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"cli {arch}: tokens {toks.shape}")
+        want = {k: 2 * v for k, v in recurrent_counts(
+            layer_kinds(cfg), 32).items()}
+        if counts != want:
+            raise AssertionError(f"cli {arch} launches {counts}, expected "
+                                 f"{want}")
+        try:
+            serve.main(argv + ["--engine", "paged"])
+        except ValueError as e:
+            if "standard-KV" not in str(e):
+                raise
+            refusal = str(e)
+        else:
+            raise AssertionError(f"cli {arch}: the paged engine served it")
+        results[f"cli_{cfg.name}"] = dict(
+            argv=argv, launches=counts, paged_refusal=refusal,
+            tokens=toks.tolist(), **{k: v for k, v in stats.items()
+                                     if k != "tokens"})
+        log(f"cli_{cfg.name} {' '.join(argv)}: 4 x 32 tokens | prefill "
+            f"{stats['prefill_s']:.3f} s | decode "
+            f"{stats['decode_tok_s']:.1f} tok/s | launches (warm-up + "
+            f"timed) {counts} | --engine paged: {refusal}")
+        runs.append(counts)
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 def cli_reduced(dev, results):
     """CLI_ARGS, then the same with CLI_PREEMPT_FLAGS (a pool of half the
     batch's pages, swap preemption, the prefix cache), then CLI_FAMILY
     (granite-20b and starcoder2-3b reduced, with --metrics-dump and
-    --trace-out), CLI_DBRX, CLI_ASYNC and CLI_DEEPSEEK."""
+    --trace-out), CLI_DBRX, CLI_ASYNC, CLI_DEEPSEEK and CLI_RECURRENT."""
     runs = [_cli(dev, results, "cli", CLI_ARGS),
             _cli(dev, results, "cli", CLI_ARGS + CLI_PREEMPT_FLAGS,
                  key="cli_preempt")]
@@ -3352,6 +3714,7 @@ def cli_reduced(dev, results):
     runs.append(_cli(dev, results, "cli", CLI_DBRX, key="cli_dbrx"))
     runs.append(_cli_async(dev, results))
     runs.append(_cli_mla(dev, results))
+    runs.append(_cli_recurrent(dev, results))
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
@@ -4453,6 +4816,63 @@ def parity_deepseek(dev, results):
         f"{time.perf_counter() - t0:.1f} s")
     del gpu, params, scales
     torch.cuda.empty_cache()
+    parity_recurrent(dev, results)
+
+
+# (arch, layers) of the recurrent parity models: recurrentgemma's first
+# three (rg_rec, rg_rec, rg_attn) and two rwkv layers
+PARITY_RECURRENT = (("recurrentgemma-9b", 3), ("rwkv6-7b", 2))
+
+
+def parity_recurrent(dev, results):
+    """A 3-layer full-width f32 recurrentgemma-9b (rg_rec, rg_rec, rg_attn;
+    about 7 GB a side) and a 2-layer full-width f32 rwkv6-7b with the same
+    weights on the card (K1; K4's ring write and K5 for the ring) and on
+    the CPU (the plain versions): the scan engine over the 5opt sparq
+    layout gives equal greedy tokens on both, 2 prompts of 32 tokens, gen
+    6 (the prompts are inside the window: the ring's rotation is held by
+    the recurrent phase and the CPU tests)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Batcher, DataConfig
+    from repro_torch.launch import serve
+    from repro_torch.models.common import QuantCtx
+    from repro_torch.models.model import Model
+    from repro_torch.models.quantize import quantize_params
+    codec = serve.SPARQ_PRESETS["5opt"]
+    cc = serve.make_cache_config("sparq", codec)
+    ctx = QuantCtx(mode="quantized", cfg=codec)
+    for arch, n_layers in PARITY_RECURRENT:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(n_layers=n_layers,
+                                       dtype=torch.float32)
+        gpu = Model(cfg, device=dev)
+        params = gpu.init_params(seed=1, dtype=torch.float32)
+        scales = gpu.calibrate(params, Batcher(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=64, global_batch=4,
+            seed=1)).calib_batches(1))
+        params = quantize_params(params, codec.weight_bits)
+        batch = {"tokens": np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 32))}
+        out = {}
+        for side, model, p, sc in (
+                ("cuda", gpu, params, scales),
+                ("cpu", Model(cfg, device="cpu"), _to_cpu(params),
+                 _to_cpu(scales))):
+            out[side], _ = serve.DecodeEngine(model, cc, ctx, sc).generate(
+                p, batch, 6, warmup=False)
+            del p
+        if not np.array_equal(out["cuda"], out["cpu"]):
+            raise AssertionError(
+                f"parity {arch}: kernels {out['cuda'].tolist()} vs plain "
+                f"{out['cpu'].tolist()}")
+        results[f"parity_{arch}"] = dict(tokens=out["cuda"].tolist(),
+                                         layers=gpu.kinds)
+        log(f"parity {n_layers}-layer full-width f32 {arch} "
+            f"({', '.join(gpu.kinds)}): kernels == plain versions on a "
+            f"scan batch of 2 x 6 tokens in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del gpu, params, scales
+        torch.cuda.empty_cache()
 
 
 # opcodes that must (True) or must not (False) appear in a kernel
@@ -4494,8 +4914,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,kernels,serve,frontend,preempt,prefix,"
-                            "scan,sequential,dense_family,moe,mla,cli,wide,"
-                            "cnn,train,cnn_train,parity")
+                            "scan,sequential,dense_family,moe,mla,recurrent,"
+                            "cli,wide,cnn,train,cnn_train,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -4524,7 +4944,7 @@ def main(argv=None):
     if "kernels" in phases:
         t0 = time.perf_counter()
         for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
-                      check_f3, check_k6, check_k7):
+                      check_k5_ring, check_f3, check_k6, check_k7):
             check(dev, results)
         results["kernels_phase_s"] = time.perf_counter() - t0
         log(f"phase kernels: {results['kernels_phase_s']:.1f} s")
@@ -4534,7 +4954,8 @@ def main(argv=None):
              ("prefix", prefix_full_width), ("scan", scan_full_width),
              ("sequential", sequential_full_width),
              ("dense_family", dense_family), ("moe", moe_full_width),
-             ("mla", mla_full_width), ("cli", cli_reduced),
+             ("mla", mla_full_width), ("recurrent", recurrent_full_width),
+             ("cli", cli_reduced),
              ("wide", cli_wide), ("cnn", cnn_full_width),
              ("train", train_full_width), ("cnn_train", cnn_train_full))
     for name, run in paths:

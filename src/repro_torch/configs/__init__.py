@@ -14,6 +14,8 @@ _REGISTRY: Dict[str, str] = {
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "paper-resnet": "repro_torch.configs.paper_resnet",  # paper's own family
 }
 

@@ -38,6 +38,11 @@
 //   CONTIG_SCALE  the same for a large slab (the prefill append) in two
 //   CONTIG_WRITE  launches: per-block |x| maxima, then the write, each block
 //                 folding the maxima itself.
+//   ring          the three CONTIG_* modes with a slot_pos [B, W] tensor
+//                 given (W = Tmax): the sliding-window ring's write
+//                 (src/repro/models/transformer.py::ring_insert, T <= W),
+//                 row t of a batch row at slot (pos + t) % W of its plane,
+//                 slot_pos[b, slot] = pos + t for every batch row, pos + T.
 //   Codes and meta follow sparq_common.cuh's codec (K1's); the stored form
 //   is sparq_encode_stored, equal to sparq_pack(ref_sparq_quant(...)).
 // Bound: at decode sizes, the launch: a decode write is 8 slots x 4 KV heads
@@ -94,6 +99,8 @@ struct KvArgs {
   const int* seq_id;         // [C]
   const int* hist;           // [C]
   const int* pos_after;      // [S]
+  int* slot_pos;             // ring: [B, Tmax] absolute position a slot
+                             // (written); null for the other modes
   signed char* data[2];      // pools or planes (ROWS: codes)
   signed char* meta[2];
   int rows;                  // rows of x a plane: M, S, C or B*T
@@ -217,14 +224,26 @@ __device__ __forceinline__ float resolve(float stored, float amax,
              : __fdiv_rn(fmaxf(amax, 1e-8f), static_cast<float>(max_val));
 }
 
+// time index of row r's token in a contiguous plane [B, Tmax, n]:
+// min(pos, Tmax - T) + r % T, or in a ring (slot_pos given) the slot
+// (pos + r % T) % Tmax
+__device__ __forceinline__ int contig_time(const KvArgs& g, int r) {
+  const int t = r % g.T;
+  if (g.slot_pos) return (g.pos[0] + t) % g.Tmax;
+  return min(g.pos[0], g.Tmax - g.T) + t;
+}
+
 // element offset of row r's first lane in a contiguous plane
-// [B, Tmax, n] (n values a row): batch row r / T, time
-// min(pos, Tmax - T) + r % T
+// [B, Tmax, n] (n values a row): batch row r / T, time contig_time
 __device__ __forceinline__ long long contig_row(const KvArgs& g, int r,
                                                 int n) {
-  const int b = r / g.T, t = r - b * g.T;
-  const int start = min(g.pos[0], g.Tmax - g.T);
-  return (static_cast<long long>(b) * g.Tmax + start + t) * n;
+  return (static_cast<long long>(r / g.T) * g.Tmax + contig_time(g, r)) * n;
+}
+
+// ring: row r's slot of its batch row takes the token's absolute position
+__device__ __forceinline__ void ring_stamp(const KvArgs& g, int r) {
+  g.slot_pos[static_cast<long long>(r / g.T) * g.Tmax + contig_time(g, r)] =
+      g.pos[0] + r % g.T;
 }
 
 // element offset of a pool row: page block_table[s, min(pos / ps, NB - 1)],
@@ -277,6 +296,7 @@ sparq_quant_group_kernel(KvArgs g) {
                             dst + i * VEC);
   }
   if (threadIdx.x != 0) return;
+  if (!paged && p == 0 && g.slot_pos) ring_stamp(g, row);
   if (paged) {
     g.scale_out[p * g.n_slots + row] = pos >= 0 ? a : stored;
     if (p == 0) g.pos_out[row] = pos >= 0 ? pos + 1 : pos;
@@ -388,6 +408,8 @@ sparq_quant_write_kernel(KvArgs g) {
     load_lanes<VEC, BF16>(g.x[p], static_cast<long long>(r) * n + lane0, v);
     encode_store<VEC, STORED>(v, sc, g.codec, g.data[p], g.meta[p],
                               dst + lane0);
+    if (g.mode == CONTIG_WRITE && g.slot_pos && p == 0 && lane0 == 0)
+      ring_stamp(g, r);
   }
   if (blockIdx.x != 0) return;
   if (g.mode == CHUNK_WRITE) {
@@ -459,7 +481,8 @@ bool aligned(const void* p, int bytes) {
 // One launch of mode `mode` (see the header). Pointers a mode does not use
 // may be null. x_bf16: K/V are bf16 (else f32; ROWS takes f32 only).
 // n_v: values a row of the second plane (v); equal to n but in the
-// contiguous modes.
+// contiguous modes. slot_pos: non-null only in a contiguous mode, where it
+// makes the write a ring write (T <= Tmax).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // mode or a size the kernels do not take).
 extern "C" int sparq_quant_launch(
@@ -467,13 +490,14 @@ extern "C" int sparq_quant_launch(
     const void* v_scale, int per_row, void* scale_out, void* maxima,
     const void* block_table, const void* pos, void* pos_out,
     const void* seq_id, const void* hist, const void* pos_after,
-    void* k_data, void* k_meta, void* v_data, void* v_meta, int rows, int n,
-    int n_v, int n_slots, int T, int Tmax, int ps, int NB, int trash, int bits,
-    int shift_mask, int shift_max, int rounding, int vsparq, int is_signed,
-    int max_val, int enabled, void* stream) {
+    void* slot_pos, void* k_data, void* k_meta, void* v_data, void* v_meta,
+    int rows, int n, int n_v, int n_slots, int T, int Tmax, int ps, int NB,
+    int trash, int bits, int shift_mask, int shift_max, int rounding,
+    int vsparq, int is_signed, int max_val, int enabled, void* stream) {
   const bool contig = mode >= CONTIG_ONE;
   if (mode < ROWS || mode > CONTIG_WRITE || n % 2 || n_v % 2 ||
       (!contig && n_v != n) || n_slots > MAX_SLOTS ||
+      (slot_pos && (!contig || T > Tmax)) ||
       (mode == ROWS && x_bf16) ||
       static_cast<long long>(rows) * max(n, n_v) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -492,6 +516,7 @@ extern "C" int sparq_quant_launch(
   g.seq_id = static_cast<const int*>(seq_id);
   g.hist = static_cast<const int*>(hist);
   g.pos_after = static_cast<const int*>(pos_after);
+  g.slot_pos = static_cast<int*>(slot_pos);
   g.data[0] = static_cast<signed char*>(k_data);
   g.meta[0] = static_cast<signed char*>(k_meta);
   g.data[1] = static_cast<signed char*>(v_data);

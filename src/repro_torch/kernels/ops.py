@@ -171,6 +171,23 @@ def kv_write_contiguous(k_new, v_new, k_data, k_meta, v_data, v_meta,
                                        **_codec_kw(cfg))
 
 
+def kv_write_ring(k_new, v_new, k_data, k_meta, v_data, v_meta, k_scale,
+                  v_scale, slot_pos, pos, cfg: SparqConfig):
+    """The sliding-window ring's write (`models.cache.RingKVCache.
+    insert`): float [B, T, KV, hd] K/V (T <= W) at slots (pos + t) % W of
+    the [B, W, KV, hd] sparq planes, written in place with `slot_pos`
+    [B, W]. Returns the new (k_scale, v_scale, pos). On the card K4's ring
+    mode: one launch at T = 1, two (scale pass, write pass) otherwise."""
+    if k_new.shape[1] > k_data.shape[1]:
+        raise ValueError(f"a ring write of {k_new.shape[1]} tokens exceeds "
+                         f"the window's {k_data.shape[1]} slots")
+    args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, slot_pos, pos)
+    if _route(k_new) == "plain":
+        return _q.ref_kv_write_ring(k_new, v_new, *args, **_codec_kw(cfg))
+    return _q.kv_write_ring_cuda(_kv(k_new), _kv(v_new), *args,
+                                 **_codec_kw(cfg))
+
+
 def sparq_dequantize(store: torch.Tensor, meta: torch.Tensor, scale=None,
                      dtype=None) -> torch.Tensor:
     """§5.1 meta-decode of the KV read-back path: int8 (store, meta)

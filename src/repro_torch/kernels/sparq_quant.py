@@ -5,7 +5,7 @@ CUDA kernel's wrappers beside their plain PyTorch versions (port of
 `repro.models.paging.PagedCacheStore.update` / `write_chunk` and
 `repro.models.cache.CacheStore.update`).
 
-One kernel, `csrc/sparq_quant.cu`, launched in one of four ways:
+One kernel, `csrc/sparq_quant.cu`, launched in one of five ways:
 
   rows        `sparq_quant_cuda`: (codes, meta) = quant(x / a), the Pallas
               contract; `codes` are the reconstructed int8 values (window
@@ -20,6 +20,9 @@ One kernel, `csrc/sparq_quant.cu`, launched in one of four ways:
               write pass. The planes' rows may differ in width: a GQA
               layer's K and V [B, T, KV, hd], or an MLA layer's latent
               c_kv [B, T, r] beside its RoPE key k_pe [B, T, dr].
+  ring        `kv_write_ring_cuda`: the contiguous modes over a sliding-
+              window ring of W slots: token t lands at slot (pos + t) % W,
+              and the launch also stamps the ring's slot_pos.
 
 The write modes quantize, pack to the stored form (`ref.sparq_pack`),
 scatter into the pools or planes in place, and return the new scales and
@@ -49,7 +52,7 @@ MAX_SLOTS = 4096
 KERNEL = _b.CudaKernel(
     "sparq_quant", "sparq_quant.cu", "sparq_quant_launch",
     [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 12
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 13
     + [ctypes.c_int] * 17 + [ctypes.c_void_p],
     replaces="src/repro/kernels/sparq_quant.py:79")
 
@@ -153,6 +156,24 @@ def ref_kv_write_chunk(k_new, v_new, k_data, k_meta, v_data, v_meta,
     return k_sc, v_sc, seq_pos_after.to(torch.int32).clone()
 
 
+def _contiguous_write(k_new, v_new, k_data, k_meta, v_data, v_meta,
+                      k_scale, v_scale, idx, codec):
+    """Both planes' slabs at time indices idx (int64 [T]), one scale a
+    plane, frozen once calibrated, else the slab's range (`CachedTensor.
+    append` / `write_slots` of the reference, one plane at a time)."""
+    scales = []
+    for x, data, meta, stored in ((k_new, k_data, k_meta, k_scale),
+                                  (v_new, v_data, v_meta, v_scale)):
+        dyn = div_qmax(torch.clamp(torch.amax(torch.abs(
+            x.to(torch.float32))), min=1e-8), codec["max_val"])
+        scale = torch.where(stored > 0, stored, dyn)
+        st, mt = _stored_form(x, scale, codec)
+        data.index_copy_(1, idx, st)
+        meta.index_copy_(1, idx, mt)
+        scales.append(scale)
+    return scales
+
+
 def ref_kv_write_contiguous(k_new, v_new, k_data, k_meta, v_data, v_meta,
                             k_scale, v_scale, pos, **codec):
     """Plain contiguous append: k_new/v_new float [B, T, ...] at time
@@ -165,17 +186,27 @@ def ref_kv_write_contiguous(k_new, v_new, k_data, k_meta, v_data, v_meta,
     T_new = k_new.shape[1]
     start = torch.clamp(pos.to(torch.int64), max=k_data.shape[1] - T_new)
     idx = start + torch.arange(T_new, device=k_data.device)
-    scales = []
-    for x, data, meta, stored in ((k_new, k_data, k_meta, k_scale),
-                                  (v_new, v_data, v_meta, v_scale)):
-        dyn = div_qmax(torch.clamp(torch.amax(torch.abs(
-            x.to(torch.float32))), min=1e-8), codec["max_val"])
-        scale = torch.where(stored > 0, stored, dyn)
-        st, mt = _stored_form(x, scale, codec)
-        data.index_copy_(1, idx, st)
-        meta.index_copy_(1, idx, mt)
-        scales.append(scale)
-    return scales[0], scales[1], pos + T_new
+    ks, vs = _contiguous_write(k_new, v_new, k_data, k_meta, v_data, v_meta,
+                               k_scale, v_scale, idx, codec)
+    return ks, vs, pos + T_new
+
+
+def ref_kv_write_ring(k_new, v_new, k_data, k_meta, v_data, v_meta,
+                      k_scale, v_scale, slot_pos, pos, **codec):
+    """Plain ring write (the reference's `ring_insert` through `Cached
+    Tensor.write_slots`): k_new/v_new float [B, T, KV, hd] with T <= W,
+    token t at slot (pos + t) % W of the [B, W, KV, hd] planes, one scale a
+    plane as in `ref_kv_write_contiguous`; slot_pos [B, W] int32 takes pos
+    + t at those slots for every batch row. Writes planes and slot_pos in
+    place; returns the new (k_scale, v_scale, pos + T)."""
+    T_new = k_new.shape[1]
+    W = k_data.shape[1]
+    ab = pos.to(torch.int64) + torch.arange(T_new, device=k_data.device)
+    idx = ab % W
+    ks, vs = _contiguous_write(k_new, v_new, k_data, k_meta, v_data, v_meta,
+                               k_scale, v_scale, idx, codec)
+    slot_pos[:, idx] = ab.to(slot_pos.dtype)[None]
+    return ks, vs, pos + T_new
 
 
 # ----------------------------------------------------------------------
@@ -192,15 +223,15 @@ def _launch(mode, codec, x, rows, n, *, n_v=None, v=None, k_scale=None,
             v_scale=None,
             per_row=0, scale_out=None, maxima=None, block_table=None,
             pos=None, pos_out=None, seq_id=None, hist=None, pos_after=None,
-            k_data=None, k_meta=None, v_data=None, v_meta=None, n_slots=0,
-            T=1, Tmax=0, ps=1, NB=1, trash=0):
+            slot_pos=None, k_data=None, k_meta=None, v_data=None,
+            v_meta=None, n_slots=0, T=1, Tmax=0, ps=1, NB=1, trash=0):
     p = _b.ptr
     KERNEL.launch(
         mode, p(x), p(v), int(x.dtype == torch.bfloat16), p(k_scale),
         p(v_scale), per_row, p(scale_out), p(maxima), p(block_table), p(pos),
-        p(pos_out), p(seq_id), p(hist), p(pos_after), p(k_data), p(k_meta),
-        p(v_data), p(v_meta), rows, n, n if n_v is None else n_v, n_slots, T,
-        Tmax, ps, NB, trash,
+        p(pos_out), p(seq_id), p(hist), p(pos_after), p(slot_pos),
+        p(k_data), p(k_meta), p(v_data), p(v_meta), rows, n,
+        n if n_v is None else n_v, n_slots, T, Tmax, ps, NB, trash,
         *_codec_args(**codec), _b.stream_ptr(x))
 
 
@@ -319,13 +350,14 @@ def kv_write_chunk_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
 
 
 def kv_write_contiguous_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
-                             k_scale, v_scale, pos, **codec):
+                             k_scale, v_scale, pos, slot_pos=None, **codec):
     """Both planes of a contiguous append (contract of
     `ref_kv_write_contiguous`): one launch at T = 1, else a scale pass and
     a write pass. k_new/v_new f32 or bf16 [B, T, ...] (each plane's rows
     of its own width: K/V [B, T, KV, hd], or MLA's c_kv [B, T, r] and
     k_pe [B, T, dr]); planes int8 [B, Tmax, ...] of the same trailing
-    shapes; scales f32 and pos int32, 0-d."""
+    shapes; scales f32 and pos int32, 0-d. With `slot_pos` (int32 [B,
+    Tmax]) the write is the ring's (contract of `ref_kv_write_ring`)."""
     dev = k_new.device
     B, T = k_new.shape[:2]
     k_rest, v_rest = tuple(k_new.shape[2:]), tuple(v_new.shape[2:])
@@ -338,12 +370,15 @@ def kv_write_contiguous_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
     _b.check(k_scale, "k_scale", torch.float32, (), dev)
     _b.check(v_scale, "v_scale", torch.float32, (), dev)
     _b.check(pos, "pos", torch.int32, (), dev)
+    if slot_pos is not None:
+        _b.check(slot_pos, "slot_pos", torch.int32, (B, Tmax), dev)
     scale_out = torch.empty((2,), dtype=torch.float32, device=dev)
     pos_out = torch.empty((), dtype=torch.int32, device=dev)
     n_k, n_v = math.prod(k_rest), math.prod(v_rest)
     args = dict(n_v=n_v, v=v_new, k_scale=k_scale, v_scale=v_scale,
                 scale_out=scale_out, pos=pos, pos_out=pos_out, k_data=k_data,
-                k_meta=k_meta, v_data=v_data, v_meta=v_meta, T=T, Tmax=Tmax)
+                k_meta=k_meta, v_data=v_data, v_meta=v_meta, T=T, Tmax=Tmax,
+                slot_pos=slot_pos)
     if T == 1:
         _launch(CONTIG_ONE, codec, k_new, B, n_k, **args)
     else:
@@ -352,3 +387,13 @@ def kv_write_contiguous_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
         _launch(CONTIG_SCALE, codec, k_new, B * T, n_k, **args)
         _launch(CONTIG_WRITE, codec, k_new, B * T, n_k, **args)
     return scale_out[0], scale_out[1], pos_out
+
+
+def kv_write_ring_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
+                       k_scale, v_scale, slot_pos, pos, **codec):
+    """The ring write (contract of `ref_kv_write_ring`): the contiguous
+    modes with the ring's slot_pos, one launch at T = 1, two otherwise;
+    slot_pos is stamped in the launch, on the device."""
+    return kv_write_contiguous_cuda(k_new, v_new, k_data, k_meta, v_data,
+                                    v_meta, k_scale, v_scale, pos,
+                                    slot_pos=slot_pos, **codec)

@@ -2,12 +2,16 @@
 contiguous cache, and paged continuous batching.
 
   DecodeEngine (`--engine scan`, the default)
-      Uniform batch, one contiguous (k, v, pos) cache per layer, fp or
-      §5.1 packed. A prefill, then a Python loop of decode steps (the
-      JAX package's `lax.scan`) that never reads a device value: the
-      positions and tokens stay on the device, and the generated tokens
-      come back in one copy at the end. With the sparq layout every step
-      quantizes its K/V through K4 and attends through K5.
+      Uniform batch, one cache per layer: a contiguous (k, v, pos) store,
+      fp or §5.1 packed; an MLA latent store; a local-attention layer's
+      sliding-window ring (RG-LRU hybrid); or a recurrent layer's state,
+      overwritten every step (RG-LRU, RWKV6). A prefill, then a Python
+      loop of decode steps (the JAX package's `lax.scan`) that never reads
+      a device value: the positions and tokens stay on the device, and the
+      generated tokens come back in one copy at the end. With the sparq
+      layout every step quantizes its K/V through K4 (the ring through
+      K4's ring mode) and attends through K5 (the ring with a window and
+      its rotated slot positions).
 
   ContinuousBatchingEngine (`--engine paged`)
       Ragged requests share one pool of fixed-size §5.1 packed pages per
@@ -38,8 +42,9 @@ serve-forever mode (`clock_mode="wall"`, `drain=False`) that
 `launch.frontend`'s asyncio front end drives (`--serve async`, arrival
 traces, `--metrics-port`). Both engines serve the dense and the MoE
 families; MLA (deepseek-v2-lite-16b) keeps the scan engine, whose sparq
-decode then attends through K7 over the latent planes, and the paged
-engine refuses it, as the reference's does. Not ported yet: tensor
+decode then attends through K7 over the latent planes, and so do the
+recurrent families (recurrentgemma-9b, rwkv6-7b); the paged engine refuses
+them, as the reference's does. Not ported yet: tensor
 parallelism (`--tp`), which raises.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
@@ -51,6 +56,9 @@ parallelism (`--tp`), which raises.
     ... --engine paged --metrics-dump m.prom --trace-out t.json  # telemetry
     ... --engine paged --prefill chunked --serve async \\
         --arrival-trace poisson --metrics-port 0     # streaming, TTFT/ITL
+    ... --arch recurrentgemma-9b --engine scan --kv-cache sparq \\
+        --sparq 5opt --prequantize        # RG-LRU hybrid over a SPARQ ring
+    ... --arch rwkv6-7b --engine scan --sparq 5opt --prequantize  # RWKV6
 """
 from __future__ import annotations
 
@@ -110,11 +118,13 @@ def _sync(device: torch.device) -> None:
 
 
 class DecodeEngine:
-    """Greedy batched generation over a contiguous cache on the model's
+    """Greedy batched generation over per-layer caches on the model's
     device: a prefill, then `gen - 1` decode steps. With the sparq layout
     each step quantizes on write (K4) and attends through the fused
-    packed-cache decode kernel (K5; K7 for an MLA layer's latent planes);
-    no plane is dequantized whole."""
+    packed-cache decode kernel (K5, windowed over a ring's rotated slots;
+    K7 for an MLA layer's latent planes); no plane is dequantized whole.
+    Recurrent states (RG-LRU, RWKV6) are overwritten in place each step;
+    a ring holds the last `local_window` tokens whatever the length."""
 
     def __init__(self, model: Model, cache_cfg: Optional[CacheConfig] = None,
                  ctx: Optional[QuantCtx] = None, scales_groups=None):

@@ -1,7 +1,7 @@
 """GQA attention sub-block (port of `repro.models.attention`): the QKV
-projections, the flash-style train/prefill attention in plain torch, the
-contiguous-cache prefill and decode modes, and the paged chunk-prefill and
-decode modes."""
+projections, the flash-style train/prefill attention and its sliding-
+window form in plain torch, the contiguous-cache prefill and decode modes,
+and the paged chunk-prefill and decode modes."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -28,14 +28,20 @@ def qkv_proj(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     q = _split_heads(dense(params["wq"], x, "attn_q", ctx), cfg.n_heads)
     k = _split_heads(dense(params["wk"], x, "attn_k", ctx), cfg.n_kv_heads)
     v = _split_heads(dense(params["wv"], x, "attn_v", ctx), cfg.n_kv_heads)
+    if not cfg.use_rope:
+        return q, k, v
     return rope(q, positions, cfg.rope_theta), \
         rope(k, positions, cfg.rope_theta), v
 
 
-def flash_attention(q, k, v, *, q_chunk=512, kv_chunk=1024):
-    """Causal online-softmax attention in plain torch (the calibration
-    forward; not a TPU kernel in the reference either). q [B,Tq,H,hd],
-    k/v [B,Tk,KV,hd], GQA by head grouping, positions 0..T-1."""
+def flash_attention(q, k, v, *, causal=True, q_chunk=512, kv_chunk=1024,
+                    window=0, q_offset=0, kv_offset=0):
+    """Online-softmax attention in plain torch (not a TPU kernel in the
+    reference either). q [B,Tq,H,hd], k/v [B,Tk,KV,hd], GQA by head
+    grouping. q_offset / kv_offset: the absolute positions of q[0] and
+    k[0]; a key at a negative position is masked (the left context the
+    windowed blocks pad with). The mask is the reference's: kp <= qp when
+    `causal`, qp - kp < window when `window`."""
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -47,16 +53,21 @@ def flash_attention(q, k, v, *, q_chunk=512, kv_chunk=1024):
         qc = q[:, q0:q0 + q_chunk]
         nq = qc.shape[1]
         qg = qc.reshape(B, nq, KV, G, hd)
-        qpos = torch.arange(q0, q0 + nq, device=dev)
+        qpos = torch.arange(q_offset + q0, q_offset + q0 + nq, device=dev)
         m = torch.full((B, KV, G, nq), float("-inf"), device=dev)
         l = torch.zeros((B, KV, G, nq), device=dev)
         acc = torch.zeros((B, KV, G, nq, hd), device=dev)
         for k0 in range(0, Tk, kv_chunk):
             kc, vc = k[:, k0:k0 + kv_chunk], v[:, k0:k0 + kv_chunk]
-            kpos = torch.arange(k0, k0 + kc.shape[1], device=dev)
+            kpos = torch.arange(kv_offset + k0, kv_offset + k0 + kc.shape[1],
+                                device=dev)
             s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
                              kc.float()) * scale
-            allow = kpos[None, :] <= qpos[:, None]
+            allow = (kpos >= 0)[None, :].expand(nq, -1)
+            if causal:
+                allow = allow & (kpos[None, :] <= qpos[:, None])
+            if window:
+                allow = allow & (qpos[:, None] - kpos[None, :] < window)
             s = torch.where(allow, s, float("-inf"))
             m_new = torch.maximum(m, torch.amax(s, dim=-1))
             m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
@@ -71,6 +82,34 @@ def flash_attention(q, k, v, *, q_chunk=512, kv_chunk=1024):
         out[:, q0:q0 + nq] = o.permute(0, 3, 1, 2, 4).reshape(
             B, nq, H, hd).to(q.dtype)
     return out
+
+
+def local_attention(q, k, v, *, window: int):
+    """Exact sliding-window attention by the reference's two-block trick:
+    T is padded to a multiple of W and one zero block of left context is
+    added; each block of W queries attends to the 2W keys of its own block
+    and the one before (key offset (i - 1) * W) through `flash_attention`,
+    so the cost is O(T * W)."""
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    W = window
+    pad = (-T) % W
+    nb = (T + pad) // W
+
+    def padded(x):
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+    qp = padded(q)
+    left = torch.zeros((B, W, KV, hd), dtype=k.dtype, device=k.device)
+    k2 = torch.cat([left, padded(k)], 1)
+    v2 = torch.cat([left.to(v.dtype), padded(v)], 1)
+    out = torch.empty((B, nb * W, H, hd), dtype=q.dtype, device=q.device)
+    for i in range(nb):
+        out[:, i * W:(i + 1) * W] = flash_attention(
+            qp[:, i * W:(i + 1) * W], k2[:, i * W:(i + 2) * W],
+            v2[:, i * W:(i + 2) * W], causal=True, window=W,
+            q_chunk=min(512, W), kv_chunk=min(1024, 2 * W),
+            q_offset=i * W, kv_offset=(i - 1) * W)
+    return out[:, :T]
 
 
 def decode_attention(q: torch.Tensor, cache, *,
@@ -137,10 +176,12 @@ def cache_update(cache, k_new: torch.Tensor, v_new: torch.Tensor):
 
 def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, cache=None, mode: str = "train",
-                    ctx: Optional[QuantCtx] = None, chunk=None):
+                    ctx: Optional[QuantCtx] = None, chunk=None,
+                    window: int = 0):
     """qkv -> attend -> out projection. Returns (out, cache).
 
-    train:          causal flash attention over x (calibration forward);
+    train:          causal flash attention over x (calibration forward),
+                    or with `window` the sliding-window `local_attention`;
     prefill:        the prompt's K/V are written to the contiguous cache,
                     then causal flash attention over the fresh K/V;
     chunk_prefill:  x is one chunk of the packed prompt stream; its K/V
@@ -158,13 +199,16 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     elif mode == "decode":
         assert cache is not None
         cache_update(cache, k, v)
-        out = decode_attention(q, cache)
+        out = decode_attention(q, cache, window=window)
     elif mode in ("train", "prefill"):
         if mode == "prefill":
             assert cache is not None
             cache_update(cache, k, v)
-        out = flash_attention(q, k, v, q_chunk=cfg.attn_chunk,
-                              kv_chunk=cfg.attn_chunk)
+        if window:
+            out = local_attention(q, k, v, window=window)
+        else:
+            out = flash_attention(q, k, v, q_chunk=cfg.attn_chunk,
+                                  kv_chunk=cfg.attn_chunk)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported")
     return dense(params["wo"], _merge_heads(out), "attn_out", ctx), cache

@@ -12,10 +12,13 @@
 `CachedTensor` is one [B, Tmax, ...] plane, `CacheStore` the (k, v, pos)
 cache of one attention layer, `MLACache` the (c_kv, k_pe, pos) latent cache
 of one MLA layer (two planes of different widths, each under its own
-scale). Unlike the JAX pytrees, they are written in place at the
-device-side position (`CacheStore.update`, `MLACache.update`: K4 quantizes
-and writes both sparq planes in one pass; fp planes take `index_copy_`),
-so the decode loop never reads a position back to the host.
+scale), `RingKVCache` the (k, v, slot_pos, pos) sliding-window ring of a
+local-attention layer (W slots, each token at slot pos % W). Unlike the
+JAX pytrees, they are written in place at the device-side position
+(`CacheStore.update`, `MLACache.update`, `RingKVCache.insert`: K4
+quantizes and writes both sparq planes in one pass; fp planes take
+`index_copy_`), so the decode loop never reads a position back to the
+host.
 `CachedTensor.read()` (K6's full-plane meta-decode with the scale) is the
 read-back path only: decode attention consumes the packed planes
 directly.
@@ -140,6 +143,16 @@ class CachedTensor:
         self.data.index_copy_(1, idx, x_new.to(self.data.dtype))
         return self
 
+    def write_slots(self, x_new: torch.Tensor,
+                    slots: torch.Tensor) -> "CachedTensor":
+        """Write a float [B, T_new, ...] slab at time indices `slots`
+        (int64 [T_new] device tensor) of an fp plane, in place: the ring's
+        rolling write. Sparq planes are written in pairs by
+        `RingKVCache.insert` (K4's ring mode)."""
+        assert self.layout == "fp", "sparq planes: use RingKVCache.insert"
+        self.data.index_copy_(1, slots, x_new.to(self.data.dtype))
+        return self
+
     def read(self, dtype=None) -> torch.Tensor:
         """The dequantized full plane, codes * scale (one K6 launch on the
         card): the read-back path only. Decode attention must not call
@@ -235,21 +248,77 @@ class MLACache:
         return (self.c_kv, self.k_pe)
 
 
+@dataclasses.dataclass
+class RingKVCache:
+    """The sliding-window KV ring of one local-attention layer (port of
+    `repro.models.transformer.RingKVCache`): planes k, v [B, W, KV, hd]
+    (fp or sparq), slot_pos [B, W] int32 the absolute position each slot
+    holds (-1 empty), pos the next absolute position (int32 0-d device
+    tensor). The token at position p lives at slot p % W."""
+    k: CachedTensor
+    v: CachedTensor
+    slot_pos: torch.Tensor
+    pos: torch.Tensor
+
+    @staticmethod
+    def init(shape, cc: CacheConfig, device) -> "RingKVCache":
+        return RingKVCache(
+            k=CachedTensor.init(shape, cc, device),
+            v=CachedTensor.init(shape, cc, device),
+            slot_pos=torch.full(shape[:2], -1, dtype=torch.int32,
+                                device=device),
+            pos=torch.zeros((), dtype=torch.int32, device=device))
+
+    def insert(self, k_new: torch.Tensor,
+               v_new: torch.Tensor) -> "RingKVCache":
+        """Write float [B, T_new, KV, hd] K/V (T_new <= W) at slots (pos +
+        t) % W, stamp slot_pos there and advance pos, in place (the
+        reference's `ring_insert`). The sparq layout quantizes both planes
+        on write (`ops.kv_write_ring`: one K4 launch at T_new = 1, two
+        otherwise), each plane's scale frozen at its first write."""
+        if self.k.is_sparq:
+            from repro_torch.kernels.ops import kv_write_ring
+            k, v = self.k, self.v
+            k.scale, v.scale, self.pos = kv_write_ring(
+                k_new, v_new, k.data, k.meta, v.data, v.meta, k.scale,
+                v.scale, self.slot_pos, self.pos, k.codec)
+            return self
+        T_new = k_new.shape[1]
+        ab = self.pos.to(torch.int64) + torch.arange(
+            T_new, device=self.pos.device)
+        slots = ab % self.k.data.shape[1]
+        self.k.write_slots(k_new, slots)
+        self.v.write_slots(v_new, slots)
+        self.slot_pos[:, slots] = ab.to(torch.int32)[None]
+        self.pos = self.pos + T_new
+        return self
+
+
 def modeled_cache_bytes(caches: Sequence) -> dict:
-    """Modeled §5.1 residency of a list of layer caches (`CacheStore`s or
-    `MLACache`s): planes charged `bytes_per_value` (+ the ShiftCtrl
-    plane), positions their size."""
+    """Modeled §5.1 residency of a list of layer caches (any of the
+    port's cache dataclasses: `CacheStore`, `MLACache`, `RingKVCache`,
+    `RGLRUCache`, `RWKVCache`), as the reference's walk: `CachedTensor`
+    planes charged `bytes_per_value` (+ the ShiftCtrl plane), every other
+    tensor (positions, slot positions, recurrent states) its dtype size."""
     tally = {"data_bytes": 0.0, "ctrl_bytes": 0.0, "values": 0,
              "other_bytes": 0.0}
+
+    def visit(node):
+        if isinstance(node, CachedTensor):
+            cc = CacheConfig(layout="sparq", sparq=node.codec) \
+                if node.is_sparq else \
+                CacheConfig(layout="fp", dtype=node.data.dtype)
+            tally["data_bytes"] += node.n_values * bytes_per_value(cc)
+            tally["ctrl_bytes"] += node.n_values * ctrl_bytes_per_value(cc)
+            tally["values"] += node.n_values
+        elif torch.is_tensor(node):
+            tally["other_bytes"] += node.numel() * node.element_size()
+        else:
+            for f in dataclasses.fields(node):
+                visit(getattr(node, f.name))
+
     for store in caches:
-        for plane in store.planes:
-            cc = CacheConfig(layout="sparq", sparq=plane.codec) \
-                if plane.is_sparq else \
-                CacheConfig(layout="fp", dtype=plane.data.dtype)
-            tally["data_bytes"] += plane.n_values * bytes_per_value(cc)
-            tally["ctrl_bytes"] += plane.n_values * ctrl_bytes_per_value(cc)
-            tally["values"] += plane.n_values
-        tally["other_bytes"] += store.pos.numel() * store.pos.element_size()
+        visit(store)
     tally["total_bytes"] = (tally["data_bytes"] + tally["ctrl_bytes"] +
                             tally["other_bytes"])
     return tally

@@ -23,9 +23,9 @@ from repro_torch.kernels.ops import quantized_matmul
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Decoder configuration (the fields of the JAX ModelConfig that the
-    dense and MoE families read, MLA's among them)."""
+    dense, MoE (MLA among them), RWKV6 and RG-LRU families read)."""
     name: str
-    family: str                  # dense | moe (MLA: moe with kv_lora_rank)
+    family: str                  # dense | moe | rwkv6 | rglru
     n_layers: int
     d_model: int
     n_heads: int
@@ -35,6 +35,7 @@ class ModelConfig:
     mlp_type: str = "swiglu"     # swiglu | gelu | geglu
     norm_type: str = "rmsnorm"   # rmsnorm | layernorm
     rope_theta: float = 10000.0
+    use_rope: bool = True
     # --- MoE ---
     n_experts: int = 0
     n_shared_experts: int = 0
@@ -47,11 +48,21 @@ class ModelConfig:
     qk_nope_dim: int = 0
     qk_rope_dim: int = 0
     v_head_dim: int = 0
+    # --- RWKV6 ---
+    head_size: int = 64
+    decay_lora: int = 64
+    # --- RG-LRU hybrid (recurrentgemma) ---
+    block_pattern: tuple[str, ...] = ()   # ("rg_rec", "rg_rec", "rg_attn")
+    lru_width: int = 0
+    local_window: int = 2048
+    conv_width: int = 4
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-5
     tie_embeddings: bool = True
     logit_chunk: int = 0         # 0 = unchunked loss
     attn_chunk: int = 1024       # flash-style KV chunk in train/prefill
+    mixer_impl: str = "chunked"  # rwkv/rglru sequence mixer: scan | chunked
+    mixer_chunk: int = 16        # keeps chunked-WKV decay factors in f32
     train_microbatches: int = 1  # gradient accumulation (activation memory)
     remat: bool = True           # recompute each layer in the backward
     param_dtype: Any = torch.float32   # of the weights; bf16 for >100B

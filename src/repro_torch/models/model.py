@@ -1,6 +1,6 @@
-"""Public model API (port of `repro.models.model`, dense and MoE decoders,
-MLA among them): init / forward / loss / calibrate / contiguous-cache
-prefill / chunked prefill / decode step.
+"""Public model API (port of `repro.models.model`: dense and MoE decoders,
+MLA among them, RWKV6 and the RG-LRU hybrid): init / forward / loss /
+calibrate / contiguous-cache prefill / chunked prefill / decode step.
 
 `Model(cfg, device)` runs on `cuda` unless the caller asks for another
 device, and raises when no GPU is present and none was asked for.
@@ -108,12 +108,14 @@ class Model:
     # ------------------------------------------------------------ serve
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    cache_cfg=None) -> list:
-        """Contiguous decode-time caches, one per layer, on the model's
-        device. `cache_cfg` (models.cache.CacheConfig) selects the layout:
-        fp (in `dtype` when no config is given) or sparq (§5.1 packed)."""
+        """Decode-time caches, one per layer, on the model's device.
+        `cache_cfg` (models.cache.CacheConfig) selects the layout of the
+        KV planes: fp (in `dtype` when no config is given) or sparq (§5.1
+        packed). Recurrent states are stored in the fp layout's dtype, or
+        in `dtype` under the sparq layout, as the reference's."""
         cc = cache_cfg or CacheConfig(layout="fp", dtype=dtype)
         return tr.stack_cache_init(self.cfg, self.kinds, batch, max_len,
-                                   self.device, cc)
+                                   self.device, cc, dtype)
 
     def prefill(self, params, batch: Dict, caches,
                 ctx: Optional[QuantCtx] = None, scales_groups=None):
@@ -169,6 +171,13 @@ class Model:
         """Every `dense` site name of the family (the reference lists the
         FFN sites for MoE too, though its experts never reach `dense`;
         with MLA they are the first dense layers' FFN)."""
+        if self.cfg.family == "rwkv6":
+            return ["tm_r", "tm_k", "tm_v", "tm_g", "tm_out",
+                    "cm_k", "cm_r", "cm_v"]
+        if self.cfg.family == "rglru":
+            return ["rg_gate", "rg_in", "rg_rgate", "rg_igate", "rg_out",
+                    "attn_q", "attn_k", "attn_v", "attn_out",
+                    "ffn_gate", "ffn_up", "ffn_down"]
         if self.cfg.kv_lora_rank:
             return ["mla_q", "mla_dkv", "mla_uk", "mla_uv", "mla_out",
                     "ffn_gate", "ffn_up", "ffn_down"]

@@ -1,5 +1,8 @@
 """Block assembly and the layer stack (port of `repro.models.transformer`,
-kinds "dense", "moe", and MLA's "mla_dense" and "mla_moe"). Layers are
+kinds "dense", "moe", MLA's "mla_dense" and "mla_moe", RWKV6's "rwkv",
+and the RG-LRU hybrid's "rg_rec" and "rg_attn", whose local attention
+keeps a sliding-window ring cache: `ring_init`, `ring_insert`,
+`ring_decode_attention`). Layers are
 grouped into homogeneous runs with stacked [L, ...] params as in the JAX
 package; the stack runs as a Python loop over layers, each with its own
 calibrated scales and its own cache store, and sums the MoE layers' aux
@@ -19,34 +22,126 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rg_mod
+from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models.cache import CacheConfig, RingKVCache
 from repro_torch.models.common import ModelConfig, QuantCtx, norm, norm_init
+from repro_torch.models.quantize import as_weight
 
+MLA_KINDS = ("mla_dense", "mla_moe")
+RG_KINDS = ("rg_rec", "rg_attn")
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in ("dense", "moe", "rwkv") + MLA_KINDS + RG_KINDS:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+
+
+# ----------------------------------------------------------------------
+# the sliding-window ring (rg_attn's decode-time cache)
+# ----------------------------------------------------------------------
+
+def ring_init(cfg: ModelConfig, batch: int, device,
+              cache_cfg: Optional[CacheConfig] = None) -> RingKVCache:
+    cc = cache_cfg or CacheConfig(layout="fp", dtype=torch.bfloat16)
+    return RingKVCache.init(
+        (batch, cfg.local_window, cfg.n_kv_heads, cfg.head_dim), cc, device)
+
+
+def ring_insert(cache: RingKVCache, k_new, v_new) -> RingKVCache:
+    """Insert T_new <= W tokens at the rolling slots (in place)."""
+    return cache.insert(k_new, v_new)
+
+
+def ring_decode_attention(q: torch.Tensor, cache: RingKVCache,
+                          window: int) -> torch.Tensor:
+    """q [B, 1, H, hd] against the ring, masked by each slot's absolute
+    position. Sparq layout: the raw packed planes go to the fused decode
+    (K5 on the card) with kpos = slot_pos and cur = pos - 1, so the ring's
+    rotation is never undone; fp layout: the full plane, masked to
+    0 <= slot_pos <= cur and slot_pos > cur - window."""
+    if cache.k.is_sparq:
+        from repro_torch.kernels.ops import sparq_decode_attention
+        out = sparq_decode_attention(
+            q, cache.k.data, cache.k.meta, cache.k.scale,
+            cache.v.data, cache.v.meta, cache.v.scale,
+            cache.slot_pos, cache.pos - 1, window=window, bk=cache.k.bk)
+        return out.to(q.dtype)
+    B, _, H, hd = q.shape
+    k, v = cache.k.read(), cache.v.read()
+    KV = k.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) \
+        * hd ** -0.5
+    cur = cache.pos - 1
+    sp = cache.slot_pos
+    ok = (sp >= 0) & (sp <= cur) & (sp > cur - window)
+    s = torch.where(ok[:, None, None, None, :], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# block init / apply, dispatched on kind
+# ----------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
                device, dtype=torch.float32) -> Dict:
     """One layer's params: weights drawn in f32 and cast to `dtype`, norms
-    (and the MoE router) in f32, as the reference's."""
+    (and the MoE router, the RG-LRU's lam, RWKV's mus and vectors) in f32,
+    as the reference's. The RG-LRU kinds take a GeGLU FFN whatever
+    `mlp_type` says."""
     _check_kind(kind)
     d, nt = cfg.d_model, cfg.norm_type
-    attn_init = mla_mod.mla_init if kind in MLA_KINDS \
-        else attn_mod.attention_init
-    p = {"ln1": norm_init(d, nt, device),
-         "attn": attn_init(gen, cfg, device, dtype),
-         "ln2": norm_init(d, nt, device)}
+    if kind == "rwkv":
+        return {"ln1": norm_init(d, nt, device),
+                "ln2": norm_init(d, nt, device),
+                **rwkv_mod.rwkv_block_init(gen, cfg, device, dtype)}
+    p = {"ln1": norm_init(d, nt, device)}
+    if kind == "rg_rec":
+        p["rec"] = rg_mod.rglru_init(gen, cfg, device, dtype)
+    else:
+        attn_init = mla_mod.mla_init if kind in MLA_KINDS \
+            else attn_mod.attention_init
+        p["attn"] = attn_init(gen, cfg, device, dtype)
+    p["ln2"] = norm_init(d, nt, device)
     if kind in ("moe", "mla_moe"):
         p["moe"] = moe_mod.moe_init(gen, cfg, device, dtype)
     else:
-        p["ffn"] = ffn_mod.ffn_init(gen, d, cfg.d_ff, cfg.mlp_type,
+        p["ffn"] = ffn_mod.ffn_init(gen, d, cfg.d_ff, _mlp(cfg, kind),
                                     cfg.n_layers, device, dtype)
     return p
 
 
-MLA_KINDS = ("mla_dense", "mla_moe")
+def _mlp(cfg: ModelConfig, kind: str) -> str:
+    return "geglu" if kind in RG_KINDS else cfg.mlp_type
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in ("dense", "moe") + MLA_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+def _rg_attention(params: Dict, h: torch.Tensor, cfg: ModelConfig, *,
+                  positions, cache: RingKVCache, mode: str, ctx):
+    """rg_attn in prefill and decode. Prefill: local attention over the
+    whole prompt, then the ring is primed with its last min(W, T) tokens
+    at their absolute slots (pos set to T - min(W, T) first, so the sparq
+    scale is that slab's); decode: the token goes into the ring, then
+    `ring_decode_attention`. The output projection is a float product of
+    the dequantized weight, not `dense`, as in the reference."""
+    window = cfg.local_window
+    q, k, v = attn_mod.qkv_proj(params, h, cfg, positions, ctx)
+    if mode == "decode":
+        ring_insert(cache, k, v)
+        o = ring_decode_attention(q, cache, window)
+    else:
+        o = attn_mod.local_attention(q, k, v, window=window)
+        T = k.shape[1]
+        W = min(window, T)
+        cache.pos = torch.full((), T - W, dtype=torch.int32,
+                               device=cache.pos.device)
+        # the slab K4 reads row by row: a copy when the prompt is longer
+        ring_insert(cache, k[:, -W:].contiguous(), v[:, -W:].contiguous())
+    o = torch.matmul(o.reshape(*o.shape[:2], -1),
+                     as_weight(params["wo"], h.dtype))
+    return o, cache
 
 
 def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
@@ -62,14 +157,32 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     _check_kind(kind)
     nt, eps = cfg.norm_type, cfg.norm_eps
     h = norm(params["ln1"], x, nt, eps)
-    if kind in MLA_KINDS:
+    if kind == "rwkv":
+        cm_last = cache.cm_last if cache is not None else None
+        o, cache = rwkv_mod.time_mix(params, h, cfg, cache=cache, mode=mode,
+                                     ctx=ctx)
+        x = x + o.to(x.dtype)
+        h = norm(params["ln2"], x, nt, eps)
+        o = rwkv_mod.channel_mix(params, h, cfg, last=cm_last, ctx=ctx)
+        if cache is not None:
+            cache.cm_last = h[:, -1].to(cache.cm_last.dtype)
+        return x + o.to(x.dtype), cache, {}
+    if kind == "rg_rec":
+        o, cache = rg_mod.rglru_block(params["rec"], h, cfg, cache=cache,
+                                      mode=mode, ctx=ctx)
+    elif kind == "rg_attn" and mode in ("prefill", "decode"):
+        o, cache = _rg_attention(params["attn"], h, cfg,
+                                 positions=positions, cache=cache, mode=mode,
+                                 ctx=ctx)
+    elif kind in MLA_KINDS:
         o, cache = mla_mod.mla_block(params["attn"], h, cfg,
                                      positions=positions, cache=cache,
                                      mode=mode, ctx=ctx)
     else:
         o, cache = attn_mod.attention_block(
             params["attn"], h, cfg, positions=positions, cache=cache,
-            mode=mode, ctx=ctx, chunk=chunk)
+            mode=mode, ctx=ctx, chunk=chunk,
+            window=cfg.local_window if kind == "rg_attn" else 0)
     x = x + o.to(x.dtype)
     h = norm(params["ln2"], x, nt, eps)
     aux = {}
@@ -79,7 +192,7 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         o, aux = moe_mod.moe_apply(params["moe"], h, cfg, ctx,
                                    exact_capacity=exact)
     else:
-        o = ffn_mod.ffn_apply(params["ffn"], h, cfg.mlp_type, ctx)
+        o = ffn_mod.ffn_apply(params["ffn"], h, _mlp(cfg, kind), ctx)
     return x + o.to(x.dtype), cache, aux
 
 
@@ -92,6 +205,11 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
             return ["mla_dense"] * dense_n + \
                 ["mla_moe"] * (cfg.n_layers - dense_n)
         return ["moe"] * cfg.n_layers
+    if cfg.family == "rwkv6":
+        return ["rwkv"] * cfg.n_layers
+    if cfg.family == "rglru":
+        pattern = cfg.block_pattern or ("rg_rec", "rg_rec", "rg_attn")
+        return [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
     raise NotImplementedError(f"family {cfg.family!r} is not ported")
 
 
@@ -152,14 +270,27 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, kinds: list[str],
 
 
 def stack_cache_init(cfg: ModelConfig, kinds: list[str], batch: int,
-                     max_len: int, device, cache_cfg=None) -> list:
-    """One contiguous cache per layer, in layer order (the flat list
-    `stack_apply` indexes): a (k, v, pos) `CacheStore`, or an MLA layer's
-    (c_kv, k_pe, pos) `MLACache`."""
+                     max_len: int, device, cache_cfg=None,
+                     dtype=torch.bfloat16) -> list:
+    """One cache per layer, in layer order (the flat list `stack_apply`
+    indexes): a (k, v, pos) `CacheStore`, an MLA layer's (c_kv, k_pe, pos)
+    `MLACache`, an rg_attn layer's `RingKVCache` of `local_window` slots,
+    or a recurrent layer's state (`RGLRUCache`, `RWKVCache`), stored in
+    the fp layout's dtype, else in `dtype`, as the reference's."""
+    cc = cache_cfg or CacheConfig(layout="fp", dtype=dtype)
+    state_dtype = cc.dtype if cc.layout == "fp" else dtype
     out = []
     for kind in kinds:
         _check_kind(kind)              # an MoE layer's cache is a dense one
-        if kind in MLA_KINDS:
+        if kind == "rwkv":
+            out.append(rwkv_mod.rwkv_cache_init(cfg, batch, device,
+                                                state_dtype))
+        elif kind == "rg_rec":
+            out.append(rg_mod.rglru_cache_init(cfg, batch, device,
+                                               state_dtype))
+        elif kind == "rg_attn":
+            out.append(ring_init(cfg, batch, device, cc))
+        elif kind in MLA_KINDS:
             out.append(mla_mod.mla_cache_init(cfg, batch, max_len, device,
                                               cache_cfg))
         else:
