@@ -31,7 +31,10 @@ Phases (each one that fails makes the script exit non-zero):
               write into slot 2047 and the next wrapping to slot 0, the
               2048-token prefill slab from ring pos 52, calibrated and
               not, f32 and bf16; the reduced ring of 32 slots), planes,
-              slot_pos, scales and pos bit-exact; K7 sparq_mla_decode
+              slot_pos, scales and pos bit-exact, and the contiguous
+              mode at the multimodal phase's writes (whisper-base's 8 KV
+              heads of 64, paligemma-3b's one of 256 behind its prefix);
+              K7 sparq_mla_decode
               at K7_SHAPES (deepseek-v2-lite's H 16, r 512, dr 64 and the
               reduced widths, 8 x 296 slots) at pos 287 and 256, over planes K4 wrote with
               uncalibrated and calibrated scales and on misaligned planes,
@@ -40,7 +43,9 @@ Phases (each one that fails makes the script exit non-zero):
               sparq_dequant bit-exact in codes and float modes (f32 and
               bf16 out), `CachedTensor.read` profiled as one K6 launch;
               K2 paged decode and K5 contiguous decode (the split-key
-              body) at their serving shapes, K5 at the recurrent phase's
+              body) at their serving shapes, K5 at G 1 (K5_G1: whisper-
+              base's 8 KV heads of 64 over 8 x 296 slots; timed beside
+              SDPA and the bound), K5 at the recurrent phase's
               ring (K5_RING: G 16, hd 256, 2048 slots, window 2048, the
               slot positions rotated after 2100 + s writes; timed beside
               SDPA and the bound), and at hd 16 / G 4, hd 128
@@ -163,6 +168,22 @@ Phases (each one that fails makes the script exit non-zero):
               ring holding the last 2048 positions; decode tok/s, prefill
               s, peak GB and the modeled cache (the same at any prompt
               length) logged
+  multimodal  whisper-base (6 encoder + 6 decoder layers, MHA: K5 at G 1,
+              hd 64) and paligemma-3b (18 layers, one KV head of 256: K5's
+              128-key tile in chunks of 64) at their published widths and
+              full depth, weights drawn in bf16, calibrated on one batch
+              (with its frames or image prefix) and quantized to int8
+              codes: `DecodeEngine.generate` on 8 prompts of 256 tokens
+              (whisper with 256 frames through the encoder, its cross
+              attention in float; paligemma behind its 256-row image
+              prefix, decode from position 512), gen 32, over the 5opt
+              sparq cache; warm-up and timed passes with equal tokens,
+              exact launches (`multimodal_counts`: K1 a decoder layer's
+              6 or 7 projections a step and the prefill, an encoder
+              layer's 5 in the prefill; K4 2 + 1 a step and K5 1 a step
+              a layer; nothing else), the first prefill slab and decode
+              append replayed alone (K4 only); decode tok/s, prefill s,
+              peak GB and the modeled cache logged
   cli         `python -m repro_torch.launch.serve` (CLI_ARGS: the reduced
               tinyllama, paged chunked engine, sparq KV, 5opt) through its
               `main`: every request returns its tokens; K3 at every chunk's
@@ -177,7 +198,8 @@ Phases (each one that fails makes the script exit non-zero):
               and with --engine paged, which must exit with the
               "standard-KV" refusal; the same for the reduced
               recurrentgemma-9b and rwkv6-7b (CLI_RECURRENT: exact K1 /
-              K4 / K5)
+              K4 / K5) and the reduced whisper-base and paligemma-3b
+              (CLI_MULTIMODAL: exact K1 / K4 / K5)
   wide        the same CLI at full width with --chunk-align 16
               --page-size 128 (WIDE_ARGS: 22 layers, K3 at 128 query rows
               a tile in two row blocks, two key tiles a page): the same
@@ -231,7 +253,9 @@ Phases (each one that fails makes the script exit non-zero):
               its smallest routing margin logged; a 3-layer (rg_rec,
               rg_rec, rg_attn) full-width f32 recurrentgemma-9b and a
               2-layer full-width f32 rwkv6-7b, the scan engine card
-              against CPU
+              against CPU; a 2 + 2-layer full-width f32 whisper-base and
+              a 2-layer full-width f32 paligemma-3b (its 256-row image
+              prefix), the scan engine card against CPU
   train_profile (not run by default) a full-width compressed train step
               split into forward + backward, compression and AdamW (host
               clock between synchronizations), then one plain and one
@@ -245,11 +269,11 @@ Phases (each one that fails makes the script exit non-zero):
               launch, every chunk write two, nothing else)
 
 Each of serve, frontend, preempt, prefix, scan, sequential, dense_family,
-moe, mla, recurrent, cli, wide, cnn, train (its part c) and cnn_train
-resets the launch counters just before it drives its path (each of its
-runs) and reads them just after (frontend also at each replay's warm-up
-boundary); the plain versions of the KV codec must not run there at all.
-With all fifteen, every
+moe, mla, recurrent, multimodal, cli, wide, cnn, train (its part c) and
+cnn_train resets the launch counters just before it drives its path (each
+of its runs) and reads them just after (frontend also at each replay's
+warm-up boundary); the plain versions of the KV codec must not run there
+at all. With all sixteen, every
 kernel must have launched on some
 path. The plain versions of the KV path
 (codec, `sparq_pack`, the four writes, the dequantizers) must not run on
@@ -1232,6 +1256,17 @@ K4_WRITES = {
                             False),
     "mla reduced decode": ("contiguous", dict(B=8, T=1, Tmax=296, r=32,
                                               dr=16), torch.bfloat16, True),
+    # the multimodal phase's decoder self-attention caches: whisper-base's
+    # 8 KV heads of 64 (8 x (256 + 32 + 8) slots) and paligemma-3b's one
+    # KV head of 256 behind its 256-row image prefix (8 x (512 + 32 + 8))
+    "whisper prefill": ("contiguous", dict(B=8, T=256, Tmax=296, KV=8,
+                                           hd=64), torch.bfloat16, False),
+    "whisper decode": ("contiguous", dict(B=8, T=1, Tmax=296, KV=8, hd=64),
+                       torch.bfloat16, True),
+    "paligemma prefill": ("contiguous", dict(B=8, T=512, Tmax=552, KV=1,
+                                             hd=256), torch.bfloat16, False),
+    "paligemma decode": ("contiguous", dict(B=8, T=1, Tmax=552, KV=1,
+                                            hd=256), torch.bfloat16, True),
 }
 # the case whose numbers stand for K4 in the kernels line: the serve path's
 # decode write, K4's most frequent launch on the main path
@@ -1732,7 +1767,8 @@ def check_k5(dev, results):
     with a window (rotated ring kpos with empty slots), held by `hold` to
     its plain version and to decode_f64_reference. With bk = 16, equal to K2
     on the same bytes laid out as pages, at a cur that ends inside a split
-    and one that ends on a split boundary, without and with a window."""
+    and one that ends on a split boundary, without and with a window. Then
+    whisper-base's G 1 (`_k5_g1`)."""
     import torch.nn.functional as F
     from repro_torch.kernels import sparq_decode_attn as dec
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1822,6 +1858,50 @@ def check_k5(dev, results):
         f"{diff_k2} at {list(diffs)}, {ms:.4f} ms (plain {plain_ms:.3f} "
         f"ms, SDPA {lib_ms:.4f} ms, bound {bound:.5f} ms, grid {B}x{KV}x"
         f"{geo.n_splits})")
+    results["k5_g1"] = _k5_g1(dev, gen, ring)
+
+
+# K5 at the multimodal phase's whisper-base decode: MHA, 8 query heads over
+# 8 KV heads of 64 (G 1), planes of 8 x (256 + 32 + 8) slots, bk 128
+K5_G1 = dict(B=8, Tk=296, KV=8, G=1, hd=64, cur=286)
+
+
+def _k5_g1(dev, gen, ring):
+    """K5 at K5_G1 (cur 286: a ragged last tile), without and with a
+    window over check_k5's rotated ring kpos, held by `hold` to f64 (1e-4)
+    and its plain version (PLAIN_TOL); timed beside SDPA over the
+    dequantized keys and the bound. Returns its results row."""
+    from repro_torch.kernels import sparq_decode_attn as dec
+    B, Tk, KV, G, hd, cur = (K5_G1[k] for k in ("B", "Tk", "KV", "G", "hd",
+                                                "cur"))
+    sets = [k5_case(gen, dev, G=G, hd=hd, B=B, Tk=Tk, KV=KV, cur=cur)
+            for _ in range(n_sets(4 * B * Tk * KV * hd))]
+    a = sets[0]
+    errs = {}
+    for window, kpos in ((0, a[7]), (K2_WINDOW, ring)):
+        case = a[:7] + (kpos, a[8])
+        got = dec.sparq_decode_attn_cuda(*case, window=window, bk=128)
+        want = dec.ref_sparq_decode_attn(*case, window=window, bk=128)
+        exact = decode_f64_reference(case[0], *contig_keys(
+            *case[1:], window=window))
+        errs[f"window {window}"] = hold(f"K5 G 1, window {window}", got,
+                                        want, exact, PLAIN_TOL)
+    _log_decode("K5 G 1 (whisper-base: KV 8, hd 64)", errs)
+    ms = bench(lambda *x: dec.sparq_decode_attn_cuda(*x, bk=128), sets)
+    plain_ms = bench(lambda *x: dec.ref_sparq_decode_attn(*x, bk=128),
+                     sets[:1], iters=5, warmup=1)
+    k, v, live = contig_keys(*a[1:])
+    lib_ms, bound, by = _decode_yardsticks(a[0], k, v, live, int(live.sum()),
+                                           B * Tk * 4 + 12)
+    geo = dec.split_geometry(Tk, 128)
+    log(f"K5 G 1 B={B} Tk={Tk} KV={KV} hd={hd} bk 128: {ms:.4f} ms (plain "
+        f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound {bound:.5f} ms by "
+        f"{by}, grid {B}x{KV}x{geo.n_splits})")
+    return dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+        bound_by=by, errors=errs, max_abs_err_f64=max(
+            e["f64"] for e in errs.values()), grid=[B, KV, geo.n_splits],
+        shape=f"B={B} Tk={Tk} KV={KV} G={G} hd={hd} bk=128 cur={cur}")
 
 
 # K5 at the recurrent phase's ring: recurrentgemma-9b's G 16 over one KV
@@ -2108,7 +2188,8 @@ def check_k7(dev, results):
 def _full_width(dev, arch="tinyllama-1.1b", n_layers=None, dtype=None):
     """`arch` at full width (and full depth unless `n_layers` cuts it),
     bf16 compute, random weights (seed 0) drawn in `dtype` (default the
-    config's param_dtype) as int8 codes, one calibration batch of 8 x 128,
+    config's param_dtype) as int8 codes, one calibration batch of 8 x 128
+    (with its frames or image prefix where the config has a front end),
     5opt. The float tree is dropped once the codes exist."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import Batcher, DataConfig
@@ -2120,13 +2201,21 @@ def _full_width(dev, arch="tinyllama-1.1b", n_layers=None, dtype=None):
         cfg = cfg.replace(n_layers=n_layers)
     model = Model(cfg, device=dev)
     params = model.init_params(seed=0, dtype=dtype)
-    data = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
-                              global_batch=8, seed=0))
+    data = Batcher(_data_config(cfg, 128, 8, seed=0))
     scales = model.calibrate(params, data.calib_batches(1))
     codec = serve.SPARQ_PRESETS["5opt"]
     qparams = quantize_params(params, codec.weight_bits)
     del params
     return cfg, model, qparams, scales, codec
+
+
+def _data_config(cfg, seq_len, batch, seed):
+    """The Batcher's config for `cfg`: with its front end's frames or
+    image prefix, as the CLI builds it."""
+    from repro_torch.data.pipeline import DataConfig
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                      global_batch=batch, seed=seed, frontend=cfg.frontend,
+                      frontend_len=cfg.frontend_len, d_model=cfg.d_model)
 
 
 def _serve_requests(cfg):
@@ -3154,6 +3243,117 @@ def recurrent_full_width(dev, results):
 
 
 # ----------------------------------------------------------------------
+# phase: the enc-dec and VLM families at full width and depth
+# ----------------------------------------------------------------------
+
+# arch: prompt length of the multimodal phase's 8 prompts (whisper-base's
+# frames are as many as its tokens; paligemma-3b's 256-row image prefix
+# comes ahead of them, so its decode starts at position 512)
+MULTIMODAL = {"whisper-base": 256, "paligemma-3b": 256}
+
+
+def multimodal_counts(cfg, gen):
+    """Exact launches of one `DecodeEngine.generate` of gen tokens (a
+    prefill and gen - 1 decode steps) over an enc-dec or VLM model. K1: a
+    decoder layer's q, k, v, o and its FFN's projections (two for GELU,
+    three for GeGLU), in prefill as in each decode step (the cross
+    attention's products are float), plus, in the prefill, an encoder
+    layer's q, k, v and FFN (its output projection is float); K4: two
+    launches a layer for the prefill slab (a VLM's prefix among its rows)
+    and one a decode step; K5: one a layer a decode step; nothing else."""
+    ffn = 2 if cfg.mlp_type == "gelu" else 3
+    L = cfg.n_layers
+    return {"sparq_matmul": cfg.n_enc_layers * (3 + ffn)
+            + L * (4 + ffn) * gen,
+            "sparq_quant": L * (gen + 1), "sparq_decode_attn": L * (gen - 1),
+            "sparq_paged_decode_attn": 0, "sparq_chunked_prefill_attn": 0,
+            "sparq_dequant": 0, "sparq_mla_decode": 0}
+
+
+def multimodal_full_width(dev, results):
+    """whisper-base (d 512, 8 heads over 8 KV heads of 64: K5 at G 1; 6
+    encoder and 6 decoder layers, GELU, LayerNorm, vocab 51865) and
+    paligemma-3b (d 2048, 8 heads over one KV head of 256: K5's 128-key
+    tile in chunks of 64; 18 layers, GeGLU 16384, vocab 257216), each at
+    its published widths and full depth: weights drawn in bf16 one layer
+    at a time, calibrated on one batch of 8 x 128 (with its frames or
+    image prefix), the projections quantized to int8 codes.
+    `DecodeEngine.generate` on 8 prompts of MULTIMODAL's length (whisper
+    with as many frames; paligemma behind its 256-row image prefix), gen
+    32, over the 5opt sparq cache: a warm-up and a timed pass with equal
+    tokens, exact launches (`multimodal_counts`), the first prefill slab
+    and decode append of the warm-up replayed alone (K4 only); whisper's
+    decoder caches hold the encoder's K/V at 256 rows, paligemma's caches
+    end at position 512 + 31. Decode tok/s, prefill s, peak GB and the
+    modeled cache logged."""
+    from repro_torch.data.pipeline import Batcher
+    from repro_torch.launch import serve
+    from repro_torch.models.cache import DecCache
+    from repro_torch.models.common import QuantCtx
+    rows, total = {}, {}
+    for arch, T in MULTIMODAL.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, model, params, scales, codec = _full_width(dev, arch, None,
+                                                        torch.bfloat16)
+        torch.cuda.synchronize()
+        t_setup = time.perf_counter() - t0
+        setup_gb = torch.cuda.max_memory_allocated() / 1e9
+        B, gen = 8, 32
+        batch = Batcher(_data_config(cfg, T, B, seed=1)).global_batch(0)
+        engine = serve.DecodeEngine(
+            model, serve.make_cache_config("sparq", codec),
+            QuantCtx(mode="quantized", cfg=codec), scales)
+        with WriteCapture() as cap:
+            warm, _ = engine.generate(params, batch, gen, warmup=False)
+        (toks, stats), counts = _drive(
+            lambda: engine.generate(params, batch, gen, warmup=False))
+        alone = cap.replay_alone(["CacheStore.update (prefill slab)",
+                                  "CacheStore.update (decode)"])
+        if not np.array_equal(toks, warm) or toks.shape != (B, gen):
+            raise AssertionError(f"multimodal {arch}: tokens differ "
+                                 f"between runs")
+        assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
+        want = multimodal_counts(cfg, gen)
+        if counts != want:
+            raise AssertionError(f"multimodal {arch} launches {counts}, "
+                                 f"expected {want}")
+        caches = engine.last_caches
+        P = cfg.frontend_len if cfg.family == "vlm" else 0
+        for c in caches:
+            st = c.self_kv if cfg.is_encdec else c
+            if int(st.pos) != P + T + gen - 1:
+                raise AssertionError(f"multimodal {arch}: a cache at "
+                                     f"position {int(st.pos)}")
+            if cfg.is_encdec and (not isinstance(c, DecCache) or tuple(
+                    c.cross_k.shape) != (B, T, cfg.n_kv_heads, cfg.head_dim)
+                    or c.cross_k.dtype != cfg.dtype):
+                raise AssertionError(f"multimodal {arch}: cross K/V "
+                                     f"{tuple(c.cross_k.shape)}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rows[arch] = dict(
+            n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers, batch=B,
+            prompt_len=T, prefix_len=P, gen=gen, setup_s=t_setup,
+            setup_peak_gb=setup_gb, peak_gb=peak, launches=counts,
+            k4_alone=alone, **stats)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        log(f"multimodal {arch} x{cfg.n_layers} layers"
+            f"{f' + {cfg.n_enc_layers} encoder' if cfg.is_encdec else ''} "
+            f"bf16 5opt int8-weights sparq cache, B={B} prompt={T}"
+            f"{f' behind a {P}-row prefix' if P else ''} gen={gen}: prefill "
+            f"{stats['prefill_s']:.3f} s | decode "
+            f"{stats['decode_tok_s']:.1f} tok/s | peak {peak:.2f} GB "
+            f"(setup {t_setup:.1f} s, {setup_gb:.2f} GB) | cache "
+            f"{stats['cache_total_bytes'] / 1e6:.2f} MB modeled | launches "
+            f"{counts}")
+        del params, engine, model, scales, caches
+        torch.cuda.empty_cache()
+    results["multimodal"] = rows
+    return total
+
+
+# ----------------------------------------------------------------------
 # phases: preemption and the prefix cache, full width
 # ----------------------------------------------------------------------
 
@@ -3507,6 +3707,13 @@ CLI_RECURRENT = {arch: ["--arch", arch, "--reduced", "--engine", "scan",
                         "--kv-cache", "sparq", "--sparq", "5opt",
                         "--prequantize", "--device", "cuda"]
                  for arch in RECURRENT}
+# the enc-dec and VLM paths' commands at reduced size through the scan
+# engine (whisper reduced: 2 + 2 layers, K5 at G 1 over hd 32; paligemma
+# reduced: 2 layers behind a 16-row prefix); the paged engine refuses both
+CLI_MULTIMODAL = {arch: ["--arch", arch, "--reduced", "--engine", "scan",
+                         "--kv-cache", "sparq", "--sparq", "5opt",
+                         "--prequantize", "--device", "cuda"]
+                  for arch in MULTIMODAL}
 CLI_ASYNC = CLI_ARGS + ["--serve", "async", "--arrival-trace", "poisson",
                         "--metrics-port", "0"]
 
@@ -3660,23 +3867,21 @@ def _cli_mla(dev, results):
     return counts
 
 
-def _cli_recurrent(dev, results):
-    """CLI_RECURRENT through `main` (the scan engine's warm-up pass, then
-    the timed one): the batch's tokens, exact launches (twice
-    `recurrent_counts`); then each with --engine paged must exit with the
-    reference's "standard-KV" refusal."""
+def _cli_scan(dev, results, commands, counts_of):
+    """Each of `commands` ({arch: argv}) through `main` (the scan engine's
+    warm-up pass, then the timed one): the batch's tokens, exact launches
+    (twice `counts_of(cfg, 32)`); then each with --engine paged must exit
+    with the reference's "standard-KV" refusal."""
     from repro_torch.launch import serve
-    from repro_torch.models.transformer import layer_kinds
     runs = []
-    for arch, argv in CLI_RECURRENT.items():
+    for arch, argv in commands.items():
         cfg = _cli_config(argv)
         stats, counts = _drive(lambda: serve.main(argv))
         toks = stats["tokens"]
         if toks.shape != (4, 32) or not ((toks >= 0)
                                          & (toks < cfg.vocab_size)).all():
             raise AssertionError(f"cli {arch}: tokens {toks.shape}")
-        want = {k: 2 * v for k, v in recurrent_counts(
-            layer_kinds(cfg), 32).items()}
+        want = {k: 2 * v for k, v in counts_of(cfg, 32).items()}
         if counts != want:
             raise AssertionError(f"cli {arch} launches {counts}, expected "
                                  f"{want}")
@@ -3704,7 +3909,9 @@ def cli_reduced(dev, results):
     """CLI_ARGS, then the same with CLI_PREEMPT_FLAGS (a pool of half the
     batch's pages, swap preemption, the prefix cache), then CLI_FAMILY
     (granite-20b and starcoder2-3b reduced, with --metrics-dump and
-    --trace-out), CLI_DBRX, CLI_ASYNC, CLI_DEEPSEEK and CLI_RECURRENT."""
+    --trace-out), CLI_DBRX, CLI_ASYNC, CLI_DEEPSEEK, CLI_RECURRENT and
+    CLI_MULTIMODAL."""
+    from repro_torch.models.transformer import layer_kinds
     runs = [_cli(dev, results, "cli", CLI_ARGS),
             _cli(dev, results, "cli", CLI_ARGS + CLI_PREEMPT_FLAGS,
                  key="cli_preempt")]
@@ -3714,7 +3921,9 @@ def cli_reduced(dev, results):
     runs.append(_cli(dev, results, "cli", CLI_DBRX, key="cli_dbrx"))
     runs.append(_cli_async(dev, results))
     runs.append(_cli_mla(dev, results))
-    runs.append(_cli_recurrent(dev, results))
+    runs.append(_cli_scan(dev, results, CLI_RECURRENT, lambda cfg, gen:
+                          recurrent_counts(layer_kinds(cfg), gen)))
+    runs.append(_cli_scan(dev, results, CLI_MULTIMODAL, multimodal_counts))
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
@@ -4873,6 +5082,64 @@ def parity_recurrent(dev, results):
             f"{time.perf_counter() - t0:.1f} s")
         del gpu, params, scales
         torch.cuda.empty_cache()
+    parity_multimodal(dev, results)
+
+
+# (arch, decoder layers, encoder layers, prompt length) of the multimodal
+# parity models: whisper-base's 2 + 2 (prompts with as many frames) and
+# paligemma-3b's 2 (prompts behind its 256-row image prefix)
+PARITY_MULTIMODAL = (("whisper-base", 2, 2, 32), ("paligemma-3b", 2, 0, 32))
+
+
+def parity_multimodal(dev, results):
+    """A 2 + 2-layer full-width f32 whisper-base (K5 at G 1, the encoder on
+    dynamic scales) and a 2-layer full-width f32 paligemma-3b (a 256-row
+    image prefix, K5's 128-key tile at G 8 / hd 256 in chunks of 64; about
+    3 GB a side) with the same weights on the card (K1, K4, K5) and on the
+    CPU (the plain versions): the scan engine over the 5opt sparq cache
+    gives equal greedy tokens on both, 2 prompts, gen 6."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Batcher
+    from repro_torch.launch import serve
+    from repro_torch.models.common import QuantCtx
+    from repro_torch.models.model import Model
+    from repro_torch.models.quantize import quantize_params
+    codec = serve.SPARQ_PRESETS["5opt"]
+    cc = serve.make_cache_config("sparq", codec)
+    ctx = QuantCtx(mode="quantized", cfg=codec)
+    for arch, n_layers, n_enc, T in PARITY_MULTIMODAL:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(n_layers=n_layers, n_enc_layers=n_enc,
+                                       dtype=torch.float32)
+        gpu = Model(cfg, device=dev)
+        params = gpu.init_params(seed=1, dtype=torch.float32)
+        scales = gpu.calibrate(params, Batcher(_data_config(
+            cfg, 64, 4, seed=1)).calib_batches(1))
+        params = quantize_params(params, codec.weight_bits)
+        batch = Batcher(_data_config(cfg, T, 2, seed=2)).global_batch(0)
+        out = {}
+        for side, model, p, sc in (
+                ("cuda", gpu, params, scales),
+                ("cpu", Model(cfg, device="cpu"), _to_cpu(params),
+                 _to_cpu(scales))):
+            out[side], _ = serve.DecodeEngine(model, cc, ctx, sc).generate(
+                p, batch, 6, warmup=False)
+            del p
+        if not np.array_equal(out["cuda"], out["cpu"]):
+            raise AssertionError(
+                f"parity {arch}: kernels {out['cuda'].tolist()} vs plain "
+                f"{out['cpu'].tolist()}")
+        results[f"parity_{arch}"] = dict(tokens=out["cuda"].tolist(),
+                                         layers=n_layers,
+                                         encoder_layers=n_enc, prompt_len=T)
+        depth = f"{n_layers} + {n_enc}" if n_enc else f"{n_layers}"
+        prompts = f"{cfg.frontend_len} image rows + {T}" \
+            if cfg.frontend_len else f"{T}"
+        log(f"parity {depth}-layer full-width f32 {arch}: kernels == plain "
+            f"versions on a scan batch of 2 x 6 tokens (prompts of "
+            f"{prompts}) in {time.perf_counter() - t0:.1f} s")
+        del gpu, params, scales
+        torch.cuda.empty_cache()
 
 
 # opcodes that must (True) or must not (False) appear in a kernel
@@ -4915,7 +5182,8 @@ def main(argv=None):
     ap.add_argument("--phases",
                     default="build,kernels,serve,frontend,preempt,prefix,"
                             "scan,sequential,dense_family,moe,mla,recurrent,"
-                            "cli,wide,cnn,train,cnn_train,parity")
+                            "multimodal,cli,wide,cnn,train,cnn_train,"
+                            "parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -4955,7 +5223,7 @@ def main(argv=None):
              ("sequential", sequential_full_width),
              ("dense_family", dense_family), ("moe", moe_full_width),
              ("mla", mla_full_width), ("recurrent", recurrent_full_width),
-             ("cli", cli_reduced),
+             ("multimodal", multimodal_full_width), ("cli", cli_reduced),
              ("wide", cli_wide), ("cnn", cnn_full_width),
              ("train", train_full_width), ("cnn_train", cnn_train_full))
     for name, run in paths:

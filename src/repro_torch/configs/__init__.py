@@ -16,6 +16,8 @@ _REGISTRY: Dict[str, str] = {
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "whisper-base": "repro_torch.configs.whisper_base",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
     "paper-resnet": "repro_torch.configs.paper_resnet",  # paper's own family
 }
 

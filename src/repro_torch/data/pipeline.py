@@ -6,7 +6,8 @@ Every batch is a pure function of (seed, step, shard), so a restarted
 training run replays the exact stream with no loader state to
 checkpoint. The draws come from numpy's generator, so they differ from
 the JAX package's; parity tests hand both packages the same numpy tokens
-instead.
+instead. A config with a front-end stub (`frontend` "vision" or "audio")
+also gets its precomputed embeddings, seeded as the tokens are.
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ class DataConfig:
     global_batch: int
     seed: int = 1234
     n_states: int = 64          # markov states of the synthetic stream
+    frontend: str = "none"      # vision / audio stub inputs
+    frontend_len: int = 0
+    d_model: int = 0
 
 
 def markov_tokens(cfg: DataConfig, batch: int, step: int,
@@ -47,7 +51,9 @@ class Batcher:
     """`global_batch(step)` builds the whole batch; `local_batch(step)`
     only this host's shard (global_batch // n_hosts rows, its own draws).
     A batch holds "tokens" and "labels", the tokens shifted left by one
-    with a final -1 (ignored by the loss)."""
+    with a final -1 (ignored by the loss); with a vision front end also
+    "image_embeds" f32 [batch, frontend_len, d_model], with an audio one
+    "frames" f32 [batch, seq_len, d_model], normals x 0.02."""
     cfg: DataConfig
     host_id: int = 0
     n_hosts: int = 1
@@ -57,7 +63,17 @@ class Batcher:
         toks = markov_tokens(self.cfg, batch, step, offset)
         labels = np.concatenate(
             [toks[:, 1:], np.full((batch, 1), -1, toks.dtype)], 1)
-        return {"tokens": toks, "labels": labels}
+        out = {"tokens": toks, "labels": labels}
+        cfg = self.cfg
+        if cfg.frontend in ("vision", "audio"):
+            vision = cfg.frontend == "vision"
+            rng = np.random.default_rng([cfg.seed, step, offset,
+                                         7 if vision else 8])
+            rows = cfg.frontend_len if vision else cfg.seq_len
+            out["image_embeds" if vision else "frames"] = (
+                rng.standard_normal((batch, rows, cfg.d_model),
+                                    dtype=np.float32) * np.float32(0.02))
+        return out
 
     def global_batch(self, step: int) -> Dict[str, np.ndarray]:
         return self._batch(step, self.cfg.global_batch, 0)

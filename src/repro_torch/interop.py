@@ -10,7 +10,9 @@ shared experts; an MLA layer's "attn" subtree: `wq`, `w_dkv`, `w_uk`,
 `w_uv`, `wo` and the f32 `c_norm`; an RG-LRU layer's "rec" subtree with
 the f32 `lam` and the float `conv_k`; an RWKV layer's flat leaves, the
 `mu_*`, `u`, `w0`, `ln_x_*` vectors and the LoRA `w_A` / `w_B` among
-them), and prequantized weights are {"q": int8, "s": f32} dicts, as
+them; an enc-dec model's "enc_blocks" and "enc_norm" beside them, each
+of its decoder layers with the cross attention "xattn" and its norm
+"ln_x"), and prequantized weights are {"q": int8, "s": f32} dicts, as
 `quantize_params` makes them in either package; the CNN's tree (nested
 lists under "stages", a bare array under "head", BN statistics in its
 dicts) carries across as it is.
@@ -55,11 +57,13 @@ def cache_from_jax(np_caches, cache_cfg, device="cpu") -> list:
     list with the same bytes, scales, positions and states: `CacheStore`
     (k, v, pos), `MLACache` (c_kv, k_pe, pos), `RingKVCache` (k, v,
     slot_pos, pos), `RGLRUCache` (h, conv) and `RWKVCache` (state,
-    tm_last, cm_last), recognised by their fields. `cache_cfg` is the
-    port's `CacheConfig` of the same layout (it supplies the codec and
-    attention tile; the JAX tree is read by attribute only)."""
+    tm_last, cm_last), recognised by their fields, and `DecCache` from an
+    enc-dec decoder layer's {"self", "cross_k", "cross_v"} dict.
+    `cache_cfg` is the port's `CacheConfig` of the same layout (it
+    supplies the codec and attention tile; the JAX tree is read by
+    attribute only)."""
     from repro_torch.models.cache import (CachedTensor, CacheStore,
-                                          MLACache, RingKVCache)
+                                          DecCache, MLACache, RingKVCache)
     from repro_torch.models.rglru import RGLRUCache
     from repro_torch.models.rwkv6 import RWKVCache
 
@@ -78,6 +82,12 @@ def cache_from_jax(np_caches, cache_cfg, device="cpu") -> list:
 
     out = []
     for group in np_caches:
+        if isinstance(group, dict):          # enc-dec decoder layers
+            selfs = cache_from_jax([group["self"]], cache_cfg, device)
+            out += [DecCache(self_kv=st, cross_k=arr(group["cross_k"], li),
+                             cross_v=arr(group["cross_v"], li))
+                    for li, st in enumerate(selfs)]
+            continue
         fields = set(group._fields)
         count = np.asarray(getattr(group, group._fields[-1])).shape[0]
         for li in range(count):

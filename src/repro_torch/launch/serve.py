@@ -43,8 +43,11 @@ serve-forever mode (`clock_mode="wall"`, `drain=False`) that
 traces, `--metrics-port`). Both engines serve the dense and the MoE
 families; MLA (deepseek-v2-lite-16b) keeps the scan engine, whose sparq
 decode then attends through K7 over the latent planes, and so do the
-recurrent families (recurrentgemma-9b, rwkv6-7b); the paged engine refuses
-them, as the reference's does. Not ported yet: tensor
+recurrent families (recurrentgemma-9b, rwkv6-7b), the enc-dec family
+(whisper-base: the encoder over the batch's frames at prefill, cross
+attention in float) and the VLM family (paligemma-3b: an image prefix
+ahead of the prompt, decode from prompt + prefix); the paged engine
+refuses them, as the reference's does. Not ported yet: tensor
 parallelism (`--tp`), which raises.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
@@ -59,6 +62,8 @@ parallelism (`--tp`), which raises.
     ... --arch recurrentgemma-9b --engine scan --kv-cache sparq \\
         --sparq 5opt --prequantize        # RG-LRU hybrid over a SPARQ ring
     ... --arch rwkv6-7b --engine scan --sparq 5opt --prequantize  # RWKV6
+    ... --arch whisper-base --engine scan --kv-cache sparq --sparq 5opt \
+        --prequantize                     # enc-dec (also paligemma-3b)
 """
 from __future__ import annotations
 
@@ -138,9 +143,8 @@ class DecodeEngine:
         return self.model.init_cache(batch, max_len,
                                      cache_cfg=self.cache_cfg)
 
-    def _prefill(self, params, tokens, caches) -> torch.Tensor:
-        logits = self.model.prefill(params, {"tokens": tokens}, caches,
-                                    ctx=self.ctx,
+    def _prefill(self, params, batch, caches) -> torch.Tensor:
+        logits = self.model.prefill(params, batch, caches, ctx=self.ctx,
                                     scales_groups=self.scales_groups)
         return torch.argmax(logits, -1)[:, None].to(torch.int32)
 
@@ -165,16 +169,26 @@ class DecodeEngine:
         """Returns (tokens int32 [B, gen] numpy, stats).
 
         `max_len` caps the cache capacity (default: prompt + gen + pad
-        slots). The capacity check runs on the host before any work: the
-        cache write clamps its start, so an overflowing decode would
-        overwrite the newest slots instead of failing.
+        slots, a VLM's image prefix counted in the prompt). The capacity
+        check runs on the host before any work: the cache write clamps its
+        start, so an overflowing decode would overwrite the newest slots
+        instead of failing. The batch's "frames" or "image_embeds" go to
+        the prefill with its tokens.
 
         `warmup` runs prefill + decode once untimed first (on a cache of
         its own; the kernels build at first use), reported as compile_s,
         so prefill_s and decode_tok_s measure steady-state execution."""
         tokens = torch.as_tensor(np.asarray(batch["tokens"]),
                                  device=self.device)
+        inputs = {"tokens": tokens}
+        for k in ("frames", "image_embeds"):
+            if k in batch:
+                inputs[k] = torch.as_tensor(np.asarray(batch[k]),
+                                            device=self.device)
+        cfg = self.model.cfg
         B, pos0 = tokens.shape
+        if cfg.family == "vlm":
+            pos0 += cfg.frontend_len
         max_len = max_len if max_len is not None else pos0 + gen + pad
         if pos0 + gen > max_len:
             raise ValueError(
@@ -187,7 +201,7 @@ class DecodeEngine:
             if warmup:
                 t0 = time.perf_counter()
                 caches = self.init_cache(B, max_len)
-                tok_w = self._prefill(params, tokens, caches)
+                tok_w = self._prefill(params, inputs, caches)
                 if gen > 1:
                     self._decode(params, tok_w, caches, pos0, gen - 1)
                 _sync(self.device)
@@ -195,7 +209,7 @@ class DecodeEngine:
             caches = self.init_cache(B, max_len)
             _sync(self.device)
             t0 = time.perf_counter()
-            tok0 = self._prefill(params, tokens, caches)
+            tok0 = self._prefill(params, inputs, caches)
             _sync(self.device)
             t_prefill = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -359,11 +373,12 @@ class ContinuousBatchingEngine:
             raise ValueError("the paged engine stores packed §5.1 pages; "
                              "use --kv-cache sparq")
         bad = [k for k in model.kinds if k not in ("dense", "moe")]
-        if bad:
+        if bad or model.cfg.family == "vlm":
             raise ValueError(
                 f"paged serving supports standard-KV attention stacks only "
-                f"(got kinds {sorted(set(bad))}); use the scan engine for "
-                f"MLA/recurrent/enc-dec/VLM architectures")
+                f"(got kinds {sorted(set(bad)) or model.cfg.family}); use "
+                f"the scan engine for MLA/recurrent/enc-dec/VLM "
+                f"architectures")
         if max_seq_len % page_size:
             raise ValueError(f"max_seq_len {max_seq_len} must be a multiple "
                              f"of page_size {page_size}")
@@ -1554,7 +1569,10 @@ def main(argv=None):
     params = model.init_params(args.seed)
     data = Batcher(DataConfig(vocab_size=cfg.vocab_size,
                               seq_len=args.prompt_len,
-                              global_batch=args.batch, seed=args.seed))
+                              global_batch=args.batch, seed=args.seed,
+                              frontend=cfg.frontend,
+                              frontend_len=cfg.frontend_len,
+                              d_model=cfg.d_model))
     batch = data.global_batch(0)
 
     scfg = SPARQ_PRESETS[args.sparq]

@@ -134,7 +134,10 @@ def main(argv=None, metrics: Optional[list] = None):
     opt = AdamW(lr=cosine_schedule(args.lr, max(total // 20, 1), total))
     compressor = GradCompressor() if args.compress_grads else None
     data = Batcher(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                              global_batch=args.batch, seed=args.seed))
+                              global_batch=args.batch, seed=args.seed,
+                              frontend=cfg.frontend,
+                              frontend_len=cfg.frontend_len,
+                              d_model=cfg.d_model))
 
     # f32 master weights for every arch, as the reference's trainer
     # initialises them (its `init_params` default)

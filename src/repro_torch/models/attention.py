@@ -1,6 +1,6 @@
 """GQA attention sub-block (port of `repro.models.attention`): the QKV
-projections, the flash-style train/prefill attention and its sliding-
-window form in plain torch, the contiguous-cache prefill and decode modes,
+projections, the flash-style train/prefill attention (causal, prefix-LM
+or bidirectional) and its sliding-window form in plain torch, the contiguous-cache prefill and decode modes,
 and the paged chunk-prefill and decode modes."""
 from __future__ import annotations
 
@@ -35,13 +35,15 @@ def qkv_proj(params: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def flash_attention(q, k, v, *, causal=True, q_chunk=512, kv_chunk=1024,
-                    window=0, q_offset=0, kv_offset=0):
+                    window=0, prefix_len=0, q_offset=0, kv_offset=0):
     """Online-softmax attention in plain torch (not a TPU kernel in the
     reference either). q [B,Tq,H,hd], k/v [B,Tk,KV,hd], GQA by head
     grouping. q_offset / kv_offset: the absolute positions of q[0] and
     k[0]; a key at a negative position is masked (the left context the
     windowed blocks pad with). The mask is the reference's: kp <= qp when
-    `causal`, qp - kp < window when `window`."""
+    `causal`, or kp < prefix_len (the prefix-LM mask: a prefix the
+    queries attend to both ways, causal only), and qp - kp < window when
+    `window`."""
     B, Tq, H, hd = q.shape
     Tk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -65,7 +67,10 @@ def flash_attention(q, k, v, *, causal=True, q_chunk=512, kv_chunk=1024,
                              kc.float()) * scale
             allow = (kpos >= 0)[None, :].expand(nq, -1)
             if causal:
-                allow = allow & (kpos[None, :] <= qpos[:, None])
+                seen = kpos[None, :] <= qpos[:, None]
+                if prefix_len:
+                    seen = seen | (kpos < prefix_len)[None, :]
+                allow = allow & seen
             if window:
                 allow = allow & (qpos[:, None] - kpos[None, :] < window)
             s = torch.where(allow, s, float("-inf"))
@@ -177,10 +182,11 @@ def cache_update(cache, k_new: torch.Tensor, v_new: torch.Tensor):
 def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, cache=None, mode: str = "train",
                     ctx: Optional[QuantCtx] = None, chunk=None,
-                    window: int = 0):
+                    window: int = 0, prefix_len: int = 0):
     """qkv -> attend -> out projection. Returns (out, cache).
 
-    train:          causal flash attention over x (calibration forward),
+    train:          causal flash attention over x (calibration forward;
+                    the first `prefix_len` keys seen by every query),
                     or with `window` the sliding-window `local_attention`;
     prefill:        the prompt's K/V are written to the contiguous cache,
                     then causal flash attention over the fresh K/V;
@@ -208,7 +214,8 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
             out = local_attention(q, k, v, window=window)
         else:
             out = flash_attention(q, k, v, q_chunk=cfg.attn_chunk,
-                                  kv_chunk=cfg.attn_chunk)
+                                  kv_chunk=cfg.attn_chunk,
+                                  prefix_len=prefix_len)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported")
     return dense(params["wo"], _merge_heads(out), "attn_out", ctx), cache

@@ -10,9 +10,10 @@
          by tile.
 
 `CachedTensor` is one [B, Tmax, ...] plane, `CacheStore` the (k, v, pos)
-cache of one attention layer, `MLACache` the (c_kv, k_pe, pos) latent cache
-of one MLA layer (two planes of different widths, each under its own
-scale), `RingKVCache` the (k, v, slot_pos, pos) sliding-window ring of a
+cache of one attention layer, `DecCache` an enc-dec decoder layer's
+self-attention store beside its float cross-attention K/V, `MLACache`
+the (c_kv, k_pe, pos) latent cache of one MLA layer (two planes of
+different widths, each under its own scale), `RingKVCache` the (k, v, slot_pos, pos) sliding-window ring of a
 local-attention layer (W slots, each token at slot pos % W). Unlike the
 JAX pytrees, they are written in place at the device-side position
 (`CacheStore.update`, `MLACache.update`, `RingKVCache.insert`: K4
@@ -178,6 +179,16 @@ class CacheStore:
                           pos=torch.zeros((), dtype=torch.int32,
                                           device=device))
 
+    @staticmethod
+    def from_kv(k: torch.Tensor, v: torch.Tensor, pos) -> "CacheStore":
+        """Plain float K/V [B, T, KV, hd] as fp planes holding `pos` tokens
+        (the encoder's cross-attention K/V at decode)."""
+        one = torch.ones((), dtype=torch.float32, device=k.device)
+        return CacheStore(k=CachedTensor(k, None, one),
+                          v=CachedTensor(v, None, one),
+                          pos=torch.full((), int(pos), dtype=torch.int32,
+                                         device=k.device))
+
     def update(self, k_new: torch.Tensor,
                v_new: torch.Tensor) -> "CacheStore":
         """Append float [B, T_new, KV, hd] K/V at `pos`; advances pos. The
@@ -203,6 +214,19 @@ class CacheStore:
     @property
     def planes(self) -> tuple:
         return (self.k, self.v)
+
+
+@dataclasses.dataclass
+class DecCache:
+    """The cache of one enc-dec decoder layer (the reference's {"self",
+    "cross_k", "cross_v"} dict): the self-attention `CacheStore` and the
+    encoder's cross-attention K/V, float [B, T, KV, hd] tensors. They are
+    zeros of [B, max_len, KV, hd] until the prefill replaces them with the
+    encoder's [B, T_enc, KV, hd] in the activation dtype, as the
+    reference's prefill does."""
+    self_kv: CacheStore
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -296,10 +320,11 @@ class RingKVCache:
 
 def modeled_cache_bytes(caches: Sequence) -> dict:
     """Modeled §5.1 residency of a list of layer caches (any of the
-    port's cache dataclasses: `CacheStore`, `MLACache`, `RingKVCache`,
-    `RGLRUCache`, `RWKVCache`), as the reference's walk: `CachedTensor`
-    planes charged `bytes_per_value` (+ the ShiftCtrl plane), every other
-    tensor (positions, slot positions, recurrent states) its dtype size."""
+    port's cache dataclasses: `CacheStore`, `DecCache`, `MLACache`,
+    `RingKVCache`, `RGLRUCache`, `RWKVCache`), as the reference's walk:
+    `CachedTensor` planes charged `bytes_per_value` (+ the ShiftCtrl
+    plane), every other tensor (positions, slot positions, recurrent
+    states, cross-attention K/V) its dtype size."""
     tally = {"data_bytes": 0.0, "ctrl_bytes": 0.0, "values": 0,
              "other_bytes": 0.0}
 

@@ -22,10 +22,11 @@ from repro_torch.kernels.ops import quantized_matmul
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Decoder configuration (the fields of the JAX ModelConfig that the
-    dense, MoE (MLA among them), RWKV6 and RG-LRU families read)."""
+    """Model configuration (the fields of the JAX ModelConfig that the
+    dense, MoE (MLA among them), RWKV6, RG-LRU, enc-dec and VLM families
+    read)."""
     name: str
-    family: str                  # dense | moe | rwkv6 | rglru
+    family: str                  # dense | moe | rwkv6 | rglru | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -56,6 +57,11 @@ class ModelConfig:
     lru_width: int = 0
     local_window: int = 2048
     conv_width: int = 4
+    # --- enc-dec (whisper) ---
+    n_enc_layers: int = 0
+    # --- modality front-end stubs (precomputed embeddings) ---
+    frontend: str = "none"       # none | vision | audio
+    frontend_len: int = 0
     dtype: Any = torch.bfloat16
     norm_eps: float = 1e-5
     tie_embeddings: bool = True
@@ -70,6 +76,10 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.family == "encdec"
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -167,6 +177,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x[..., :half], x[..., half:]
     rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return rot.to(x.dtype)
+
+
+def sinusoidal_embed(T: int, d: int, device) -> torch.Tensor:
+    """[T, d] f32: sin of position / 10000^(2i/d) in the first d/2
+    features, cos in the rest (the encoder's positions)."""
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
 
 
 def trunc_normal(shape, std: float, generator: torch.Generator,

@@ -1,6 +1,10 @@
 """Public model API (port of `repro.models.model`: dense and MoE decoders,
-MLA among them, RWKV6 and the RG-LRU hybrid): init / forward / loss /
-calibrate / contiguous-cache prefill / chunked prefill / decode step.
+MLA among them, RWKV6, the RG-LRU hybrid, the enc-dec family (whisper: an
+encoder stack over the batch's precomputed "frames", cross-attended by
+every decoder layer) and the VLM family (paligemma: the batch's
+precomputed "image_embeds" ahead of the tokens, a prefix attended both
+ways)): init / forward / loss / calibrate / contiguous-cache prefill /
+chunked prefill / decode step.
 
 `Model(cfg, device)` runs on `cuda` unless the caller asks for another
 device, and raises when no GPU is present and none was asked for.
@@ -17,7 +21,8 @@ from repro_torch.models import transformer as tr
 from repro_torch.models.cache import CacheConfig
 from repro_torch.models.common import (ModelConfig, QuantCtx,
                                        chunked_lm_loss, embed_tokens, norm,
-                                       norm_init, trunc_normal)
+                                       norm_init, sinusoidal_embed,
+                                       trunc_normal)
 
 LB_COEF = 0.01
 Z_COEF = 0.001
@@ -37,7 +42,9 @@ class Model:
         the values differ from jax.random's). Weights and embeddings are
         in `dtype` (default `cfg.param_dtype`), norms in f32; every draw
         is f32, one layer at a time (an MoE expert bank one expert at a
-        time), cast as it is stored."""
+        time), cast as it is stored. An enc-dec model also gets its
+        encoder, "enc_blocks" (drawn as a stack of `n_enc_layers`, which
+        sets its output projections' scale) and "enc_norm"."""
         cfg, dev = self.cfg, self.device
         dtype = cfg.param_dtype if dtype is None else dtype
         gen = torch.Generator(device=dev)
@@ -51,6 +58,11 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = trunc_normal((cfg.d_model, cfg.vocab_size),
                                              0.02, gen, dev, dtype)
+        if cfg.is_encdec:
+            params["enc_blocks"] = tr.stack_init(
+                gen, cfg.replace(n_layers=cfg.n_enc_layers),
+                ["enc"] * cfg.n_enc_layers, dev, dtype)
+            params["enc_norm"] = norm_init(cfg.d_model, cfg.norm_type, dev)
         return params
 
     # ------------------------------------------------------------ pieces
@@ -58,6 +70,40 @@ class Model:
         x = embed_tokens(params["embed"], tokens, dtype)
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=dtype,
                                 device=x.device)
+
+    def _embed_batch(self, params, batch: Dict):
+        """(x, prefix_len): the scaled token embeddings, and for a VLM
+        batch its "image_embeds" ahead of them, cast to the model dtype
+        and not scaled; prefix_len is their row count (0 otherwise)."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        x = self._embed_in(params, tokens, cfg.dtype)
+        if cfg.family == "vlm" and "image_embeds" in batch:
+            img = torch.as_tensor(batch["image_embeds"], device=self.device)
+            return torch.cat([img.to(cfg.dtype), x], 1), img.shape[1]
+        return x, 0
+
+    def _encode(self, params, frames, ctx):
+        """The encoder over the frames [B, T, d]: the f32 sinusoidal
+        positions added in the model dtype, the "enc" stack in mode train
+        under `ctx` (no calibrated spans: a quantized ctx takes each
+        site's dynamic range), then `enc_norm`."""
+        cfg = self.cfg
+        x = torch.as_tensor(frames, device=self.device).to(cfg.dtype)
+        x = x + sinusoidal_embed(x.shape[1], cfg.d_model,
+                                 self.device).to(cfg.dtype)
+        x, _ = tr.stack_apply([("enc", cfg.n_enc_layers)],
+                              params["enc_blocks"], x, cfg,
+                              positions=self._positions(*x.shape[:2]),
+                              mode="train", ctx=ctx)
+        return norm(params["enc_norm"], x, cfg.norm_type, cfg.norm_eps)
+
+    def _inputs(self, params, batch: Dict, ctx):
+        """(x, prefix_len, enc_out) of a whole-sequence pass."""
+        x, prefix_len = self._embed_batch(params, batch)
+        enc_out = self._encode(params, batch["frames"], ctx) \
+            if self.cfg.is_encdec else None
+        return x, prefix_len, enc_out
 
     def _head(self, params, x):
         w = params["embed"].T if self.cfg.tie_embeddings \
@@ -69,25 +115,28 @@ class Model:
 
     # ------------------------------------------------------------ train
     def _forward(self, params, batch: Dict, ctx, scales_groups):
-        """(hidden states, the stack's summed aux terms)."""
+        """(hidden states, prefix_len, the stack's summed aux terms)."""
         cfg = self.cfg
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        x = self._embed_in(params, tokens, cfg.dtype)
+        x, prefix_len, enc_out = self._inputs(params, batch, ctx)
         x, aux = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
-                                positions=self._positions(*tokens.shape),
+                                positions=self._positions(*x.shape[:2]),
                                 mode="train", ctx=ctx,
-                                scales_groups=scales_groups)
+                                scales_groups=scales_groups,
+                                prefix_len=prefix_len, enc_out=enc_out)
         return norm(params["final_norm"], x, cfg.norm_type,
-                    cfg.norm_eps), aux
+                    cfg.norm_eps), prefix_len, aux
 
     def forward(self, params, batch: Dict, ctx: Optional[QuantCtx] = None,
                 scales_groups=None) -> torch.Tensor:
-        """Full-sequence hidden states (pre-head). batch["tokens"] [B, T]."""
+        """Full-sequence hidden states (pre-head), a VLM's image prefix
+        among them. batch["tokens"] [B, T] (and "frames" or
+        "image_embeds")."""
         return self._forward(params, batch, ctx, scales_groups)[0]
 
     def logits(self, params, batch, ctx=None, scales_groups=None):
-        return self._head(params, self.forward(params, batch, ctx,
-                                               scales_groups))
+        """Logits of the token positions (a VLM's prefix cut)."""
+        x, prefix_len, _ = self._forward(params, batch, ctx, scales_groups)
+        return self._head(params, x[:, prefix_len:])
 
     def loss(self, params, batch: Dict, ctx: Optional[QuantCtx] = None,
              scales_groups=None) -> Tuple[torch.Tensor, Dict]:
@@ -97,7 +146,8 @@ class Model:
         x their router z-loss (both 0 for a dense stack). Returns (total,
         metrics)."""
         cfg = self.cfg
-        x, aux = self._forward(params, batch, ctx, scales_groups)
+        x, prefix_len, aux = self._forward(params, batch, ctx, scales_groups)
+        x = x[:, prefix_len:]
         labels = torch.as_tensor(batch["labels"], device=self.device)
         head = params["embed"].T if cfg.tie_embeddings \
             else params["lm_head"]
@@ -120,15 +170,17 @@ class Model:
     def prefill(self, params, batch: Dict, caches,
                 ctx: Optional[QuantCtx] = None, scales_groups=None):
         """Process the prompt batch["tokens"] [B, T] into the contiguous
-        `caches` (written in place). Returns the last token's logits
-        [B, V]."""
+        `caches` (written in place): a VLM's image prefix ahead of it, an
+        enc-dec model's frames through the encoder (under `ctx`, without
+        calibrated spans), whose output every decoder layer's cache keeps
+        for cross attention. Returns the last token's logits [B, V]."""
         cfg = self.cfg
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        x = self._embed_in(params, tokens, cfg.dtype)
+        x, prefix_len, enc_out = self._inputs(params, batch, ctx)
         x, _ = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
-                              positions=self._positions(*tokens.shape),
+                              positions=self._positions(*x.shape[:2]),
                               caches=caches, mode="prefill", ctx=ctx,
-                              scales_groups=scales_groups)
+                              scales_groups=scales_groups,
+                              prefix_len=prefix_len, enc_out=enc_out)
         x = norm(params["final_norm"], x[:, -1:], cfg.norm_type,
                  cfg.norm_eps)
         return self._head(params, x)[:, 0]
@@ -170,7 +222,8 @@ class Model:
     def quant_sites(self) -> List[str]:
         """Every `dense` site name of the family (the reference lists the
         FFN sites for MoE too, though its experts never reach `dense`;
-        with MLA they are the first dense layers' FFN)."""
+        with MLA they are the first dense layers' FFN). The enc-dec and
+        VLM families take the dense list."""
         if self.cfg.family == "rwkv6":
             return ["tm_r", "tm_k", "tm_v", "tm_g", "tm_out",
                     "cm_k", "cm_r", "cm_v"]
@@ -187,15 +240,16 @@ class Model:
     @torch.no_grad()
     def calibrate(self, params, batches: Iterable[Dict],
                   signed: bool = True) -> list:
-        """Eager per-layer min-max calibration (paper §5). Returns
-        `scales_groups`: per layer group, {site: (count,) f32 tensor} of
-        calibrated spans (divided by qmax at use)."""
+        """Eager per-layer min-max calibration (paper §5) of the decoder
+        stack (an enc-dec model's encoder runs in float, unobserved).
+        Returns `scales_groups`: per layer group, {site: (count,) f32
+        tensor} of calibrated spans (divided by qmax at use)."""
         cfg = self.cfg
         bank = CalibBank()
         for batch in batches:
-            tokens = torch.as_tensor(batch["tokens"], device=self.device)
-            x = self._embed_in(params, tokens, cfg.dtype)
-            positions = self._positions(*tokens.shape)
+            x, prefix_len, enc_out = self._inputs(params, batch,
+                                                  QuantCtx(mode="off"))
+            positions = self._positions(*x.shape[:2])
             for gi, ((kind, count), stacked) in enumerate(
                     zip(self.groups_meta, params["blocks"])):
                 for li in range(count):
@@ -203,7 +257,8 @@ class Model:
                                    site_prefix=f"g{gi}.l{li}/")
                     x, _, _ = tr.block_apply(
                         tr.layer_params(stacked, li), x, cfg, kind,
-                        positions=positions, mode="train", ctx=ctx)
+                        positions=positions, mode="train", ctx=ctx,
+                        prefix_len=prefix_len, enc_out=enc_out)
         groups = []
         for gi, (kind, count) in enumerate(self.groups_meta):
             sites: Dict[str, list] = {}

@@ -1,8 +1,10 @@
 """Block assembly and the layer stack (port of `repro.models.transformer`,
 kinds "dense", "moe", MLA's "mla_dense" and "mla_moe", RWKV6's "rwkv",
-and the RG-LRU hybrid's "rg_rec" and "rg_attn", whose local attention
+the RG-LRU hybrid's "rg_rec" and "rg_attn", whose local attention
 keeps a sliding-window ring cache: `ring_init`, `ring_insert`,
-`ring_decode_attention`). Layers are
+`ring_decode_attention`, and the enc-dec family's encoder "enc" and
+decoder "dec" layers, the latter with cross attention over the
+encoder's output). Layers are
 grouped into homogeneous runs with stacked [L, ...] params as in the JAX
 package; the stack runs as a Python loop over layers, each with its own
 calibrated scales and its own cache store, and sums the MoE layers' aux
@@ -24,16 +26,19 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.cache import CacheConfig, RingKVCache
+from repro_torch.models.cache import (CacheConfig, CacheStore, DecCache,
+                                      RingKVCache)
 from repro_torch.models.common import ModelConfig, QuantCtx, norm, norm_init
 from repro_torch.models.quantize import as_weight
 
 MLA_KINDS = ("mla_dense", "mla_moe")
 RG_KINDS = ("rg_rec", "rg_attn")
+ENCDEC_KINDS = ("enc", "dec")
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ("dense", "moe", "rwkv") + MLA_KINDS + RG_KINDS:
+    if kind not in ("dense", "moe", "rwkv") + MLA_KINDS + RG_KINDS \
+            + ENCDEC_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported")
 
 
@@ -91,7 +96,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
     """One layer's params: weights drawn in f32 and cast to `dtype`, norms
     (and the MoE router, the RG-LRU's lam, RWKV's mus and vectors) in f32,
     as the reference's. The RG-LRU kinds take a GeGLU FFN whatever
-    `mlp_type` says."""
+    `mlp_type` says; a "dec" layer has a second attention, "xattn" (the
+    cross attention) after its own norm "ln_x"."""
     _check_kind(kind)
     d, nt = cfg.d_model, cfg.norm_type
     if kind == "rwkv":
@@ -105,6 +111,9 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
         attn_init = mla_mod.mla_init if kind in MLA_KINDS \
             else attn_mod.attention_init
         p["attn"] = attn_init(gen, cfg, device, dtype)
+    if kind == "dec":
+        p["ln_x"] = norm_init(d, nt, device)
+        p["xattn"] = attn_mod.attention_init(gen, cfg, device, dtype)
     p["ln2"] = norm_init(d, nt, device)
     if kind in ("moe", "mla_moe"):
         p["moe"] = moe_mod.moe_init(gen, cfg, device, dtype)
@@ -139,21 +148,61 @@ def _rg_attention(params: Dict, h: torch.Tensor, cfg: ModelConfig, *,
                                device=cache.pos.device)
         # the slab K4 reads row by row: a copy when the prompt is longer
         ring_insert(cache, k[:, -W:].contiguous(), v[:, -W:].contiguous())
-    o = torch.matmul(o.reshape(*o.shape[:2], -1),
-                     as_weight(params["wo"], h.dtype))
-    return o, cache
+    return _float_out(params, o, h.dtype), cache
+
+
+def _float_out(params: Dict, o: torch.Tensor, dtype) -> torch.Tensor:
+    """An attention output [B, T, H, hd] through `wo` as a float product
+    of the dequantized weight, not `dense` (no K1, no calibrated site)."""
+    return torch.matmul(o.reshape(*o.shape[:2], -1),
+                        as_weight(params["wo"], dtype))
+
+
+def _cross_attention(params: Dict, h: torch.Tensor, cfg: ModelConfig, *,
+                     cache: Optional[DecCache], mode: str, enc_out):
+    """A "dec" layer's cross attention, every product in float (the
+    reference's cross attention never reaches `dense`). K/V come from
+    `enc_out` in mode train or whenever it is given (and are kept in the
+    cache), else from the cache; at decode the query attends through
+    `decode_attention` over fp planes holding the encoder's T_enc rows
+    (`CacheStore.from_kv`, plain torch), otherwise through the
+    bidirectional flash attention."""
+    if mode == "train" or enc_out is not None:
+        ck = attn_mod._split_heads(torch.matmul(
+            enc_out, as_weight(params["wk"], h.dtype)), cfg.n_kv_heads)
+        cv = attn_mod._split_heads(torch.matmul(
+            enc_out, as_weight(params["wv"], h.dtype)), cfg.n_kv_heads)
+    else:
+        ck, cv = cache.cross_k, cache.cross_v
+    q = attn_mod._split_heads(torch.matmul(
+        h, as_weight(params["wq"], h.dtype)), cfg.n_heads)
+    if mode == "decode":
+        o = attn_mod.decode_attention(
+            q, CacheStore.from_kv(ck, cv, ck.shape[1]))
+    else:
+        o = attn_mod.flash_attention(q, ck, cv, causal=False,
+                                     q_chunk=cfg.attn_chunk,
+                                     kv_chunk=cfg.attn_chunk)
+    if cache is not None:
+        cache.cross_k, cache.cross_v = ck, cv
+    return _float_out(params, o, h.dtype)
 
 
 def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions: torch.Tensor, cache=None, mode: str = "train",
-                ctx: Optional[QuantCtx] = None, chunk=None):
+                ctx: Optional[QuantCtx] = None, prefix_len: int = 0,
+                enc_out: Optional[torch.Tensor] = None, chunk=None):
     """Pre-norm residual block. Returns (x, cache, aux): aux holds an MoE
     layer's {"lb_loss", "z_loss"} and is empty for a dense layer. A GQA
     MoE layer's capacity is exact in decode and chunked prefill (a chunk
     mixes tokens of several sequences, so capacity dropping would couple
     one prompt's routing to another's) and not exact otherwise; an MLA MoE
     layer's is exact in decode only (MLA has no chunked prefill), as in
-    the reference."""
+    the reference. `prefix_len` (a VLM's image prefix) widens the causal
+    mask of a dense layer's attention in train and prefill; `enc_out` is
+    the encoder's output a "dec" layer attends to. An "enc" layer
+    attends both ways and projects its output in float, as the
+    reference's."""
     _check_kind(kind)
     nt, eps = cfg.norm_type, cfg.norm_eps
     h = norm(params["ln1"], x, nt, eps)
@@ -178,10 +227,24 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         o, cache = mla_mod.mla_block(params["attn"], h, cfg,
                                      positions=positions, cache=cache,
                                      mode=mode, ctx=ctx)
+    elif kind == "enc" and mode != "decode":
+        o = _float_out(params["attn"], attn_mod.flash_attention(
+            *attn_mod.qkv_proj(params["attn"], h, cfg, positions, ctx),
+            causal=False, q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk),
+            x.dtype)
+    elif kind == "dec":
+        o, _ = attn_mod.attention_block(
+            params["attn"], h, cfg, positions=positions,
+            cache=cache.self_kv if cache is not None else None, mode=mode,
+            ctx=ctx)
+        x = x + o.to(x.dtype)
+        h = norm(params["ln_x"], x, nt, eps)
+        o = _cross_attention(params["xattn"], h, cfg, cache=cache,
+                             mode=mode, enc_out=enc_out)
     else:
         o, cache = attn_mod.attention_block(
             params["attn"], h, cfg, positions=positions, cache=cache,
-            mode=mode, ctx=ctx, chunk=chunk,
+            mode=mode, ctx=ctx, chunk=chunk, prefix_len=prefix_len,
             window=cfg.local_window if kind == "rg_attn" else 0)
     x = x + o.to(x.dtype)
     h = norm(params["ln2"], x, nt, eps)
@@ -197,7 +260,7 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         return ["dense"] * cfg.n_layers
     if cfg.family == "moe":
         if cfg.kv_lora_rank:
@@ -210,6 +273,8 @@ def layer_kinds(cfg: ModelConfig) -> list[str]:
     if cfg.family == "rglru":
         pattern = cfg.block_pattern or ("rg_rec", "rg_rec", "rg_attn")
         return [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+    if cfg.family == "encdec":
+        return ["dec"] * cfg.n_layers
     raise NotImplementedError(f"family {cfg.family!r} is not ported")
 
 
@@ -275,8 +340,10 @@ def stack_cache_init(cfg: ModelConfig, kinds: list[str], batch: int,
     """One cache per layer, in layer order (the flat list `stack_apply`
     indexes): a (k, v, pos) `CacheStore`, an MLA layer's (c_kv, k_pe, pos)
     `MLACache`, an rg_attn layer's `RingKVCache` of `local_window` slots,
-    or a recurrent layer's state (`RGLRUCache`, `RWKVCache`), stored in
-    the fp layout's dtype, else in `dtype`, as the reference's."""
+    a "dec" layer's `DecCache` (its `CacheStore` and zero cross K/V of
+    [batch, max_len, KV, hd]), or a recurrent layer's state (`RGLRUCache`,
+    `RWKVCache`); the states and cross K/V stored in the fp layout's
+    dtype, else in `dtype`, as the reference's."""
     cc = cache_cfg or CacheConfig(layout="fp", dtype=dtype)
     state_dtype = cc.dtype if cc.layout == "fp" else dtype
     out = []
@@ -293,6 +360,13 @@ def stack_cache_init(cfg: ModelConfig, kinds: list[str], batch: int,
         elif kind in MLA_KINDS:
             out.append(mla_mod.mla_cache_init(cfg, batch, max_len, device,
                                               cache_cfg))
+        elif kind == "dec":
+            shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+            out.append(DecCache(
+                self_kv=attn_mod.cache_init(cfg, batch, max_len, device, cc),
+                cross_k=torch.zeros(shape, dtype=state_dtype, device=device),
+                cross_v=torch.zeros(shape, dtype=state_dtype,
+                                    device=device)))
         else:
             out.append(attn_mod.cache_init(cfg, batch, max_len, device,
                                            cache_cfg))
@@ -303,12 +377,13 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
                 cfg: ModelConfig, *, positions: torch.Tensor,
                 caches: Optional[list] = None, mode: str = "train",
                 ctx: Optional[QuantCtx] = None,
-                scales_groups: Optional[list] = None, chunk=None):
+                scales_groups: Optional[list] = None, prefix_len: int = 0,
+                enc_out: Optional[torch.Tensor] = None, chunk=None):
     """Apply every layer in order. `caches` is the flat per-layer list of
     cache stores (written in place); `scales_groups[g][site]` holds the
-    group's per-layer calibrated spans. Returns (x, aux): the layers'
-    "lb_loss" and "z_loss" summed in layer order (f32 zeros for a dense
-    stack)."""
+    group's per-layer calibrated spans; `prefix_len` and `enc_out` reach
+    every layer (`block_apply`). Returns (x, aux): the layers' "lb_loss"
+    and "z_loss" summed in layer order (f32 zeros for a dense stack)."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     zl = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -325,7 +400,9 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
             def body(p_l, x, kind=kind, cache=cache, bctx=bctx):
                 x, _, aux = block_apply(p_l, x, cfg, kind,
                                         positions=positions, cache=cache,
-                                        mode=mode, ctx=bctx, chunk=chunk)
+                                        mode=mode, ctx=bctx,
+                                        prefix_len=prefix_len,
+                                        enc_out=enc_out, chunk=chunk)
                 return x, aux.get("lb_loss"), aux.get("z_loss")
             if remat:
                 x, lb_l, zl_l = torch.utils.checkpoint.checkpoint(
