@@ -24,7 +24,11 @@ Phases (each one that fails makes the script exit non-zero):
               mode and in every KV-write mode (paged decode, chunk,
               contiguous) at every K4_WRITES shape, against its plain
               version (every pool byte but the trash page's, every scale
-              and position), the contiguous mode also with planes of two
+              and position), and with a head offset (K4_SHARDS: a TP
+              shard's paged and chunk writes, heads [2, 4) of 4 and [5,
+              6) of 8) equal to its plain version and to the full
+              write's head slice and scales; the contiguous mode also
+              with planes of two
               widths (MLA's c_kv and k_pe at r 512 / dr 64 and 32 / 16,
               T = 1 and 256), and in its ring mode at K4_RING
               (recurrentgemma-9b's 8 x 2048-slot ring of hd 256: a decode
@@ -49,7 +53,8 @@ Phases (each one that fails makes the script exit non-zero):
               ring (K5_RING: G 16, hd 256, 2048 slots, window 2048, the
               slot positions rotated after 2100 + s writes; timed beside
               SDPA and the bound), and at hd 16 / G 4, hd 128
-              at G 8, G 12 and G 6 (dbrx) and misaligned planes, and
+              at G 8, G 12 and G 6 (dbrx), misaligned planes and the tp
+              phase's shards (hd 64 G 8 over 2 and 1 KV heads), and
               (check_f3) K5 at bk 128 and K2 at page size 128 at
               F3_SHAPES (G 48 hd 128,
               G 8 and G 16 hd 256: a tile of 128 in chunks of 64 keys;
@@ -60,7 +65,8 @@ Phases (each one that fails makes the script exit non-zero):
               K3_SHAPES shape (hd 64 G 8, the serving shape; hd 16, hd 128
               at G 8, at G 48 (also at page 128 and 16-token query
               tiles), at G 12 over 2 and 8 KV heads and at G 6 over 8
-              (dbrx), bq * G = 128,
+              (dbrx), the tp phase's shards (hd 64 G 8 over 2 and 1 KV
+              heads), bq * G = 128,
               page size 128, hd 256, hd 10, misaligned tensors, and the
               exact shapes of the cli and wide paths, a 32-token chunk
               over a long history, each at the
@@ -107,6 +113,25 @@ Phases (each one that fails makes the script exit non-zero):
               16-128 tokens, 3 decode steps apart), chunked, page 16,
               prefix cache off and on: equal tokens, 7 hits, K3 launches
               down by 22 a hit, exact K2 / K3 / K4 counts
+  tp          tensor-parallel paged serving on the same model and requests
+              (chunked, the KV pools sharded on their 4 KV heads): TP 1,
+              TP 2 and TP 4 with every shard on the one card
+              (`make_tp_mesh(tp, devices=[dev] * tp)`), TP 1 and TP 2 with
+              --preempt swap over half the uncontended peak's pages and
+              the prefix cache on; each TP run against TP 1 under the same
+              settings: equal tokens, every shard's planes TP 1's head
+              slice byte for byte (but the trash page, written in no set
+              order) and its scales, block table and
+              positions TP 1's (at decode step 16 and after the run),
+              pool_bytes_per_device = (data + ctrl) / tp + bookkeeping,
+              exact launches (K1 as TP 1; K2 = tp L steps, K3 = tp L
+              chunks, K4 = tp L (2 chunks + steps); K5 = K6 = K7 = 0);
+              at each mesh, the `ops` dispatchers of K2 and K3 with
+              `mesh=` (one launch a shard over its heads, concatenated)
+              equal the unsharded call on the same inputs bit for bit;
+              with two cards or more also TP 2 over cuda:0 and cuda:1
+              (with four, TP 4 over four cards), else logged as not run;
+              decode tok/s, prefill s, peak GB (the lead card's) logged
   scan        the same model, `DecodeEngine.generate` on batch 8, prompt
               256, gen 32 over the contiguous sparq cache: K1 = 7*22*32,
               K4 = 22*(2 + 31), K5 = 22*31, K2 = K3 = K6 = 0; the first
@@ -268,12 +293,12 @@ Phases (each one that fails makes the script exit non-zero):
               kernels on the device timeline (every decode update one K4
               launch, every chunk write two, nothing else)
 
-Each of serve, frontend, preempt, prefix, scan, sequential, dense_family,
-moe, mla, recurrent, multimodal, cli, wide, cnn, train (its part c) and
-cnn_train resets the launch counters just before it drives its path (each
-of its runs) and reads them just after (frontend also at each replay's
-warm-up boundary); the plain versions of the KV codec must not run there
-at all. With all sixteen, every
+Each of serve, frontend, preempt, prefix, tp, scan, sequential,
+dense_family, moe, mla, recurrent, multimodal, cli, wide, cnn, train (its
+part c) and cnn_train resets the launch counters just before it drives
+its path (each of its runs) and reads them just after (frontend also at
+each replay's warm-up boundary); the plain versions of the KV codec must
+not run there at all. With all seventeen, every
 kernel must have launched on some
 path. The plain versions of the KV path
 (codec, `sparq_pack`, the four writes, the dequantizers) must not run on
@@ -766,15 +791,19 @@ def contig_keys(kd, km, ks, vd, vm, vs, kpos, cur, window=0):
 # K2's slots: cur per slot (slot 4 inactive); slot 5's block table is
 # allocated up to page 20 only
 K2_CURS = [599, 433, 17, 300, -1, 511, 64, 250]
-# K2 and K5 beyond their timed shape (G 8, hd 64): (G, hd, misaligned
-# planes) — the reduced tinyllama's heads, granite-class hd 128, the
-# byte-wise load path, and a head dim that is not a multiple of 4 (the
-# scalar score loop)
-DECODE_SHAPES = {"hd 16 G 4": (4, 16, False), "hd 128 G 8": (8, 128, False),
-                 "hd 128 G 12": (12, 128, False),
-                 "hd 128 G 6": (6, 128, False),          # dbrx-132b
-                 "hd 64 G 8 unaligned": (8, 64, True),
-                 "hd 10 G 4": (4, 10, False)}
+# K2 and K5 beyond their timed shape (G 8, hd 64, KV 4): (G, hd,
+# misaligned planes, KV) — the reduced tinyllama's heads, granite-class hd
+# 128, the byte-wise load path, a head dim that is not a multiple of 4
+# (the scalar score loop), and the tp phase's shards of tinyllama's 4 KV
+# heads (2 at TP 2, 1 at TP 4)
+DECODE_SHAPES = {"hd 16 G 4": (4, 16, False, 4),
+                 "hd 128 G 8": (8, 128, False, 4),
+                 "hd 128 G 12": (12, 128, False, 4),
+                 "hd 128 G 6": (6, 128, False, 4),       # dbrx-132b
+                 "hd 64 G 8 unaligned": (8, 64, True, 4),
+                 "hd 10 G 4": (4, 10, False, 4),
+                 "hd 64 G 8 KV 2": (8, 64, False, 2),    # a TP 2 shard
+                 "hd 64 G 8 KV 1": (8, 64, False, 1)}    # a TP 4 shard
 
 
 # How far a kernel may lie from its plain version. The plain versions sum
@@ -850,8 +879,9 @@ def check_k2(dev, results):
     sets = [k2_case(gen, dev)
             for _ in range(n_sets(4 * (P + 1) * ps * KV * hd))]
     args = sets[0]
-    cases = [("timed", args)] + [(name, k2_case(gen, dev, *shape))
-                                 for name, shape in DECODE_SHAPES.items()]
+    cases = [("timed", args)] + [
+        (name, k2_case(gen, dev, G, hd, mis, KV=kv))
+        for name, (G, hd, mis, kv) in DECODE_SHAPES.items()]
     errs = {}
     for name, a in cases:
         # window > 0: K2 masks whole splits and keys inside a page
@@ -1046,7 +1076,8 @@ def k3_f64_reference(q, kc, vc, kd, km, ks, vd, vm, vs, bt, sid, pos, hist,
 # granite-class G 48 over one KV head), 128 query rows a tile
 # (--chunk-align 16), --page-size 128, hd 256, a head dim that is not a
 # multiple of 16 (2-byte and 8-byte loads, zero-padded to 16), misaligned
-# tensors (aligned copies), and the shapes the cli and wide paths give K3
+# tensors (aligned copies), the tp phase's shards of the serving shape (2
+# and 1 KV heads), and the shapes the cli and wide paths give K3
 # (`cli_k3_shape` of CLI_ARGS and WIDE_ARGS: a 32-token chunk, the wide
 # one in two row blocks of 16-token query tiles over key tiles that are
 # slices of 128-key pages)
@@ -1071,6 +1102,11 @@ K3_SHAPES = {"hd 64 G 8": ((4, 8, 64, 16, 8, False, 256), (64, 64, 64, 1)),
              "hd 10 G 4": ((4, 4, 10, 16, 8, False, 256), (16, 64, 32, 1)),
              "hd 64 G 8 misaligned": ((4, 8, 64, 16, 8, True, 256),
                                       (64, 64, 64, 1)),
+             # the tp phase's shards of the serving shape (TP 2, TP 4)
+             "hd 64 G 8 KV 2": ((2, 8, 64, 16, 8, False, 256),
+                                (64, 64, 64, 1)),
+             "hd 64 G 8 KV 1": ((1, 8, 64, 16, 8, False, 256),
+                                (64, 64, 64, 1)),
              "cli": ((2, 4, 16, 16, 8, False, 32), (16, 64, 32, 1)),
              "cli granite": ((1, 8, 16, 16, 8, False, 32), (16, 64, 64, 1)),
              "wide": ((4, 8, 64, 128, 16, False, 32), (64, 64, 64, 2))}
@@ -1555,13 +1591,101 @@ def _k4_ring_writes(dev, rows):
                 f"ms (plain {plain_ms:.3f} ms, bound {bound:.3e} ms)")
 
 
+# K4 with a head offset, a tensor-parallel shard's write (the full K/V,
+# pools of KV_local heads from head0): (mode, K4_WRITES dims, dtype, head0,
+# KV_local). tinyllama's 4 KV heads in shards of 2, the second shard; 8 KV
+# heads in shards of 1, the sixth
+K4_SHARDS = {
+    "tp2 shard 1 decode": ("paged", K4_WRITES["serve decode"][1],
+                           torch.bfloat16, 2, 2),
+    "tp2 shard 1 chunk": ("chunk", K4_WRITES["serve chunk"][1],
+                          torch.bfloat16, 2, 2),
+    "KV 8 head 5 decode": ("paged", K4_WRITES["hd 128 KV 8 decode"][1],
+                           torch.bfloat16, 5, 1),
+    "KV 8 head 5 chunk": ("chunk", K4_WRITES["hd 128 KV 8 chunk"][1],
+                          torch.bfloat16, 5, 1),
+}
+
+
+def _k4_shard_writes(dev, rows):
+    """K4's paged and chunk writes with a head offset at K4_SHARDS, 5opt
+    and a8w8, the K/V 8x louder outside the shard's heads (a scale from
+    the shard alone would differ): bit-exact against the plain write with
+    the same offset, and equal to the head slice of the full write's
+    bytes (all but the trash page) and to its scales and positions."""
+    from repro_torch.core.sparq import SparqConfig
+    from repro_torch.kernels import sparq_quant as qk
+    from repro_torch.kernels.ops import _codec_kw
+    gen = torch.Generator(device=dev).manual_seed(46)
+    for name, (mode, d, dtype, h0, kvl) in K4_SHARDS.items():
+        kern = qk.kv_write_paged_cuda if mode == "paged" \
+            else qk.kv_write_chunk_cuda
+        plain = qk.ref_kv_write_paged if mode == "paged" \
+            else qk.ref_kv_write_chunk
+        for codec_name, cfg in (("5opt", SparqConfig.opt5(signed=True)),
+                                ("a8w8", SparqConfig(enabled=False,
+                                                     signed=True))):
+            kw = _codec_kw(cfg)
+
+            def case():
+                x, pools, other = k4_write_case(gen, dev, mode, d, dtype,
+                                                None)
+                x = [t * 8 for t in x]
+                for t in x:
+                    t[..., h0:h0 + kvl, :] /= 8
+                shard = [p[:, :, h0:h0 + kvl].clone() for p in pools]
+                return x, pools, shard, other
+            x, full, shard, other = case()
+            shard_plain = [t.clone() for t in shard]
+            want_full = kern(*x, *full, *other, **kw)
+            got = kern(*x, *shard, *other, head0=h0, **kw)
+            want = plain(*x, *shard_plain, *other, head0=h0, **kw)
+            torch.cuda.synchronize()
+            for what, g, w, f in zip(("k_data", "k_meta", "v_data",
+                                      "v_meta"), shard, shard_plain, full):
+                if not torch.equal(g[:-1], w[:-1]) or not torch.equal(
+                        g[:-1], f[:-1, :, h0:h0 + kvl]):
+                    raise AssertionError(
+                        f"K4 {name} {codec_name}: {what} differs from the "
+                        f"plain shard write or the full write's heads")
+            for what, g, w, f in zip(("k_scale", "v_scale", "positions"),
+                                     got, want, want_full):
+                if not (torch.equal(g, w.to(g.dtype)) and torch.equal(g, f)):
+                    raise AssertionError(
+                        f"K4 {name} {codec_name}: {what} {g.tolist()} != "
+                        f"plain {w.tolist()} / full write {f.tolist()}")
+            # the full write's bytes less the codes and meta of the heads
+            # the shard does not write; a division a value it writes
+            nbytes, vals = k4_write_bytes(mode, d, dtype, other)
+            part = kvl / d["KV"]
+            nbytes -= round(vals * 2 * (1 - part))
+            ops_n = vals * part
+            sets = [(lambda c: (c[0], c[2], c[3]))(case())
+                    for _ in range(n_sets(nbytes))]
+            ms = bench(lambda x_, st, o: kern(*x_, *st, *o, head0=h0, **kw),
+                       sets)
+            plain_ms = bench(lambda x_, st, o: plain(*x_, *st, *o, head0=h0,
+                                                     **kw),
+                             sets[:1], iters=5, warmup=1)
+            bound = max(nbytes / H100_BYTES_S, ops_n / H100_F32_FLOPS_S) \
+                * 1e3
+            rows.append(dict(codec=codec_name, case=name, mode=mode,
+                             dims=dict(d, head0=h0, kv_local=kvl),
+                             dtype=str(dtype), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, exact=True))
+            log(f"K4 {mode} write {codec_name} {name:26s} heads "
+                f"[{h0}, {h0 + kvl}) of {d['KV']}: bit-exact, the full "
+                f"write's head slice and scales, {ms:.4f} ms (plain "
+                f"{plain_ms:.3f} ms, bound {bound:.3e} ms)")
+
+
 def check_k4(dev, results):
     """K4's rows mode (the Pallas contract) at the old per-write shapes,
     5opt and a8w8, bit-exact; then every write mode at K4_WRITES against
     its plain version on the card from the same inputs: every pool byte
-    but the trash page's, every scale and position equal. That each write
-    of a path launches K4 alone is checked on the path's own writes
-    (`WriteCapture`)."""
+    but the trash page's, every scale and position equal; the head-offset
+    writes of K4_SHARDS. That each write of a path launches K4 alone is
+    checked on the path's own writes (`WriteCapture`)."""
     from repro_torch.core.sparq import SparqConfig
     from repro_torch.kernels import sparq_quant as qk
     from repro_torch.kernels.ops import _codec_kw
@@ -1613,6 +1737,7 @@ def check_k4(dev, results):
                 f"(plain {plain_ms:.3f} ms, bound {bound:.3e} ms)")
     _k4_writes(dev, rows)
     _k4_ring_writes(dev, rows)
+    _k4_shard_writes(dev, rows)
     rep = next(r for r in rows if r["codec"] == "5opt"
                and r["case"] == K4_REP)
     results["sparq_quant"] = dict(
@@ -1781,8 +1906,9 @@ def check_k5(dev, results):
     ring[100:130] = -1
     ring = ring[None].expand(B, Tk).contiguous()
     errs = {}
-    for name, a in [("timed", args)] + [(n, k5_case(gen, dev, *shape))
-                                        for n, shape in DECODE_SHAPES.items()]:
+    for name, a in [("timed", args)] + [
+            (n, k5_case(gen, dev, G, hd, mis, KV=kv))
+            for n, (G, hd, mis, kv) in DECODE_SHAPES.items()]:
         for window, kpos in ((0, a[7]), (K2_WINDOW, ring)):
             case = a[:7] + (kpos, a[8])
             what = f"{name}, window {window}{', ring' if window else ''}"
@@ -3568,6 +3694,275 @@ def prefix_full_width(dev, results):
     return {k: counts[False][k] + counts[True][k] for k in counts[True]}
 
 
+# ----------------------------------------------------------------------
+# phase: tensor-parallel paged serving, shards on the one card
+# ----------------------------------------------------------------------
+
+TP_DEGREES = (2, 4)
+TP_PROBE_STEP = 16          # the decode step whose state is also compared
+TP_PLANES = ("k_data", "k_meta", "v_data", "v_meta")
+TP_BOOK = ("k_scale", "v_scale", "block_table", "seq_pos")
+
+
+def _tp_state(caches):
+    """Per layer, per shard (an unsharded store: one): clones of the four
+    planes and of the bookkeeping."""
+    out = []
+    for c in caches:
+        out.append([([getattr(sh, f).clone() for f in TP_PLANES],
+                     [getattr(sh, f).clone() for f in TP_BOOK])
+                    for sh in c.shards])
+    return out
+
+
+def _tp_run(engine, params, reqs):
+    """One driven run with the state cloned at TP_PROBE_STEP and after
+    the run. Returns (tokens, stats, launches, {"probe" / "final":
+    state}, the modeled pool bytes, peak GB)."""
+    states, live = {}, {}
+
+    def hook(snap):
+        live["caches"] = snap["caches"]
+        if snap["step"] == TP_PROBE_STEP:
+            states["probe"] = _tp_state(snap["caches"])
+    torch.cuda.reset_peak_memory_stats()
+    (out, stats), counts = _drive(lambda: engine.run(params, reqs,
+                                                     trace_hook=hook))
+    states["final"] = _tp_state(live["caches"])
+    from repro_torch.models import paging
+    tally = paging.modeled_pool_bytes(live["caches"])
+    return out, stats, counts, states, tally, \
+        torch.cuda.max_memory_allocated() / 1e9
+
+
+def _tp_check(what, tp, L, got, base, kv_heads):
+    """A TP run against TP 1 under the same settings: tokens equal; at
+    the probe step and after the run every shard's planes are TP 1's
+    head slice byte for byte (but the trash page) and its scales, block
+    table and positions TP 1's; pool_bytes_per_device = (data + ctrl) / tp
+    + bookkeeping; exact launches (K1 as TP 1; K2, K3 and K4 once a
+    shard)."""
+    from repro_torch.distributed.sharding import shard_heads
+    out, st, c, states, tally, _ = got
+    bout, bst, bc, bstates, btally, _ = base
+    _same_tokens(what, out, bout)
+    for k in ("decode_steps", "prefill_chunks", "preemptions",
+              "preempt_swap", "swap_bytes_out", "swap_bytes_in"):
+        if st[k] != bst[k]:
+            raise AssertionError(f"{what}: {k} {st[k]} != TP 1's {bst[k]}")
+    if "probe" not in bstates or "probe" not in states:
+        raise AssertionError(f"{what}: the run ended before decode step "
+                             f"{TP_PROBE_STEP}")
+    for when in ("probe", "final"):
+        for layer, (shards, (whole,)) in enumerate(zip(states[when],
+                                                       bstates[when])):
+            if len(shards) != tp:
+                raise AssertionError(f"{what}: {len(shards)} shards")
+            for r, (planes, book) in enumerate(shards):
+                h0, h1 = shard_heads(kv_heads, tp, r)
+                # all but the trash page, which inactive slots, padding
+                # and unallocated blocks write in no set order on the card
+                for f, mine, full in zip(TP_PLANES, planes, whole[0]):
+                    if not torch.equal(mine[:-1], full[:-1, :, h0:h1].to(
+                            mine.device)):
+                        raise AssertionError(
+                            f"{what}: layer {layer} shard {r} {f} is not "
+                            f"TP 1's heads [{h0}, {h1}) ({when})")
+                for f, mine, full in zip(TP_BOOK, book, whole[1]):
+                    if not torch.equal(mine, full.to(mine.device)):
+                        raise AssertionError(
+                            f"{what}: layer {layer} shard {r} {f} differs "
+                            f"from TP 1's ({when})")
+    want_dev = (btally["data_bytes"] + btally["ctrl_bytes"]) / tp + \
+        btally["other_bytes"]
+    if st["tp"] != tp or st["pool_bytes_per_device"] != want_dev or \
+            tally["total_bytes"] != btally["total_bytes"]:
+        raise AssertionError(
+            f"{what}: tp {st['tp']}, pool bytes per device "
+            f"{st['pool_bytes_per_device']} (expected {want_dev}), "
+            f"modeled {tally['total_bytes']} (TP 1 {btally['total_bytes']})")
+    steps, chunks = st["decode_steps"], st["prefill_chunks"]
+    want = {"sparq_matmul": bc["sparq_matmul"],
+            "sparq_paged_decode_attn": tp * L * steps,
+            "sparq_chunked_prefill_attn": tp * L * chunks,
+            "sparq_quant": tp * L * (2 * chunks + steps),
+            "sparq_decode_attn": 0, "sparq_dequant": 0,
+            "sparq_mla_decode": 0}
+    for k, v in want.items():
+        if c[k] != v:
+            raise AssertionError(f"{what}: {k} launched {c[k]} times, "
+                                 f"expected {v} ({c})")
+
+
+def _tp_dispatch_check(dev, mesh, kv_heads=4, G=8, hd=64):
+    """`ops.sparq_paged_decode_attention` (K2) and `ops.
+    sparq_chunked_prefill_attention` (K3) with `mesh`, at the tp path's
+    shapes (8 slots, pages of 16, chunk 256, bq 8), each shard's planes
+    its KV heads of the unsharded pools on its device and the bookkeeping
+    copied there: the concatenated output equals the unsharded call on
+    the same inputs bit for bit, without and with a window. Returns the
+    cases held."""
+    from repro_torch.distributed.sharding import shard_heads
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(27)
+    tp = mesh.tp
+
+    def cut(t):
+        return [t[:, :, slice(*shard_heads(kv_heads, tp, r))].contiguous()
+                .to(d) for r, d in enumerate(mesh.devices)]
+
+    def rep(t):
+        return [t.to(d) for d in mesh.devices]
+    q, kd, km, ks, vd, vm, vs, bt, cur = k2_case(gen, dev, G, hd,
+                                                 KV=kv_heads)
+    S = q.shape[0]
+    q = q.reshape(S, 1, kv_heads * G, hd)
+    held = []
+    for window in (0, K2_WINDOW):
+        want = ops.sparq_paged_decode_attention(q, kd, km, ks, vd, vm, vs,
+                                                bt, cur, window=window)
+        got = ops.sparq_paged_decode_attention(
+            q, cut(kd), cut(km), rep(ks), cut(vd), cut(vm), rep(vs),
+            rep(bt), rep(cur), window=window, mesh=mesh)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"tp {tp}: K2 through ops with mesh differs from the "
+                f"unsharded call by {float((got - want).abs().max())} "
+                f"(window {window})")
+        held.append(f"K2 window {window}")
+    for layout in k3_layouts(256):
+        (q, kc, vc, kd, km, ks, vd, vm, vs, bt, sid, pos, hist,
+         ts) = k3_case(gen, dev, layout, KV=kv_heads, G=G, hd=hd)
+        C = q.shape[0]
+        q = q.reshape(C, kv_heads * G, hd)
+        for window in (0, K3_WINDOW):
+            want = ops.sparq_chunked_prefill_attention(
+                q, kc, vc, kd, km, ks, vd, vm, vs, bt, sid, pos, hist, ts,
+                window=window)
+            got = ops.sparq_chunked_prefill_attention(
+                q, kc, vc, cut(kd), cut(km), rep(ks), cut(vd), cut(vm),
+                rep(vs), rep(bt), rep(sid), rep(pos), rep(hist), rep(ts),
+                window=window, mesh=mesh)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"tp {tp}: K3 through ops with mesh differs from the "
+                    f"unsharded call by {float((got - want).abs().max())} "
+                    f"({layout}, window {window})")
+            held.append(f"K3 {layout} window {window}")
+    return held
+
+
+def tp_full_width(dev, results):
+    """Tensor-parallel paged serving (`ContinuousBatchingEngine(mesh=)`)
+    on tinyllama-1.1b at full width and depth, 5opt, sparq KV, chunked,
+    the serve phase's 8 requests: TP 1, then TP 2 and TP 4 with every
+    shard on this card (`make_tp_mesh(tp, devices=[dev] * tp)`), then TP
+    1 and TP 2 with --preempt swap over half the uncontended peak's pages
+    and the prefix cache on; with two cards or more also TP 2 over cuda:0
+    and cuda:1 (and with four, TP 4 over four cards). Each TP run is held
+    to TP 1 under the same settings
+    (`_tp_check`). On one card TP adds launches and host work and buys
+    nothing: decode tok/s, prefill s and peak GB are logged, not held."""
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_tp_mesh
+    t0 = time.perf_counter()
+    cfg, model, params, scales, codec = _full_width(dev)
+    L, KV = cfg.n_layers, cfg.n_kv_heads
+    reqs, lens, gen = _serve_requests(cfg)
+    max_seq = -(-(int(lens.max()) + gen - 1) // 16) * 16
+    full = sum(math.ceil((int(n) + gen - 1) / 16) for n in lens) + 8
+    # a warm-up run, untimed and unchecked: this phase may be the first
+    # to drive the engine in the process
+    _paged_engine(model, codec, scales, dev, "chunked", full,
+                  max_seq).run(params, reqs)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    runs, rows, total = {}, {}, {}
+
+    def run(name, tp, n_pages, devices=None, **kw):
+        mesh = make_tp_mesh(tp, devices=devices or [dev] * tp) \
+            if tp > 1 else None
+        eng = _paged_engine(model, codec, scales, dev, "chunked", n_pages,
+                            max_seq, mesh=mesh, **kw)
+        runs[name] = _tp_run(eng, params, reqs)
+        _check_requests(cfg, reqs, runs[name][0], gen)
+        out, st, c, _, _, peak = runs[name]
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        rows[name] = {**{k: v for k, v in st.items()
+                         if not isinstance(v, dict)},
+                      "devices": [str(d) for d in (mesh.devices if mesh
+                                                   else [dev])],
+                      "launches": c, "peak_gb": peak}
+        log(f"tp {name}: tp {tp} over {rows[name]['devices']}, decode "
+            f"{st['decode_tok_s']:.1f} tok/s ({st['decode_steps']} steps), "
+            f"prefill {st['prefill_s']:.3f} s ({st['prefill_chunks']} "
+            f"chunks), peak {peak:.2f} GB, pool "
+            f"{st['pool_bytes_per_device'] / 1e6:.2f} MB a device, "
+            f"{st['preemptions']} preemptions ({st['preempt_swap']} swap, "
+            f"{st['swap_bytes_out']} B out); launches {c}")
+        return runs[name]
+
+    G, hd = cfg.n_heads // KV, cfg.head_dim
+    dispatch = {}
+
+    def held_shapes(tp, devices):
+        # a shard's K2 and K3 shapes are rows of check_k2 and check_k3,
+        # and the dispatchers over this mesh equal the unsharded call
+        k2, k3 = (G, hd, False, KV // tp), (KV // tp, G, hd, 16, 8, False,
+                                             256)
+        if k2 not in DECODE_SHAPES.values() or \
+                not any(v[0] == k3 for v in K3_SHAPES.values()):
+            raise AssertionError(f"tp {tp}: a shard runs K2 at {k2} and K3 "
+                                 f"at {k3}, which check_k2 / check_k3 do "
+                                 f"not hold")
+        mesh = make_tp_mesh(tp, devices=devices)
+        key = f"tp {tp} over {[str(d) for d in mesh.devices]}"
+        dispatch[key] = _tp_dispatch_check(dev, mesh, KV, G, hd)
+        log(f"tp: K2 and K3 through ops with the mesh of {key} equal the "
+            f"unsharded call bit for bit ({len(dispatch[key])} cases)")
+
+    run("tp1", 1, full)
+    for tp in TP_DEGREES:
+        held_shapes(tp, [dev] * tp)
+        _tp_check(f"tp {tp}", tp, L, run(f"tp{tp}", tp, full), runs["tp1"],
+                  KV)
+    half = runs["tp1"][1]["peak_pages_used"] // 2
+    swap = dict(policy=serve.SchedulerPolicy(preempt="swap"),
+                prefix_cache=True)
+    run("tp1 swap", 1, half, **swap)
+    if runs["tp1 swap"][1]["preempt_swap"] <= 0:
+        raise AssertionError(f"tp swap: {half} pages swapped nothing")
+    _same_tokens("tp1 swap", runs["tp1 swap"][0], runs["tp1"][0])
+    _tp_check("tp 2 swap", 2, L, run("tp2 swap", 2, half, **swap),
+              runs["tp1 swap"], KV)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        for tp in (2, 4) if n_cards >= 4 else (2,):
+            held_shapes(tp, [torch.device("cuda", i) for i in range(tp)])
+            _tp_check(f"tp {tp} on {tp} cards", tp, L,
+                      run(f"tp{tp} {tp} cards", tp, full,
+                          devices=[torch.device("cuda", i)
+                                   for i in range(tp)]), runs["tp1"], KV)
+        two = "ran"
+    else:
+        two = f"not run: {n_cards} card visible"
+        log(f"tp 2 across two cards: {two}; the launches on a card that "
+            f"is not the current device stay unverified")
+    results["tp"] = dict(arch=cfg.name, n_layers=L, kv_heads=KV,
+                         probe_step=TP_PROBE_STEP, uncontended_pages=full,
+                         swap_pages=half, setup_s=t_setup, runs=rows,
+                         two_cards=two, dispatch_bit_equal=dispatch)
+    log(f"tp {cfg.name} x{L}: tokens, shard bytes (step "
+        f"{TP_PROBE_STEP} and final), pool bytes and launches of "
+        f"{[k for k in rows if k not in ('tp1', 'tp1 swap')]} hold against "
+        f"TP 1; decode tok/s " + ", ".join(
+            f"{k} {v['decode_tok_s']:.1f}" for k, v in rows.items()))
+    del params, runs
+    torch.cuda.empty_cache()
+    return total
+
+
 def scan_full_width(dev, results):
     """The scan engine at full width: batch 8, prompt 256, gen 32, sparq
     KV (5opt). A first generate is the warm-up; the launch counters are
@@ -5181,9 +5576,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="build,kernels,serve,frontend,preempt,prefix,"
-                            "scan,sequential,dense_family,moe,mla,recurrent,"
-                            "multimodal,cli,wide,cnn,train,cnn_train,"
-                            "parity")
+                            "tp,scan,sequential,dense_family,moe,mla,"
+                            "recurrent,multimodal,cli,wide,cnn,train,"
+                            "cnn_train,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -5219,7 +5614,8 @@ def main(argv=None):
     by_path = {}
     paths = (("serve", serve_full_width), ("frontend", frontend_full_width),
              ("preempt", preempt_full_width),
-             ("prefix", prefix_full_width), ("scan", scan_full_width),
+             ("prefix", prefix_full_width), ("tp", tp_full_width),
+             ("scan", scan_full_width),
              ("sequential", sequential_full_width),
              ("dense_family", dense_family), ("moe", moe_full_width),
              ("mla", mla_full_width), ("recurrent", recurrent_full_width),

@@ -43,6 +43,14 @@
 //                 (src/repro/models/transformer.py::ring_insert, T <= W),
 //                 row t of a batch row at slot (pos + t) % W of its plane,
 //                 slot_pos[b, slot] = pos + t for every batch row, pos + T.
+//   head offset   (PAGED, the chunk modes, CONTIG_* without a ring; tensor-
+//                 parallel serving) a shard's pools hold KV heads [head0,
+//                 head0 + KV_local) of every row: x's rows stay whole (n
+//                 values), the scale is still resolved from every lane of
+//                 the row or slab, the reference's one scale over all KV
+//                 heads, and only lanes [lane0, lane0 + n_out) of a row are
+//                 written, into pool rows of n_out values. lane0 = 0 and
+//                 n_out = n is the unsharded write, bit for bit.
 //   Codes and meta follow sparq_common.cuh's codec (K1's); the stored form
 //   is sparq_encode_stored, equal to sparq_pack(ref_sparq_quant(...)).
 // Bound: at decode sizes, the launch: a decode write is 8 slots x 4 KV heads
@@ -107,6 +115,9 @@ struct KvArgs {
   int n;                     // values a row: K, or KV * hd
   int n_v;                   // values a row of the second plane (contiguous
                              // modes may differ from n; else n)
+  int lane0;                 // first lane of x's row the pools hold
+  int w_out[2];              // values a pool row of each plane: n and n_v,
+                             // or a head shard's n_out for both
   int per_row;               // ROWS: one scale per row
   int n_slots;               // S
   int T, Tmax;               // contiguous: tokens a batch row, capacity
@@ -211,9 +222,13 @@ __device__ __forceinline__ float block_max(float m, float* red) {
   return warp_max(m);
 }
 
-// values a row of plane p
+// values a row of plane p in x, and in its pool or plane
 __device__ __forceinline__ int width(const KvArgs& g, int p) {
   return p ? g.n_v : g.n;
+}
+
+__device__ __forceinline__ int width_out(const KvArgs& g, int p) {
+  return g.w_out[p];
 }
 
 // frozen once calibrated (> 0), else max(amax, 1e-8) / max_val in IEEE f32
@@ -246,23 +261,24 @@ __device__ __forceinline__ void ring_stamp(const KvArgs& g, int r) {
       g.pos[0] + r % g.T;
 }
 
-// element offset of a pool row: page block_table[s, min(pos / ps, NB - 1)],
-// row pos % ps; the trash page when `live` is false or the block is
-// unallocated
+// element offset of a pool row of w values: page block_table[s, min(pos /
+// ps, NB - 1)], row pos % ps; the trash page when `live` is false or the
+// block is unallocated
 __device__ __forceinline__ long long page_row(const KvArgs& g, int s,
-                                              int pos, bool live) {
+                                              int pos, bool live, int w) {
   const int eff = max(pos, 0);
   int page = g.block_table[static_cast<long long>(s) * g.NB +
                            min(eff / g.ps, g.NB - 1)];
   if (!live || page < 0) page = g.trash;
-  return (static_cast<long long>(page) * g.ps + eff % g.ps) * g.n;
+  return (static_cast<long long>(page) * g.ps + eff % g.ps) * w;
 }
 
 // PAGED and CONTIG_ONE: a block per (row, plane); the row is a slot's
 // token (PAGED) or a batch row's (CONTIG_ONE, T = 1). The block resolves
-// the scale, from its own row (PAGED) or from the whole slab, reduced again
-// by every block (CONTIG_ONE; a decode slab is a few thousand values and
-// only the first write of a plane needs it), then writes its row.
+// the scale, from its own whole row (PAGED) or from the whole slab, reduced
+// again by every block (CONTIG_ONE; a decode slab is a few thousand values
+// and only the first write of a plane needs it), then writes its row's
+// lanes [lane0, lane0 + n_out).
 template <int VEC, bool BF16>
 __global__ void __launch_bounds__(THREADS)
 sparq_quant_group_kernel(KvArgs g) {
@@ -270,6 +286,7 @@ sparq_quant_group_kernel(KvArgs g) {
   const int p = blockIdx.y, row = blockIdx.x;
   const bool paged = g.mode == PAGED;
   const int n = width(g, p), nv = n / VEC;
+  const int wo = width_out(g, p);
   const float stored = g.scale_in[p][paged ? row : 0];
   float a = stored;
   if (!(stored > 0.f)) {
@@ -286,12 +303,12 @@ sparq_quant_group_kernel(KvArgs g) {
     a = resolve(stored, block_max(m, red), g.codec.max_val);
   }
   const int pos = g.pos[paged ? row : 0];
-  const long long dst = paged ? page_row(g, row, pos, pos >= 0)
-                              : contig_row(g, row, n);
-  for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+  const long long dst = paged ? page_row(g, row, pos, pos >= 0, wo)
+                              : contig_row(g, row, wo);
+  for (int i = threadIdx.x; i < wo / VEC; i += blockDim.x) {
     float v[VEC];
     load_lanes<VEC, BF16>(
-        g.x[p], static_cast<long long>(row) * n + i * VEC, v);
+        g.x[p], static_cast<long long>(row) * n + g.lane0 + i * VEC, v);
     encode_store<VEC, true>(v, a, g.codec, g.data[p], g.meta[p],
                             dst + i * VEC);
   }
@@ -345,8 +362,9 @@ sparq_quant_amax_kernel(KvArgs g) {
   }
 }
 
-// ROWS, CHUNK_WRITE and CONTIG_WRITE: a thread per VEC lanes of the slab;
-// each block first resolves the scales it needs from the scale pass.
+// ROWS, CHUNK_WRITE and CONTIG_WRITE: a thread per VEC lanes written (a
+// row's lanes [lane0, lane0 + n_out)); each block first resolves the scales
+// it needs from the scale pass.
 template <int VEC, bool BF16, bool STORED>
 __global__ void __launch_bounds__(THREADS)
 sparq_quant_write_kernel(KvArgs g) {
@@ -385,30 +403,31 @@ sparq_quant_write_kernel(KvArgs g) {
       a = resolve(stored, block_max(m, red), g.codec.max_val);
     }
   }
-  const int n = width(g, p), nv = n / VEC;
-  const int nvec = g.rows * nv;
+  const int n = width(g, p), wo = width_out(g, p), nvo = wo / VEC;
+  const int nvec = g.rows * nvo;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < nvec;
        i += gridDim.x * blockDim.x) {
-    const int r = i / nv;
-    const int lane0 = (i - r * nv) * VEC;
+    const int r = i / nvo;
+    const int lane = (i - r * nvo) * VEC;
     float sc;
     long long dst;
     if (g.mode == ROWS) {
       sc = g.scale_in[0][g.per_row ? r : 0];
-      dst = static_cast<long long>(r) * n;
+      dst = static_cast<long long>(r) * wo;
     } else if (g.mode == CHUNK_WRITE) {
       const int sid = g.seq_id[r], s = max(sid, 0);
       sc = slot_scale[s];
-      dst = page_row(g, s, g.pos[r], sid >= 0);
+      dst = page_row(g, s, g.pos[r], sid >= 0, wo);
     } else {
       sc = a;
-      dst = contig_row(g, r, n);
+      dst = contig_row(g, r, wo);
     }
     float v[VEC];
-    load_lanes<VEC, BF16>(g.x[p], static_cast<long long>(r) * n + lane0, v);
+    load_lanes<VEC, BF16>(
+        g.x[p], static_cast<long long>(r) * n + g.lane0 + lane, v);
     encode_store<VEC, STORED>(v, sc, g.codec, g.data[p], g.meta[p],
-                              dst + lane0);
-    if (g.mode == CONTIG_WRITE && g.slot_pos && p == 0 && lane0 == 0)
+                              dst + lane);
+    if (g.mode == CONTIG_WRITE && g.slot_pos && p == 0 && lane == 0)
       ring_stamp(g, r);
   }
   if (blockIdx.x != 0) return;
@@ -430,9 +449,11 @@ sparq_quant_write_kernel(KvArgs g) {
 template <bool BF16>
 cudaError_t launch_mode(const KvArgs& g, bool vec8, cudaStream_t st) {
   const int planes = g.mode == ROWS ? 1 : 2;
-  const int n = max(g.n, g.n_v);  // the wider plane sizes the grid
-  const int pair_blocks = (g.rows * (n / 2) + THREADS - 1) / THREADS;
-  const int slab_blocks = (g.rows * (n / 8) + THREADS - 1) / THREADS;
+  const int n = max(g.n, g.n_v);  // the wider row: a group block's threads
+  // the wider row written sizes the write grid
+  const int wo = max(g.w_out[0], g.w_out[1]);
+  const int pair_blocks = (g.rows * (wo / 2) + THREADS - 1) / THREADS;
+  const int slab_blocks = (g.rows * (wo / 8) + THREADS - 1) / THREADS;
   const dim3 amax_grid((g.rows + WARPS - 1) / WARPS, planes);
   switch (g.mode) {
     case PAGED:
@@ -481,8 +502,11 @@ bool aligned(const void* p, int bytes) {
 // One launch of mode `mode` (see the header). Pointers a mode does not use
 // may be null. x_bf16: K/V are bf16 (else f32; ROWS takes f32 only).
 // n_v: values a row of the second plane (v); equal to n but in the
-// contiguous modes. slot_pos: non-null only in a contiguous mode, where it
-// makes the write a ring write (T <= Tmax).
+// contiguous modes. lane0, n_out: the head shard a write fills, lanes
+// [lane0, lane0 + n_out) of each row into pools of n_out values a row (0
+// and n unsharded; sharded only where n_v == n, and never in ROWS or a ring
+// write). slot_pos: non-null only in a contiguous mode, where it makes the
+// write a ring write (T <= Tmax).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
 // mode or a size the kernels do not take).
 extern "C" int sparq_quant_launch(
@@ -491,12 +515,17 @@ extern "C" int sparq_quant_launch(
     const void* block_table, const void* pos, void* pos_out,
     const void* seq_id, const void* hist, const void* pos_after,
     void* slot_pos, void* k_data, void* k_meta, void* v_data, void* v_meta,
-    int rows, int n, int n_v, int n_slots, int T, int Tmax, int ps, int NB,
-    int trash, int bits, int shift_mask, int shift_max, int rounding,
-    int vsparq, int is_signed, int max_val, int enabled, void* stream) {
+    int rows, int n, int n_v, int lane0, int n_out, int n_slots, int T,
+    int Tmax, int ps, int NB, int trash, int bits, int shift_mask,
+    int shift_max, int rounding, int vsparq, int is_signed, int max_val,
+    int enabled, void* stream) {
   const bool contig = mode >= CONTIG_ONE;
+  const bool shard = lane0 != 0 || n_out != n;
   if (mode < ROWS || mode > CONTIG_WRITE || n % 2 || n_v % 2 ||
       (!contig && n_v != n) || n_slots > MAX_SLOTS ||
+      lane0 < 0 || lane0 % 2 || n_out < 0 || n_out % 2 ||
+      lane0 + n_out > n ||
+      (shard && (mode == ROWS || n_v != n || slot_pos)) ||
       (slot_pos && (!contig || T > Tmax)) ||
       (mode == ROWS && x_bf16) ||
       static_cast<long long>(rows) * max(n, n_v) > 0x7fffffffLL)
@@ -524,6 +553,9 @@ extern "C" int sparq_quant_launch(
   g.rows = rows;
   g.n = n;
   g.n_v = n_v;
+  g.lane0 = lane0;
+  g.w_out[0] = n_out;
+  g.w_out[1] = shard ? n_out : n_v;
   g.per_row = per_row;
   g.n_slots = n_slots;
   g.T = T;
@@ -536,7 +568,8 @@ extern "C" int sparq_quant_launch(
   // 8 lanes a thread on the contiguous prefill slab when every row start and
   // pointer stays 16-byte aligned; a lane pair needs its own alignment only
   const int planes = mode == ROWS ? 1 : 2, esize = x_bf16 ? 2 : 4;
-  bool al16 = n % 8 == 0 && n_v % 8 == 0;
+  bool al16 = n % 8 == 0 && n_v % 8 == 0 && lane0 % 8 == 0 &&
+              n_out % 8 == 0;
   for (int q = 0; q < planes; ++q) {
     if (!aligned(g.x[q], 2 * esize) || !aligned(g.data[q], 2) ||
         !aligned(g.meta[q], 2))

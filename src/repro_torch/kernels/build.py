@@ -17,6 +17,7 @@ that its main path went through the kernels (`reset_launch_counts` /
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -168,6 +169,16 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def on_device(t: torch.Tensor):
+    """The context a launch on t's card runs in: a C entry point launches
+    in the current device's context, which need not be t's card (a tensor-
+    parallel shard on a second card). A null context for a tensor that is
+    not on a card (the tests' recorded launches)."""
+    if t.device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

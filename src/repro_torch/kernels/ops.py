@@ -4,6 +4,16 @@ Dispatch goes by the device of the tensors: CPU tensors take the plain
 PyTorch versions, CUDA tensors take the hand-written kernels, any other
 device raises. There is no switch that could route a CUDA tensor to a
 plain version: on the card, the main path always runs the kernels.
+
+Tensor parallelism (`mesh`, a `launch.mesh.TPMesh` of tp > 1): the three
+attention dispatchers run once per shard, each over the KV heads its
+planes hold (GQA heads are KV-major, so a shard's query heads are one
+contiguous run of whole head groups), with the unchanged single-device
+kernel on the shard's device; the outputs are concatenated on the lead
+device in head order. Per-head flash accumulation never crosses heads, so
+each shard's output is the same head slice of the TP 1 output, bit for
+bit, and the concatenation is data movement only. The KV writes take the
+shard's first head (`head0`) instead: see `kernels.sparq_quant`.
 """
 from __future__ import annotations
 
@@ -13,6 +23,7 @@ import torch
 
 from repro_torch.core.quantizer import QScale
 from repro_torch.core.sparq import SparqConfig
+from repro_torch.distributed.sharding import shard_heads
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import sparq_decode_attn as _dec
 from repro_torch.kernels import sparq_dequant as _dq
@@ -32,6 +43,37 @@ def _route(t: torch.Tensor) -> str:
     if t.device.type == "cuda":
         return "cuda"
     raise ValueError(f"no SPARQ kernel for device {t.device}")
+
+
+# ----------------------------------------------------------------------
+# tensor parallelism: one launch a shard, over its own KV heads
+# ----------------------------------------------------------------------
+
+def tp_size(mesh) -> int:
+    """Tensor-parallel degree of `mesh` (a TPMesh; None = 1, no TP)."""
+    return 1 if mesh is None else mesh.tp
+
+
+def _tp_guard(kv_heads: int, tp: int) -> None:
+    """Raise unless `tp` splits the KV heads into whole head groups."""
+    shard_heads(kv_heads, tp, 0)
+
+
+def _per_shard(mesh, q, axis: int, k_data, run) -> torch.Tensor:
+    """`run(r, h0, h1, q_r)` for every shard r of `mesh`, where k_data[r]
+    holds KV heads [h0, h1) and q_r is q's query heads of those groups
+    (axis `axis`) on the shard's device; the outputs concatenated on the
+    lead device in head order."""
+    tp = mesh.tp
+    kv = k_data[0].shape[2] * tp
+    _tp_guard(kv, tp)
+    G = q.shape[axis] // kv
+    outs = []
+    for r, dev in enumerate(mesh.devices):
+        h0, h1 = shard_heads(kv, tp, r)
+        q_r = q.narrow(axis, h0 * G, (h1 - h0) * G).to(dev)
+        outs.append(run(r, h0, h1, q_r).to(mesh.lead))
+    return torch.cat(outs, axis)
 
 
 # ----------------------------------------------------------------------
@@ -127,48 +169,55 @@ def _kv(x: torch.Tensor) -> torch.Tensor:
 
 
 def kv_write_paged(k_new, v_new, k_data, k_meta, v_data, v_meta, k_scale,
-                   v_scale, block_table, seq_pos, cfg: SparqConfig):
+                   v_scale, block_table, seq_pos, cfg: SparqConfig,
+                   head0: int = 0):
     """A paged decode update (`models.paging.PagedCacheStore.update`):
     float [S, 1, KV, hd] K/V, one token a slot, quantized and written into
-    the pools in place. Returns the new (k_scale, v_scale, seq_pos). One K4
-    launch on the card."""
+    the pools in place (a head shard's pools: heads [head0, head0 +
+    KV_local), under the scale of every head). Returns the new (k_scale,
+    v_scale, seq_pos). One K4 launch on the card."""
     args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, block_table,
             seq_pos)
     if _route(k_new) == "plain":
-        return _q.ref_kv_write_paged(k_new, v_new, *args, **_codec_kw(cfg))
+        return _q.ref_kv_write_paged(k_new, v_new, *args, head0=head0,
+                                     **_codec_kw(cfg))
     return _q.kv_write_paged_cuda(_kv(k_new), _kv(v_new), *args,
-                                  **_codec_kw(cfg))
+                                  head0=head0, **_codec_kw(cfg))
 
 
 def kv_write_chunk(k_new, v_new, k_data, k_meta, v_data, v_meta, k_scale,
                    v_scale, block_table, seq_id, pos, hist, seq_pos_after,
-                   cfg: SparqConfig):
+                   cfg: SparqConfig, head0: int = 0):
     """A prefill chunk's write (`models.paging.PagedCacheStore.
     write_chunk`): float [C, KV, hd] K/V in stream order, written into the
-    pools in place. Returns the new (k_scale, v_scale, seq_pos). Two K4
-    launches on the card (scale pass, write pass)."""
+    pools in place (heads from `head0`, as `kv_write_paged`). Returns the
+    new (k_scale, v_scale, seq_pos). Two K4 launches on the card (scale
+    pass, write pass)."""
     args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, block_table,
             seq_id, pos, hist, seq_pos_after)
     if _route(k_new) == "plain":
-        return _q.ref_kv_write_chunk(k_new, v_new, *args, **_codec_kw(cfg))
+        return _q.ref_kv_write_chunk(k_new, v_new, *args, head0=head0,
+                                     **_codec_kw(cfg))
     return _q.kv_write_chunk_cuda(_kv(k_new), _kv(v_new), *args,
-                                  **_codec_kw(cfg))
+                                  head0=head0, **_codec_kw(cfg))
 
 
 def kv_write_contiguous(k_new, v_new, k_data, k_meta, v_data, v_meta,
-                        k_scale, v_scale, pos, cfg: SparqConfig):
+                        k_scale, v_scale, pos, cfg: SparqConfig,
+                        head0: int = 0):
     """Both planes of a contiguous sparq append (`models.cache.CacheStore.
     update`, `MLACache.update`): float [B, T, ...] slabs at time offset
     `pos`, written in place; each plane's rows have their own width (K/V
     [B, T, KV, hd], or MLA's c_kv [B, T, r] and k_pe [B, T, dr]) and its
-    own scale. Returns the new (k_scale, v_scale, pos). On the card one K4
-    launch at T = 1, two (scale pass, write pass) otherwise."""
+    own scale; K/V planes of a head shard take heads from `head0`, as
+    `kv_write_paged`. Returns the new (k_scale, v_scale, pos). On the card
+    one K4 launch at T = 1, two (scale pass, write pass) otherwise."""
     args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, pos)
     if _route(k_new) == "plain":
-        return _q.ref_kv_write_contiguous(k_new, v_new, *args,
+        return _q.ref_kv_write_contiguous(k_new, v_new, *args, head0=head0,
                                           **_codec_kw(cfg))
     return _q.kv_write_contiguous_cuda(_kv(k_new), _kv(v_new), *args,
-                                       **_codec_kw(cfg))
+                                       head0=head0, **_codec_kw(cfg))
 
 
 def kv_write_ring(k_new, v_new, k_data, k_meta, v_data, v_meta, k_scale,
@@ -231,14 +280,23 @@ def sparq_mla_decode(q_lat, q_pe, c_data, c_meta, c_scale, pe_data,
 
 def sparq_decode_attention(q, k_data, k_meta, k_scale, v_data, v_meta,
                            v_scale, kpos, cur, window: int = 0,
-                           bk: Optional[int] = None) -> torch.Tensor:
+                           bk: Optional[int] = None,
+                           mesh=None) -> torch.Tensor:
     """Fused flash-decode attention over contiguous packed SPARQ planes.
     q (B, 1, H, hd); planes (B, Tk, KV, hd) int8; per-site scales and the
     decoded position `cur` as one-element device tensors; kpos (B, Tk)
     int32 slot positions (-1 = empty). `bk` is the Tk-tile size (None ->
     DEFAULT_BK, clamped to Tk): the tile split fixes the f32 summation
     order, so bk == page_size reproduces the paged kernel bit for bit.
-    Returns f32 (B, 1, H, hd)."""
+    With `mesh` (tp > 1) every argument but q is a sequence over the
+    shards: shard r's planes (its KV heads) and its device's copies of the
+    rest. Returns f32 (B, 1, H, hd)."""
+    if tp_size(mesh) > 1:
+        return _per_shard(mesh, q, 2, k_data, lambda r, h0, h1, q_r:
+                          sparq_decode_attention(
+                              q_r, k_data[r], k_meta[r], k_scale[r],
+                              v_data[r], v_meta[r], v_scale[r], kpos[r],
+                              cur[r], window=window, bk=bk))
     B, Tq, H, hd = q.shape
     assert Tq == 1, f"decode attention takes one query token, got Tq={Tq}"
     Tk, KV = k_data.shape[1], k_data.shape[2]
@@ -262,11 +320,23 @@ def sparq_chunked_prefill_attention(q, k_chunk, v_chunk, k_data, k_meta,
                                     k_scale, v_data, v_meta, v_scale,
                                     block_table, seq_id, pos, hist,
                                     tile_seq, window: int = 0,
-                                    bq: int = 8) -> torch.Tensor:
+                                    bq: int = 8, mesh=None) -> torch.Tensor:
     """Ragged chunked-prefill flash attention over the §5.1 page pool.
     q (C, H, hd), k/v_chunk (C, KV, hd), pools (P, ps, KV, hd), per-slot
     scales (S,), block_table (S, NB), seq_id/pos/hist (C,), tile_seq
-    (C/bq,). Returns f32 (C, H, hd); padding rows are zeros."""
+    (C/bq,). With `mesh` (tp > 1) the pools and everything after them are
+    sequences over the shards, as in `sparq_decode_attention`; q and the
+    chunk's float K/V (all heads, lead device) are cut per shard. Returns
+    f32 (C, H, hd); padding rows are zeros."""
+    if tp_size(mesh) > 1:
+        def run(r, h0, h1, q_r):
+            dev = k_data[r].device
+            return sparq_chunked_prefill_attention(
+                q_r, k_chunk[:, h0:h1].to(dev), v_chunk[:, h0:h1].to(dev),
+                k_data[r], k_meta[r], k_scale[r], v_data[r], v_meta[r],
+                v_scale[r], block_table[r], seq_id[r], pos[r], hist[r],
+                tile_seq[r], window=window, bq=bq)
+        return _per_shard(mesh, q, 1, k_data, run)
     C, H, hd = q.shape
     KV = k_data.shape[2]
     G = H // KV
@@ -286,12 +356,19 @@ def sparq_chunked_prefill_attention(q, k_chunk, v_chunk, k_data, k_meta,
 
 
 def sparq_paged_decode_attention(q, k_data, k_meta, k_scale, v_data, v_meta,
-                                 v_scale, block_table, cur,
-                                 window: int = 0) -> torch.Tensor:
+                                 v_scale, block_table, cur, window: int = 0,
+                                 mesh=None) -> torch.Tensor:
     """Fused flash-decode attention over a paged packed SPARQ cache.
     q (B, 1, H, hd); pools (P, ps, KV, hd); per-sequence scales (B,);
     block_table (B, NB); cur (B,) (< 0 = inactive slot, output zeros).
-    Returns f32 (B, 1, H, hd)."""
+    With `mesh` (tp > 1) every argument but q is a sequence over the
+    shards, as in `sparq_decode_attention`. Returns f32 (B, 1, H, hd)."""
+    if tp_size(mesh) > 1:
+        return _per_shard(mesh, q, 2, k_data, lambda r, h0, h1, q_r:
+                          sparq_paged_decode_attention(
+                              q_r, k_data[r], k_meta[r], k_scale[r],
+                              v_data[r], v_meta[r], v_scale[r],
+                              block_table[r], cur[r], window=window))
     B, Tq, H, hd = q.shape
     assert Tq == 1, f"decode attention takes one query token, got Tq={Tq}"
     KV = k_data.shape[2]

@@ -289,13 +289,15 @@ def sparq_paged_decode_attn_cuda(q, k_data, k_meta, k_scale, v_data, v_meta,
     ws, cnt = _workspace(KERNEL, dev, B * KV * geo.n_splits * G * (hd + 2),
                          B * KV)
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
-    KERNEL.launch(
-        _b.ptr(q), _b.ptr(k_data), _b.ptr(k_meta), _b.ptr(k_scale),
-        _b.ptr(v_data), _b.ptr(v_meta), _b.ptr(v_scale), _b.ptr(block_table),
-        _b.ptr(cur), _b.ptr(out), _b.ptr(ws), _b.ptr(cnt), B, KV, G, hd, ps,
-        NB, int(window), geo.keys_per_split, sub_keys(G, hd, ps),
-        _vec(k_data, k_meta, v_data, v_meta), float(hd ** -0.5),
-        _b.stream_ptr(q))
+    with _b.on_device(q):
+        KERNEL.launch(
+            _b.ptr(q), _b.ptr(k_data), _b.ptr(k_meta), _b.ptr(k_scale),
+            _b.ptr(v_data), _b.ptr(v_meta), _b.ptr(v_scale),
+            _b.ptr(block_table), _b.ptr(cur), _b.ptr(out), _b.ptr(ws),
+            _b.ptr(cnt), B, KV, G, hd, ps, NB, int(window),
+            geo.keys_per_split, sub_keys(G, hd, ps),
+            _vec(k_data, k_meta, v_data, v_meta), float(hd ** -0.5),
+            _b.stream_ptr(q))
     return out
 
 
@@ -370,11 +372,12 @@ def sparq_decode_attn_cuda(q, k_data, k_meta, k_scale, v_data, v_meta,
     ws, cnt = _workspace(CONTIG_KERNEL, dev,
                          B * KV * geo.n_splits * G * (hd + 2), B * KV)
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
-    CONTIG_KERNEL.launch(
-        _b.ptr(q), _b.ptr(k_data), _b.ptr(k_meta), _b.ptr(k_scale),
-        _b.ptr(v_data), _b.ptr(v_meta), _b.ptr(v_scale), _b.ptr(kpos),
-        _b.ptr(cur), _b.ptr(out), _b.ptr(ws), _b.ptr(cnt), B, KV, G, hd, bk,
-        Tk, int(window), geo.keys_per_split, sub_keys(G, hd, bk),
-        _vec(k_data, k_meta, v_data, v_meta), float(hd ** -0.5),
-        _b.stream_ptr(q))
+    with _b.on_device(q):
+        CONTIG_KERNEL.launch(
+            _b.ptr(q), _b.ptr(k_data), _b.ptr(k_meta), _b.ptr(k_scale),
+            _b.ptr(v_data), _b.ptr(v_meta), _b.ptr(v_scale), _b.ptr(kpos),
+            _b.ptr(cur), _b.ptr(out), _b.ptr(ws), _b.ptr(cnt), B, KV, G, hd,
+            bk, Tk, int(window), geo.keys_per_split, sub_keys(G, hd, bk),
+            _vec(k_data, k_meta, v_data, v_meta), float(hd ** -0.5),
+            _b.stream_ptr(q))
     return out

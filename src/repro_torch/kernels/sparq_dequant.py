@@ -66,6 +66,7 @@ def sparq_dequant_cuda(store: torch.Tensor, meta: torch.Tensor,
                              f"{out_dtype}")
         _b.check(scale.reshape(1), "scale", torch.float32, (1,), dev)
     out = torch.empty((M, K), dtype=out_dtype or torch.int8, device=dev)
-    KERNEL.launch(_b.ptr(store), _b.ptr(meta), _b.ptr(out), _b.ptr(scale),
-                  OUT_MODES[out_dtype], M, K, _b.stream_ptr(store))
+    with _b.on_device(store):
+        KERNEL.launch(_b.ptr(store), _b.ptr(meta), _b.ptr(out), _b.ptr(scale),
+                      OUT_MODES[out_dtype], M, K, _b.stream_ptr(store))
     return out

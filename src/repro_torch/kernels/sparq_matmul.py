@@ -163,11 +163,12 @@ def sparq_matmul_cuda(x, w_codes, act_scale, chan_scale, *, bits=4,
     ws = base + ws_off if n_ws else 0
     arrivals = ws + 4 * p.split_k * M * N if n_ws else 0
     w_vec = int(N % 16 == 0 and w_codes.data_ptr() % 16 == 0)
-    KERNEL.launch(
-        _b.ptr(x), int(x.dtype == torch.bfloat16), _b.ptr(w_codes),
-        _b.ptr(a), _b.ptr(chan_scale), _b.ptr(out), ctypes.c_void_p(base),
-        ctypes.c_void_p(ws), ctypes.c_void_p(arrivals), M, N, K, p.kp,
-        p.bm, p.bn, p.tiles_per_split, p.split_k, w_vec, bits, mask,
-        max(opts_shifts), int(rounding), int(vsparq), int(signed), max_val,
-        int(enabled), _b.stream_ptr(x))
+    with _b.on_device(x):
+        KERNEL.launch(
+            _b.ptr(x), int(x.dtype == torch.bfloat16), _b.ptr(w_codes),
+            _b.ptr(a), _b.ptr(chan_scale), _b.ptr(out), ctypes.c_void_p(base),
+            ctypes.c_void_p(ws), ctypes.c_void_p(arrivals), M, N, K, p.kp,
+            p.bm, p.bn, p.tiles_per_split, p.split_k, w_vec, bits, mask,
+            max(opts_shifts), int(rounding), int(vsparq), int(signed), max_val,
+            int(enabled), _b.stream_ptr(x))
     return out

@@ -144,9 +144,11 @@ def sparq_mla_decode_cuda(q_lat, q_pe, c_data, c_meta, c_scale, pe_data,
     out = torch.empty((B, H, r), dtype=torch.float32, device=dev)
     vec = _vec(c_data, c_meta, pe_data, pe_meta) and r % 16 == 0 \
         and dr % 16 == 0
-    KERNEL.launch(
-        _b.ptr(q_lat), _b.ptr(q_pe), _b.ptr(c_data), _b.ptr(c_meta),
-        _b.ptr(c_scale), _b.ptr(pe_data), _b.ptr(pe_meta), _b.ptr(pe_scale),
-        _b.ptr(pos), _b.ptr(out), _b.ptr(ws), _b.ptr(cnt), B, H, r, dr, Tk,
-        kps, int(vec), float(sm_scale), _b.stream_ptr(q_lat))
+    with _b.on_device(q_lat):
+        KERNEL.launch(
+            _b.ptr(q_lat), _b.ptr(q_pe), _b.ptr(c_data), _b.ptr(c_meta),
+            _b.ptr(c_scale), _b.ptr(pe_data), _b.ptr(pe_meta),
+            _b.ptr(pe_scale), _b.ptr(pos), _b.ptr(out), _b.ptr(ws),
+            _b.ptr(cnt), B, H, r, dr, Tk, kps, int(vec), float(sm_scale),
+            _b.stream_ptr(q_lat))
     return out

@@ -252,10 +252,12 @@ def sparq_chunked_prefill_attn_cuda(q, k_chunk, v_chunk, k_data, k_meta,
         t if t.data_ptr() % 16 == 0 else t.clone() for t in (
             q, k_chunk, v_chunk, k_data, k_meta, v_data, v_meta))
     out = torch.empty((C, KV, G, hd), dtype=torch.float32, device=dev)
-    KERNEL.launch(
-        _b.ptr(q), _b.ptr(k_chunk), _b.ptr(v_chunk), _b.ptr(k_data),
-        _b.ptr(k_meta), _b.ptr(k_scale), _b.ptr(v_data), _b.ptr(v_meta),
-        _b.ptr(v_scale), _b.ptr(block_table), _b.ptr(seq_id), _b.ptr(pos),
-        _b.ptr(hist), _b.ptr(tile_seq), _b.ptr(out), C, KV, G, hd, ps, NB,
-        bq, int(window), tr.hd, groups, float(hd ** -0.5), _b.stream_ptr(q))
+    with _b.on_device(q):
+        KERNEL.launch(
+            _b.ptr(q), _b.ptr(k_chunk), _b.ptr(v_chunk), _b.ptr(k_data),
+            _b.ptr(k_meta), _b.ptr(k_scale), _b.ptr(v_data), _b.ptr(v_meta),
+            _b.ptr(v_scale), _b.ptr(block_table), _b.ptr(seq_id), _b.ptr(pos),
+            _b.ptr(hist), _b.ptr(tile_seq), _b.ptr(out), C, KV, G, hd, ps, NB,
+            bq, int(window), tr.hd, groups, float(hd ** -0.5),
+            _b.stream_ptr(q))
     return out

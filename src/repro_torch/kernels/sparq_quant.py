@@ -26,7 +26,12 @@ One kernel, `csrc/sparq_quant.cu`, launched in one of five ways:
 
 The write modes quantize, pack to the stored form (`ref.sparq_pack`),
 scatter into the pools or planes in place, and return the new scales and
-positions as fresh tensors. Their plain versions (`ref_kv_write_*`) are the
+positions as fresh tensors. Under tensor parallelism a paged, chunk or
+contiguous K/V write takes `head0`: the pools hold KV heads [head0, head0 +
+KV_local) of a full [.., KV, hd] slab, whose scale is still resolved over
+every head (the reference's one scale a slot or plane), and only those
+heads are written; head0 = 0 over pools of all KV heads is the unsharded
+write. Their plain versions (`ref_kv_write_*`) are the
 port's former composite writes, op for op, so the CPU results are the
 JAX package's. Everything after the one IEEE f32 division is integer
 arithmetic, so kernel and plain version agree bit for bit.
@@ -53,7 +58,7 @@ KERNEL = _b.CudaKernel(
     "sparq_quant", "sparq_quant.cu", "sparq_quant_launch",
     [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int]
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 13
-    + [ctypes.c_int] * 17 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 19 + [ctypes.c_void_p],
     replaces="src/repro/kernels/sparq_quant.py:79")
 
 X_DTYPES = (torch.float32, torch.bfloat16)
@@ -76,14 +81,23 @@ def _scatter(pools, page, off, planes) -> None:
         pool[page, off] = plane
 
 
+def _heads(x, head0: int, n: int, axis: int):
+    """The n KV heads from head0 that a shard's pools hold (x itself when
+    they are all of them)."""
+    return x if head0 == 0 and n == x.shape[axis] else \
+        x.narrow(axis, head0, n)
+
+
 def ref_kv_write_paged(k_new, v_new, k_data, k_meta, v_data, v_meta,
-                       k_scale, v_scale, block_table, seq_pos, **codec):
+                       k_scale, v_scale, block_table, seq_pos, head0=0,
+                       **codec):
     """Plain paged decode update: k_new/v_new float [S, 1, KV, hd]; slot s
     writes at page block_table[s, pos // ps], row pos % ps (inactive slots,
     pos < 0, and unallocated blocks to the trash page, the pools' last).
     A slot's scale is frozen once calibrated (> 0), else this write's
-    range. Writes the pools in place; returns the new (k_scale, v_scale,
-    seq_pos)."""
+    range over every KV head. The pools [P, ps, KV_local, hd] take heads
+    [head0, head0 + KV_local). Writes the pools in place; returns the new
+    (k_scale, v_scale, seq_pos)."""
     S = k_new.shape[0]
     ps = k_data.shape[1]
     trash = k_data.shape[0] - 1
@@ -100,8 +114,11 @@ def ref_kv_write_paged(k_new, v_new, k_data, k_meta, v_data, v_meta,
             x.to(torch.float32)), dim=(1, 2, 3)), min=1e-8),
             codec["max_val"])
         scales.append(torch.where(stored > 0, stored, dyn))
-    kd, km = _stored_form(k_new[:, 0], scales[0][:, None, None], codec)
-    vd, vm = _stored_form(v_new[:, 0], scales[1][:, None, None], codec)
+    kvl = k_data.shape[2]
+    kd, km = _stored_form(_heads(k_new[:, 0], head0, kvl, 1),
+                          scales[0][:, None, None], codec)
+    vd, vm = _stored_form(_heads(v_new[:, 0], head0, kvl, 1),
+                          scales[1][:, None, None], codec)
     _scatter((k_data, k_meta, v_data, v_meta), page, eff % ps,
              (kd, km, vd, vm))
     return (torch.where(active, scales[0], k_scale),
@@ -129,11 +146,12 @@ def _chunk_scale(stored, x, s_safe, first_seg, max_val):
 
 def ref_kv_write_chunk(k_new, v_new, k_data, k_meta, v_data, v_meta,
                        k_scale, v_scale, block_table, seq_id, pos, hist,
-                       seq_pos_after, **codec):
+                       seq_pos_after, head0=0, **codec):
     """Plain chunk write: k_new/v_new float [C, KV, hd] in stream order;
     token i lands at page block_table[seq_id[i], pos[i] // ps], row
-    pos[i] % ps, quantized with its slot's scale (`_chunk_scale`); padding
-    (seq_id < 0) and unallocated blocks to the trash page. Writes the
+    pos[i] % ps, quantized with its slot's scale (`_chunk_scale`, over
+    every KV head); padding (seq_id < 0) and unallocated blocks to the
+    trash page. The pools take heads [head0, head0 + KV_local). Writes the
     pools in place; returns the new (k_scale, v_scale, seq_pos), seq_pos =
     seq_pos_after."""
     ps = k_data.shape[1]
@@ -144,8 +162,11 @@ def ref_kv_write_chunk(k_new, v_new, k_data, k_meta, v_data, v_meta,
     mv = codec["max_val"]
     k_sc = _chunk_scale(k_scale, k_new, s_safe, first_seg, mv)
     v_sc = _chunk_scale(v_scale, v_new, s_safe, first_seg, mv)
-    kd, km = _stored_form(k_new, k_sc[s_safe][:, None, None], codec)
-    vd, vm = _stored_form(v_new, v_sc[s_safe][:, None, None], codec)
+    kvl = k_data.shape[2]
+    kd, km = _stored_form(_heads(k_new, head0, kvl, 1),
+                          k_sc[s_safe][:, None, None], codec)
+    vd, vm = _stored_form(_heads(v_new, head0, kvl, 1),
+                          v_sc[s_safe][:, None, None], codec)
     eff = torch.clamp(pos, min=0)
     blk = torch.clamp(eff // ps, max=block_table.shape[1] - 1)
     page = block_table[s_safe, blk.long()]
@@ -157,16 +178,19 @@ def ref_kv_write_chunk(k_new, v_new, k_data, k_meta, v_data, v_meta,
 
 
 def _contiguous_write(k_new, v_new, k_data, k_meta, v_data, v_meta,
-                      k_scale, v_scale, idx, codec):
+                      k_scale, v_scale, idx, codec, head0=0):
     """Both planes' slabs at time indices idx (int64 [T]), one scale a
     plane, frozen once calibrated, else the slab's range (`CachedTensor.
-    append` / `write_slots` of the reference, one plane at a time)."""
+    append` / `write_slots` of the reference, one plane at a time); planes
+    [B, Tmax, KV_local, hd] take heads [head0, head0 + KV_local)."""
     scales = []
     for x, data, meta, stored in ((k_new, k_data, k_meta, k_scale),
                                   (v_new, v_data, v_meta, v_scale)):
         dyn = div_qmax(torch.clamp(torch.amax(torch.abs(
             x.to(torch.float32))), min=1e-8), codec["max_val"])
         scale = torch.where(stored > 0, stored, dyn)
+        if x.dim() == 4:
+            x = _heads(x, head0, data.shape[2], 2)
         st, mt = _stored_form(x, scale, codec)
         data.index_copy_(1, idx, st)
         meta.index_copy_(1, idx, mt)
@@ -175,19 +199,20 @@ def _contiguous_write(k_new, v_new, k_data, k_meta, v_data, v_meta,
 
 
 def ref_kv_write_contiguous(k_new, v_new, k_data, k_meta, v_data, v_meta,
-                            k_scale, v_scale, pos, **codec):
+                            k_scale, v_scale, pos, head0=0, **codec):
     """Plain contiguous append: k_new/v_new float [B, T, ...] at time
     offset pos (int32 0-d), the start clamped so the slab fits (the
     reference's dynamic_update_slice); the two planes' trailing shapes may
     differ (K/V [B, T, KV, hd], or MLA's c_kv [B, T, r] and k_pe [B, T,
     dr]). One scale a plane, frozen once calibrated, else the slab's range
-    (`CachedTensor.append` of the reference, one plane at a time). Writes
+    (`CachedTensor.append` of the reference, one plane at a time). K/V
+    planes of KV_local heads take heads [head0, head0 + KV_local). Writes
     the planes in place; returns the new (k_scale, v_scale, pos + T)."""
     T_new = k_new.shape[1]
     start = torch.clamp(pos.to(torch.int64), max=k_data.shape[1] - T_new)
     idx = start + torch.arange(T_new, device=k_data.device)
     ks, vs = _contiguous_write(k_new, v_new, k_data, k_meta, v_data, v_meta,
-                               k_scale, v_scale, idx, codec)
+                               k_scale, v_scale, idx, codec, head0)
     return ks, vs, pos + T_new
 
 
@@ -224,15 +249,18 @@ def _launch(mode, codec, x, rows, n, *, n_v=None, v=None, k_scale=None,
             per_row=0, scale_out=None, maxima=None, block_table=None,
             pos=None, pos_out=None, seq_id=None, hist=None, pos_after=None,
             slot_pos=None, k_data=None, k_meta=None, v_data=None,
-            v_meta=None, n_slots=0, T=1, Tmax=0, ps=1, NB=1, trash=0):
+            v_meta=None, n_slots=0, T=1, Tmax=0, ps=1, NB=1, trash=0,
+            lane0=0, n_out=None):
     p = _b.ptr
-    KERNEL.launch(
-        mode, p(x), p(v), int(x.dtype == torch.bfloat16), p(k_scale),
-        p(v_scale), per_row, p(scale_out), p(maxima), p(block_table), p(pos),
-        p(pos_out), p(seq_id), p(hist), p(pos_after), p(slot_pos),
-        p(k_data), p(k_meta), p(v_data), p(v_meta), rows, n,
-        n if n_v is None else n_v, n_slots, T, Tmax, ps, NB, trash,
-        *_codec_args(**codec), _b.stream_ptr(x))
+    with _b.on_device(x):
+        KERNEL.launch(
+            mode, p(x), p(v), int(x.dtype == torch.bfloat16), p(k_scale),
+            p(v_scale), per_row, p(scale_out), p(maxima), p(block_table),
+            p(pos), p(pos_out), p(seq_id), p(hist), p(pos_after),
+            p(slot_pos), p(k_data), p(k_meta), p(v_data), p(v_meta), rows, n,
+            n if n_v is None else n_v, lane0, n if n_out is None else n_out,
+            n_slots, T, Tmax, ps, NB, trash, *_codec_args(**codec),
+            _b.stream_ptr(x))
 
 
 def _check_kv(k_new, v_new, shape, dev, v_shape=None):
@@ -285,19 +313,32 @@ def sparq_quant_cuda(x, scale, **codec):
     return codes, meta
 
 
+def _head_shard(head0: int, KV: int, pools) -> int:
+    """KV_local, the heads a shard's pools hold; raises unless [head0,
+    head0 + KV_local) lies in the slab's KV heads."""
+    kvl = pools.shape[2]
+    if head0 < 0 or kvl < 1 or head0 + kvl > KV:
+        raise ValueError(f"pools of {kvl} KV heads from head {head0} do "
+                         f"not fit a slab of {KV}")
+    return kvl
+
+
 def kv_write_paged_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
-                        k_scale, v_scale, block_table, seq_pos, **codec):
+                        k_scale, v_scale, block_table, seq_pos, head0=0,
+                        **codec):
     """Paged decode update in one launch (contract of
     `ref_kv_write_paged`). k_new/v_new f32 or bf16 [S, 1, KV, hd]; pools
-    int8 [P + 1, ps, KV, hd] (the last is the trash page); scales f32 [S];
-    block_table int32 [S, NB]; seq_pos int32 [S]."""
+    int8 [P + 1, ps, KV_local, hd] (the last is the trash page) holding
+    heads [head0, head0 + KV_local); scales f32 [S]; block_table int32
+    [S, NB]; seq_pos int32 [S]."""
     dev = k_new.device
     S, T, KV, hd = k_new.shape
     if T != 1:
         raise ValueError(f"a paged decode writes one token a slot, got {T}")
     _check_kv(k_new, v_new, (S, 1, KV, hd), dev)
     P, ps = k_data.shape[:2]
-    _check_pools((k_data, k_meta, v_data, v_meta), (P, ps, KV, hd), dev)
+    kvl = _head_shard(head0, KV, k_data)
+    _check_pools((k_data, k_meta, v_data, v_meta), (P, ps, kvl, hd), dev)
     NB = block_table.shape[-1]
     _b.check(block_table, "block_table", torch.int32, (S, NB), dev)
     _b.check(seq_pos, "seq_pos", torch.int32, (S,), dev)
@@ -309,22 +350,23 @@ def kv_write_paged_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
             v_scale=v_scale, scale_out=scale_out, block_table=block_table,
             pos=seq_pos, pos_out=pos_out, k_data=k_data, k_meta=k_meta,
             v_data=v_data, v_meta=v_meta, n_slots=S, ps=ps, NB=NB,
-            trash=P - 1)
+            trash=P - 1, lane0=head0 * hd, n_out=kvl * hd)
     return scale_out[0], scale_out[1], pos_out
 
 
 def kv_write_chunk_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
                         k_scale, v_scale, block_table, seq_id, pos, hist,
-                        seq_pos_after, **codec):
-    """Chunk write in two launches, a scale pass and a write pass
-    (contract of `ref_kv_write_chunk`). k_new/v_new f32 or bf16 [C, KV,
-    hd]; seq_id/pos/hist int32 [C]; seq_pos_after int32 [S]; the rest as
-    `kv_write_paged_cuda`."""
+                        seq_pos_after, head0=0, **codec):
+    """Chunk write in two launches, a scale pass over every KV head and a
+    write pass of the pools' heads (contract of `ref_kv_write_chunk`).
+    k_new/v_new f32 or bf16 [C, KV, hd]; seq_id/pos/hist int32 [C];
+    seq_pos_after int32 [S]; the rest as `kv_write_paged_cuda`."""
     dev = k_new.device
     C, KV, hd = k_new.shape
     _check_kv(k_new, v_new, (C, KV, hd), dev)
     P, ps = k_data.shape[:2]
-    _check_pools((k_data, k_meta, v_data, v_meta), (P, ps, KV, hd), dev)
+    kvl = _head_shard(head0, KV, k_data)
+    _check_pools((k_data, k_meta, v_data, v_meta), (P, ps, kvl, hd), dev)
     S, NB = block_table.shape
     if S > MAX_SLOTS:
         raise ValueError(f"{S} slots: the chunk write takes at most "
@@ -343,21 +385,24 @@ def kv_write_chunk_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
                 pos=pos, pos_out=pos_out, seq_id=seq_id, hist=hist,
                 pos_after=seq_pos_after, k_data=k_data, k_meta=k_meta,
                 v_data=v_data, v_meta=v_meta, n_slots=S, ps=ps, NB=NB,
-                trash=P - 1)
+                trash=P - 1, lane0=head0 * hd, n_out=kvl * hd)
     _launch(CHUNK_SCALE, codec, k_new, C, KV * hd, **args)
     _launch(CHUNK_WRITE, codec, k_new, C, KV * hd, **args)
     return scale_out[0], scale_out[1], pos_out
 
 
 def kv_write_contiguous_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
-                             k_scale, v_scale, pos, slot_pos=None, **codec):
+                             k_scale, v_scale, pos, slot_pos=None, head0=0,
+                             **codec):
     """Both planes of a contiguous append (contract of
     `ref_kv_write_contiguous`): one launch at T = 1, else a scale pass and
     a write pass. k_new/v_new f32 or bf16 [B, T, ...] (each plane's rows
     of its own width: K/V [B, T, KV, hd], or MLA's c_kv [B, T, r] and
     k_pe [B, T, dr]); planes int8 [B, Tmax, ...] of the same trailing
-    shapes; scales f32 and pos int32, 0-d. With `slot_pos` (int32 [B,
-    Tmax]) the write is the ring's (contract of `ref_kv_write_ring`)."""
+    shapes, or K/V planes [B, Tmax, KV_local, hd] holding heads [head0,
+    head0 + KV_local); scales f32 and pos int32, 0-d. With `slot_pos`
+    (int32 [B, Tmax]) the write is the ring's (contract of
+    `ref_kv_write_ring`)."""
     dev = k_new.device
     B, T = k_new.shape[:2]
     k_rest, v_rest = tuple(k_new.shape[2:]), tuple(v_new.shape[2:])
@@ -365,6 +410,14 @@ def kv_write_contiguous_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
     Tmax = k_data.shape[1]
     if T > Tmax:
         raise ValueError(f"a slab of {T} tokens exceeds the cache's {Tmax}")
+    lane0, n_out = 0, None
+    if k_rest != tuple(k_data.shape[2:]) or head0:
+        if len(k_rest) != 2 or k_rest != v_rest or slot_pos is not None:
+            raise ValueError("a head shard takes K/V planes [B, Tmax, KV, "
+                             "hd] of one width, outside a ring")
+        kvl = _head_shard(head0, k_rest[0], k_data)
+        k_rest = v_rest = (kvl, k_rest[1])
+        lane0, n_out = head0 * k_rest[1], kvl * k_rest[1]
     _check_pools((k_data, k_meta), (B, Tmax) + k_rest, dev, "k")
     _check_pools((v_data, v_meta), (B, Tmax) + v_rest, dev, "v")
     _b.check(k_scale, "k_scale", torch.float32, (), dev)
@@ -374,11 +427,12 @@ def kv_write_contiguous_cuda(k_new, v_new, k_data, k_meta, v_data, v_meta,
         _b.check(slot_pos, "slot_pos", torch.int32, (B, Tmax), dev)
     scale_out = torch.empty((2,), dtype=torch.float32, device=dev)
     pos_out = torch.empty((), dtype=torch.int32, device=dev)
-    n_k, n_v = math.prod(k_rest), math.prod(v_rest)
-    args = dict(n_v=n_v, v=v_new, k_scale=k_scale, v_scale=v_scale,
-                scale_out=scale_out, pos=pos, pos_out=pos_out, k_data=k_data,
-                k_meta=k_meta, v_data=v_data, v_meta=v_meta, T=T, Tmax=Tmax,
-                slot_pos=slot_pos)
+    n_k = math.prod(k_new.shape[2:])
+    args = dict(n_v=math.prod(v_new.shape[2:]), v=v_new, k_scale=k_scale,
+                v_scale=v_scale, scale_out=scale_out, pos=pos,
+                pos_out=pos_out, k_data=k_data, k_meta=k_meta,
+                v_data=v_data, v_meta=v_meta, T=T, Tmax=Tmax,
+                slot_pos=slot_pos, lane0=lane0, n_out=n_out)
     if T == 1:
         _launch(CONTIG_ONE, codec, k_new, B, n_k, **args)
     else:

@@ -16,7 +16,10 @@ places whole segments only, with `hist = segment start`: a prompt's cache
 bytes and greedy tokens then depend on (prompt, seg) alone, not on how the
 chunks were packed — which is why the port's scheduler may pack in its own
 order and still match the JAX engine token for token. Page allocation
-stays with the engine (`plan` calls back into its `grant`).
+stays with the engine (`plan` calls back into its `grant`). Under tensor
+parallelism (`mesh`) the chunk's tokens and metadata stay global, on the
+lead device, and every other shard device gets its copy of the metadata
+(`paging.meta_for`), which its shards' kernels read.
 """
 from __future__ import annotations
 
@@ -63,7 +66,8 @@ class PrefillScheduler:
 
     def __init__(self, model, ctx=None, scales_groups=None, *,
                  chunk_size: int = 32, align: int = 8, page_size: int,
-                 n_slots: int, seg: Optional[int] = None, telemetry=None):
+                 n_slots: int, seg: Optional[int] = None, telemetry=None,
+                 mesh=None):
         if chunk_size % align:
             raise ValueError(f"chunk_size {chunk_size} must be a multiple "
                              f"of the query-tile alignment {align}")
@@ -79,6 +83,7 @@ class PrefillScheduler:
         self.seg = seg
         self.ps = page_size
         self.S = n_slots
+        self.mesh = mesh
         self.jobs: List[_Job] = []          # FIFO
         # non-pad fraction of each chunk's C stream rows (repro_torch.obs):
         # low fill means admission pays a whole chunk for a sliver of prompt
@@ -205,11 +210,17 @@ class PrefillScheduler:
         if self._h_fill is not None:
             # the plan is host numpy: a host-side observation
             self._h_fill.observe(int((plan.seq_id >= 0).sum()) / self.C)
+
+        def meta_at(dev):
+            return ChunkMeta(*(torch.as_tensor(a, dtype=torch.int32,
+                                               device=dev)
+                               for a in (plan.seq_id, plan.pos, plan.hist,
+                                         plan.tile_seq, seq_pos_after)))
         dev = self.model.device
+        # under TP {device: ChunkMeta}, one copy a shard device
+        meta = meta_at(dev) if self.mesh is None else \
+            {d: meta_at(d) for d in self.mesh.distinct}
         i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
-        meta = ChunkMeta(seq_id=i32(plan.seq_id), pos=i32(plan.pos),
-                         hist=i32(plan.hist), tile_seq=i32(plan.tile_seq),
-                         seq_pos_after=i32(seq_pos_after))
         return self.model.prefill_chunk(
             params, i32(plan.tokens)[None], caches, meta,
             i32(plan.last_rows), ctx=self.ctx,

@@ -47,8 +47,12 @@ recurrent families (recurrentgemma-9b, rwkv6-7b), the enc-dec family
 (whisper-base: the encoder over the batch's frames at prefill, cross
 attention in float) and the VLM family (paligemma-3b: an image prefix
 ahead of the prompt, decode from prompt + prefix); the paged engine
-refuses them, as the reference's does. Not ported yet: tensor
-parallelism (`--tp`), which raises.
+refuses them, as the reference's does. With a `launch.mesh.TPMesh`
+(`--tp N`) the paged engine is tensor-parallel: its pools shard on the KV
+heads, each shard's K2 / K3 / K4 run on its device over its head groups,
+and everything else (embedding, projections, FFN, logits, the host
+scheduler) runs once on the lead device; greedy tokens equal the TP 1
+run's bit for bit (docs/sharding.md).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --reduced --batch 4 --prompt-len 64 --gen 16 --sparq 5opt \\
@@ -64,6 +68,7 @@ parallelism (`--tp`), which raises.
     ... --arch rwkv6-7b --engine scan --sparq 5opt --prequantize  # RWKV6
     ... --arch whisper-base --engine scan --kv-cache sparq --sparq 5opt \
         --prequantize                     # enc-dec (also paligemma-3b)
+    ... --engine paged --prefill chunked --tp 2   # KV heads over 2 cards
 """
 from __future__ import annotations
 
@@ -82,6 +87,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.core.sparq import SparqConfig
 from repro_torch.data.pipeline import Batcher, DataConfig
+from repro_torch.kernels.ops import tp_size
+from repro_torch.launch.mesh import canonical_device, make_tp_mesh
 from repro_torch.launch.prefill import PrefillScheduler
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import paging
@@ -353,7 +360,10 @@ class ContinuousBatchingEngine:
     `repro_torch.obs.Telemetry`; default counters only) holds every
     counter and timing of a run, and its spans when tracing. Runs on the
     model's device; `device` (default `cuda`) must name it, so a CPU run
-    is always asked for explicitly."""
+    is always asked for explicitly. `mesh` (a `launch.mesh.TPMesh` whose
+    lead is that device) makes it tensor-parallel: the pools shard on the
+    KV heads over the mesh, the allocator, scheduler and prefix index stay
+    global (docs/sharding.md)."""
 
     def __init__(self, model: Model, cache_cfg: CacheConfig,
                  ctx: Optional[QuantCtx] = None, scales_groups=None, *,
@@ -363,12 +373,23 @@ class ContinuousBatchingEngine:
                  prefill: str = "sequential", chunk_size: int = 32,
                  chunk_align: int = 8, chunk_seg: Optional[int] = None,
                  prefix_cache: bool = False, prefix_min_pages: int = 1,
-                 prefill_priority: float = 1.0, device=None,
+                 prefill_priority: float = 1.0, device=None, mesh=None,
                  telemetry: Optional[Telemetry] = None):
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} != model device "
                              f"{model.device}")
+        self.tp = tp_size(mesh)
+        self.mesh = mesh if self.tp > 1 else None
+        if self.tp > 1 and model.cfg.n_kv_heads % self.tp:
+            raise ValueError(
+                f"--tp {self.tp} must divide n_kv_heads="
+                f"{model.cfg.n_kv_heads}: the packed (data, meta) planes "
+                f"shard by whole GQA head groups")
+        if self.mesh is not None and \
+                self.mesh.lead != canonical_device(self.device):
+            raise ValueError(f"the mesh's lead device {self.mesh.lead} "
+                             f"must be the model's, {self.device}")
         if cache_cfg.layout != "sparq":
             raise ValueError("the paged engine stores packed §5.1 pages; "
                              "use --kv-cache sparq")
@@ -420,7 +441,7 @@ class ContinuousBatchingEngine:
             self._sched = PrefillScheduler(
                 model, ctx, scales_groups, chunk_size=chunk_size,
                 align=chunk_align, page_size=page_size, n_slots=max_active,
-                seg=chunk_seg, telemetry=self.telemetry)
+                seg=chunk_seg, telemetry=self.telemetry, mesh=self.mesh)
         self.prefix_cache = prefix_cache
         self.prefix_min_pages = max(1, prefix_min_pages)
         # prefix-match granularity: whole pages and whole prefill segments
@@ -448,16 +469,21 @@ class ContinuousBatchingEngine:
         self._live: Optional[dict] = None        # what reset_stats() zeroes
 
     # ------------------------------------------------------------ device
-    def _init_stores(self) -> Tuple[list, torch.Tensor]:
-        """One store per layer; every layer shares one block table."""
+    def _init_stores(self) -> Tuple[list, List[torch.Tensor]]:
+        """One store per layer (sharded over the mesh under TP); every
+        layer shares one block table a device. Returns (stores, the
+        block tables)."""
         cfg = self.model.cfg
-        bt = torch.full((self.max_active, self.n_blocks), -1,
-                        dtype=torch.int32, device=self.device)
+        devs = self.mesh.distinct if self.mesh is not None \
+            else (self.device,)
+        bts = {d: torch.full((self.max_active, self.n_blocks), -1,
+                             dtype=torch.int32, device=d) for d in devs}
         stores = [paging.PagedCacheStore.init(
             self.max_active, self.n_pages, self.page_size, self.n_blocks,
             cfg.n_kv_heads, cfg.head_dim, self.cc, self.device,
-            block_table=bt) for _ in range(cfg.n_layers)]
-        return stores, bt
+            block_table=bts if self.mesh is not None else bts[self.device],
+            mesh=self.mesh) for _ in range(cfg.n_layers)]
+        return stores, list(bts.values())
 
     def _prefill_alone(self, params, tokens: np.ndarray, caches: list,
                        slot: int, pages: List[int],
@@ -467,8 +493,10 @@ class ContinuousBatchingEngine:
         layer's packed bytes, scales and position into the pool at `slot`.
         A requeue resume passes its emitted tokens but the last as
         `replay`: they are fed teacher-forced through the contiguous
-        decode path (K5 at bk = page size) before adoption. Returns the
-        first greedy token, int32 [1] on the device."""
+        decode path (K5 at bk = page size) before adoption. Under TP the
+        contiguous cache is the lead device's, unsharded, and each shard
+        adopts its heads. Returns the first greedy token, int32 [1] on the
+        device."""
         ps = self.page_size
         cc = self._cc_replay if replay else self.cc
         tmp = self.model.init_cache(1, len(pages) * ps, cache_cfg=cc)
@@ -717,7 +745,7 @@ class ContinuousBatchingEngine:
         allocator = paging.PageAllocator(self.n_pages)
         index = paging.PrefixIndex(self._quantum, ps) \
             if self.prefix_cache else None
-        caches, bt_dev = self._init_stores()
+        caches, bt_devs = self._init_stores()
         tok = torch.zeros((S, 1), dtype=torch.int32, device=dev)
         slots: List[Optional[_Slot]] = [None] * S
         host_bt = np.full((S, NB), -1, np.int64)
@@ -757,7 +785,9 @@ class ContinuousBatchingEngine:
             return sched is not None and sched.has(s)
 
         def push_block_table():
-            bt_dev.copy_(torch.as_tensor(host_bt, dtype=torch.int32))
+            host = torch.as_tensor(host_bt, dtype=torch.int32)
+            for bt in bt_devs:                  # one copy a shard device
+                bt.copy_(host)
 
         # ------------------------------------------ preemption machinery
         def emitted_toks(rid: int) -> List[int]:
@@ -1395,6 +1425,7 @@ class ContinuousBatchingEngine:
         resume_s = c_t_resume.value()
         decode_s = max(t_total - prefill_s - resume_s, 1e-9)
         pool = paging.modeled_pool_bytes(caches)
+        per_dev = paging.modeled_pool_bytes_per_device(caches)
         pstats = prefix_stats()
         c_swap_bytes = reg.counter("swap_bytes_total", labelnames=("dir",))
         stats = {
@@ -1436,13 +1467,10 @@ class ContinuousBatchingEngine:
                 pstats["prefix_hits"] + pstats["prefix_misses"], 1),
             "cache_bytes_per_value": cache_mod.bytes_per_value(self.cc),
             "cache_total_bytes": pool["total_bytes"],
-            "tp": 1,
-            "pool_bytes_per_device": pool["total_bytes"],
+            "tp": self.tp,
+            "pool_bytes_per_device": per_dev["total_bytes"],
         }
         return results, stats
-
-
-_NOT_PORTED = {"tp": 1}
 
 
 def main(argv=None):
@@ -1530,15 +1558,18 @@ def main(argv=None):
                     help="async serving: serve GET /metrics (Prometheus "
                          "text) on 127.0.0.1 while the trace plays (0: an "
                          "ephemeral port)")
-    # a flag of the JAX CLI that this port does not serve yet: it raises
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="paged engine: tensor-parallel degree "
+                         "(launch.mesh.make_tp_mesh): pools and attention "
+                         "heads shard by GQA head group over the first tp "
+                         "cards (every shard on the CPU with --device "
+                         "cpu); greedy tokens are bit-identical to --tp 1. "
+                         "Needs tp | n_kv_heads and tp visible cards")
     args = ap.parse_args(argv)
 
-    for name, default in _NOT_PORTED.items():
-        if getattr(args, name) != default:
-            raise NotImplementedError(
-                f"--{name.replace('_', '-')} is not yet ported to "
-                f"repro_torch (see ROADMAP.md)")
+    if args.tp != 1 and args.engine != "paged":
+        ap.error("--tp shards the paged engine's page pools; add --engine "
+                 "paged")
     if args.serve == "async" and args.engine != "paged":
         ap.error("--serve async streams from the paged engine's decode "
                  "loop; add --engine paged")
@@ -1610,6 +1641,7 @@ def main(argv=None):
             args.oversubscribe * args.batch * pages_per_seq))
     policy = None if args.preempt == "off" else SchedulerPolicy(
         preempt=args.preempt, victim=args.victim)
+    mesh = make_tp_mesh(args.tp, device) if args.tp != 1 else None
     engine = ContinuousBatchingEngine(
         model, cache_cfg, ctx, scales, page_size=args.page_size,
         n_pages=n_pages, max_active=args.max_active or args.batch,
@@ -1617,7 +1649,7 @@ def main(argv=None):
         chunk_size=args.chunk_size, chunk_align=args.chunk_align,
         chunk_seg=args.chunk_seg or None, prefix_cache=args.prefix_cache,
         prefix_min_pages=args.prefix_min_pages,
-        prefill_priority=args.prefill_priority, device=device,
+        prefill_priority=args.prefill_priority, device=device, mesh=mesh,
         telemetry=Telemetry.tracing() if args.trace_out else Telemetry())
     reqs = [Request(batch["tokens"][b], args.gen) for b in range(args.batch)]
 
@@ -1659,6 +1691,10 @@ def main(argv=None):
           f"{stats['peak_pages_used']}/{stats['pool_pages']} pages "
           f"({stats['page_size']} slots) peak, "
           f"{stats['cache_total_bytes']/1e6:.2f} MB modeled")
+    if stats["tp"] > 1:
+        print(f"tp={stats['tp']}: "
+              f"{stats['pool_bytes_per_device']/1e6:.2f} MB modeled pool "
+              f"per device")
     if args.prefix_cache:
         print(f"prefix-cache: {stats['prefix_hits']} hits / "
               f"{stats['prefix_misses']} misses "

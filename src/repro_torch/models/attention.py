@@ -126,20 +126,28 @@ def decode_attention(q: torch.Tensor, cache, *,
     contiguous sparq: K5 over the raw packed planes, kpos = arange and
     cur = pos - 1 (device tensors: no host sync); the planes are never
     dequantized whole;
-    contiguous fp: `decode_attention_dequant`, plain torch."""
+    contiguous fp: `decode_attention_dequant`, plain torch.
+    A sharded store (tensor parallelism) reads once a shard, and the
+    output holds every head on the lead device."""
     from repro_torch.models.paging import (PagedCacheStore,
+                                           ShardedPagedCacheStore,
                                            paged_decode_attention)
-    if isinstance(cache, PagedCacheStore):
+    if isinstance(cache, (PagedCacheStore, ShardedPagedCacheStore)):
         return paged_decode_attention(q, cache, window=window)
-    if cache.k.is_sparq:
+    shards = cache.shards
+    if shards[0].k.is_sparq:
         from repro_torch.kernels.ops import sparq_decode_attention
-        B, Tk = cache.k.data.shape[:2]
-        kpos = torch.arange(Tk, dtype=torch.int32,
-                            device=q.device)[None].expand(B, Tk)
+        B, Tk = shards[0].k.data.shape[:2]
+
+        def args(c):
+            kpos = torch.arange(Tk, dtype=torch.int32,
+                                device=c.pos.device)[None].expand(B, Tk)
+            return (c.k.data, c.k.meta, c.k.scale, c.v.data, c.v.meta,
+                    c.v.scale, kpos, c.pos - 1)
+        cols = list(zip(*map(args, shards)))
         out = sparq_decode_attention(
-            q, cache.k.data, cache.k.meta, cache.k.scale,
-            cache.v.data, cache.v.meta, cache.v.scale,
-            kpos, cache.pos - 1, window=window, bk=cache.k.bk)
+            q, *(cols if cache.mesh is not None else (c[0] for c in cols)),
+            window=window, bk=shards[0].k.bk, mesh=cache.mesh)
         return out.to(q.dtype)
     return decode_attention_dequant(q, cache, window=window)
 
@@ -167,10 +175,10 @@ def decode_attention_dequant(q: torch.Tensor, cache: CacheStore, *,
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, device,
-               cache_cfg: Optional[CacheConfig] = None) -> CacheStore:
+               cache_cfg: Optional[CacheConfig] = None, mesh=None):
     cc = cache_cfg or CacheConfig(layout="fp", dtype=cfg.dtype)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return CacheStore.init(shape, cc, device)
+    return CacheStore.init(shape, cc, device, mesh=mesh)
 
 
 def cache_update(cache, k_new: torch.Tensor, v_new: torch.Tensor):
@@ -218,6 +226,9 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                                   prefix_len=prefix_len)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported")
+    # a tensor-parallel read returned every head, concatenated on the lead
+    # device: wo contracts them whole, in the TP 1 order (a row-parallel
+    # wo summing tp partial products would reassociate the contraction)
     return dense(params["wo"], _merge_heads(out), "attn_out", ctx), cache
 
 

@@ -10,7 +10,9 @@
          by tile.
 
 `CachedTensor` is one [B, Tmax, ...] plane, `CacheStore` the (k, v, pos)
-cache of one attention layer, `DecCache` an enc-dec decoder layer's
+cache of one attention layer (`ShardedCacheStore` the same over a
+tensor-parallel mesh: one CacheStore a shard, holding its KV heads),
+`DecCache` an enc-dec decoder layer's
 self-attention store beside its float cross-attention K/V, `MLACache`
 the (c_kv, k_pe, pos) latent cache of one MLA layer (two planes of
 different widths, each under its own scale), `RingKVCache` the (k, v, slot_pos, pos) sliding-window ring of a
@@ -29,7 +31,7 @@ The paged engine stores the same packed format in `models.paging`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import torch
 
@@ -167,17 +169,30 @@ class CachedTensor:
 @dataclasses.dataclass
 class CacheStore:
     """Full-attention KV cache of one layer: two planes + write position
-    (int32 0-d device tensor: tokens already in the cache)."""
+    (int32 0-d device tensor: tokens already in the cache). `head0` is the
+    first KV head the planes hold: 0, or a tensor-parallel shard's."""
     k: CachedTensor
     v: CachedTensor
     pos: torch.Tensor
+    head0: int = 0
 
     @staticmethod
-    def init(shape, cc: CacheConfig, device) -> "CacheStore":
+    def init(shape, cc: CacheConfig, device, mesh=None):
+        """An empty cache of `shape` [B, Tmax, KV, hd] on `device`; with
+        `mesh` (a TPMesh of tp > 1, sparq layout) a `ShardedCacheStore`."""
+        if mesh is not None and mesh.tp > 1:
+            return ShardedCacheStore.init(shape, cc, mesh)
         return CacheStore(k=CachedTensor.init(shape, cc, device),
                           v=CachedTensor.init(shape, cc, device),
                           pos=torch.zeros((), dtype=torch.int32,
                                           device=device))
+
+    # the unsharded cache as a mesh of one: its own only shard
+    mesh = None
+
+    @property
+    def shards(self) -> List["CacheStore"]:
+        return [self]
 
     @staticmethod
     def from_kv(k: torch.Tensor, v: torch.Tensor, pos) -> "CacheStore":
@@ -204,7 +219,7 @@ class CacheStore:
         k, v = self.k, self.v
         k.scale, v.scale, self.pos = kv_write_contiguous(
             k_new, v_new, k.data, k.meta, v.data, v.meta, k.scale, v.scale,
-            self.pos, k.codec)
+            self.pos, k.codec, head0=self.head0)
         return self
 
     def kv(self, dtype=None):
@@ -214,6 +229,49 @@ class CacheStore:
     @property
     def planes(self) -> tuple:
         return (self.k, self.v)
+
+
+@dataclasses.dataclass
+class ShardedCacheStore:
+    """A contiguous sparq (k, v, pos) cache over a `TPMesh` of tp > 1 (the
+    reference's `CacheStore.init(..., mesh=)`): shard r a `CacheStore` on
+    mesh.devices[r] whose planes [B, Tmax, KV/tp, hd] hold KV heads
+    [head0, head0 + KV/tp). Every shard keeps the plane scales and the
+    position, equal on all of them: each write resolves the scale over
+    every head (K4 with the shard's head offset)."""
+    shards: list
+    mesh: Any
+
+    @staticmethod
+    def init(shape, cc: CacheConfig, mesh) -> "ShardedCacheStore":
+        from repro_torch.distributed.sharding import shard_heads
+        if cc.layout != "sparq":
+            raise ValueError("a mesh shards the sparq layout's packed "
+                             "planes; use --kv-cache sparq")
+        B, T, KV, hd = shape
+        shards = []
+        for r, dev in enumerate(mesh.devices):
+            h0, h1 = shard_heads(KV, mesh.tp, r)
+            shards.append(dataclasses.replace(
+                CacheStore.init((B, T, h1 - h0, hd), cc, dev), head0=h0))
+        return ShardedCacheStore(shards, mesh)
+
+    @property
+    def pos(self) -> torch.Tensor:
+        return self.shards[0].pos
+
+    def update(self, k_new: torch.Tensor,
+               v_new: torch.Tensor) -> "ShardedCacheStore":
+        """`CacheStore.update` on every shard with the full float [B, T,
+        KV, hd] K/V (lead device): one K4 launch a shard at T = 1, else
+        two."""
+        on = {}
+        for sh in self.shards:
+            dev = sh.pos.device
+            if dev not in on:
+                on[dev] = (k_new.to(dev), v_new.to(dev))
+            sh.update(*on[dev])
+        return self
 
 
 @dataclasses.dataclass
@@ -338,7 +396,10 @@ def modeled_cache_bytes(caches: Sequence) -> dict:
             tally["values"] += node.n_values
         elif torch.is_tensor(node):
             tally["other_bytes"] += node.numel() * node.element_size()
-        else:
+        elif isinstance(node, ShardedCacheStore):
+            for sh in node.shards:
+                visit(sh)
+        elif dataclasses.is_dataclass(node):
             for f in dataclasses.fields(node):
                 visit(getattr(node, f.name))
 

@@ -19,6 +19,7 @@ from repro_torch import resolve_device
 from repro_torch.core.calibration import CalibBank
 from repro_torch.models import transformer as tr
 from repro_torch.models.cache import CacheConfig
+from repro_torch.models.paging import meta_for
 from repro_torch.models.common import (ModelConfig, QuantCtx,
                                        chunked_lm_loss, embed_tokens, norm,
                                        norm_init, sinusoidal_embed,
@@ -157,15 +158,18 @@ class Model:
 
     # ------------------------------------------------------------ serve
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
-                   cache_cfg=None) -> list:
+                   cache_cfg=None, mesh=None) -> list:
         """Decode-time caches, one per layer, on the model's device.
         `cache_cfg` (models.cache.CacheConfig) selects the layout of the
         KV planes: fp (in `dtype` when no config is given) or sparq (§5.1
         packed). Recurrent states are stored in the fp layout's dtype, or
-        in `dtype` under the sparq layout, as the reference's."""
+        in `dtype` under the sparq layout, as the reference's. `mesh` (a
+        `launch.mesh.TPMesh`, its lead the model's device) shards the
+        dense layers' sparq planes on their KV heads: decode then reads
+        them through K5 once a shard."""
         cc = cache_cfg or CacheConfig(layout="fp", dtype=dtype)
         return tr.stack_cache_init(self.cfg, self.kinds, batch, max_len,
-                                   self.device, cc, dtype)
+                                   self.device, cc, dtype, mesh=mesh)
 
     def prefill(self, params, batch: Dict, caches,
                 ctx: Optional[QuantCtx] = None, scales_groups=None):
@@ -188,15 +192,17 @@ class Model:
     def prefill_chunk(self, params, tokens, caches, chunk, last_rows,
                       ctx: Optional[QuantCtx] = None, scales_groups=None):
         """One chunk of the packed ragged-prefill stream. tokens [1, C];
-        `chunk` a paging.ChunkMeta; `last_rows` [S] the stream row of each
+        `chunk` a paging.ChunkMeta (under TP one a shard device,
+        `paging.meta_for`); `last_rows` [S] the stream row of each
         slot's final prompt token (-1: prefill incomplete). Every layer
         writes the chunk's K/V into §5.1 pages and attends over chunk +
         pages. Returns tok0 [S] int32, the greedy token at each slot's last
         prompt row (garbage where last_rows < 0)."""
         cfg = self.cfg
         x = self._embed_in(params, tokens, cfg.dtype)
+        pos = meta_for(chunk, tokens.device).pos
         x, _ = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
-                              positions=chunk.pos[None, :], caches=caches,
+                              positions=pos[None, :], caches=caches,
                               mode="chunk_prefill", ctx=ctx,
                               scales_groups=scales_groups, chunk=chunk)
         rows = x[0, torch.clamp(last_rows, min=0).long()]        # [S, d]

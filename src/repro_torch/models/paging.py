@@ -10,6 +10,10 @@ swap path of preemption and the shared-prefix index.
                     write the pools in place and return the store: the
                     pools are the dominant state, and an in-place scatter
                     moves only the bytes written.
+  ShardedPagedCacheStore
+                    the same layer over a tensor-parallel mesh (`init(...,
+                    mesh=)` at tp > 1): one PagedCacheStore a shard, on its
+                    device, holding its KV heads of every page.
   PageAllocator     host-side refcounted free list (pure Python): pages
                     are shared by reference between sequences holding
                     the same prompt prefix.
@@ -19,6 +23,12 @@ swap path of preemption and the shared-prefix index.
 Pool geometry: `n_pages` usable pages plus one trash page at index
 `n_pages`, the write target of inactive slots, padding tokens and
 unallocated blocks, so writes need no host-side masking.
+
+Under tensor parallelism the host side stays global (docs/sharding.md,
+"Host-global allocator contract"): one allocator, block table and prefix
+index, and every transition below (adoption, eviction, copy-on-write,
+swap) is decided once and applied shard by shard, each shard moving only
+its own planes and each shard device its copy of the bookkeeping.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.sparq import SparqConfig
+from repro_torch.distributed.sharding import paged_pool_specs, shard_heads
 from repro_torch.models.cache import CacheConfig
 
 
@@ -52,6 +63,14 @@ class ChunkMeta(NamedTuple):
     hist: torch.Tensor
     tile_seq: torch.Tensor
     seq_pos_after: torch.Tensor
+
+
+def meta_for(meta, device) -> ChunkMeta:
+    """The chunk metadata as read on `device`: `meta` itself, or under
+    tensor parallelism, where `launch.prefill` copies it to every shard
+    device once a chunk, the copy there (`meta` then {device:
+    ChunkMeta})."""
+    return meta[device] if isinstance(meta, dict) else meta
 
 
 class PageAllocator:
@@ -325,6 +344,10 @@ class PagedCacheStore:
                                                  across layers)
       seq_pos             int32 [S]              tokens written per slot
                                                  (-1 = inactive slot)
+
+    `head0` is the first KV head the pools hold: 0, or a tensor-parallel
+    shard's (its writes take the full [.., KV, hd] K/V and keep those
+    heads, under the scale of all of them).
     """
     k_data: torch.Tensor
     k_meta: torch.Tensor
@@ -335,12 +358,20 @@ class PagedCacheStore:
     block_table: torch.Tensor
     seq_pos: torch.Tensor
     codec: Optional[SparqConfig] = None
+    head0: int = 0
 
     @staticmethod
     def init(n_seqs: int, n_pages: int, page_size: int, n_blocks: int,
              kv_heads: int, head_dim: int, cc: CacheConfig, device,
-             block_table: Optional[torch.Tensor] = None
-             ) -> "PagedCacheStore":
+             block_table=None, mesh=None):
+        """The empty store of one layer on `device`. With `mesh` (a
+        `launch.mesh.TPMesh` of tp > 1, its lead `device`) a
+        `ShardedPagedCacheStore`, `block_table` then {device: the table
+        there} for the mesh's devices."""
+        if mesh is not None and mesh.tp > 1:
+            return ShardedPagedCacheStore.init(
+                n_seqs, n_pages, page_size, n_blocks, kv_heads, head_dim,
+                cc, mesh, block_table)
         if cc.layout != "sparq":
             raise ValueError("PagedCacheStore stores the packed §5.1 "
                              "planes; use --kv-cache sparq")
@@ -361,6 +392,17 @@ class PagedCacheStore:
             seq_pos=torch.full((n_seqs,), -1, dtype=torch.int32,
                                device=device),
             codec=cc.sparq)
+
+    # the unsharded store as a mesh of one: its own shard and bookkeeping
+    mesh = None
+
+    @property
+    def shards(self) -> List["PagedCacheStore"]:
+        return [self]
+
+    @property
+    def replicas(self) -> List["PagedCacheStore"]:
+        return [self]
 
     @property
     def page_size(self) -> int:
@@ -386,7 +428,7 @@ class PagedCacheStore:
             f"paged decode writes one token per step, got {k_new.shape[1]}"
         self.k_scale, self.v_scale, self.seq_pos = kv_write_paged(
             k_new, v_new, *self._pools(), self.k_scale, self.v_scale,
-            self.block_table, self.seq_pos, self.codec)
+            self.block_table, self.seq_pos, self.codec, head0=self.head0)
         return self
 
     def write_chunk(self, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -402,8 +444,118 @@ class PagedCacheStore:
         self.k_scale, self.v_scale, self.seq_pos = kv_write_chunk(
             k_new, v_new, *self._pools(), self.k_scale, self.v_scale,
             self.block_table, meta.seq_id, meta.pos, meta.hist,
-            meta.seq_pos_after, self.codec)
+            meta.seq_pos_after, self.codec, head0=self.head0)
         return self
+
+
+@dataclasses.dataclass
+class ShardedPagedCacheStore:
+    """The paged cache of one attention layer over a `TPMesh` of tp > 1.
+
+    Shard r is a `PagedCacheStore` on mesh.devices[r] whose four planes
+    [P + 1, ps, KV/tp, hd] hold KV heads [head0, head0 + KV/tp) of every
+    page (`distributed.sharding.shard_heads`). The scales, block table and
+    positions are replicated (`sharding.paged_pool_specs`): one copy a
+    device, which the shards there share, so a host write moves them once
+    a device. Each write launches K4 once a shard (twice a chunk), each
+    with the full K/V and its head offset, so every shard freezes the same
+    scale; the shards on one device then take one result. The bookkeeping
+    read by the model (`seq_pos`, ...) is the lead device's copy."""
+    shards: List[PagedCacheStore]
+    mesh: object
+
+    @staticmethod
+    def init(n_seqs, n_pages, page_size, n_blocks, kv_heads, head_dim, cc,
+             mesh, block_table=None) -> "ShardedPagedCacheStore":
+        shards = []
+        for r, dev in enumerate(mesh.devices):
+            h0, h1 = shard_heads(kv_heads, mesh.tp, r)
+            shards.append(dataclasses.replace(PagedCacheStore.init(
+                n_seqs, n_pages, page_size, n_blocks, h1 - h0, head_dim, cc,
+                dev, None if block_table is None else block_table[dev]),
+                head0=h0))
+        store = ShardedPagedCacheStore(shards, mesh)
+        store._share()
+        return store
+
+    def _share(self) -> None:
+        """Point every shard's replicated fields at its device's copy (the
+        first shard's there)."""
+        reps = {rep.k_data.device: rep for rep in self.replicas}
+        for sh in self.shards:
+            for name, sharded in paged_pool_specs().items():
+                if not sharded:
+                    setattr(sh, name, getattr(reps[sh.k_data.device], name))
+
+    @property
+    def replicas(self) -> List[PagedCacheStore]:
+        """One shard a device: the holders of the bookkeeping copies."""
+        first: Dict[torch.device, PagedCacheStore] = {}
+        for sh in self.shards:
+            first.setdefault(sh.k_data.device, sh)
+        return list(first.values())
+
+    @property
+    def k_scale(self) -> torch.Tensor:
+        return self.shards[0].k_scale
+
+    @property
+    def v_scale(self) -> torch.Tensor:
+        return self.shards[0].v_scale
+
+    @property
+    def block_table(self) -> torch.Tensor:
+        return self.shards[0].block_table
+
+    @property
+    def seq_pos(self) -> torch.Tensor:
+        return self.shards[0].seq_pos
+
+    @property
+    def codec(self) -> Optional[SparqConfig]:
+        return self.shards[0].codec
+
+    @property
+    def page_size(self) -> int:
+        return self.shards[0].page_size
+
+    @property
+    def n_blocks(self) -> int:
+        return self.shards[0].n_blocks
+
+    def _each(self, fn, *xs) -> "ShardedPagedCacheStore":
+        """fn(shard, *xs on the shard's device) for every shard, then the
+        shared bookkeeping rebound to one result a device."""
+        on: Dict[torch.device, tuple] = {}
+        for sh in self.shards:
+            dev = sh.k_data.device
+            if dev not in on:
+                on[dev] = tuple(x.to(dev) for x in xs)
+            fn(sh, *on[dev])
+        self._share()
+        return self
+
+    def update(self, k_new: torch.Tensor,
+               v_new: torch.Tensor) -> "ShardedPagedCacheStore":
+        """`PagedCacheStore.update` on every shard: float [S, 1, KV, hd]
+        K/V (all heads, lead device). One K4 launch a shard."""
+        return self._each(lambda sh, k, v: sh.update(k, v), k_new, v_new)
+
+    def write_chunk(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                    meta) -> "ShardedPagedCacheStore":
+        """`PagedCacheStore.write_chunk` on every shard, each reading the
+        chunk metadata on its device (`meta_for`). Two K4 launches a
+        shard."""
+        return self._each(
+            lambda sh, k, v: sh.write_chunk(k, v, meta_for(meta, k.device)),
+            k_new, v_new)
+
+
+def _shard_columns(store, columns):
+    """Each of `columns` (one value a shard) as a dispatcher in
+    `kernels.ops` takes it: the list over the shards under tensor
+    parallelism, else the one store's value."""
+    return columns if store.mesh is not None else [c[0] for c in columns]
 
 
 # ----------------------------------------------------------------------
@@ -416,10 +568,12 @@ def paged_decode_attention(q: torch.Tensor, store: PagedCacheStore, *,
     position of each slot is seq_pos - 1 (the token `update` just wrote);
     inactive slots return zeros."""
     from repro_torch.kernels.ops import sparq_paged_decode_attention
+    sh = store.shards
     out = sparq_paged_decode_attention(
-        q, store.k_data, store.k_meta, store.k_scale,
-        store.v_data, store.v_meta, store.v_scale,
-        store.block_table, store.seq_pos - 1, window=window)
+        q, *_shard_columns(store, [[getattr(s, f) for s in sh] for f in (
+            "k_data", "k_meta", "k_scale", "v_data", "v_meta", "v_scale",
+            "block_table")] + [[s.seq_pos - 1 for s in sh]]),
+        window=window, mesh=store.mesh)
     return out.to(q.dtype)
 
 
@@ -430,13 +584,17 @@ def chunked_prefill_attention(q: torch.Tensor, k_chunk: torch.Tensor,
     """Ragged chunked-prefill attention for one layer, on the store after
     its `write_chunk`. q [1, C, H, hd]; k/v_chunk [C, KV, hd] float."""
     from repro_torch.kernels.ops import sparq_chunked_prefill_attention
-    C = q.shape[1]
+    sh = store.shards
+    ms = [meta_for(meta, s.k_data.device) for s in sh]
     out = sparq_chunked_prefill_attention(
-        q[0], k_chunk, v_chunk,
-        store.k_data, store.k_meta, store.k_scale,
-        store.v_data, store.v_meta, store.v_scale,
-        store.block_table, meta.seq_id, meta.pos, meta.hist,
-        meta.tile_seq, window=window, bq=C // meta.tile_seq.shape[0])
+        q[0], k_chunk, v_chunk, *_shard_columns(store, [
+            [getattr(s, f) for s in sh] for f in (
+                "k_data", "k_meta", "k_scale", "v_data", "v_meta",
+                "v_scale", "block_table")] + [
+            [getattr(m, f) for m in ms] for f in (
+                "seq_id", "pos", "hist", "tile_seq")]),
+        window=window, bq=q.shape[1] // ms[0].tile_seq.shape[0],
+        mesh=store.mesh)
     return out[None].to(q.dtype)
 
 
@@ -444,64 +602,72 @@ def chunked_prefill_attention(q: torch.Tensor, k_chunk: torch.Tensor,
 # engine-level transitions and accounting (over the list of layer stores)
 # ----------------------------------------------------------------------
 
-def adopt_prefill(store: PagedCacheStore, cs, slot: int,
-                  pages: torch.Tensor) -> PagedCacheStore:
+def adopt_prefill(store, cs, slot: int, pages: torch.Tensor):
     """Move one layer of a prefilled sequence into the pool at `slot`,
-    backed by `pages` (int [nbp], on the store's device), in place.
+    backed by `pages` (int [nbp]), in place.
 
     `cs` is that layer's batch-1 contiguous sparq `CacheStore` of capacity
-    nbp * page_size, filled by `Model.prefill`. Its packed planes are
-    copied page by page and its calibrated scales and position become the
-    slot's: no re-quantization, so the pool bytes are the contiguous
-    cache's. Rows past the prompt are the contiguous cache's zeros, masked
-    until decode overwrites them, so a reused page is rewritten whole."""
+    nbp * page_size, filled by `Model.prefill` (on the lead device under
+    TP: each shard copies its heads). Its packed planes are copied page by
+    page and its calibrated scales and position become the slot's: no
+    re-quantization, so the pool bytes are the contiguous cache's. Rows
+    past the prompt are the contiguous cache's zeros, masked until decode
+    overwrites them, so a reused page is rewritten whole."""
     nbp = pages.shape[0]
     ps = store.page_size
     if cs.k.data.shape[:2] != (1, nbp * ps) or not cs.k.is_sparq:
         raise ValueError(f"adopt_prefill takes a batch-1 sparq cache of "
                          f"{nbp * ps} slots, got {tuple(cs.k.data.shape)}")
-    idx = pages.to(device=store.k_data.device, dtype=torch.int64)
-    for pool, plane in ((store.k_data, cs.k.data), (store.k_meta, cs.k.meta),
-                        (store.v_data, cs.v.data), (store.v_meta, cs.v.meta)):
-        pool[idx] = plane.reshape(nbp, ps, *plane.shape[2:])
-    store.k_scale[slot] = cs.k.scale
-    store.v_scale[slot] = cs.v.scale
-    store.block_table[slot] = -1
-    store.block_table[slot, :nbp] = idx.to(torch.int32)
-    store.seq_pos[slot] = cs.pos
+    for sh in store.shards:
+        dev, kvl = sh.k_data.device, sh.k_data.shape[2]
+        idx = pages.to(device=dev, dtype=torch.int64)
+        for pool, plane in ((sh.k_data, cs.k.data), (sh.k_meta, cs.k.meta),
+                            (sh.v_data, cs.v.data), (sh.v_meta, cs.v.meta)):
+            heads = plane[:, :, sh.head0:sh.head0 + kvl]
+            pool[idx] = heads.reshape(nbp, ps, kvl, -1).to(dev)
+    for rep in store.replicas:
+        dev = rep.k_data.device
+        rep.k_scale[slot] = cs.k.scale.to(dev)
+        rep.v_scale[slot] = cs.v.scale.to(dev)
+        rep.block_table[slot] = -1
+        rep.block_table[slot, :nbp] = pages.to(device=dev,
+                                               dtype=torch.int32)
+        rep.seq_pos[slot] = cs.pos.to(dev)
     return store
 
 
-def evict_slot(stores: Sequence[PagedCacheStore], slot: int) -> None:
+def evict_slot(stores: Sequence, slot: int) -> None:
     """Clear a finished slot in every layer: drop its block-table row,
     deactivate the position and zero the scales so the next occupant
     recalibrates. The pages go back to the free list host-side, and their
     stale bytes are overwritten by the next writer."""
     for st in stores:
-        st.block_table[slot] = -1
-        st.seq_pos[slot] = -1
-        st.k_scale[slot] = 0.0
-        st.v_scale[slot] = 0.0
+        for rep in st.replicas:
+            rep.block_table[slot] = -1
+            rep.seq_pos[slot] = -1
+            rep.k_scale[slot] = 0.0
+            rep.v_scale[slot] = 0.0
 
 
-def copy_page(store: PagedCacheStore, src: int, dst: int) -> None:
-    """Copy one page's four packed planes to another, in place: the
-    copy-on-write step of shared-prefix admission when a tail starts
-    mid-page (rows below the boundary stay the shared page's bytes; the
-    tail chunk overwrites the rest)."""
-    for pool in store._pools():
-        pool[dst] = pool[src]
+def copy_page(store, src: int, dst: int) -> None:
+    """Copy one page's four packed planes to another, in place (every
+    shard its own heads): the copy-on-write step of shared-prefix
+    admission when a tail starts mid-page (rows below the boundary stay
+    the shared page's bytes; the tail chunk overwrites the rest)."""
+    for sh in store.shards:
+        for pool in sh._pools():
+            pool[dst] = pool[src]
 
 
-def adopt_prefix_scales(store: PagedCacheStore, slot: int,
-                        k_scale: torch.Tensor, v_scale: torch.Tensor
-                        ) -> None:
+def adopt_prefix_scales(store, slot: int, k_scale: torch.Tensor,
+                        v_scale: torch.Tensor) -> None:
     """Install a donor's frozen scales on `slot`, in place, before the
     tail chunk runs: the tail holds no first-segment token to freeze them
     from, and the shared pages decode only with the scales they were
     encoded with (the donor froze them from the same first segment)."""
-    store.k_scale[slot] = k_scale
-    store.v_scale[slot] = v_scale
+    for rep in store.replicas:
+        rep.k_scale[slot] = k_scale.to(rep.k_scale.device)
+        rep.v_scale[slot] = v_scale.to(rep.v_scale.device)
 
 
 # ----------------------------------------------------------------------
@@ -511,40 +677,50 @@ def adopt_prefix_scales(store: PagedCacheStore, slot: int,
 _SWAP_PLANES = ("k_data", "k_meta", "v_data", "v_meta")
 
 
-def gather_slot_pages(store: PagedCacheStore, slot: int,
-                      pages: torch.Tensor) -> Dict[str, torch.Tensor]:
+def gather_slot_pages(store, slot: int,
+                      pages: torch.Tensor) -> Dict[str, object]:
     """The packed planes of `pages` (int64 [nbp], block order) and the
     slot's scales, as device tensors: a raw gather of the §5.1 bytes, so a
-    swap round trip is byte-verbatim."""
-    out = {name: getattr(store, name)[pages] for name in _SWAP_PLANES}
+    swap round trip is byte-verbatim. Under TP each plane is the list of
+    the shards' gathers, each on its shard's device."""
+    out = dict(zip(_SWAP_PLANES, _shard_columns(store, [
+        [getattr(sh, name)[pages.to(sh.k_data.device)]
+         for sh in store.shards] for name in _SWAP_PLANES])))
     out["k_scale"] = store.k_scale[slot].reshape(1)
     out["v_scale"] = store.v_scale[slot].reshape(1)
     return out
 
 
-def restore_slot_pages(store: PagedCacheStore,
-                       planes: Dict[str, torch.Tensor], slot: int,
+def restore_slot_pages(store, planes: Dict[str, object], slot: int,
                        pages: torch.Tensor, pos: int) -> None:
     """Inverse of `gather_slot_pages`, in place: scatter the planes into
     `pages` (any free pages), and rebind the slot's block-table row,
     scales and position."""
-    for name in _SWAP_PLANES:
-        getattr(store, name)[pages] = planes[name]
-    store.k_scale[slot] = planes["k_scale"][0]
-    store.v_scale[slot] = planes["v_scale"][0]
-    store.block_table[slot] = -1
-    store.block_table[slot, :pages.shape[0]] = pages.to(torch.int32)
-    store.seq_pos[slot] = pos
+    sharded = store.mesh is not None
+    for r, sh in enumerate(store.shards):
+        dev = sh.k_data.device
+        for name in _SWAP_PLANES:
+            got = planes[name][r] if sharded else planes[name]
+            getattr(sh, name)[pages.to(dev)] = got.to(dev)
+    for rep in store.replicas:
+        dev = rep.k_data.device
+        rep.k_scale[slot] = planes["k_scale"][0].to(dev)
+        rep.v_scale[slot] = planes["v_scale"][0].to(dev)
+        rep.block_table[slot] = -1
+        rep.block_table[slot, :pages.shape[0]] = pages.to(
+            device=dev, dtype=torch.int32)
+        rep.seq_pos[slot] = pos
 
 
 class SwapStore:
     """Host space for preempted sequences' packed pages: one entry per
     request, the `gather_slot_pages` dicts of every layer in one flat
-    numpy byte buffer (scales first, then the four int8 planes of each
-    layer), and the sequence's position. `put` moves a swap-out in one
-    device-to-host copy and `pop(key, device)` a swap-in in one
-    host-to-device copy. `bytes_out`, `bytes_in` and `peak` (the largest
-    host residency) count the traffic. `registry`, when given, is a
+    numpy byte buffer a device they were gathered on (scales first, then
+    the four int8 planes of each layer, a sharded layer's shard by shard),
+    and the sequence's position. `put` moves a swap-out in one
+    device-to-host copy a device and `pop(key, device)` a swap-in in one
+    host-to-device copy a device. `bytes_out`, `bytes_in` and `peak` (the
+    largest host residency) count the traffic. `registry`, when given, is a
     `repro_torch.obs` MetricsRegistry the counters are mirrored into
     (`swap_bytes_total{dir=out|in}`, `swap_resident_bytes`,
     `swap_peak_bytes`); the attributes stay authoritative, and
@@ -577,11 +753,15 @@ class SwapStore:
     def __contains__(self, key) -> bool:
         return key in self._entries
 
+    @staticmethod
+    def _nbytes(e) -> int:
+        return sum(flat.nbytes for _, flat, _ in e["bufs"])
+
     @property
     def resident_bytes(self) -> int:
-        return sum(e["flat"].nbytes for e in self._entries.values())
+        return sum(self._nbytes(e) for e in self._entries.values())
 
-    def put(self, key: int, groups: Sequence[Dict[str, torch.Tensor]],
+    def put(self, key: int, groups: Sequence[Dict[str, object]],
             pos: int) -> int:
         """Swap a sequence out: `groups` one gathered dict per layer.
         Returns the bytes moved to the host."""
@@ -590,59 +770,78 @@ class SwapStore:
                  for g in range(len(groups))] + \
                 [(g, name) for g in range(len(groups))
                  for name in _SWAP_PLANES]
-        parts = [groups[g][name].reshape(-1).view(torch.uint8)
-                 for g, name in order]
-        layout = [(g, name, groups[g][name].dtype,
-                   tuple(groups[g][name].shape), int(t.numel()))
-                  for (g, name), t in zip(order, parts)]
-        flat = torch.cat(parts).cpu().numpy()        # one D2H copy
-        self._entries[key] = {"flat": flat, "layout": layout,
-                              "n_groups": len(groups), "pos": int(pos)}
-        self.bytes_out += flat.nbytes
+        # (layer, field, shard or None, tensor), grouped by device
+        by_dev: Dict[torch.device, list] = {}
+        for g, name in order:
+            v = groups[g][name]
+            for r, t in ([(None, v)] if torch.is_tensor(v)
+                         else enumerate(v)):
+                by_dev.setdefault(t.device, []).append((g, name, r, t))
+        bufs = []
+        for dev, items in by_dev.items():
+            parts = [t.reshape(-1).view(torch.uint8) for *_, t in items]
+            flat = torch.cat(parts).cpu().numpy()   # one D2H copy a device
+            bufs.append((dev, flat, [
+                (g, name, r, t.dtype, tuple(t.shape), int(b.numel()))
+                for (g, name, r, t), b in zip(items, parts)]))
+        e = {"bufs": bufs, "n_groups": len(groups), "pos": int(pos)}
+        self._entries[key] = e
+        nbytes = self._nbytes(e)
+        self.bytes_out += nbytes
         self.peak = max(self.peak, self.resident_bytes)
         if self._c_out is not None:
-            self._c_out.inc(flat.nbytes)
+            self._c_out.inc(nbytes)
             self._g_res.set(self.resident_bytes)
             self._g_peak.set_max(self.peak)
-        return flat.nbytes
+        return nbytes
 
     def pos(self, key: int) -> int:
         return self._entries[key]["pos"]
 
     def n_pages(self, key: int) -> int:
-        e = self._entries[key]
-        return next(shape[0] for g, name, _, shape, _ in e["layout"]
+        return next(shape[0] for _, _, layout in self._entries[key]["bufs"]
+                    for _, name, _, _, shape, _ in layout
                     if name == "k_data")
 
     @staticmethod
-    def _unpack(flat, layout, n_groups):
-        groups = [dict() for _ in range(n_groups)]
+    def _unpack(flat, layout, groups, np_dtypes: bool) -> None:
         off = 0
-        for g, name, dtype, shape, n in layout:
-            groups[g][name] = flat[off:off + n].view(dtype).reshape(shape)
+        for g, name, r, dtype, shape, n in layout:
+            t = flat[off:off + n].view(_NP_DTYPE[dtype] if np_dtypes
+                                       else dtype).reshape(shape)
+            if r is None:
+                groups[g][name] = t
+            else:
+                groups[g].setdefault(name, {})[r] = t
             off += n
-        return groups
 
     def pop(self, key: int, device=None) -> Tuple[List[dict], int]:
         """Swap a sequence back in: (one plane dict per layer, pos), as
-        numpy views of the host bytes, or with `device` as tensors there
-        after one host-to-device copy. Drops the entry."""
+        numpy views of the host bytes, or with `device` (the engine's, the
+        lead under TP) as tensors after one host-to-device copy a device,
+        each on the device it was gathered on. Drops the entry."""
         e = self._entries.pop(key)
-        self.bytes_in += e["flat"].nbytes
+        nbytes = self._nbytes(e)
+        self.bytes_in += nbytes
         if self._c_in is not None:
-            self._c_in.inc(e["flat"].nbytes)
+            self._c_in.inc(nbytes)
             self._g_res.set(self.resident_bytes)
-        if device is None:
-            layout = [(g, name, _NP_DTYPE[dt], shape, n)
-                      for g, name, dt, shape, n in e["layout"]]
-            return self._unpack(e["flat"], layout, e["n_groups"]), e["pos"]
-        flat = torch.from_numpy(e["flat"]).to(device)   # one H2D copy
-        return self._unpack(flat, e["layout"], e["n_groups"]), e["pos"]
+        groups = [dict() for _ in range(e["n_groups"])]
+        for dev, flat, layout in e["bufs"]:
+            if device is not None:
+                flat = torch.from_numpy(flat).to(
+                    device if len(e["bufs"]) == 1 else dev)   # one H2D
+            self._unpack(flat, layout, groups, device is None)
+        for grp in groups:                  # a sharded plane: shard order
+            for name, v in grp.items():
+                if isinstance(v, dict):
+                    grp[name] = [v[r] for r in sorted(v)]
+        return groups, e["pos"]
 
     def discard(self, key: int) -> int:
         """Forget a parked entry without a swap-in (no traffic charged).
         Returns the bytes released."""
-        nbytes = int(self._entries.pop(key)["flat"].nbytes)
+        nbytes = self._nbytes(self._entries.pop(key))
         if self._g_res is not None:
             self._g_res.set(self.resident_bytes)
         return nbytes
@@ -661,22 +860,42 @@ class SwapStore:
 _NP_DTYPE = {torch.int8: np.int8, torch.float32: np.float32}
 
 
-def modeled_pool_bytes(stores: Sequence[PagedCacheStore]) -> dict:
+def modeled_pool_bytes(stores: Sequence) -> dict:
     """Modeled §5.1 residency of the page pools: packed pools charged the
-    `kernels.ops` data/ctrl figures, bookkeeping at its actual size (the
-    shared block table is charged once per layer, as in the reference,
-    which keeps one copy per layer)."""
+    `kernels.ops` data/ctrl figures (a sharded layer's over all its
+    shards), bookkeeping at its actual size, once (the shared block table
+    is charged once per layer, as in the reference, which keeps one copy
+    per layer)."""
     from repro_torch.kernels.ops import (ctrl_bytes_per_value,
                                          data_bytes_per_value)
     tally = {"data_bytes": 0.0, "ctrl_bytes": 0.0, "values": 0,
              "other_bytes": 0.0}
     for st in stores:
-        n = st.k_data.numel() + st.v_data.numel()
-        tally["data_bytes"] += n * data_bytes_per_value(st.codec)
-        tally["ctrl_bytes"] += n * ctrl_bytes_per_value(st.codec)
-        tally["values"] += n
+        for sh in st.shards:
+            n = sh.k_data.numel() + sh.v_data.numel()
+            tally["data_bytes"] += n * data_bytes_per_value(sh.codec)
+            tally["ctrl_bytes"] += n * ctrl_bytes_per_value(sh.codec)
+            tally["values"] += n
         for extra in (st.k_scale, st.v_scale, st.block_table, st.seq_pos):
             tally["other_bytes"] += extra.numel() * extra.element_size()
     tally["total_bytes"] = (tally["data_bytes"] + tally["ctrl_bytes"] +
                             tally["other_bytes"])
     return tally
+
+
+def modeled_pool_bytes_per_device(stores: Sequence) -> dict:
+    """One device's share of `modeled_pool_bytes` under tensor
+    parallelism: the packed planes (and their ShiftCtrl side-band) shard
+    on the KV axis, so a device of one shard holds 1/tp of the data and
+    ctrl bytes; the bookkeeping is replicated and charged in full. At
+    tp = 1 this is `modeled_pool_bytes`, with "tp": 1."""
+    tps = {1 if st.mesh is None else st.mesh.tp for st in stores}
+    assert len(tps) == 1, f"stores disagree on tp: {tps}"
+    tp = tps.pop()
+    out = modeled_pool_bytes(stores)
+    out["tp"] = tp
+    for k in ("data_bytes", "ctrl_bytes"):
+        out[k] /= tp
+    out["total_bytes"] = (out["data_bytes"] + out["ctrl_bytes"] +
+                          out["other_bytes"])
+    return out

@@ -336,9 +336,11 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, kinds: list[str],
 
 def stack_cache_init(cfg: ModelConfig, kinds: list[str], batch: int,
                      max_len: int, device, cache_cfg=None,
-                     dtype=torch.bfloat16) -> list:
+                     dtype=torch.bfloat16, mesh=None) -> list:
     """One cache per layer, in layer order (the flat list `stack_apply`
-    indexes): a (k, v, pos) `CacheStore`, an MLA layer's (c_kv, k_pe, pos)
+    indexes): a (k, v, pos) `CacheStore` (sharded over `mesh`'s KV heads
+    when given, as the reference's, for dense and MoE layers only), an
+    MLA layer's (c_kv, k_pe, pos)
     `MLACache`, an rg_attn layer's `RingKVCache` of `local_window` slots,
     a "dec" layer's `DecCache` (its `CacheStore` and zero cross K/V of
     [batch, max_len, KV, hd]), or a recurrent layer's state (`RGLRUCache`,
@@ -369,7 +371,7 @@ def stack_cache_init(cfg: ModelConfig, kinds: list[str], batch: int,
                                     device=device)))
         else:
             out.append(attn_mod.cache_init(cfg, batch, max_len, device,
-                                           cache_cfg))
+                                           cache_cfg, mesh=mesh))
     return out
 
 

@@ -396,6 +396,34 @@ def test_mailboxes_need_a_live_loop_and_wall_clock(tiny_lm):
 
 
 # ----------------------------------------------------------------------
+# TP = 2: streamed tokens match the sync engine on a sharded pool
+# ----------------------------------------------------------------------
+
+def test_tp2_streamed_matches_sync(tiny_lm):
+    """The reference's test_tp2_streamed_matches_sync: the async front end
+    over a TP 2 engine (each KV head on its own shard, both on the CPU)
+    streams exactly the tokens the synchronous sharded run gives, which
+    are the unsharded engine's; the pool drains."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    tp = tiny_lm["tp"]
+    rows = _shared_trace(tiny_lm["tm"].cfg.vocab_size)[:3]
+    reqs = [Request(t, g) for t, g, _ in rows]
+    eng = _engine(tiny_lm, mesh=make_tp_mesh(2, devices=["cpu"] * 2))
+    oracle, ostats = eng.run(tp, reqs)
+    assert ostats["tp"] == 2
+    unsharded, _ = _engine(tiny_lm).run(tp, reqs)
+    check = InvariantChecker(ps=PS)
+    out, slo, stats = bounded(lambda: frontend.play_trace(
+        eng, tp, rows, trace_hook=check))
+    for i in range(len(rows)):
+        np.testing.assert_array_equal(out[i], oracle[i])
+        np.testing.assert_array_equal(oracle[i], unsharded[i])
+    assert stats["tp"] == 2 and slo["requests"] == len(rows)
+    assert check.steps == stats["decode_steps"] > 0
+    _drained_pool(eng)
+
+
+# ----------------------------------------------------------------------
 # against the JAX package
 # ----------------------------------------------------------------------
 
@@ -492,7 +520,8 @@ def test_registry_series_names_match_jax(tiny_lm, jax_poisson):
 
 def test_cli_serves_async_on_cpu(capsys):
     """`--serve async --arrival-trace bursty --metrics-port 0` through the
-    CLI on the CPU; only `--tp` still raises."""
+    CLI on the CPU; the async front end also drives a `--tp 2` engine,
+    and a tp that splits a head group raises."""
     argv = ["--arch", "tinyllama-1.1b", "--reduced", "--batch", "3",
             "--prompt-len", "8", "--gen", "4", "--page-size", "4",
             "--chunk-size", "16", "--chunk-align", "4", "--calibrate", "1",
@@ -506,7 +535,10 @@ def test_cli_serves_async_on_cpu(capsys):
     assert all(len(t) == 4 for t in stats["tokens"].values())
     assert stats["free_pages_after"] == stats["pool_pages"]
     assert "metrics: http://127.0.0.1:" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="--tp"):
-        main(argv[:-6] + ["--tp", "2"])
+    stats = bounded(lambda: main(argv[:-2] + ["--tp", "2"]))
+    assert stats["tp"] == 2 and stats["slo"]["requests"] == 3
+    assert all(len(t) == 4 for t in stats["tokens"].values())
+    with pytest.raises(ValueError, match="must divide n_kv_heads"):
+        main(argv[:-6] + ["--tp", "4"])
     with pytest.raises(SystemExit):
         main(argv[:-6] + ["--arrival-trace", "poisson"])  # needs async

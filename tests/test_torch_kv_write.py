@@ -502,6 +502,139 @@ def test_contiguous_kernel_emulation_matches_plain(B, hd, KV, dtype, codec):
             np.testing.assert_array_equal(want, got.numpy())
 
 
+# ----------------------------------------------------------------------
+# head shards (tensor parallelism): the writes with a head offset
+# ----------------------------------------------------------------------
+
+# (KV heads, the shard's heads, its first head): tinyllama's 4 KV heads in
+# shards of 2 (the second), 8 heads in shards of 1 (the sixth), the first
+# of 2
+SHARDS = [(4, 2, 2), (8, 1, 5), (2, 1, 0)]
+POOLS = ("k_data", "k_meta", "v_data", "v_meta")
+
+
+def _loud_elsewhere(t, head0, kvl):
+    """t [..., KV, hd] with the heads outside [head0, head0 + kvl) x 8:
+    the slab's largest |x| lies outside the shard, so a scale resolved
+    from the shard's heads alone would be another."""
+    out = t.clone()
+    keep = out[..., head0:head0 + kvl, :].clone()
+    out *= 8
+    out[..., head0:head0 + kvl, :] = keep
+    return out
+
+
+def _paged_shard(ts, head0, kvl):
+    sh = copy.copy(ts)
+    for f in POOLS:
+        setattr(sh, f, getattr(ts, f)[:, :, head0:head0 + kvl].clone())
+    for f in ("k_scale", "v_scale", "block_table", "seq_pos"):
+        setattr(sh, f, getattr(ts, f).clone())
+    sh.head0 = head0
+    return sh
+
+
+def _assert_paged_shard(sh, ts, head0, kvl):
+    for f in POOLS:
+        np.testing.assert_array_equal(
+            getattr(sh, f).numpy(),
+            getattr(ts, f).numpy()[:, :, head0:head0 + kvl], err_msg=f)
+    for f in ("k_scale", "v_scale", "seq_pos"):
+        np.testing.assert_array_equal(getattr(sh, f).numpy(),
+                                      getattr(ts, f).numpy(), err_msg=f)
+
+
+@pytest.mark.parametrize("codec", list(KV_CODECS))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("KV,kvl,head0", SHARDS)
+def test_head_shard_writes_are_the_full_writes_head_slice(KV, kvl, head0,
+                                                          dtype, codec):
+    """K4's plain writes with a head offset, as a tensor-parallel shard
+    makes them (the full [.., KV, hd] K/V, pools of the shard's heads):
+    two paged decode updates, a chunk write, and contiguous prefill slabs
+    and decode appends, each against the same write into pools of every
+    head. The shard's pools are the head slice of the full write's byte
+    for byte (the trash page too: both write the same rows there), its
+    scales and positions the full write's, though the largest |K| lies
+    outside the shard."""
+    hd, ps = 16, 16
+    _, ts, _ = paged_case(codec, ps, hd, KV)
+    sh = _paged_shard(ts, head0, kvl)
+    rng = np.random.default_rng(1)
+    for amp in (1.0, 3.0):
+        _, tk = _kv(rng, (5, 1, KV, hd), dtype, amp)
+        _, tv = _kv(rng, (5, 1, KV, hd), dtype, amp * 2)
+        tk, tv = (_loud_elsewhere(t, head0, kvl) for t in (tk, tv))
+        ts.update(tk, tv)
+        sh.update(tk, tv)
+        _assert_paged_shard(sh, ts, head0, kvl)
+    _, ts, _, (_, tk, _, tv), _, tmeta = chunk_case(codec, ps, hd, KV,
+                                                    dtype)
+    sh = _paged_shard(ts, head0, kvl)
+    tk, tv = (_loud_elsewhere(t, head0, kvl) for t in (tk, tv))
+    ts.write_chunk(tk, tv, tmeta)
+    sh.write_chunk(tk, tv, tmeta)
+    _assert_paged_shard(sh, ts, head0, kvl)
+    _, full, _ = _contig_pair(codec, 3, TMAX, KV, hd)
+    part = copy.copy(full)
+    part.k, part.v = copy.copy(full.k), copy.copy(full.v)
+    for pl in (part.k, part.v):
+        pl.data = pl.data[:, :, head0:head0 + kvl].clone()
+        pl.meta = pl.meta[:, :, head0:head0 + kvl].clone()
+    part.head0 = head0
+    for T, amp in CONTIG_STEPS:
+        _, tk = _kv(rng, (3, T, KV, hd), dtype, amp)
+        _, tv = _kv(rng, (3, T, KV, hd), dtype, amp)
+        tk, tv = (_loud_elsewhere(t, head0, kvl) for t in (tk, tv))
+        full.update(tk, tv)
+        part.update(tk, tv)
+        for mine, whole in ((part.k, full.k), (part.v, full.v)):
+            assert torch.equal(mine.data, whole.data[:, :, head0:head0 + kvl])
+            assert torch.equal(mine.meta, whole.meta[:, :, head0:head0 + kvl])
+            assert torch.equal(mine.scale, whole.scale)
+        assert torch.equal(part.pos, full.pos)
+
+
+def test_wrappers_pass_the_head_offset(recorder):
+    """A shard's write hands K4 the whole row (n = KV * hd) and the lanes
+    it keeps (lane0 = head0 * hd, n_out = KV_local * hd), in every write
+    mode; an unsharded write passes lane0 0 and n_out n; pools that do not
+    fit the slab's heads raise."""
+    S, P, ps, NB, KV, hd, kvl, h0 = 5, 7, 16, 3, 4, 64, 2, 2
+    pools = [torch.zeros((P + 1, ps, kvl, hd), dtype=torch.int8)
+             for _ in range(4)]
+    sc = [torch.zeros(S), torch.zeros(S)]
+    bt = torch.zeros((S, NB), dtype=torch.int32)
+    pos = torch.zeros(S, dtype=torch.int32)
+    k = torch.zeros((S, 1, KV, hd))
+    sq.kv_write_paged_cuda(k, k.clone(), *pools, *sc, bt, pos, head0=h0,
+                           **_codec())
+    C = 32
+    ints = [torch.zeros(C, dtype=torch.int32) for _ in range(3)]
+    kc = torch.zeros((C, KV, hd))
+    sq.kv_write_chunk_cuda(kc, kc.clone(), *pools, *sc, bt, *ints, pos,
+                           head0=h0, **_codec())
+    planes = [torch.zeros((2, 12, kvl, hd), dtype=torch.int8)
+              for _ in range(4)]
+    z, p0 = torch.zeros(()), torch.zeros((), dtype=torch.int32)
+    for T in (1, 5):
+        xk = torch.zeros((2, T, KV, hd))
+        sq.kv_write_contiguous_cuda(xk, xk.clone(), *planes, z, z, p0,
+                                    head0=h0, **_codec())
+    assert len(recorder) == 1 + 2 + 1 + 2
+    assert {(c["n"], c["n_v"], c["lane0"], c["n_out"]) for c in recorder} \
+        == {(KV * hd, KV * hd, h0 * hd, kvl * hd)}
+    recorder.clear()
+    full = [torch.zeros((P + 1, ps, KV, hd), dtype=torch.int8)
+            for _ in range(4)]
+    sq.kv_write_paged_cuda(k, k.clone(), *full, *sc, bt, pos, **_codec())
+    (c,) = recorder
+    assert (c["lane0"], c["n_out"]) == (0, KV * hd)
+    with pytest.raises(ValueError, match="do not fit"):
+        sq.kv_write_paged_cuda(k, k.clone(), *pools, *sc, bt, pos,
+                               head0=3, **_codec())
+
+
 @pytest.mark.parametrize("codec", [c for c in CODECS if c["signed"]],
                          ids=str)
 def test_stored_encoder_exhaustive(codec):

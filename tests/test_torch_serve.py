@@ -159,8 +159,15 @@ def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys, tmp_path):
     assert parsed[("engine_decode_steps_total", "")] == stats["decode_steps"]
     events = json.loads(trace.read_text())["traceEvents"]
     assert {e["tid"] for e in events if e["ph"] == "B"} == {1, 2}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tserve.main(base + ["--tp", "2"])
+    # --tp 2 shards the reduced model's 2 KV heads over two CPU shards
+    stats = tserve.main(base + ["--tp", "2"])
+    assert stats["tp"] == 2 and stats["decode_tokens"] == 2 * (3 - 1)
+    assert stats["pool_bytes_per_device"] < stats["cache_total_bytes"]
+    assert "tp=2: " in capsys.readouterr().out
+    with pytest.raises(ValueError, match="must divide n_kv_heads"):
+        tserve.main(base + ["--tp", "4"])
+    with pytest.raises(SystemExit):                 # the scan engine
+        tserve.main(base[:-4] + ["--tp", "2"])
     # --serve async and --metrics-port are ported; the port is served by
     # the async front end only
     with pytest.raises(SystemExit):
