@@ -253,6 +253,19 @@ Phases (each one that fails makes the script exit non-zero):
               first, no kernel launched (the reference's training path
               reaches no Pallas kernel); median ms a step, tokens/s, peak
               GB logged
+  train_sharded  the sharded trainer under torchrun, tinyllama-1.1b at
+              full width, 8 x 128, both ranks on the one card over gloo,
+              three runs launched together: S1 mesh 2 x 1 with
+              --compress-grads and S2 mesh 1 x 2, cut to 2 layers, 4 steps
+              each, a checkpoint every 2; S2_22 mesh 1 x 2 at all 22
+              layers, one step; S3 the script's own process restoring
+              S2's step 2 for steps 3-4. S1's and S2's losses and grad
+              norms against the trainer on one device within SHARDED_TOL
+              (S3: S2's within 1e-4), S2_22's against the train phase's
+              first step within DEPTH_TOL; each rank's peak below the
+              one-device peak (S2_22: the train phase's); no kernel
+              launched; over NCCL across 2 (4) cards where the host has
+              them
   cnn_train   the CNN float trainer (`launch/cnn_train.py`): train_cnn()
               and train_cnn(prune_2_4=True) on the card; float top-1 >
               0.85 and pruned > 0.80 at stage-0 w1 sparsity 0.5 (the
@@ -4675,6 +4688,265 @@ def train_full_width(dev, results):
     return counts
 
 
+# the sharded trainer's runs. With ranks sharing the one card, every
+# gather and reduction goes through gloo, which stages CUDA tensors
+# through host memory at ≈ 0.36 GB/s (probes/dist_probe.py: 246 ms to
+# all-gather a layer's 176 MB): a 22-layer step takes 11-20 s. So the
+# runs that take several steps, checkpoint and restore are tinyllama-1.1b
+# at full width cut to SHARDED_LAYERS layers, held to the same trainer on
+# one device in this process; one step of the whole 22-layer model at
+# mesh 1 x 2 is held to the train phase's first step and peak.
+# (name, ranks, layers, steps, extra flags, checkpoint every 2); S3
+# restores S2's step-2 checkpoint in one process.
+SHARDED_LAYERS = 2
+SHARDED_STEPS = 4
+SHARDED_RUNS = (("S1", 2, SHARDED_LAYERS, SHARDED_STEPS,
+                 ["--compress-grads", "--share-cards"], True),
+                ("S2", 2, SHARDED_LAYERS, SHARDED_STEPS,
+                 ["--model-parallel", "2", "--share-cards"], True),
+                ("S2_22", 2, 22, 1,
+                 ["--model-parallel", "2", "--share-cards"], False))
+# where the host has the cards: (name, ranks, cards, extra flags, the
+# one-device run it is held to)
+SHARDED_CARDS = (("S1_nccl", 2, 2, ["--compress-grads"], "compressed"),
+                 ("2x2_nccl", 4, 4, ["--model-parallel", "2"], "plain"))
+# relative limits. Losses 1e-4 on every step. Grad norms 1e-3 over the
+# 2-layer runs' 4 steps: at dp 2 each rank rounds its weight gradients
+# to bf16 before the dp mean, where one device rounds the sum over all
+# rows once, and a last-bit difference in the clip scale carries on to
+# later steps (at most 9.8e-5 at dp 2 and 7.0e-5 at dp 1 on an H100 80GB
+# HBM3 at 700 W; PERF.md). The 22-layer step 1 at dp 1 computes what one
+# device computes, the norm's sum in another order: 1e-4 for both.
+SHARDED_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
+DEPTH_TOL = {"loss": 1e-4, "grad_norm": 1e-4}
+
+
+def _sharded_args(layers=SHARDED_LAYERS, steps=SHARDED_STEPS):
+    """The trainer's flags for a sharded run and its one-device twin: the
+    train phase's model, batch and schedule horizon."""
+    return ["--arch", "tinyllama-1.1b", "--layers", str(layers),
+            "--steps", str(steps),
+            "--lr-total", TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1],
+            "--batch", "8", "--seq", "128", "--log-every", "100",
+            "--device", "cuda"]
+
+
+def _launch_ranks(name, nproc, extra, tmp, layers=SHARDED_LAYERS,
+                  steps=SHARDED_STEPS, ckpt_dir=None):
+    """Start one run of the trainer's entry point under torchrun (as a user
+    launches it); `_collect_ranks` waits for it."""
+    import os
+    args = _sharded_args(layers, steps) + [
+        "--metrics-out", f"{tmp}/{name}.{{rank}}.jsonl"]
+    if ckpt_dir:
+        args += ["--checkpoint-dir", ckpt_dir, "--checkpoint-every", "2"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), "-m",
+           "repro_torch.launch.train"] + args + extra
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    return name, nproc, tmp, proc, time.perf_counter()
+
+
+def _stop_ranks(launched):
+    """Stop a run's whole session (the ranks are torchrun's children)."""
+    import os
+    import signal
+    try:
+        os.killpg(launched[3].pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+
+
+def _collect_ranks(launched):
+    """Wait for a run; (each rank's records, stdout, seconds)."""
+    name, nproc, tmp, proc, t = launched
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        _stop_ranks(launched)
+    secs = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"train_sharded {name}: exit {proc.returncode}"
+                             f"\n{out[-3000:]}\n{err[-3000:]}")
+    recs = []
+    for r in range(nproc):
+        with open(f"{tmp}/{name}.{r}.jsonl") as f:
+            recs.append([json.loads(line) for line in f])
+    return recs, out, secs
+
+
+def _log_ranks(name, recs, secs):
+    log(f"train_sharded {name}: {secs:.1f} s of command; rank 0's steps "
+        + ", ".join(f"{x['loss']:.6f} / {x['grad_norm']:.6f} in "
+                    f"{x['ms']:.0f} ms" for x in recs[0])
+        + f"; peak GB {[max(x['peak_gb'] or 0.0 for x in r) for r in recs]}")
+
+
+def _hold_sharded(name, recs, want, peak_limit, tol, first=0):
+    """Every rank's losses and grad norms equal each other and lie within
+    `tol` (relative) of `want`'s steps from `first`; each rank's peak
+    below `peak_limit`; no kernel of the port launched. Returns the row
+    (the relative differences logged) and the launches of each kernel,
+    summed over the ranks."""
+    launches = {}
+    for r in recs:
+        if [x["step"] for x in r] != list(range(first, first + len(r))):
+            raise AssertionError(f"train_sharded {name}: steps {r}")
+        for k in ("loss", "grad_norm"):
+            if [x[k] for x in r] != [x[k] for x in recs[0]]:
+                raise AssertionError(f"train_sharded {name}: ranks differ "
+                                     f"in {k}")
+        for k, n in r[-1]["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    if any(launches.values()):
+        raise AssertionError(f"train_sharded {name}: kernels launched "
+                             f"{launches}")
+    rels = {}
+    for k, w in (("loss", want["losses"]), ("grad_norm",
+                                             want.get("grad_norms"))):
+        if w is None:
+            continue
+        got = [x[k] for x in recs[0]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(got, w[first:])]
+        rels[k] = rel
+        if not max(rel) <= tol[k]:
+            raise AssertionError(f"train_sharded {name}: {k} {got} vs "
+                                 f"{w[first:first + len(got)]} (rel {rel}, "
+                                 f"limit {tol[k]})")
+    peaks = [max(x["peak_gb"] or 0.0 for x in r) for r in recs]
+    if peak_limit is not None and not max(peaks) < peak_limit:
+        raise AssertionError(f"train_sharded {name}: peak {peaks} GB not "
+                             f"below {peak_limit:.2f}")
+    ms = float(np.median([x["ms"] for x in recs[0][1:]] or
+                         [recs[0][0]["ms"]]))
+    return dict(losses=[x["loss"] for x in recs[0]],
+                grad_norms=[x["grad_norm"] for x in recs[0]], rel=rels,
+                step_ms=ms, first_step_ms=recs[0][0]["ms"],
+                tokens_s=8 * 128 / (ms / 1e3), peak_gb=peaks), launches
+
+
+def _one_device_runs(restore=None):
+    """The trainer in this process on the one card, with `_sharded_args`:
+    plain and compressed from the seed (each run's losses, grad norms
+    and peak GB), or with `restore` a checkpoint directory to resume
+    from (its records and seconds)."""
+    from repro_torch.launch import train
+    if restore is not None:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        recs = []
+        t = time.perf_counter()
+        train.main(_sharded_args() + ["--restore", "--checkpoint-dir",
+                                      restore], metrics=recs)
+        torch.cuda.synchronize()
+        return [recs], time.perf_counter() - t
+    out = {}
+    for kind, extra in (("plain", []), ("compressed", ["--compress-grads"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        recs = []
+        train.main(_sharded_args() + extra, metrics=recs)
+        torch.cuda.synchronize()
+        out[kind] = dict(losses=[r["loss"] for r in recs],
+                         grad_norms=[r["grad_norm"] for r in recs],
+                         peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_sharded(dev, results):
+    """The sharded trainer's main path: `python -m torch.distributed.run
+    -m repro_torch.launch.train` on tinyllama-1.1b at full width (bf16
+    compute over f32 params, remat, batch 8 x 128), both ranks on the one
+    card over gloo (--share-cards), three runs launched together (their
+    fixed costs, a process's start and its import of torch._dynamo,
+    overlap; their step times are logged under that contention). S1:
+    mesh 2 x 1 (dp 2), --compress-grads; S2: mesh 1 x 2 (--model-parallel
+    2); each cut to SHARDED_LAYERS layers, SHARDED_STEPS steps with a
+    checkpoint every 2. S2_22: mesh 1 x 2 at all 22 layers, one step.
+    S3: one process, this one, restores S2's step-2 checkpoint (copied
+    alone into a fresh directory) and runs steps 3-4. Gates: S1's and
+    S2's losses and grad norms against the same trainer on one device in
+    this process (compressed and plain) within SHARDED_TOL; S2_22's step
+    against the train phase's first plain step within DEPTH_TOL; S3's
+    losses within 1e-4 of S2's steps 3-4; each rank's peak allocated
+    memory below the one-device peak of the same run (S2_22: the train
+    phase's); no kernel of the port launched; every rank's exit 0. Where
+    the host has 2 (4) cards, S1 over NCCL on 2 cards (and a 2 x 2 mesh
+    over 4) too; otherwise logged as not run. Logged: ms a step, tokens/s
+    and each rank's peak GB. The launches returned are the ranks' and
+    S3's."""
+    import shutil
+    import tempfile
+    if "train" not in results:
+        raise AssertionError("train_sharded holds its 22-layer step to the "
+                             "train phase's: run that phase before it")
+    one, counts = _drive(_one_device_runs)
+    if any(counts.values()):
+        raise AssertionError(f"train_sharded: kernels launched {counts}")
+    for kind, row in one.items():
+        log(f"train_sharded one device {kind}: losses {row['losses']}, "
+            f"grad norms {row['grad_norms']}, peak {row['peak_gb']:.2f} GB")
+    want = {"S1": (one["compressed"], SHARDED_TOL),
+            "S2": (one["plain"], SHARDED_TOL),
+            "S2_22": (results["train"]["plain"], DEPTH_TOL)}
+    rows = {"one_device": one}
+    counts = dict.fromkeys(counts, 0)
+
+    def hold(name, recs, out, secs, ref, tol):
+        _log_ranks(name, recs, secs)
+        rows[name], launched = _hold_sharded(name, recs, ref,
+                                             ref["peak_gb"], tol)
+        rows[name]["seconds"] = secs
+        rows[name]["mesh"] = [line for line in out.splitlines()
+                              if line.startswith("mesh ")]
+        for k, n in launched.items():
+            counts[k] += n
+    with tempfile.TemporaryDirectory() as tmp:
+        launched = []
+        try:
+            for name, nproc, layers, steps, extra, ck in SHARDED_RUNS:
+                launched.append(_launch_ranks(
+                    name, nproc, extra, tmp, layers, steps,
+                    f"{tmp}/{name}_ckpt" if ck else None))
+            done = [_collect_ranks(run) for run in launched]
+        finally:
+            for run in launched:
+                _stop_ranks(run)
+        for run, (recs, out, secs) in zip(SHARDED_RUNS, done):
+            hold(run[0], recs, out, secs, *want[run[0]])
+        shutil.copytree(f"{tmp}/S2_ckpt/step_00000002",
+                        f"{tmp}/S3_ckpt/step_00000002")
+        (recs, secs), c3 = _drive(lambda: _one_device_runs(f"{tmp}/S3_ckpt"))
+        _log_ranks("S3", recs, secs)
+        rows["S3"], _ = _hold_sharded("S3", recs, {"losses": rows["S2"][
+            "losses"]}, None, {"loss": 1e-4}, first=2)
+        rows["S3"]["seconds"] = secs
+        for k, n in c3.items():
+            counts[k] += n
+        n = torch.cuda.device_count()
+        for name, nproc, cards, extra, kind in SHARDED_CARDS:
+            if n < cards:
+                rows[name] = f"not run: {n} card(s) visible, {cards} needed"
+                log(f"train_sharded {name}: {rows[name]}")
+                continue
+            hold(name, *_collect_ranks(_launch_ranks(name, nproc, extra,
+                                                     tmp)),
+                 one[kind], SHARDED_TOL)
+    for name, row in rows.items():
+        if name == "one_device" or isinstance(row, str):
+            continue
+        log(f"train_sharded {name}: {' '.join(row.get('mesh', []))} "
+            f"median {row['step_ms']:.1f} ms a step after the first "
+            f"({row['first_step_ms']:.0f} ms), {row['tokens_s']:.0f} "
+            f"tokens/s, peak GB a rank {row['peak_gb']}; rel {row['rel']}")
+    results["train_sharded"] = rows
+    return counts
+
+
 def profile_train(dev, results):
     """(not a default phase) Where a full-width train step's time goes:
     tinyllama-1.1b, 22 layers, batch 8 x 128, the parts of a compressed
@@ -5578,7 +5850,7 @@ def main(argv=None):
                     default="build,kernels,serve,frontend,preempt,prefix,"
                             "tp,scan,sequential,dense_family,moe,mla,"
                             "recurrent,multimodal,cli,wide,cnn,train,"
-                            "cnn_train,parity")
+                            "train_sharded,cnn_train,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -5621,7 +5893,8 @@ def main(argv=None):
              ("mla", mla_full_width), ("recurrent", recurrent_full_width),
              ("multimodal", multimodal_full_width), ("cli", cli_reduced),
              ("wide", cli_wide), ("cnn", cnn_full_width),
-             ("train", train_full_width), ("cnn_train", cnn_train_full))
+             ("train", train_full_width), ("train_sharded", train_sharded),
+             ("cnn_train", cnn_train_full))
     for name, run in paths:
         if name in phases:
             t0 = time.perf_counter()

@@ -9,6 +9,14 @@ Writes go to a tmp dir renamed into place (atomic on POSIX), so a crash
 mid-save never corrupts the latest checkpoint; the newest `keep` steps
 are kept. Arrays are stored whole and restored onto the device the
 caller names.
+
+On a mesh the tree holds a rank's blocks. `save(..., unshard=, write=)`
+makes each leaf whole on every rank, one leaf at a time, and only the
+writing rank (rank 0) keeps it long enough to write it, so no rank ever
+holds the whole tree; `restore(..., blocks=)` reads each whole leaf and
+keeps the rank's block. The files are the same either way: a checkpoint
+written on a mesh restores on one device, on another mesh, and in the
+JAX package, and the reverse.
 """
 from __future__ import annotations
 
@@ -16,7 +24,7 @@ import json
 import os
 import re
 import shutil
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 
@@ -24,25 +32,34 @@ from repro_torch import tree as T
 from repro_torch.interop import to_torch
 
 
-def _flatten(tree: Any) -> Dict[str, np.ndarray]:
-    return {T.path_key(path): leaf.detach().cpu().numpy()
-            for path, leaf in T.flatten_with_path(tree)}
-
-
-def save(ckpt_dir: str, step: int, tree: Any, keep: int = 3) -> str:
-    """Atomic checkpoint write; prunes to the newest `keep` steps."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+def save(ckpt_dir: str, step: int, tree: Any, keep: int = 3,
+         unshard: Optional[Callable] = None, write: bool = True
+         ) -> Optional[str]:
+    """Atomic checkpoint write; prunes to the newest `keep` steps.
+    `unshard(path, block)` makes each leaf whole first (every rank of a
+    mesh calls `save`; only the one with `write` touches the disk)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if write:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     manifest = {"step": step, "leaves": {}}
-    for key, arr in _flatten(tree).items():
+    for path, leaf in T.flatten_with_path(tree):
+        if unshard is not None:
+            leaf = unshard(path, leaf)
+        if not write:
+            continue
+        key = T.path_key(path)
+        arr = leaf.detach().cpu().numpy()
         fname = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fname), arr)
         manifest["leaves"][key] = {"file": fname, "shape": list(arr.shape),
                                    "dtype": str(arr.dtype)}
+        del leaf, arr
+    if not write:
+        return None
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -75,10 +92,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, template: Any, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, template: Any, device=None,
+            blocks: Optional[Callable] = None) -> Any:
     """Rebuild `template`'s tree from disk, each leaf on `device` (the
     template leaf's own device when None). Leaves missing on disk keep the
-    template's value (restores stay valid after new state is added)."""
+    template's value (restores stay valid after new state is added).
+    `blocks(path, shape)` -> slices keeps only those slices of each whole
+    leaf (a rank's block; the template's leaves are blocks then)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -89,5 +109,7 @@ def restore(ckpt_dir: str, step: int, template: Any, device=None) -> Any:
             out.append(leaf)
             continue
         arr = np.load(os.path.join(path, meta["file"]))
+        if blocks is not None:
+            arr = np.ascontiguousarray(arr[blocks(kp, arr.shape)])
         out.append(to_torch(arr, leaf.device if device is None else device))
     return T.unflatten(template, out)

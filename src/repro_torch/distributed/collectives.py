@@ -6,14 +6,17 @@ scale, then bSPARQ keeps a rounded signed 4-bit window with a 3-bit shift
 which makes the compression unbiased over time. Tensors under `min_size`
 (norms, scalars) stay exact.
 
-The cross-device reductions of the reference (`hierarchical_psum`,
-`compressed_psum`) are not ported: they wait for tensor parallelism over
-`torch.distributed`."""
+On a mesh the compressor works on a rank's blocks with the whole leaf's
+scale (`compress(..., numels=, amax=)`), which equals compressing the
+whole leaf and slicing it. The reference's cross-rank reductions run over
+a `launch.mesh.DistMesh`'s axis groups: `hierarchical_psum` (the data
+group, then the pod group) and `compressed_psum` (Σ over an axis of each
+rank's compressed tensor)."""
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,13 +34,17 @@ def _recon_table(bits: int, device: torch.device) -> torch.Tensor:
                                rounding=True).to(device)
 
 
-def sparq_compress(g: torch.Tensor, bits: int = 4) -> torch.Tensor:
+def sparq_compress(g: torch.Tensor, bits: int = 4,
+                   amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fake-quant SPARQ compression of one gradient tensor (per-tensor
     scale; signed windowed `bits`-bit). Returns the reconstruction, what
     the receiving side would decode. The codes' reconstructions are
     looked up in a 255-entry table of `bsparq_recon_signed`: one pass
-    over the tensor instead of the codec's ≈ 40 elementwise ones."""
-    scale = div_qmax(torch.clamp(torch.amax(torch.abs(g)), min=1e-20), 127)
+    over the tensor instead of the codec's ≈ 40 elementwise ones. `amax`
+    (0-d) sets the scale in place of max |g|: a block of a leaf takes the
+    whole leaf's."""
+    amax = torch.amax(torch.abs(g)) if amax is None else amax
+    scale = div_qmax(torch.clamp(amax, min=1e-20), 127)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int32)
     r = torch.index_select(_recon_table(bits, g.device), 0,
                            (q + 127).reshape(-1)).reshape(q.shape)
@@ -57,13 +64,52 @@ class GradCompressor:
                           grads)
 
     @torch.no_grad()
-    def compress(self, grads: Any, state: Any) -> Tuple[Any, Any]:
-        def one(g, e):
-            if g.numel() < self.min_size:
+    def compress(self, grads: Any, state: Any,
+                 numels: Optional[Sequence[int]] = None,
+                 amax: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                 = None) -> Tuple[Any, Any]:
+        """On a mesh the leaves are blocks: `numels` gives each whole
+        leaf's size in leaf order (min_size is judged on it), and `amax`
+        maps the vector of this rank's max |g + e| per leaf to the whole
+        leaves' (an all-reduce MAX over the mesh)."""
+        flat_g, flat_e = T.leaves(grads), T.leaves(state)
+        sizes = [g.numel() for g in flat_g] if numels is None else numels
+        big = [n >= self.min_size for n in sizes]
+        scale_max = [None] * len(flat_g)
+        if amax is not None:
+            local = [torch.amax(torch.abs(g.to(torch.float32) + e)) if b
+                     else torch.zeros((), device=e.device)
+                     for g, e, b in zip(flat_g, flat_e, big)]
+            scale_max = list(amax(torch.stack(local)).unbind(0))
+
+        def one(g, e, b, m):
+            if not b:
                 return g, torch.zeros_like(e)
             target = g.to(torch.float32) + e
-            c = sparq_compress(target, self.bits)
+            c = sparq_compress(target, self.bits, m)
             return c.to(g.dtype), target - c.to(torch.float32)
-        outs = [one(g, e) for g, e in zip(T.leaves(grads), T.leaves(state))]
+        outs = [one(*a) for a in zip(flat_g, flat_e, big, scale_max)]
         return (T.unflatten(grads, [o[0] for o in outs]),
                 T.unflatten(grads, [o[1] for o in outs]))
+
+
+def hierarchical_psum(x: torch.Tensor, mesh, pod_axis: str = "pod",
+                      data_axis: str = "data") -> torch.Tensor:
+    """Σ of `x` over the data group, then the pod group (two hops, the
+    first inside a pod); returns a new tensor."""
+    import torch.distributed as dist
+    y = x.clone()
+    dist.all_reduce(y, group=mesh.group(data_axis))
+    dist.all_reduce(y, group=mesh.group(pod_axis))
+    return y
+
+
+def compressed_psum(x: torch.Tensor, mesh, axis: str,
+                    bits: int = 4) -> torch.Tensor:
+    """Σ over `axis` of each rank's `sparq_compress(x)`: the quantization
+    happens before the wire, and the fake-quant reconstruction keeps the
+    decoded values' arithmetic exact."""
+    import torch.distributed as dist
+    y = sparq_compress(x, bits)
+    dist.all_reduce(y, group=mesh.group(axis))
+    return y

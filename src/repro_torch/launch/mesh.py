@@ -1,22 +1,32 @@
-"""The serving mesh (port of `repro.launch.mesh.make_tp_mesh`).
+"""The meshes (port of `repro.launch.mesh`).
 
-The reference builds a ("data", "model") `jax.Mesh` over the local devices
-and runs its attention dispatchers per shard under `shard_map`. The port
-keeps its single-controller shape in PyTorch's idiom of explicit
-placement: a `TPMesh` is the list of the `tp` devices the shards live on,
-in shard order, and one host loop launches each shard's kernels on its
-device (`kernels.ops`, `models.paging`). Shard r holds KV heads [r KV/tp,
-(r + 1) KV/tp) of every page (`distributed.sharding.shard_heads`); the
-lead device, shard 0's, holds the weights, the activations, the logits
-and the host scheduler's device copies.
+**Serving** (`make_tp_mesh`). The reference builds a ("data", "model")
+`jax.Mesh` over the local devices and runs its attention dispatchers per
+shard under `shard_map`. The port keeps its single-controller shape in
+PyTorch's idiom of explicit placement: a `TPMesh` is the list of the `tp`
+devices the shards live on, in shard order, and one host loop launches
+each shard's kernels on its device (`kernels.ops`, `models.paging`).
+Shard r holds KV heads [r KV/tp, (r + 1) KV/tp) of every page
+(`distributed.sharding.shard_heads`); the lead device, shard 0's, holds
+the weights, the activations, the logits and the host scheduler's device
+copies.
 
-`make_production_mesh` and `make_host_mesh` of the reference belong to
-sharded training and are not ported yet.
+**Training** (`make_host_mesh`, `make_production_mesh`). One process a
+rank, as `torchrun` starts them (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`): a
+`DistMesh` wraps a `torch.distributed.device_mesh.DeviceMesh` over the
+world, rank-major in its axes, with one process group an axis. Each rank
+takes `cuda:LOCAL_RANK`; where a host has fewer cards than ranks, ranks
+share cards only when the caller asks (the counterpart of the
+reference's forced host device count), and on the CPU every rank is the
+CPU. The backend is NCCL where each rank has a card of its own, else
+gloo (NCCL refuses two ranks on one card); the mesh records which.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+import math
+import os
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -79,3 +89,111 @@ def make_tp_mesh(tp: int, device=None,
             f"shards explicitly with make_tp_mesh(tp, devices=...) to put "
             f"several on one card")
     return TPMesh(tuple(torch.device("cuda", i) for i in range(tp)))
+
+
+# ---------------------------------------------------------------------
+# training meshes over torch.distributed
+# ---------------------------------------------------------------------
+
+def world_env() -> Tuple[int, int, int]:
+    """(rank, world size, local rank): the initialized process group's, or
+    from `torchrun`'s environment, (0, 1, 0) without either."""
+    import torch.distributed as dist
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size(), local
+    return (int(os.environ.get("RANK", 0)),
+            int(os.environ.get("WORLD_SIZE", 1)), local)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistMesh:
+    """A rank's view of a training mesh: the `DeviceMesh`, its axes and
+    their sizes ({axis: size}, as `distributed.sharding` reads a mesh),
+    this rank's coordinate on each axis, its device, and the backend."""
+    device_mesh: Any
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+    coord: Dict[str, int]
+    device: torch.device
+    backend: str
+
+    def group(self, axis: str):
+        """The process group of the ranks that differ from this one on
+        `axis` only; a rank's group rank is its coordinate there."""
+        return self.device_mesh.get_group(axis)
+
+    @property
+    def world(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def _rank_device(device, share_cards: bool) -> Tuple[torch.device, bool]:
+    """(the rank's device, whether it shares a card with another rank)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev, False
+    _, world, local = world_env()
+    ranks_here = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    n = torch.cuda.device_count()
+    if n >= ranks_here:
+        return torch.device("cuda", local), False
+    if not share_cards:
+        raise ValueError(
+            f"{ranks_here} ranks on this host need {ranks_here} visible "
+            f"cards, {n} visible; ask ranks to share cards (--share-cards) "
+            f"to put several on one card")
+    return torch.device("cuda", local % n), True
+
+
+def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device=None,
+              share_cards: bool = False) -> DistMesh:
+    """A mesh of `shape` with axes `names` over every rank, rank-major;
+    starts the process group from torchrun's environment unless one is
+    running."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev, shared = _rank_device(device, share_cards)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        rank, world, _ = world_env()
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" and not shared else "gloo",
+            rank=rank, world_size=world)
+    dm = init_device_mesh(dev.type, shape, mesh_dim_names=names)
+    coord = dict(zip(names, dm.get_coordinate()))
+    for a in names:
+        if dist.get_group_rank(dm.get_group(a), dist.get_rank()) != coord[a]:
+            raise RuntimeError(f"axis {a}: group rank is not the "
+                               f"coordinate {coord[a]}")
+    return DistMesh(dm, names, dict(zip(names, shape)), coord, dev,
+                    dist.get_backend())
+
+
+def make_host_mesh(model_parallel: int = 1, device=None,
+                   share_cards: bool = False) -> DistMesh:
+    """A (world / mp, mp) ("data", "model") mesh over every rank (tests and
+    runs on one host); raises where mp does not divide the world."""
+    _, world, _ = world_env()
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"--model-parallel {model_parallel} does not "
+                         f"divide the world of {world} ranks")
+    return make_mesh((world // model_parallel, model_parallel),
+                      ("data", "model"), device, share_cards)
+
+
+def make_production_mesh(multi_pod: bool = False, device=None,
+                         share_cards: bool = False) -> DistMesh:
+    """The production target's mesh: (16, 16) ("data", "model") over 256
+    ranks, or (2, 16, 16) ("pod", "data", "model") over 512; raises on a
+    world of any other size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    _, world, _ = world_env()
+    need = math.prod(shape)
+    if world != need:
+        raise ValueError(f"the {'multi-pod ' if multi_pod else ''}"
+                         f"production mesh {shape} needs {need} ranks, the "
+                         f"world has {world}")
+    return make_mesh(shape, names, device, share_cards)

@@ -11,7 +11,7 @@ device, and raises when no GPU is present and none was asked for.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -37,7 +37,8 @@ class Model:
         self.groups_meta = tr._group_runs(self.kinds)
 
     # ------------------------------------------------------------ init
-    def init_params(self, seed: int = 0, dtype=None) -> Dict:
+    def init_params(self, seed: int = 0, dtype=None,
+                    blocks: Optional[Callable] = None) -> Dict:
         """Random params at any width, drawn from a torch.Generator seeded
         with `seed` on the model's device (the layout of the JAX params;
         the values differ from jax.random's). Weights and embeddings are
@@ -45,25 +46,44 @@ class Model:
         is f32, one layer at a time (an MoE expert bank one expert at a
         time), cast as it is stored. An enc-dec model also gets its
         encoder, "enc_blocks" (drawn as a stack of `n_enc_layers`, which
-        sets its output projections' scale) and "enc_norm"."""
+        sets its output projections' scale) and "enc_norm". On the meta
+        device nothing is drawn: the tree of shapes.
+
+        `blocks(path, shape)` -> slices keeps only those slices of each
+        leaf (a rank's block on a mesh; path as `tree.flatten_with_path`
+        gives it, shape the whole leaf's): the draws are the same, and a
+        stacked leaf keeps its block of each layer as the layer is drawn."""
         cfg, dev = self.cfg, self.device
         dtype = cfg.param_dtype if dtype is None else dtype
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = None
+        if dev.type != "meta":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+
+        def keep(path, tree):
+            if blocks is None:
+                return tree
+            if isinstance(tree, dict):
+                return {k: keep(path + (k,), v) for k, v in tree.items()}
+            return tree[blocks(path, tuple(tree.shape))].clone()
         params: Dict[str, Any] = {
-            "embed": trunc_normal((cfg.vocab_size, cfg.d_model), 0.02, gen,
-                                  dev, dtype),
-            "blocks": tr.stack_init(gen, cfg, self.kinds, dev, dtype),
-            "final_norm": norm_init(cfg.d_model, cfg.norm_type, dev),
+            "embed": keep(("embed",), trunc_normal(
+                (cfg.vocab_size, cfg.d_model), 0.02, gen, dev, dtype)),
+            "blocks": tr.stack_init(gen, cfg, self.kinds, dev, dtype,
+                                    blocks=blocks, path=("blocks",)),
+            "final_norm": keep(("final_norm",), norm_init(
+                cfg.d_model, cfg.norm_type, dev)),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = trunc_normal((cfg.d_model, cfg.vocab_size),
-                                             0.02, gen, dev, dtype)
+            params["lm_head"] = keep(("lm_head",), trunc_normal(
+                (cfg.d_model, cfg.vocab_size), 0.02, gen, dev, dtype))
         if cfg.is_encdec:
             params["enc_blocks"] = tr.stack_init(
                 gen, cfg.replace(n_layers=cfg.n_enc_layers),
-                ["enc"] * cfg.n_enc_layers, dev, dtype)
-            params["enc_norm"] = norm_init(cfg.d_model, cfg.norm_type, dev)
+                ["enc"] * cfg.n_enc_layers, dev, dtype, blocks=blocks,
+                path=("enc_blocks",))
+            params["enc_norm"] = keep(("enc_norm",), norm_init(
+                cfg.d_model, cfg.norm_type, dev))
         return params
 
     # ------------------------------------------------------------ pieces
@@ -115,7 +135,8 @@ class Model:
         return torch.arange(T, device=self.device)[None].expand(B, T)
 
     # ------------------------------------------------------------ train
-    def _forward(self, params, batch: Dict, ctx, scales_groups):
+    def _forward(self, params, batch: Dict, ctx, scales_groups,
+                 gather=None):
         """(hidden states, prefix_len, the stack's summed aux terms)."""
         cfg = self.cfg
         x, prefix_len, enc_out = self._inputs(params, batch, ctx)
@@ -123,7 +144,9 @@ class Model:
                                 positions=self._positions(*x.shape[:2]),
                                 mode="train", ctx=ctx,
                                 scales_groups=scales_groups,
-                                prefix_len=prefix_len, enc_out=enc_out)
+                                prefix_len=prefix_len, enc_out=enc_out,
+                                gather=None if gather is None
+                                else gather.layer)
         return norm(params["final_norm"], x, cfg.norm_type,
                     cfg.norm_eps), prefix_len, aux
 
@@ -140,14 +163,21 @@ class Model:
         return self._head(params, x[:, prefix_len:])
 
     def loss(self, params, batch: Dict, ctx: Optional[QuantCtx] = None,
-             scales_groups=None) -> Tuple[torch.Tensor, Dict]:
+             scales_groups=None, gather=None) -> Tuple[torch.Tensor, Dict]:
         """Next-token CE of batch["tokens"] against batch["labels"] (-1
         ignored), the vocab projection `cfg.logit_chunk` positions at a
         time, plus LB_COEF x the MoE layers' load-balance loss and Z_COEF
         x their router z-loss (both 0 for a dense stack). Returns (total,
-        metrics)."""
+        metrics).
+
+        `gather` (a `distributed.fsdp.FSDP`) takes `params` as a rank's
+        blocks: the leaves outside the layer stacks are made whole here,
+        each layer's inside its remat body (`gather.layer`)."""
         cfg = self.cfg
-        x, prefix_len, aux = self._forward(params, batch, ctx, scales_groups)
+        if gather is not None:
+            params = gather.outside(params)
+        x, prefix_len, aux = self._forward(params, batch, ctx, scales_groups,
+                                           gather)
         x = x[:, prefix_len:]
         labels = torch.as_tensor(batch["labels"], device=self.device)
         head = params["embed"].T if cfg.tie_embeddings \

@@ -15,7 +15,7 @@ body)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -306,25 +306,38 @@ def unstack_layers(stacked, count: int) -> list:
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, kinds: list[str],
-               device, dtype=torch.float32) -> list:
+               device, dtype=torch.float32, blocks=None,
+               path: tuple = ()) -> list:
     """Per group of same-kind layers, its [L, ...] leaves, filled in place
-    one layer at a time: only one layer's f32 draws are alive at once."""
+    one layer at a time: only one layer's f32 draws are alive at once.
+    `blocks(path, shape)` -> slices keeps only those slices of each
+    stacked leaf (`path` + (group, keys...), its whole [L, ...] shape):
+    each layer's draw writes its part of the block."""
     out = []
-    for kind, count in _group_runs(kinds):
+    for gi, (kind, count) in enumerate(_group_runs(kinds)):
         first = block_init(gen, cfg, kind, device, dtype)
+        cuts = {}
 
-        def alloc(x):
+        def alloc(x, sub=()):
             if isinstance(x, dict):
-                return {k: alloc(v) for k, v in x.items()}
-            return torch.empty((count,) + tuple(x.shape), dtype=x.dtype,
-                               device=x.device)
+                return {k: alloc(v, sub + (k,)) for k, v in x.items()}
+            shape = (count,) + tuple(x.shape)
+            if blocks is not None:
+                cuts[sub] = blocks(path + (gi,) + sub, shape)
+                shape = tuple(len(range(*s.indices(n)))
+                              for s, n in zip(cuts[sub], shape))
+            return torch.empty(shape, dtype=x.dtype, device=x.device)
 
-        def fill(dst, src, li):
+        def fill(dst, src, li, sub=()):
             if isinstance(src, dict):
                 for k in src:
-                    fill(dst[k], src[k], li)
-            else:
+                    fill(dst[k], src[k], li, sub + (k,))
+            elif blocks is None:
                 dst[li].copy_(src)
+            else:
+                lead, rest = cuts[sub][0], cuts[sub][1:]
+                if lead.start <= li < lead.stop:
+                    dst[li - lead.start].copy_(src[rest])
         stacked = alloc(first)
         fill(stacked, first, 0)
         del first
@@ -380,12 +393,16 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
                 caches: Optional[list] = None, mode: str = "train",
                 ctx: Optional[QuantCtx] = None,
                 scales_groups: Optional[list] = None, prefix_len: int = 0,
-                enc_out: Optional[torch.Tensor] = None, chunk=None):
+                enc_out: Optional[torch.Tensor] = None, chunk=None,
+                gather: Optional[Callable] = None):
     """Apply every layer in order. `caches` is the flat per-layer list of
     cache stores (written in place); `scales_groups[g][site]` holds the
     group's per-layer calibrated spans; `prefix_len` and `enc_out` reach
-    every layer (`block_apply`). Returns (x, aux): the layers' "lb_loss"
-    and "z_loss" summed in layer order (f32 zeros for a dense stack)."""
+    every layer (`block_apply`). `gather(g, layer)` turns a layer's blocks
+    (group g) into whole weights inside the remat body, so the backward's
+    recompute gathers again instead of keeping every layer's weights.
+    Returns (x, aux): the layers' "lb_loss" and "z_loss" summed in layer
+    order (f32 zeros for a dense stack)."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     zl = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -399,7 +416,9 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
                     ctx, scales={s: v[li] for s, v in scales_g.items()})
             cache = caches[li_global] if caches is not None else None
 
-            def body(p_l, x, kind=kind, cache=cache, bctx=bctx):
+            def body(p_l, x, kind=kind, cache=cache, bctx=bctx, gi=gi):
+                if gather is not None:
+                    p_l = gather(gi, p_l)
                 x, _, aux = block_apply(p_l, x, cfg, kind,
                                         positions=positions, cache=cache,
                                         mode=mode, ctx=bctx,

@@ -8,12 +8,16 @@ norms and embeddings included), and m and v are f32. This is not
 `torch.optim.AdamW`, whose decoupled decay runs in another order. The
 step count, the schedule and the bias corrections are f32 tensors on the
 parameters' device, as in JAX; every division is by a tensor (PyTorch's
-CUDA division by a Python scalar multiplies by its reciprocal)."""
+CUDA division by a Python scalar multiplies by its reciprocal).
+
+On a mesh the leaves are a rank's blocks and the caller passes the
+global squared norm (`update(..., gsq=)`, each block counted once over
+the mesh); the update itself stays elementwise on the block."""
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -49,13 +53,17 @@ class AdamW:
                                             device=dev))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
-        """Returns (new_params, new_state, metrics)."""
+    def update(self, grads, state: AdamWState, params,
+               gsq: Optional[torch.Tensor] = None):
+        """Returns (new_params, new_state, metrics). `gsq` (0-d f32) is the
+        squared global norm where the leaves are only a rank's blocks;
+        without it the norm is the leaves' own."""
         flat_g = T.leaves(grads)
         dev = flat_g[0].device
-        gsq = 0
-        for g in flat_g:
-            gsq = gsq + torch.sum(g.to(torch.float32) ** 2)
+        if gsq is None:
+            gsq = 0
+            for g in flat_g:
+                gsq = gsq + torch.sum(g.to(torch.float32) ** 2)
         gnorm = torch.sqrt(gsq + 1e-20)
         scale = torch.minimum(_f32(1.0, dev), _f32(self.clip_norm, dev)
                               / gnorm)

@@ -1,0 +1,541 @@
+"""Port parity, sharded training: the trainer's FSDP step over gloo CPU
+ranks against the JAX package's `build_train_step` run without a mesh
+(what GSPMD computes under the reference's rules, up to reduction order),
+the collectives, `unshard_leaf`, and checkpoints across layouts.
+
+Each world of ranks is spawned once (this file run as a script, torch
+only, one intra-op thread a rank, a gloo `FileStore` in a temporary
+directory) and runs every case of its world; the tests read what rank 0
+(or each rank) wrote. World 2: meshes 2 x 1 and 1 x 2, reduced dbrx on
+1 x 2, the trainer's restart and cross-layout restores. World 4: mesh
+2 x 2, the (pod 2, data 2) mesh, the collectives at 4 ranks.
+
+Tolerances, with their reasons:
+- losses and grad norms: 1e-5 relative to JAX (a rank's loss is the
+  mean over its rows and the dp mean follows; XLA and PyTorch sum in
+  other orders), 1e-4 with compression (a gradient element at a rounding
+  boundary takes the next code: the step-1 residuals against one process
+  are counted, measured at most 1 flipped code of 410,240 elements over
+  dp 2 and none on 1 x 2, and asserted below 0.1% of the elements).
+- parameters: `chip_smoke.train_params_close`, as the one-device port
+  (tests/test_torch_train_step.py).
+- exact: the 1 x 2 mesh's first loss against one process (every rank
+  computes all rows with the same whole weights), `unshard_leaf`, the
+  restart, checkpoints, `compressed_psum` at 2 ranks; at 4, 2 ulp of
+  the terms' summed magnitudes (gloo's order of summation).
+"""
+import json
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+if __name__ != "__main__":
+    import importlib.util
+
+    import jax
+    import jax.numpy as jnp
+    import pytest
+
+    from repro.checkpoint import manager as jckpt
+    from repro.configs.base import get_reduced_config as jcfg_reduced
+    from repro.distributed.collectives import GradCompressor as JComp
+    from repro.distributed.collectives import sparq_compress as jcompress
+    from repro.distributed.sharding import set_activation_spec
+    from repro.launch.train import build_train_step as jbuild
+    from repro.models.model import Model as JModel
+    from repro.optim.adamw import AdamW as JAdamW
+    from repro.optim.adamw import cosine_schedule as jcosine
+
+from repro_torch import tree as T  # noqa: E402
+
+TRAIN_ARGV = ["--arch", "tinyllama-1.1b", "--reduced", "--batch", "4",
+              "--seq", "16", "--device", "cpu", "--lr-total", "4",
+              "--log-every", "100", "--seed", "7"]
+SPECS = [(), (None, "model"), ("data", None), (("data", "model"), None),
+         ("model", "data"), (None, ("model", "data"))]
+POD_SPECS = [(("pod", "data"), None), (None, ("data", "pod")),
+             ("pod", "data")]
+
+
+# ----------------------------------------------------------------------
+# rank side: torch and the port only
+# ----------------------------------------------------------------------
+
+def _cfg(arch):
+    from repro_torch.configs import get_reduced_config
+    return get_reduced_config(arch).replace(dtype=torch.float32,
+                                            attn_chunk=8)
+
+
+def _run_train(job, rank):
+    """`build_train_step` with an FSDP over the job's mesh, from the whole
+    params it is given; the gathered params at the end; with "ckpt" a
+    save, a restore onto the same blocks, and each rank's blocks."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.distributed.collectives import GradCompressor
+    from repro_torch.distributed.fsdp import FSDP
+    from repro_torch.distributed.sharding import param_pspecs, shard_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    mesh = make_mesh(tuple(job["shape"]), tuple(job["names"]), "cpu")
+    inputs = torch.load(job["inputs"], weights_only=False)
+    model = Model(_cfg(job["arch"]), device="cpu")
+    specs = param_pspecs(inputs["params"], mesh)
+    fsdp = FSDP(mesh, specs)
+    params = shard_tree(inputs["params"], specs, mesh)
+    opt = AdamW(lr=cosine_schedule(1e-3, 1, 3))
+    comp = GradCompressor() if job["compress"] else None
+    step = build_train_step(model, opt, comp, job["accum"], fsdp=fsdp)
+    state, cs = opt.init(params), comp.init(params) if comp else None
+    out = {"losses": [], "grad_norms": [], "lrs": []}
+    for i, b in enumerate(inputs["batches"]):
+        params, state, cs, m = step(params, state, cs, b)
+        for k, n in (("losses", "loss"), ("grad_norms", "grad_norm"),
+                     ("lrs", "lr")):
+            out[k].append(float(m[n]))
+        if i == 0 and comp is not None:
+            out["residual"] = [fsdp.unshard(p, e)
+                               for p, e in T.flatten_with_path(cs)]
+    out["params"] = [fsdp.unshard(p, x) for p, x in
+                     T.flatten_with_path(params)]
+    if rank == 0:
+        # the one-process port on the same inputs, first step
+        one = build_train_step(model, opt, GradCompressor() if comp else
+                               None, job["accum"])
+        p0 = inputs["params"]
+        _, _, cs1, m1 = one(p0, opt.init(p0), comp.init(p0) if comp
+                            else None, inputs["batches"][0])
+        out["one_process_loss"] = float(m1["loss"])
+        if comp is not None:
+            out["one_process_residual"] = T.leaves(cs1)
+    if job.get("ckpt"):
+        tree = {"params": params, "m": state.m, "v": state.v}
+        ckpt.save(job["ckpt"], 3, tree, write=rank == 0,
+                  unshard=lambda p, b: fsdp.unshard(p[1:], b))
+        dist.barrier()
+        blank = T.tree_map(torch.zeros_like, tree)
+        got = ckpt.restore(job["ckpt"], 3, blank, "cpu",
+                           blocks=lambda p, s: fsdp.slices(p[1:], s))
+        out["restored_equal"] = all(torch.equal(a, b) for a, b in zip(
+            T.leaves(got), T.leaves(tree)))
+        out["blocks"] = T.leaves(params)
+        out["coord"] = mesh.coord
+        out["keys"] = [T.path_key(p) for p, _ in
+                       T.flatten_with_path(params)]
+    return out
+
+
+def _run_restart(job, rank):
+    """The trainer's own loop (`train.main`) on the world: 4 steps
+    straight; 2, a checkpoint, a restore and 2 more; the same restart on
+    the 1 x 2 mesh from the 2 x 1 checkpoint; and 2 more steps from a
+    one-device checkpoint."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    d = pathlib.Path(job["dir"])
+    out = {}
+    out["straight"] = train.main(TRAIN_ARGV + [
+        "--steps", "4", "--checkpoint-dir", str(d / "straight")])
+    out["first"] = train.main(TRAIN_ARGV + [
+        "--steps", "2", "--checkpoint-dir", str(d / "half")])
+    if rank == 0:
+        shutil.copytree(d / "half", d / "half_mp")
+    dist.barrier()
+    out["resumed"] = train.main(TRAIN_ARGV + [
+        "--steps", "4", "--restore", "--checkpoint-dir", str(d / "half")])
+    out["resumed_mp"] = train.main(TRAIN_ARGV + [
+        "--steps", "4", "--restore", "--model-parallel", "2",
+        "--checkpoint-dir", str(d / "half_mp")])
+    out["from_one_device"] = train.main(TRAIN_ARGV + [
+        "--steps", "4", "--restore", "--checkpoint-dir",
+        job["one_device_dir"]])
+    return out
+
+
+def _run_collectives(job, rank):
+    """`compressed_psum` and `hierarchical_psum` of each rank's seeded
+    tensor; `unshard_leaf` of each spec's block of an arange leaf."""
+    from repro_torch.distributed.collectives import (compressed_psum,
+                                                     hierarchical_psum)
+    from repro_torch.distributed.sharding import shard_leaf, unshard_leaf
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    world = job["world"]
+    flat = make_mesh((world, 1), ("data", "model"), "cpu")
+    x = torch.from_numpy(_rank_input(rank))
+    out["compressed"] = compressed_psum(x, flat, "data")
+    meshes = [((world // 2, 2), ("data", "model"), SPECS)]
+    if world == 4:
+        meshes.append(((2, 2, 1), ("pod", "data", "model"), POD_SPECS))
+        pod = make_mesh((2, 2, 1), ("pod", "data", "model"), "cpu")
+        out["hierarchical"] = hierarchical_psum(x, pod)
+        out["hierarchical_int"] = hierarchical_psum(torch.round(x * 8), pod)
+    out["round_trip"] = []
+    for shape, names, specs in meshes:
+        mesh = make_mesh(shape, names, "cpu")
+        whole = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+        for spec in specs:
+            back = unshard_leaf(shard_leaf(whole, spec, mesh), spec, mesh)
+            out["round_trip"].append((names, spec, torch.equal(back, whole)))
+    return out
+
+
+def _rank_input(rank):
+    return np.random.default_rng(100 + rank).standard_normal(
+        (64, 33)).astype(np.float32)
+
+
+RUNNERS = {"train": _run_train, "restart": _run_restart,
+           "collectives": _run_collectives}
+
+
+def _rank_main(argv):
+    import torch.distributed as dist
+    world, rank, store, jobs, out = int(argv[0]), int(argv[1]), *argv[2:]
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    results = {}
+    with open(jobs) as f:
+        for job in json.load(f):
+            results[job["name"]] = RUNNERS[job["kind"]](job, rank)
+    torch.save(results, os.path.join(out, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(_rank_main(sys.argv[1:]))
+
+
+# ----------------------------------------------------------------------
+# test side
+# ----------------------------------------------------------------------
+
+def _start(world, jobs, d):
+    """Start a world of gloo ranks on `jobs`; `_finish` waits for it."""
+    (d / "jobs.json").write_text(json.dumps(jobs))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    return d, [subprocess.Popen(
+        [sys.executable, __file__, str(world), str(r), str(d / "store"),
+         str(d / "jobs.json"), str(d)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+
+
+def _finish(started):
+    """Each rank's results."""
+    d, procs = started
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r}:\n{logs[r][-4000:]}"
+    return [torch.load(d / f"rank{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _batch(rng, vocab, B, S):
+    toks = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((B, 1), -1, np.int32)], 1)
+    return {"tokens": toks, "labels": labels}
+
+
+CASES = ((False, 1), (False, 2), (True, 1), (True, 2))
+
+
+def _inputs(arch, d):
+    """The JAX model, its init, 3 batches of 4 x 16 tokens, and the path
+    of the same params and batches saved for the ranks."""
+    from repro_torch.interop import params_from_jax
+    jm = JModel(jcfg_reduced(arch).replace(dtype=jnp.float32, attn_chunk=8))
+    jp0 = jm.init_params(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(5)
+    batches = [_batch(rng, jm.cfg.vocab_size, 4, 16) for _ in range(3)]
+    path = d / f"{arch}.pt"
+    torch.save({"params": params_from_jax(jax.tree.map(np.asarray, jp0)),
+                "batches": batches}, path)
+    return jm, jp0, batches, str(path)
+
+
+def _reference(jm, jp0, batches, cases=CASES):
+    """JAX `build_train_step` (no mesh) for the 3 steps in each
+    (compressed, accum) case."""
+    set_activation_spec(None)
+    runs = {}
+    for compress, accum in cases:
+        jo = JAdamW(lr=jcosine(1e-3, 1, 3))
+        step = jax.jit(jbuild(jm, jo, JComp() if compress else None, accum))
+        jp, js = jp0, jo.init(jp0)
+        jcs = JComp().init(jp0) if compress else None
+        rec = {"losses": [], "grad_norms": []}
+        for b in batches:
+            jp, js, jcs, m = step(jp, js, jcs, jax.tree.map(jnp.asarray, b))
+            rec["losses"].append(float(m["loss"]))
+            rec["grad_norms"].append(float(m["grad_norm"]))
+        rec["params"] = [np.asarray(x) for x in jax.tree.leaves(jp)]
+        runs[(compress, accum)] = rec
+    return runs
+
+
+def _jobs_train(name, shape, names, inputs, arch="tinyllama-1.1b",
+                cases=CASES):
+    return [{"kind": "train", "name": f"{name}/{c}/{a}", "arch": arch,
+             "shape": shape, "names": names, "inputs": inputs,
+             "compress": c, "accum": a} for c, a in cases]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this process's small tensors (the ranks pin
+    their own), as the other port test files do."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both worlds run while this process computes the JAX references:
+    {"tiny", "dbrx": references; "world2", "world4": each rank's
+    results; "one_losses": the one-device trainer's 4 steps; dirs}."""
+    from repro_torch.launch import train
+    d = tmp_path_factory.mktemp("sharded")
+    d2, d4 = d / "world2", d / "world4"
+    d2.mkdir()
+    d4.mkdir()
+    tiny = _inputs("tinyllama-1.1b", d)
+    dbrx = _inputs("dbrx-132b", d)
+    one_losses = train.main(TRAIN_ARGV + ["--steps", "4"])
+    train.main(TRAIN_ARGV + ["--steps", "2", "--checkpoint-dir",
+                             str(d / "one_device")])
+    jobs2 = (_jobs_train("2x1", (2, 1), ("data", "model"), tiny[3])
+             + _jobs_train("1x2", (1, 2), ("data", "model"), tiny[3])
+             + _jobs_train("dbrx", (1, 2), ("data", "model"), dbrx[3],
+                           "dbrx-132b", ((False, 1),))
+             + [{"kind": "restart", "name": "restart", "dir": str(d2),
+                 "one_device_dir": str(d / "one_device")},
+                {"kind": "collectives", "name": "collectives", "world": 2}])
+    jobs2[1]["ckpt"] = str(d2 / "ckpt")          # 2x1, plain, accum 2
+    jobs4 = (_jobs_train("2x2", (2, 2), ("data", "model"), tiny[3])
+             + _jobs_train("pod", (2, 2, 1), ("pod", "data", "model"),
+                           tiny[3], cases=((False, 1), (True, 1)))
+             + [{"kind": "collectives", "name": "collectives", "world": 4}])
+    started = [_start(2, jobs2, d2), _start(4, jobs4, d4)]
+    try:
+        refs = {"tiny": _reference(*tiny[:3]),
+                "dbrx": _reference(*dbrx[:3], cases=((False, 1),))}
+    finally:
+        worlds = [_finish(w) for w in started]
+    return dict(refs, world2=worlds[0], world4=worlds[1],
+                one_losses=one_losses, dir=d2, ckpt=str(d2 / "ckpt"))
+
+
+def _flips(got, want):
+    """Elements whose error-feedback residuals differ by more than a
+    thousandth of the leaf's largest residual: a code that flipped."""
+    n = 0
+    for a, b in zip(got, want):
+        tol = 1e-3 * float(b.abs().max())
+        n += int(((a - b).abs() > tol).sum())
+    return n
+
+
+def _hold(res, ref, what, params_tol=True):
+    rtol = 1e-4 if what.split("/")[1] == "True" else 1e-5
+    for k in ("losses", "grad_norms"):
+        np.testing.assert_allclose(res[k], ref[k], rtol=rtol,
+                                   err_msg=f"{what} {k}")
+    if params_tol:
+        _chip_smoke().train_params_close(ref["params"], res["params"],
+                                         sum(res["lrs"]), what)
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "1x2"])
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_world2_train_matches_reference(runs, mesh, compress, accum):
+    """3 sharded steps on the 2 x 1 (dp 2) and 1 x 2 (storage over the
+    model axis) meshes against the JAX step; every rank reports the same
+    loss and grad norm; compressed, the codes that flipped against the
+    one-process port are few."""
+    name = f"{mesh}/{compress}/{accum}"
+    res = [r[name] for r in runs["world2"]]
+    _hold(res[0], runs["tiny"][(compress, accum)], name)
+    assert res[0]["losses"] == res[1]["losses"]
+    assert res[0]["grad_norms"] == res[1]["grad_norms"]
+    if compress:
+        n = sum(e.numel() for e in res[0]["residual"])
+        flips = _flips(res[0]["residual"], res[0]["one_process_residual"])
+        assert flips <= 1e-3 * n, (flips, n)
+
+
+def test_1x2_first_loss_equals_one_process(runs):
+    """Every rank of the 1 x 2 mesh computes all rows with whole weights
+    equal to the blocks' source: step 1's loss is the one-process port's
+    bit for bit, in every case."""
+    for c in (False, True):
+        for a in (1, 2):
+            r = runs["world2"][0][f"1x2/{c}/{a}"]
+            assert r["losses"][0] == r["one_process_loss"], (c, a)
+
+
+def test_dbrx_on_1x2_matches_reference(runs):
+    """Reduced dbrx (stacked experts under (None, model, data, None), the
+    load-balance and z terms in the loss) on the 1 x 2 mesh. An MoE
+    model over more than one dp rank raises: its load-balance term and
+    capacity are functions of the whole batch."""
+    _hold(runs["world2"][0]["dbrx/False/1"], runs["dbrx"][(False, 1)],
+          "dbrx/False/1")
+
+
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_world4_train_matches_reference(runs, compress, accum):
+    """The 2 x 2 mesh: dp 2 and storage over model 2 at once."""
+    name = f"2x2/{compress}/{accum}"
+    res = [r[name] for r in runs["world4"]]
+    _hold(res[0], runs["tiny"][(compress, accum)], name)
+    assert all(r["losses"] == res[0]["losses"] for r in res)
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_pod_mesh_matches_reference(runs, compress):
+    """The (pod 2, data 2, model 1) mesh: rows over four dp ranks, the
+    gradient reduced through `hierarchical_psum`."""
+    name = f"pod/{compress}/1"
+    _hold(runs["world4"][0][name], runs["tiny"][(compress, 1)], name)
+
+
+def test_restart_on_mesh_is_bit_exact(runs):
+    """`train.main` on the 2 x 1 mesh: 2 steps, a save, a restore and 2
+    more equal 4 straight, losses and every saved leaf bit for bit."""
+    r = runs["world2"][0]["restart"]
+    assert r["first"] + r["resumed"] == r["straight"]
+    d = runs["dir"]
+    with open(d / "straight" / "step_00000004" / "manifest.json") as f:
+        keys = json.load(f)["leaves"]
+    assert len(keys) == 36          # params, m and v: 12 leaves each
+    for key, meta in keys.items():
+        a = np.load(d / "straight" / "step_00000004" / meta["file"])
+        b = np.load(d / "half" / "step_00000004" / meta["file"])
+        np.testing.assert_array_equal(a, b, err_msg=key)
+
+
+def test_restores_cross_layouts(runs):
+    """A 2 x 1 checkpoint resumed on the 1 x 2 mesh, and a one-device
+    checkpoint resumed on 2 x 1, continue the straight run's losses. The
+    trainer's reduced config computes in bf16, and another row split
+    rounds other products: 1e-4 relative, the card phase's tolerance."""
+    r = runs["world2"][0]["restart"]
+    np.testing.assert_allclose(r["resumed_mp"], r["straight"][2:],
+                               rtol=1e-4)
+    np.testing.assert_allclose(r["from_one_device"],
+                               runs["one_losses"][2:], rtol=1e-4)
+    np.testing.assert_allclose(r["straight"], runs["one_losses"],
+                               rtol=1e-4)
+
+
+def test_mesh_checkpoint_restores_whole(runs):
+    """The state saved on the 2 x 1 mesh after 3 steps restores in one
+    process (the port's `restore`) and in the JAX package's to the same
+    whole leaves, which hold every rank's blocks at its slices; a rank's
+    restore onto blocks gives back its own."""
+    import types
+
+    from repro_torch.checkpoint import manager as tckpt
+    from repro_torch.distributed.sharding import block_slices, param_pspecs
+    from repro_torch.models.model import Model
+    ranks = [r["2x1/False/2"] for r in runs["world2"]]
+    assert all(r["restored_equal"] for r in ranks)
+    tp = Model(_cfg("tinyllama-1.1b"), device="cpu").init_params(
+        0, dtype=torch.float32)
+    got = tckpt.restore(runs["ckpt"], 3, {"params": tp, "m": tp, "v": tp})
+    jp = JModel(jcfg_reduced("tinyllama-1.1b")).init_params(
+        jax.random.PRNGKey(0))
+    jgot = jckpt.restore(runs["ckpt"], 3, {"params": jp, "m": jp,
+                                            "v": jp})
+    for a, b in zip(T.leaves(got), jax.tree.leaves(jgot), strict=True):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 1},
+                                 axis_names=("data", "model"))
+    specs = param_pspecs(tp, mesh)
+    whole = {T.path_key(p): x for p, x in
+             T.flatten_with_path(got["params"])}
+    for r in ranks:
+        assert r["keys"] == list(specs)
+        for key, block in zip(r["keys"], r["blocks"], strict=True):
+            sl = block_slices(tuple(whole[key].shape), specs[key], mesh,
+                              r["coord"])
+            assert torch.equal(whole[key][sl], block), key
+
+
+def test_collectives_world2(runs):
+    """`compressed_psum` over 2 ranks equals the sum of the JAX package's
+    `sparq_compress` of their inputs bit for bit; `unshard_leaf` rebuilds
+    every spec's leaf exactly."""
+    r = runs["world2"][0]["collectives"]
+    want = sum(np.asarray(jcompress(jnp.asarray(_rank_input(k))))
+               for k in range(2))
+    np.testing.assert_array_equal(r["compressed"].numpy(), want)
+    assert all(ok for _, _, ok in r["round_trip"])
+
+
+def test_collectives_world4(runs):
+    """At 4 ranks `compressed_psum` equals the sum of JAX's compressions up
+    to the order of summation, which is gloo's: within 2 ulp of the sum
+    of the terms' magnitudes (where terms cancel, more ulp of the result
+    itself); `hierarchical_psum` over (pod 2, data 2) equals numpy's sum
+    (exactly on integer values); `unshard_leaf` rebuilds every leaf on the
+    2 x 2 and the pod mesh, merged axis tuples among the specs."""
+    r = runs["world4"][0]["collectives"]
+    parts = np.stack([np.asarray(jcompress(jnp.asarray(_rank_input(k))))
+                      for k in range(4)])
+    err = np.abs(r["compressed"].numpy() - np.sum(parts, 0))
+    assert (err <= 2 * np.spacing(np.sum(np.abs(parts), 0))).all()
+    xs = [_rank_input(k) for k in range(4)]
+    np.testing.assert_allclose(r["hierarchical"].numpy(),
+                               np.sum(xs, 0), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(
+        r["hierarchical_int"].numpy(),
+        np.sum([np.round(x * 8) for x in xs], 0))
+    assert len(r["round_trip"]) == len(SPECS) + len(POD_SPECS)
+    assert all(ok for _, _, ok in r["round_trip"])
+
+
+def test_layers_flag_cuts_depth(tmp_path):
+    """`--layers N` keeps the config's first N layers at full width (the
+    card phase's depth cut): the saved stack holds N layers."""
+    from repro_torch.launch import train
+    losses = train.main(TRAIN_ARGV + ["--layers", "1", "--steps", "1",
+                                      "--checkpoint-dir", str(tmp_path)])
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    wq = np.load(tmp_path / "step_00000001"
+                 / "params__blocks__0__attn__wq.npy")
+    assert wq.shape[0] == 1

@@ -2,7 +2,7 @@
 tinyllama: the port's versions of the reference's three training system
 tests (`tests/test_system.py`: exact restart, the loss decreases, SPARQ-
 compressed gradients still train), the data pipeline's labels and host
-shards, and the reference's flags that the port does not serve yet.
+shards, and the mesh flags on a world they do not fit.
 
 Tolerances: a restarted run repeats the uninterrupted one's losses
 exactly (the CPU path is deterministic and the data are a pure function
@@ -103,10 +103,17 @@ def test_batcher_labels_and_host_shards():
     assert len(calib) == 2 and calib[0]["tokens"].shape == (8, 16)
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "production"], ["--multi-pod"],
-                                   ["--model-parallel", "2"]])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+@pytest.mark.parametrize("flags,match", [
+    (["--mesh", "production"], "needs 256 ranks, the world has 2"),
+    (["--mesh", "production", "--multi-pod"],
+     "needs 512 ranks, the world has 2"),
+    (["--model-parallel", "3"], "does not divide the world of 2 ranks")])
+def test_unported_flags_raise(flags, match, monkeypatch):
+    """The mesh flags on a world of 2 (torchrun's environment, no process
+    group started) that does not fit them raise before anything starts."""
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    with pytest.raises(ValueError, match=match):
         T.main(BASE + ["--steps", "1"] + flags)
 
 
