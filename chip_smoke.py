@@ -253,19 +253,25 @@ Phases (each one that fails makes the script exit non-zero):
               first, no kernel launched (the reference's training path
               reaches no Pallas kernel); median ms a step, tokens/s, peak
               GB logged
-  train_sharded  the sharded trainer under torchrun, tinyllama-1.1b at
-              full width, 8 x 128, both ranks on the one card over gloo,
-              three runs launched together: S1 mesh 2 x 1 with
-              --compress-grads and S2 mesh 1 x 2, cut to 2 layers, 4 steps
-              each, a checkpoint every 2; S2_22 mesh 1 x 2 at all 22
-              layers, one step; S3 the script's own process restoring
-              S2's step 2 for steps 3-4. S1's and S2's losses and grad
-              norms against the trainer on one device within SHARDED_TOL
-              (S3: S2's within 1e-4), S2_22's against the train phase's
-              first step within DEPTH_TOL; each rank's peak below the
+  train_sharded  the sharded trainer under torchrun at full width, 8 x
+              128, both ranks on the one card over gloo, as many runs at
+              once as the card's memory holds. tinyllama-1.1b: S1 mesh
+              2 x 1 with --compress-grads and S2 mesh 1 x 2, cut to 2
+              layers, 4 steps each, a checkpoint every 2; S2_22 mesh 1 x
+              2 at all 22 layers, one step; the three launched together.
+              deepseek-v2-lite-16b cut to 2 layers (an mla_dense and an
+              mla_moe layer): E2 mesh 2 x 1 (routing and capacity over
+              both ranks' rows), one step, launched when S2_22 ends; E1
+              mesh 1 x 2 (each rank runs 32 of the 64 experts), 2 steps,
+              launched after S3, the script's own process restoring S2's
+              step 2 for steps 3-4 once S1 and S2 end.
+              S1's, S2's, E1's and E2's losses and grad norms against the
+              trainer on one device within SHARDED_TOL (S3: S2's within
+              1e-4), S2_22's against the train phase's first step within
+              DEPTH_TOL; ranks equal; each rank's peak below the
               one-device peak (S2_22: the train phase's); no kernel
-              launched; over NCCL across 2 (4) cards where the host has
-              them
+              launched; the MoE model's smallest routing margin logged;
+              over NCCL across 2 (4) cards where the host has them
   cnn_train   the CNN float trainer (`launch/cnn_train.py`): train_cnn()
               and train_cnn(prune_2_4=True) on the card; float top-1 >
               0.85 and pruned > 0.80 at stage-0 w1 sparsity 0.5 (the
@@ -4706,10 +4712,35 @@ SHARDED_RUNS = (("S1", 2, SHARDED_LAYERS, SHARDED_STEPS,
                  ["--model-parallel", "2", "--share-cards"], True),
                 ("S2_22", 2, 22, 1,
                  ["--model-parallel", "2", "--share-cards"], False))
+# the MoE runs, a second wave (with the first they would overrun the
+# card's memory: ≈ 14.7 GB a rank): deepseek-v2-lite-16b at full width
+# cut to 2 layers (one mla_dense, one mla_moe layer of 64 routed experts
+# top-6 and 2 shared), the same batch and schedule, held to the same
+# trainer on one device. E1 mesh 1 x 2: each rank stores and runs 32 of
+# the 64 expert banks (no bank crosses the wire), 2 steps; E2 mesh 2 x 1,
+# one step: routing and capacity over both ranks' rows, each bank's din
+# halves gathered (≈ 1.1 GB a rank a use, twice a microbatch: 45-56 s a
+# step). Two steps, not four: E1's bf16 forward rounds its experts' sum
+# otherwise than one device does, and with router margins of 1e-7 the
+# gap flips the experts of 50, 136 and 290 of the 2048 routings of steps
+# 2-4, taking E1's loss 5.2e-5, 6.7e-4, 7.0e-4 off one device; with the
+# forward in f32 on both sides no routing flips and E1 lies within 1.6e-7
+# over 4 steps (PERF.md §6, probes/moe_sharded_probe.py --parts
+# flips,f32). No checkpoint: E1's blocks
+# and `save` are S1's and S2's, and at 10.5 GB of state its gathers over
+# gloo take ≈ 30-40 s.
+MOE_SHARDED_ARCH = MLA_ARCH
+MOE_SHARDED_RUNS = (("E1", 2, SHARDED_LAYERS, 2,
+                     ["--model-parallel", "2", "--share-cards"], False),
+                    ("E2", 2, SHARDED_LAYERS, 1, ["--share-cards"], False))
 # where the host has the cards: (name, ranks, cards, extra flags, the
-# one-device run it is held to)
-SHARDED_CARDS = (("S1_nccl", 2, 2, ["--compress-grads"], "compressed"),
-                 ("2x2_nccl", 4, 4, ["--model-parallel", "2"], "plain"))
+# one-device run it is held to ("moe": MOE_SHARDED_ARCH's), steps)
+SHARDED_CARDS = (("S1_nccl", 2, 2, ["--compress-grads"], "compressed",
+                  SHARDED_STEPS),
+                 ("2x2_nccl", 4, 4, ["--model-parallel", "2"], "plain",
+                  SHARDED_STEPS),
+                 ("E1_nccl", 2, 2, ["--model-parallel", "2"], "moe",
+                  MOE_SHARDED_RUNS[0][3]))
 # relative limits. Losses 1e-4 on every step. Grad norms 1e-3 over the
 # 2-layer runs' 4 steps: at dp 2 each rank rounds its weight gradients
 # to bf16 before the dp mean, where one device rounds the sum over all
@@ -4721,10 +4752,11 @@ SHARDED_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
 DEPTH_TOL = {"loss": 1e-4, "grad_norm": 1e-4}
 
 
-def _sharded_args(layers=SHARDED_LAYERS, steps=SHARDED_STEPS):
+def _sharded_args(layers=SHARDED_LAYERS, steps=SHARDED_STEPS,
+                  arch="tinyllama-1.1b"):
     """The trainer's flags for a sharded run and its one-device twin: the
-    train phase's model, batch and schedule horizon."""
-    return ["--arch", "tinyllama-1.1b", "--layers", str(layers),
+    train phase's model (or `arch`), batch and schedule horizon."""
+    return ["--arch", arch, "--layers", str(layers),
             "--steps", str(steps),
             "--lr-total", TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1],
             "--batch", "8", "--seq", "128", "--log-every", "100",
@@ -4732,11 +4764,11 @@ def _sharded_args(layers=SHARDED_LAYERS, steps=SHARDED_STEPS):
 
 
 def _launch_ranks(name, nproc, extra, tmp, layers=SHARDED_LAYERS,
-                  steps=SHARDED_STEPS, ckpt_dir=None):
+                  steps=SHARDED_STEPS, ckpt_dir=None, arch="tinyllama-1.1b"):
     """Start one run of the trainer's entry point under torchrun (as a user
     launches it); `_collect_ranks` waits for it."""
     import os
-    args = _sharded_args(layers, steps) + [
+    args = _sharded_args(layers, steps, arch) + [
         "--metrics-out", f"{tmp}/{name}.{{rank}}.jsonl"]
     if ckpt_dir:
         args += ["--checkpoint-dir", ckpt_dir, "--checkpoint-every", "2"]
@@ -4828,73 +4860,118 @@ def _hold_sharded(name, recs, want, peak_limit, tol, first=0):
                 tokens_s=8 * 128 / (ms / 1e3), peak_gb=peaks), launches
 
 
-def _one_device_runs(restore=None):
-    """The trainer in this process on the one card, with `_sharded_args`:
-    plain and compressed from the seed (each run's losses, grad norms
-    and peak GB), or with `restore` a checkpoint directory to resume
-    from (its records and seconds)."""
+def _one_device_runs(restore=None, arch="tinyllama-1.1b",
+                     steps=SHARDED_STEPS,
+                     kinds=(("plain", []), ("compressed",
+                                            ["--compress-grads"]))):
+    """The trainer in this process on the one card, with `_sharded_args`
+    at `arch` and `steps`: each of `kinds` (name, extra flags) from the
+    seed (each run's losses, grad norms, peak GB and seconds), or with
+    `restore` a checkpoint directory to resume from (its records and
+    seconds)."""
     from repro_torch.launch import train
     if restore is not None:
+        kinds = (("restore", ["--restore", "--checkpoint-dir", restore]),)
+    out = {}
+    for kind, extra in kinds:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         recs = []
         t = time.perf_counter()
-        train.main(_sharded_args() + ["--restore", "--checkpoint-dir",
-                                      restore], metrics=recs)
+        train.main(_sharded_args(steps=steps, arch=arch) + extra,
+                   metrics=recs)
         torch.cuda.synchronize()
-        return [recs], time.perf_counter() - t
-    out = {}
-    for kind, extra in (("plain", []), ("compressed", ["--compress-grads"])):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        recs = []
-        train.main(_sharded_args() + extra, metrics=recs)
-        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        if restore is not None:
+            torch.cuda.empty_cache()
+            return [recs], secs
         out[kind] = dict(losses=[r["loss"] for r in recs],
                          grad_norms=[r["grad_norm"] for r in recs],
-                         peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+                         peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                         seconds=secs)
     torch.cuda.empty_cache()
     return out
 
 
+class RoutingMargin:
+    """While entered, `models.moe.route` is spied on: `margin` is the
+    smallest gap between the Kth and K+1th router probabilities of any
+    token routed meanwhile (as parity_deepseek logs it)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.margin = moe, moe.route, math.inf
+
+        def spy(x2, router, k):
+            got = self.route(x2, router, k)
+            top = torch.topk(got[1].detach(), k + 1, dim=-1).values
+            self.margin = min(self.margin,
+                              float((top[:, k - 1] - top[:, k]).min()))
+            return got
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
 def train_sharded(dev, results):
     """The sharded trainer's main path: `python -m torch.distributed.run
-    -m repro_torch.launch.train` on tinyllama-1.1b at full width (bf16
-    compute over f32 params, remat, batch 8 x 128), both ranks on the one
-    card over gloo (--share-cards), three runs launched together (their
-    fixed costs, a process's start and its import of torch._dynamo,
-    overlap; their step times are logged under that contention). S1:
-    mesh 2 x 1 (dp 2), --compress-grads; S2: mesh 1 x 2 (--model-parallel
-    2); each cut to SHARDED_LAYERS layers, SHARDED_STEPS steps with a
-    checkpoint every 2. S2_22: mesh 1 x 2 at all 22 layers, one step.
-    S3: one process, this one, restores S2's step-2 checkpoint (copied
-    alone into a fresh directory) and runs steps 3-4. Gates: S1's and
-    S2's losses and grad norms against the same trainer on one device in
-    this process (compressed and plain) within SHARDED_TOL; S2_22's step
-    against the train phase's first plain step within DEPTH_TOL; S3's
-    losses within 1e-4 of S2's steps 3-4; each rank's peak allocated
-    memory below the one-device peak of the same run (S2_22: the train
-    phase's); no kernel of the port launched; every rank's exit 0. Where
-    the host has 2 (4) cards, S1 over NCCL on 2 cards (and a 2 x 2 mesh
-    over 4) too; otherwise logged as not run. Logged: ms a step, tokens/s
-    and each rank's peak GB. The launches returned are the ranks' and
-    S3's."""
+    -m repro_torch.launch.train` at full width (bf16 compute over f32
+    params, remat, batch 8 x 128), both ranks on the one card over gloo
+    (--share-cards), in two waves of runs launched together (their fixed
+    costs, a process's start and its import of torch._dynamo, overlap;
+    their step times are logged under that contention), as many at once
+    as the card's memory holds. tinyllama-1.1b: S1 mesh 2 x 1 (dp 2),
+    --compress-grads; S2 mesh 1 x 2 (--model-parallel 2); each cut to
+    SHARDED_LAYERS layers, SHARDED_STEPS steps with a checkpoint every
+    2; S2_22 mesh 1 x 2 at all 22 layers, one step; the three launched
+    together while the same trainer runs on one device in this process,
+    plain and compressed. MOE_SHARDED_ARCH (MOE_SHARDED_RUNS): E2 mesh
+    2 x 1 (routing over both ranks' rows), one step, launched when S2_22
+    ends; S3 when S1 and S2 end: this process restores S2's step-2
+    checkpoint (copied alone into a fresh directory) and runs steps 3-4;
+    then E1 mesh 1 x 2 (expert parallelism), 2 steps.
+    The MoE model's one-device run goes first, alone (its 28.5 GB beside
+    the ranks would overrun the card). Gates: S1's, S2's, E1's and E2's
+    losses and grad norms against the trainer on one device in this
+    process within SHARDED_TOL; S2_22's step against the train phase's
+    first plain step within DEPTH_TOL; S3's losses within 1e-4 of S2's
+    steps 3-4; every rank of a run reporting the same losses and norms;
+    each rank's peak allocated memory below the one-device peak of the
+    same run (S2_22: the train phase's); no
+    kernel of the port launched; every rank's exit 0. Where the host has
+    2 (4) cards, S1 and E1 over NCCL on 2 cards (and a 2 x 2 mesh over 4)
+    too; otherwise logged as not run. Logged: ms a step, tokens/s, each
+    rank's peak GB, when each run ended, the MoE model's smallest routing
+    margin. The launches returned are the ranks' and S3's (the one-device
+    runs' must be none)."""
     import shutil
     import tempfile
     if "train" not in results:
         raise AssertionError("train_sharded holds its 22-layer step to the "
                              "train phase's: run that phase before it")
-    one, counts = _drive(_one_device_runs)
-    if any(counts.values()):
-        raise AssertionError(f"train_sharded: kernels launched {counts}")
-    for kind, row in one.items():
-        log(f"train_sharded one device {kind}: losses {row['losses']}, "
-            f"grad norms {row['grad_norms']}, peak {row['peak_gb']:.2f} GB")
-    want = {"S1": (one["compressed"], SHARDED_TOL),
-            "S2": (one["plain"], SHARDED_TOL),
-            "S2_22": (results["train"]["plain"], DEPTH_TOL)}
-    rows = {"one_device": one}
-    counts = dict.fromkeys(counts, 0)
+
+    def one_device(**kw):
+        """`_one_device_runs` driven: no kernel may launch there."""
+        got, c = _drive(lambda: _one_device_runs(**kw))
+        if any(c.values()):
+            raise AssertionError(f"train_sharded one device: kernels "
+                                 f"launched {c}")
+        return got
+
+    with RoutingMargin() as spy:
+        moe_one = one_device(arch=MOE_SHARDED_ARCH,
+                             steps=max(r[3] for r in MOE_SHARDED_RUNS),
+                             kinds=(("plain", []),))["plain"]
+    moe_one["routing_margin"] = spy.margin
+    log(f"train_sharded one device {MOE_SHARDED_ARCH} ({SHARDED_LAYERS} "
+        f"layers): losses {moe_one['losses']}, grad norms "
+        f"{moe_one['grad_norms']}, peak {moe_one['peak_gb']:.2f} GB, "
+        f"{moe_one['seconds']:.1f} s; smallest routing margin "
+        f"{spy.margin}")
+    rows = {"one_device_moe": moe_one}
+    counts = {}
 
     def hold(name, recs, out, secs, ref, tol):
         _log_ranks(name, recs, secs)
@@ -4904,45 +4981,77 @@ def train_sharded(dev, results):
         rows[name]["mesh"] = [line for line in out.splitlines()
                               if line.startswith("mesh ")]
         for k, n in launched.items():
-            counts[k] += n
+            counts[k] = counts.get(k, 0) + n
+    runs = {r[0]: r for r in SHARDED_RUNS + MOE_SHARDED_RUNS}
+    moe_runs = {r[0] for r in MOE_SHARDED_RUNS}
+    live, ended = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        launched = []
+        def launch(name):
+            _, nproc, layers, steps, extra, ck = runs[name]
+            live[name] = _launch_ranks(
+                name, nproc, extra, tmp, layers, steps,
+                f"{tmp}/{name}_ckpt" if ck else None,
+                MOE_SHARDED_ARCH if name in moe_runs else "tinyllama-1.1b")
+
+        def collect(name, ref, tol):
+            hold(name, *_collect_ranks(live.pop(name)), ref, tol)
+            ended[name] = time.perf_counter() - t0
+        # at most ≈ 58 GB of ranks on the card at once: S1 ∥ S2 ∥ S2_22
+        # (45 GB) and the one-device runs; E2 (29 GB) once S2_22 ends,
+        # beside S1 and S2; S3 in this process once they end; then E1
+        # (29 GB) beside E2
+        t0 = time.perf_counter()
         try:
-            for name, nproc, layers, steps, extra, ck in SHARDED_RUNS:
-                launched.append(_launch_ranks(
-                    name, nproc, extra, tmp, layers, steps,
-                    f"{tmp}/{name}_ckpt" if ck else None))
-            done = [_collect_ranks(run) for run in launched]
+            for name, *_ in SHARDED_RUNS:
+                launch(name)
+            one = one_device()
+            for kind, row in one.items():
+                log(f"train_sharded one device {kind}: losses "
+                    f"{row['losses']}, grad norms {row['grad_norms']}, "
+                    f"peak {row['peak_gb']:.2f} GB")
+            rows["one_device"] = one
+            collect("S2_22", results["train"]["plain"], DEPTH_TOL)
+            launch("E2")
+            collect("S1", one["compressed"], SHARDED_TOL)
+            collect("S2", one["plain"], SHARDED_TOL)
+            shutil.copytree(f"{tmp}/S2_ckpt/step_00000002",
+                            f"{tmp}/S3_ckpt/step_00000002")
+            (recs, secs), c3 = _drive(lambda: _one_device_runs(
+                f"{tmp}/S3_ckpt"))
+            _log_ranks("S3", recs, secs)
+            rows["S3"], _ = _hold_sharded("S3", recs, {"losses": rows[
+                "S2"]["losses"]}, None, {"loss": 1e-4}, first=2)
+            rows["S3"]["seconds"] = secs
+            ended["S3"] = time.perf_counter() - t0
+            for k, n in c3.items():
+                counts[k] = counts.get(k, 0) + n
+            launch("E1")
+            collect("E2", moe_one, SHARDED_TOL)
+            collect("E1", moe_one, SHARDED_TOL)
         finally:
-            for run in launched:
+            for run in live.values():
                 _stop_ranks(run)
-        for run, (recs, out, secs) in zip(SHARDED_RUNS, done):
-            hold(run[0], recs, out, secs, *want[run[0]])
-        shutil.copytree(f"{tmp}/S2_ckpt/step_00000002",
-                        f"{tmp}/S3_ckpt/step_00000002")
-        (recs, secs), c3 = _drive(lambda: _one_device_runs(f"{tmp}/S3_ckpt"))
-        _log_ranks("S3", recs, secs)
-        rows["S3"], _ = _hold_sharded("S3", recs, {"losses": rows["S2"][
-            "losses"]}, None, {"loss": 1e-4}, first=2)
-        rows["S3"]["seconds"] = secs
-        for k, n in c3.items():
-            counts[k] += n
         n = torch.cuda.device_count()
-        for name, nproc, cards, extra, kind in SHARDED_CARDS:
+        refs = dict(one, moe=moe_one)
+        for name, nproc, cards, extra, kind, steps in SHARDED_CARDS:
             if n < cards:
                 rows[name] = f"not run: {n} card(s) visible, {cards} needed"
                 log(f"train_sharded {name}: {rows[name]}")
                 continue
-            hold(name, *_collect_ranks(_launch_ranks(name, nproc, extra,
-                                                     tmp)),
-                 one[kind], SHARDED_TOL)
+            arch = MOE_SHARDED_ARCH if kind == "moe" else "tinyllama-1.1b"
+            hold(name, *_collect_ranks(_launch_ranks(
+                name, nproc, extra, tmp, steps=steps, arch=arch)),
+                 refs[kind], SHARDED_TOL)
     for name, row in rows.items():
-        if name == "one_device" or isinstance(row, str):
+        if name.startswith("one_device") or isinstance(row, str):
             continue
         log(f"train_sharded {name}: {' '.join(row.get('mesh', []))} "
             f"median {row['step_ms']:.1f} ms a step after the first "
             f"({row['first_step_ms']:.0f} ms), {row['tokens_s']:.0f} "
             f"tokens/s, peak GB a rank {row['peak_gb']}; rel {row['rel']}")
+    log("train_sharded runs ended at (s from the first launch): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ended.items()))
+    rows["ended_s"] = ended
     results["train_sharded"] = rows
     return counts
 

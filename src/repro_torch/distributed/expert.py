@@ -1,0 +1,120 @@
+"""Expert parallelism over a `launch.mesh.DistMesh`: what a sharded MoE
+layer needs of the mesh (the port's counterpart of what GSPMD makes of
+the reference's `moe_apply` under `param_pspecs`, whose stacked expert
+banks lie over "model" on E).
+
+Under the reference's activation spec every rank of a model group holds
+the same tokens, its dp rows. So a layer whose banks are split over
+"model" runs only this rank's experts over those tokens and sums the
+partial outputs over the group. Two autograd functions make the
+gradients right, Megatron's pair (they serve any product split over an
+axis group, not only the experts):
+  * `copy_to(x, group)`: identity forward, all-reduce backward. Each
+    rank's backward through its own experts gives only their share of
+    the input's gradient; the sum over the group is the whole of it.
+  * `reduce_from(x, group)`: all-reduce forward, identity backward. The
+    loss after the sum is the same on every rank of the group, so each
+    partial takes the output's gradient as it is.
+Both sum in f32 and return the input's dtype.
+
+Routing and capacity are functions of the whole microbatch (the
+reference routes every token of the global batch at once). A rank holds
+one block of the rows, in the rank order of the axes that split them;
+`ExpertGroups.counts` gathers the per-expert assignment counts [E] over
+those axes (one small all-gather an axis) and gives this rank the counts
+of the ranks before it and the totals, from which
+`models.moe.global_slots` places every local assignment in its expert's
+global queue. No token ids or activations cross the wire.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.distributed.sharding import TP
+
+
+def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over `group` in f32, in x's dtype; a new tensor."""
+    import torch.distributed as dist
+    y = x.to(torch.float32).contiguous().clone()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _group_sum(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _group_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is, where the group's ranks each compute a part of what
+    follows from it: its gradient is summed over `group`."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of each rank's partial x over `group` (f32 sums, x's
+    dtype); its gradient reaches each partial unchanged."""
+    return _ReduceFrom.apply(x, group)
+
+
+class ExpertGroups:
+    """A rank's place for a sharded MoE layer: `row_axes`, the mesh axes
+    that split the batch's rows (major to minor, as `batch_pspecs` fits
+    them; replicas of the same rows share an index), and the model axis
+    over which the expert banks split."""
+
+    def __init__(self, mesh, row_axes: Tuple[str, ...]):
+        self.mesh, self.row_axes = mesh, tuple(row_axes)
+        self.row_size = math.prod(mesh.shape[a] for a in self.row_axes)
+        idx = 0
+        for a in self.row_axes:
+            idx = idx * mesh.shape[a] + mesh.coord[a]
+        self.row_index = idx
+        self.model_index = mesh.coord.get(TP, 0)
+
+    def counts(self, local: torch.Tensor):
+        """(before, total) [E]: the summed counts of the row blocks before
+        this rank's, and of all of them. Every rank calls it, in the same
+        order; the blocks are gathered an axis at a time, minor to
+        major, as `unshard_leaf` lays them."""
+        import torch.distributed as dist
+        x = local.reshape(1, -1)
+        for a in reversed(self.row_axes):
+            n = self.mesh.shape[a]
+            if n == 1:
+                continue
+            x = x.contiguous()
+            parts = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(parts, x, group=self.mesh.group(a))
+            x = torch.cat(parts, 0)
+        return torch.sum(x[:self.row_index], 0), torch.sum(x, 0)
+
+    def copy_to_experts(self, x: torch.Tensor) -> torch.Tensor:
+        return copy_to(x, self.mesh.group(TP))
+
+    def reduce_from_experts(self, x: torch.Tensor) -> torch.Tensor:
+        return reduce_from(x, self.mesh.group(TP))

@@ -12,9 +12,14 @@ backward's recompute gathers again instead of keeping every layer. The
 gather's backward turns the whole weight's gradient into the block's:
 the mean over the dp group (a rank's loss is the mean over its rows),
 then the block's slice. Ranks that differ only on the model axis compute
-the same rows with the same gathered weights: storage over the model
-axis is sharded, compute over it replicated (splitting it is the next
-slice).
+the same rows. A routed expert bank stored over "model" on E is made
+whole over the dp axes only: each rank of a model group runs its own
+E/m experts over the group's tokens and the partial outputs are summed
+(expert parallelism, `distributed.expert`, `models.moe.moe_apply`).
+Every other weight is gathered whole, and its compute over the model
+axis is replicated (Megatron's column and row products are the next
+slice). Only what the forward makes whole depends on this: the stored
+blocks, their specs and the checkpoints do not.
 
 Every rank runs the same collectives in the same order: the gathers
 follow the model's code, which never branches on the data, and a leaf
@@ -24,17 +29,19 @@ backward (the norm, the compressor's scale).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import tree as T
 from repro_torch.distributed.collectives import hierarchical_psum
-from repro_torch.distributed.sharding import (Spec, batch_pspecs,
-                                              block_slices, dp_axes,
-                                              entry_axes, owns_block,
-                                              unshard_leaf, whole_shape)
+from repro_torch.distributed.expert import ExpertGroups
+from repro_torch.distributed.sharding import (EXPERT_KEYS, TP, Spec,
+                                              batch_pspecs, block_slices,
+                                              dp_axes, entry_axes,
+                                              owns_block, unshard_leaf,
+                                              whole_shape)
 
 
 class _Gather(torch.autograd.Function):
@@ -63,6 +70,7 @@ class FSDP:
         self.mesh, self.specs = mesh, specs
         self.dp = dp_axes(mesh)
         self.dp_size = math.prod(mesh.shape[a] for a in self.dp)
+        self._experts: Dict[Tuple[str, ...], ExpertGroups] = {}
         for key, spec in specs.items():
             axes = [a for e in spec for a in entry_axes(e)]
             if len(axes) != len(set(axes)):
@@ -83,18 +91,30 @@ class FSDP:
 
     def layer(self, gi: int, p_l: Any) -> Any:
         """Layer blocks of stack group `gi` (views of its [L, ...] blocks)
-        made whole; a stacked leaf's spec less its layer entry."""
-        return T.unflatten(p_l, [
-            _Gather.apply(leaf, self,
-                          self.specs[T.path_key(("blocks", gi) + path)][1:])
-            for path, leaf in T.flatten_with_path(p_l)])
+        made whole under a stacked leaf's spec less its layer entry; a
+        routed expert bank split over "model" on E keeps this rank's
+        E/m experts (made whole over the dp axes only)."""
+        out = []
+        for path, leaf in T.flatten_with_path(p_l):
+            spec = self.specs[T.path_key(("blocks", gi) + path)][1:]
+            if path[-2:-1] == ("moe",) and path[-1] in EXPERT_KEYS \
+                    and spec[:1] == (TP,):
+                spec = (None,) + spec[1:]
+            out.append(_Gather.apply(leaf, self, spec))
+        return T.unflatten(p_l, out)
 
     # ------------------------------------------------------------ rows
-    def rows(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """This rank's rows of a batch, under `batch_pspecs`."""
+    def rows(self, batch: Dict[str, np.ndarray]
+             ) -> Tuple[Dict[str, np.ndarray], ExpertGroups]:
+        """This rank's rows of a batch, under `batch_pspecs`, and its place
+        among the blocks of those rows (the `ExpertGroups` that
+        `Model.loss(experts=)` hands the MoE layers)."""
         specs = batch_pspecs(batch, self.mesh)
-        return {k: v[block_slices(tuple(v.shape), specs[k], self.mesh)]
-                for k, v in batch.items()}
+        axes = entry_axes(specs["tokens"][0])
+        if axes not in self._experts:
+            self._experts[axes] = ExpertGroups(self.mesh, axes)
+        return ({k: v[block_slices(tuple(v.shape), specs[k], self.mesh)]
+                 for k, v in batch.items()}, self._experts[axes])
 
     # ------------------------------------------------------------ sums
     def dp_mean(self, x: torch.Tensor) -> torch.Tensor:

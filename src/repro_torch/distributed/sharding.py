@@ -113,7 +113,7 @@ def _rules(dp) -> Dict[str, Spec]:
     }
 
 
-_EXPERT_KEYS = ("w_up", "w_gate", "w_down")
+EXPERT_KEYS = ("w_up", "w_gate", "w_down")
 
 
 def _param_rules(dp, tensor_parallel: bool) -> Dict[str, Spec]:
@@ -145,7 +145,7 @@ def leaf_spec(path: tuple, shape: tuple, mesh,
     nd = len(shape)
     if base is None:
         base = ()               # norms, scalars, vectors: replicate
-    elif name in _EXPERT_KEYS and nd == 4:
+    elif name in EXPERT_KEYS and nd == 4:
         # stacked MoE experts [L, E, din, dout]: EP over model + FSDP over
         # din (3-D w_up/w_gate/w_down are stacked dense FFNs [L, din,
         # dout] and take the layer rule below)

@@ -8,6 +8,8 @@ reporting, on one device or sharded over a mesh of ranks.
     PYTHONPATH=src python -m repro_torch.launch.train --steps 10 --batch 8
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --reduced --model-parallel 2 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --reduced --device cpu
 
 Params are f32 leaves; the forward computes in `cfg.dtype` (bf16 for the
 published configs), each layer recomputed in the backward when
@@ -20,10 +22,16 @@ the reference's mesh: `--model-parallel N` the host mesh (world / N, N),
 or 512 ranks). Params, m, v and the residual are stored as blocks under
 `param_pspecs` (FSDP / ZeRO; `distributed.fsdp`), each rank takes its dp
 rows of the global batch, and weights are gathered a layer at a time.
-Ranks on the model axis compute their rows with the gathered weights:
-their storage is sharded, their compute replicated (Megatron's column
-and row products over the model axis are the next slice). Ranks share a
-card only with `--share-cards` (gloo; NCCL where each has its own).
+An MoE layer routes, sizes its capacity and takes its load-balance
+density over every row of the microbatch (one all-gather of the [E]
+expert counts), and each rank of a model group runs only its E/m
+routed experts, whose banks are gathered over the dp axes alone; the
+partial outputs are summed over the group (`distributed.expert`). The
+other weights are gathered whole, and ranks on the model axis compute
+their rows with them: that storage is sharded, that compute replicated
+(Megatron's column and row products over the model axis are the next
+slice). Ranks share a card only with `--share-cards` (gloo; NCCL where
+each has its own).
 Without torchrun's environment the trainer runs on one device with no
 process group, as before.
 """
@@ -80,19 +88,16 @@ def build_train_step(model: Model, opt: AdamW,
     [i B / accum, (i + 1) B / accum), as the reference's reshape-then-
     shard gives; the loss and its terms are dp means, the compressor
     scales a block by its whole leaf's max, and AdamW clips by the global
-    norm."""
+    norm. An MoE layer routes and sizes its capacity over the whole
+    microbatch, and its routed experts split over "model" where their
+    banks do (`models.moe.moe_apply`)."""
     accum = accum or model.cfg.train_microbatches
-    if fsdp is not None and model.cfg.n_experts and fsdp.dp_size > 1:
-        raise NotImplementedError(
-            "an MoE model over more than one dp rank: its load-balance "
-            "term and capacity are functions of the whole batch (expert "
-            "parallelism is a later slice); use --model-parallel = world")
 
     def loss_of(mb):
         if fsdp is None:
             return lambda p: model.loss(p, mb)
-        rows = fsdp.rows(mb)
-        return lambda p: model.loss(p, rows, gather=fsdp)
+        rows, experts = fsdp.rows(mb)
+        return lambda p: model.loss(p, rows, gather=fsdp, experts=experts)
 
     def train_step(params, opt_state, comp_state, batch: Dict):
         if fsdp is None:

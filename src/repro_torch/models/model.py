@@ -136,7 +136,7 @@ class Model:
 
     # ------------------------------------------------------------ train
     def _forward(self, params, batch: Dict, ctx, scales_groups,
-                 gather=None):
+                 gather=None, experts=None):
         """(hidden states, prefix_len, the stack's summed aux terms)."""
         cfg = self.cfg
         x, prefix_len, enc_out = self._inputs(params, batch, ctx)
@@ -146,7 +146,8 @@ class Model:
                                 scales_groups=scales_groups,
                                 prefix_len=prefix_len, enc_out=enc_out,
                                 gather=None if gather is None
-                                else gather.layer)
+                                else gather.layer,
+                                groups=experts)
         return norm(params["final_norm"], x, cfg.norm_type,
                     cfg.norm_eps), prefix_len, aux
 
@@ -163,7 +164,8 @@ class Model:
         return self._head(params, x[:, prefix_len:])
 
     def loss(self, params, batch: Dict, ctx: Optional[QuantCtx] = None,
-             scales_groups=None, gather=None) -> Tuple[torch.Tensor, Dict]:
+             scales_groups=None, gather=None,
+             experts=None) -> Tuple[torch.Tensor, Dict]:
         """Next-token CE of batch["tokens"] against batch["labels"] (-1
         ignored), the vocab projection `cfg.logit_chunk` positions at a
         time, plus LB_COEF x the MoE layers' load-balance loss and Z_COEF
@@ -171,13 +173,17 @@ class Model:
         metrics).
 
         `gather` (a `distributed.fsdp.FSDP`) takes `params` as a rank's
-        blocks: the leaves outside the layer stacks are made whole here,
-        each layer's inside its remat body (`gather.layer`)."""
+        blocks and `batch` as its rows: the leaves outside the layer
+        stacks are made whole here, each layer's inside its remat body
+        (`gather.layer`). `experts` (the `distributed.expert.ExpertGroups`
+        that `gather.rows` returns beside the rows) makes the MoE layers
+        route over the whole microbatch, their experts split over "model"
+        where the banks are."""
         cfg = self.cfg
         if gather is not None:
             params = gather.outside(params)
         x, prefix_len, aux = self._forward(params, batch, ctx, scales_groups,
-                                           gather)
+                                           gather, experts)
         x = x[:, prefix_len:]
         labels = torch.as_tensor(batch["labels"], device=self.device)
         head = params["embed"].T if cfg.tie_embeddings \

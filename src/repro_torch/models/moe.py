@@ -18,6 +18,20 @@ Two behaviours of the reference's scatters are kept exactly:
     order, rounding to the activation dtype after each add. Here that is
     K vector adds in a fixed order, never an atomic scatter-add, so the
     sum is the same on every run and every device.
+
+Sharded (`groups`, a `distributed.expert.ExpertGroups`, in training on a
+mesh) the layer computes what the reference computes over the whole
+microbatch: C from the global token count, each assignment's slot its
+place among all earlier global assignments to its expert (the counts of
+the ranks before this one, gathered, plus its local place), the
+last-slot quirk wherever an expert overflows globally, and the load-
+balance term from the global density times the local mean probability
+(the dp mean of the ranks' terms is the reference's term). Where the
+banks arrive split over "model" ([E/m, ...]), a rank runs only its
+experts over the group's tokens and the partial outputs are summed over
+the group in f32 and rounded to the activation dtype once; the tokens
+and gates enter the experts through `copy_to`, so the router and every
+layer below get the whole gradient.
 """
 from __future__ import annotations
 
@@ -66,76 +80,134 @@ def capacity(N: int, cfg: ModelConfig, exact: bool) -> int:
                           * cfg.capacity_factor), 1))
 
 
-def slot_assignments(expert_ids: torch.Tensor, E: int, C: int):
-    """(slot [N*K], kept [N*K] bool): each flattened assignment's place
-    in its expert's queue, and whether it lands in the slot table."""
+def global_slots(expert_ids: torch.Tensor, before: torch.Tensor,
+                 total: torch.Tensor, C: int):
+    """(slot [N*K], kept [N*K] bool) of a rank's flattened assignments:
+    each one's place in its expert's queue over the whole microbatch (its
+    local place plus `before[e]`, the assignments to e of the rows ahead
+    of this rank's), and whether it lands in the slot table of capacity
+    C given `total[e]`, the microbatch's assignments to e."""
     flat = expert_ids.reshape(-1)
-    onehot = F.one_hot(flat, E).to(torch.int32)
-    slot = torch.sum((torch.cumsum(onehot, 0) - 1) * onehot, -1)
+    onehot = F.one_hot(flat, total.shape[0]).to(torch.int32)
+    slot = torch.sum((torch.cumsum(onehot, 0) - 1) * onehot, -1) \
+        + before[flat]
     # the dropped assignments of an overflowing expert overwrite its slot
     # C - 1 with the empty marker (the reference's scatter, last write wins)
-    overflow = torch.sum(onehot, 0) > C                       # [E]
+    overflow = total > C                                      # [E]
     kept = (slot < C) & ~((slot == C - 1) & overflow[flat])
     return slot, kept
 
 
+def expert_counts(expert_ids: torch.Tensor, E: int) -> torch.Tensor:
+    """[E] int64: the assignments to each expert."""
+    return torch.sum(F.one_hot(expert_ids.reshape(-1), E), 0)
+
+
+def slot_assignments(expert_ids: torch.Tensor, E: int, C: int):
+    """(slot [N*K], kept [N*K] bool): each flattened assignment's place
+    in its expert's queue, and whether it lands in the slot table (one
+    process: nothing ahead of these rows)."""
+    total = expert_counts(expert_ids, E)
+    return global_slots(expert_ids, torch.zeros_like(total), total, C)
+
+
 def combine(out_buf: torch.Tensor, gate_vals: torch.Tensor,
             expert_ids: torch.Tensor, slot: torch.Tensor,
-            kept: torch.Tensor) -> torch.Tensor:
-    """y [N, D] in out_buf's dtype: per token, its kept expert outputs,
-    each times its gate cast to that dtype, summed in ascending expert
-    order with a rounding after each add (the reference's scatter-add)."""
+            kept: torch.Tensor, first: int = 0,
+            acc_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """y [N, D]: per token, its kept expert outputs, each times its gate
+    cast to out_buf's dtype, summed in ascending expert order with a
+    rounding after each add (the reference's scatter-add) in `acc_dtype`
+    (default out_buf's). out_buf holds experts first .. first + E - 1;
+    `slot` is an assignment's row there."""
     E, C, D = out_buf.shape
     N, K = expert_ids.shape
     dt = out_buf.dtype
+    acc = acc_dtype or dt
     rows = out_buf.reshape(E * C, D)
-    idx = (expert_ids.reshape(-1) * C + torch.clamp(slot, max=C - 1))
+    idx = (torch.clamp(expert_ids.reshape(-1) - first, 0, E - 1) * C
+           + torch.clamp(slot, max=C - 1))
     prod = rows[idx] * gate_vals.reshape(-1).to(dt)[:, None]
     contrib = torch.where(kept[:, None], prod,
                           torch.zeros((), dtype=dt, device=prod.device)
                           ).reshape(N, K, D)
     order = torch.argsort(expert_ids, dim=-1)
     contrib = torch.gather(contrib, 1, order[:, :, None].expand(N, K, D))
-    y = torch.zeros((N, D), dtype=dt, device=out_buf.device)
+    y = torch.zeros((N, D), dtype=acc, device=out_buf.device)
     for k in range(K):
-        y = y + contrib[:, k]
+        y = y + contrib[:, k].to(acc)
     return y
 
 
 def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-              ctx: Optional[QuantCtx] = None, exact_capacity: bool = False):
+              ctx: Optional[QuantCtx] = None, exact_capacity: bool = False,
+              groups=None):
     """x [B, T, D]. Returns (y [B, T, D] in x's dtype, {"lb_loss",
     "z_loss"}). `exact_capacity` (decode, chunked prefill): C = N, so no
     token drops and one token's routing never depends on another's.
     `ctx` is accepted as the reference's is: the router and the experts
-    run in float in every mode."""
+    run in float in every mode. `groups` (a `distributed.expert.
+    ExpertGroups`; None in one process) makes x a rank's rows of the
+    microbatch: routing, capacity and density are over all of them, and
+    banks of E/m experts (this rank's, at `groups.model_index`) run
+    expert-parallel."""
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     N = B * T
-    C = capacity(N, cfg, exact_capacity)
     xt = x.reshape(N, D)
     logits, probs, gate_vals, expert_ids = route(xt, params["router"], K)
-    slot, kept = slot_assignments(expert_ids, E, C)
+    local = expert_counts(expert_ids, E)
+    if groups is None:
+        C = capacity(N, cfg, exact_capacity)
+        before, total = torch.zeros_like(local), local
+    else:
+        C = capacity(N * groups.row_size, cfg, exact_capacity)
+        before, total = groups.counts(local)
+    slot, kept = global_slots(expert_ids, before, total, C)
 
-    # the slot table: which token feeds each (expert, slot), -1 empty.
-    # Kept assignments have distinct (expert, slot) cells; the others all
+    # this rank's experts [e0, e0 + El): all E, or its block on "model"
+    El = params["w_up"].shape[0]
+    split = El < E
+    e0 = groups.model_index * El if split else 0
+    flat = expert_ids.reshape(-1)
+    mine = kept & (flat >= e0) & (flat < e0 + El)
+    # an assignment's row in its expert's part of the buffer: its place
+    # after the rows ahead of this rank's (< N, as a token routes to an
+    # expert at most once; = slot in one process, where Cl = C)
+    pos = slot - before[flat]
+    Cl = min(C, N)
+    xe, ge = xt, gate_vals
+    if split:
+        xe, ge = groups.copy_to_experts(xt), groups.copy_to_experts(gate_vals)
+
+    # the slot table: which token feeds each (expert, row), -1 empty.
+    # Kept assignments have distinct (expert, row) cells; the others all
     # write one trash cell past the table, so no shape depends on the
     # data and nothing waits on the device
     tokens = torch.arange(N, device=x.device).repeat_interleave(K)
-    cell = torch.where(kept, expert_ids.reshape(-1) * C + slot, E * C)
-    table = torch.full((E * C + 1,), -1, dtype=torch.int64, device=x.device)
-    table = table.index_put((cell,), tokens)[:E * C].reshape(E, C)
-    buf = xt[torch.clamp(table, min=0)] * (table >= 0)[..., None].to(x.dtype)
+    cell = torch.where(mine, (flat - e0) * Cl + pos, El * Cl)
+    table = torch.full((El * Cl + 1,), -1, dtype=torch.int64,
+                       device=x.device)
+    table = table.index_put((cell,), tokens)[:El * Cl].reshape(El, Cl)
+    buf = xe[torch.clamp(table, min=0)] * (table >= 0)[..., None].to(x.dtype)
     out_buf = _expert_ffn(params["w_gate"], params["w_up"],
                           params["w_down"], buf, cfg.mlp_type)
-    y = combine(out_buf, gate_vals, expert_ids, slot, kept)
+    if split:
+        y = groups.reduce_from_experts(combine(
+            out_buf, ge, expert_ids, pos, mine, e0, torch.float32)
+        ).to(out_buf.dtype)
+    else:
+        y = combine(out_buf, ge, expert_ids, pos, mine)
     if cfg.n_shared_experts:
         sh = _expert_ffn(params["sh_gate"], params["sh_up"],
                          params["sh_down"], xt[None], cfg.mlp_type)
         y = y + sh[0]
 
-    density = torch.mean(F.one_hot(expert_ids, E).to(torch.float32),
-                         dim=(0, 1))
+    if groups is None:
+        density = torch.mean(F.one_hot(expert_ids, E).to(torch.float32),
+                             dim=(0, 1))
+    else:   # the microbatch's, from the gathered counts (no gradient)
+        density = total.to(torch.float32) / (N * groups.row_size * K)
     lb_loss = E * torch.sum(density * torch.mean(probs, 0))
     z_loss = torch.mean(torch.logsumexp(logits, -1) ** 2)
     return y.reshape(B, T, D).to(x.dtype), {"lb_loss": lb_loss,

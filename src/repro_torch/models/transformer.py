@@ -191,7 +191,8 @@ def _cross_attention(params: Dict, h: torch.Tensor, cfg: ModelConfig, *,
 def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions: torch.Tensor, cache=None, mode: str = "train",
                 ctx: Optional[QuantCtx] = None, prefix_len: int = 0,
-                enc_out: Optional[torch.Tensor] = None, chunk=None):
+                enc_out: Optional[torch.Tensor] = None, chunk=None,
+                groups=None):
     """Pre-norm residual block. Returns (x, cache, aux): aux holds an MoE
     layer's {"lb_loss", "z_loss"} and is empty for a dense layer. A GQA
     MoE layer's capacity is exact in decode and chunked prefill (a chunk
@@ -202,7 +203,8 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     mask of a dense layer's attention in train and prefill; `enc_out` is
     the encoder's output a "dec" layer attends to. An "enc" layer
     attends both ways and projects its output in float, as the
-    reference's."""
+    reference's. `groups` (sharded training's `distributed.expert.
+    ExpertGroups`) reaches an MoE layer's `moe_apply`."""
     _check_kind(kind)
     nt, eps = cfg.norm_type, cfg.norm_eps
     h = norm(params["ln1"], x, nt, eps)
@@ -253,7 +255,7 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         exact = mode in (("decode",) if kind == "mla_moe"
                          else ("decode", "chunk_prefill"))
         o, aux = moe_mod.moe_apply(params["moe"], h, cfg, ctx,
-                                   exact_capacity=exact)
+                                   exact_capacity=exact, groups=groups)
     else:
         o = ffn_mod.ffn_apply(params["ffn"], h, _mlp(cfg, kind), ctx)
     return x + o.to(x.dtype), cache, aux
@@ -394,13 +396,14 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
                 ctx: Optional[QuantCtx] = None,
                 scales_groups: Optional[list] = None, prefix_len: int = 0,
                 enc_out: Optional[torch.Tensor] = None, chunk=None,
-                gather: Optional[Callable] = None):
+                gather: Optional[Callable] = None, groups=None):
     """Apply every layer in order. `caches` is the flat per-layer list of
     cache stores (written in place); `scales_groups[g][site]` holds the
     group's per-layer calibrated spans; `prefix_len` and `enc_out` reach
     every layer (`block_apply`). `gather(g, layer)` turns a layer's blocks
     (group g) into whole weights inside the remat body, so the backward's
-    recompute gathers again instead of keeping every layer's weights.
+    recompute gathers again instead of keeping every layer's weights;
+    `groups` places a rank's rows and experts for the MoE layers.
     Returns (x, aux): the layers' "lb_loss" and "z_loss" summed in layer
     order (f32 zeros for a dense stack)."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
@@ -423,7 +426,8 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
                                         positions=positions, cache=cache,
                                         mode=mode, ctx=bctx,
                                         prefix_len=prefix_len,
-                                        enc_out=enc_out, chunk=chunk)
+                                        enc_out=enc_out, chunk=chunk,
+                                        groups=groups)
                 return x, aux.get("lb_loss"), aux.get("z_loss")
             if remat:
                 x, lb_l, zl_l = torch.utils.checkpoint.checkpoint(

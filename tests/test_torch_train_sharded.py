@@ -6,14 +6,19 @@ the collectives, `unshard_leaf`, and checkpoints across layouts.
 Each world of ranks is spawned once (this file run as a script, torch
 only, one intra-op thread a rank, a gloo `FileStore` in a temporary
 directory) and runs every case of its world; the tests read what rank 0
-(or each rank) wrote. World 2: meshes 2 x 1 and 1 x 2, reduced dbrx on
-1 x 2, the trainer's restart and cross-layout restores. World 4: mesh
-2 x 2, the (pod 2, data 2) mesh, the collectives at 4 ranks.
+(or each rank) wrote. World 2: meshes 2 x 1 and 1 x 2, reduced dbrx and
+deepseek on 2 x 1 (routing and capacity over the whole microbatch) and
+1 x 2 (expert parallelism), the trainer's restart and cross-layout
+restores. World 4: mesh 2 x 2 (both MoE models too), the (pod 2, data 2)
+mesh, the collectives at 4 ranks. The collectives include the expert-
+parallel autograd pair (`distributed.expert.copy_to` / `reduce_from`).
 
 Tolerances, with their reasons:
-- losses and grad norms: 1e-5 relative to JAX (a rank's loss is the
-  mean over its rows and the dp mean follows; XLA and PyTorch sum in
-  other orders), 1e-4 with compression (a gradient element at a rounding
+- losses, grad norms and the MoE models' load-balance and z terms: 1e-5
+  relative to JAX (a rank's loss is the mean over its rows and the dp
+  mean follows; XLA and PyTorch sum in other orders; expert parallelism
+  adds a token's expert outputs in another order), 1e-4 with
+  compression (a gradient element at a rounding
   boundary takes the next code: the step-1 residuals against one process
   are counted, measured at most 1 flipped code of 410,240 elements over
   dp 2 and none on 1 x 2, and asserted below 0.1% of the elements).
@@ -97,12 +102,16 @@ def _run_train(job, rank):
     comp = GradCompressor() if job["compress"] else None
     step = build_train_step(model, opt, comp, job["accum"], fsdp=fsdp)
     state, cs = opt.init(params), comp.init(params) if comp else None
-    out = {"losses": [], "grad_norms": [], "lrs": []}
+    out = {"losses": [], "grad_norms": [], "lrs": [], "lb_loss": [],
+           "z_loss": []}
     for i, b in enumerate(inputs["batches"]):
-        params, state, cs, m = step(params, state, cs, b)
+        with _MoESpy(out if i == 0 else None):
+            params, state, cs, m = step(params, state, cs, b)
         for k, n in (("losses", "loss"), ("grad_norms", "grad_norm"),
-                     ("lrs", "lr")):
-            out[k].append(float(m[n]))
+                     ("lrs", "lr"), ("lb_loss", "lb_loss"),
+                     ("z_loss", "z_loss")):
+            if n in m:
+                out[k].append(float(m[n]))
         if i == 0 and comp is not None:
             out["residual"] = [fsdp.unshard(p, e)
                                for p, e in T.flatten_with_path(cs)]
@@ -133,6 +142,42 @@ def _run_train(job, rank):
         out["keys"] = [T.path_key(p) for p, _ in
                        T.flatten_with_path(params)]
     return out
+
+
+class _MoESpy:
+    """While a step runs, records in `out` each MoE layer call's routing
+    ("routing": its local expert ids, the counts before this rank's rows,
+    the totals, C and the kept mask) and the expert banks each batched
+    product takes ("bank_shapes"); no-op with `out` None."""
+
+    def __init__(self, out):
+        self.out = out
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.saved = moe.global_slots, moe._expert_ffn
+        if self.out is None:
+            return self
+        routing = self.out.setdefault("routing", [])
+        shapes = self.out.setdefault("bank_shapes", [])
+        slots, ffn = self.saved
+
+        def spy_slots(ids, before, total, C):
+            slot, kept = slots(ids, before, total, C)
+            routing.append({"ids": ids.clone(), "before": before.clone(),
+                            "total": total.clone(), "C": C,
+                            "kept": kept.clone()})
+            return slot, kept
+
+        def spy_ffn(wg, wu, wd, x, mlp_type):
+            shapes.append(tuple(wu.shape))
+            return ffn(wg, wu, wd, x, mlp_type)
+        moe.global_slots, moe._expert_ffn = spy_slots, spy_ffn
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.global_slots, moe._expert_ffn = self.saved
 
 
 def _run_restart(job, rank):
@@ -180,6 +225,15 @@ def _run_collectives(job, rank):
         pod = make_mesh((2, 2, 1), ("pod", "data", "model"), "cpu")
         out["hierarchical"] = hierarchical_psum(x, pod)
         out["hierarchical_int"] = hierarchical_psum(torch.round(x * 8), pod)
+    # the expert-parallel autograd pair: every rank's x equal, its part
+    # scaled by rank + 2, the parts summed
+    from repro_torch.distributed.expert import copy_to, reduce_from
+    g = flat.group("data")
+    xw = torch.from_numpy(_rank_input(0)[:4]).requires_grad_(True)
+    s = reduce_from(copy_to(xw, g) * float(rank + 2), g)
+    (gx,) = torch.autograd.grad(
+        torch.sum(s * torch.from_numpy(_rank_input(1)[:4])), xw)
+    out["pair"] = (s.detach(), gx)
     out["round_trip"] = []
     for shape, names, specs in meshes:
         mesh = make_mesh(shape, names, "cpu")
@@ -267,6 +321,14 @@ def _batch(rng, vocab, B, S):
 
 
 CASES = ((False, 1), (False, 2), (True, 1), (True, 2))
+ARCHS = {"dbrx": "dbrx-132b", "deepseek": "deepseek-v2-lite-16b"}
+MESHES = {"2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2)}
+# (arch, mesh, accum) of the MoE runs, plain: dp 2 (global routing), model
+# 2 (expert parallelism), both at once in the world of 4
+MOE_RUNS = (("dbrx", "2x1", 1), ("dbrx", "2x1", 2), ("dbrx", "1x2", 1),
+            ("deepseek", "2x1", 1), ("deepseek", "2x1", 2),
+            ("deepseek", "1x2", 1), ("dbrx", "2x2", 1),
+            ("deepseek", "2x2", 1))
 
 
 def _inputs(arch, d):
@@ -293,11 +355,14 @@ def _reference(jm, jp0, batches, cases=CASES):
         step = jax.jit(jbuild(jm, jo, JComp() if compress else None, accum))
         jp, js = jp0, jo.init(jp0)
         jcs = JComp().init(jp0) if compress else None
-        rec = {"losses": [], "grad_norms": []}
+        rec = {"losses": [], "grad_norms": [], "lb_loss": [], "z_loss": []}
         for b in batches:
             jp, js, jcs, m = step(jp, js, jcs, jax.tree.map(jnp.asarray, b))
             rec["losses"].append(float(m["loss"]))
             rec["grad_norms"].append(float(m["grad_norm"]))
+            for k in ("lb_loss", "z_loss"):
+                if k in m:
+                    rec[k].append(float(m[k]))
         rec["params"] = [np.asarray(x) for x in jax.tree.leaves(jp)]
         runs[(compress, accum)] = rec
     return runs
@@ -331,14 +396,12 @@ def runs(tmp_path_factory):
     d2.mkdir()
     d4.mkdir()
     tiny = _inputs("tinyllama-1.1b", d)
-    dbrx = _inputs("dbrx-132b", d)
+    moe = {a: _inputs(ARCHS[a], d) for a in ARCHS}
     one_losses = train.main(TRAIN_ARGV + ["--steps", "4"])
     train.main(TRAIN_ARGV + ["--steps", "2", "--checkpoint-dir",
                              str(d / "one_device")])
     jobs2 = (_jobs_train("2x1", (2, 1), ("data", "model"), tiny[3])
              + _jobs_train("1x2", (1, 2), ("data", "model"), tiny[3])
-             + _jobs_train("dbrx", (1, 2), ("data", "model"), dbrx[3],
-                           "dbrx-132b", ((False, 1),))
              + [{"kind": "restart", "name": "restart", "dir": str(d2),
                  "one_device_dir": str(d / "one_device")},
                 {"kind": "collectives", "name": "collectives", "world": 2}])
@@ -347,10 +410,16 @@ def runs(tmp_path_factory):
              + _jobs_train("pod", (2, 2, 1), ("pod", "data", "model"),
                            tiny[3], cases=((False, 1), (True, 1)))
              + [{"kind": "collectives", "name": "collectives", "world": 4}])
+    for a, mesh, accum in MOE_RUNS:
+        jobs = jobs4 if mesh == "2x2" else jobs2
+        jobs += _jobs_train(f"{a}_{mesh}", MESHES[mesh], ("data", "model"),
+                            moe[a][3], ARCHS[a], ((False, accum),))
     started = [_start(2, jobs2, d2), _start(4, jobs4, d4)]
     try:
-        refs = {"tiny": _reference(*tiny[:3]),
-                "dbrx": _reference(*dbrx[:3], cases=((False, 1),))}
+        refs = {"tiny": _reference(*tiny[:3])}
+        for a in ARCHS:
+            refs[a] = _reference(*moe[a][:3], cases=sorted(
+                {(False, accum) for b, _, accum in MOE_RUNS if b == a}))
     finally:
         worlds = [_finish(w) for w in started]
     return dict(refs, world2=worlds[0], world4=worlds[1],
@@ -406,13 +475,95 @@ def test_1x2_first_loss_equals_one_process(runs):
             assert r["losses"][0] == r["one_process_loss"], (c, a)
 
 
+def _hold_moe(runs, arch, mesh, accum):
+    """`_hold` plus the load-balance and z terms (reported at accum 1,
+    the JAX step's metrics), every rank's losses and norms equal."""
+    name = f"{arch}_{mesh}/False/{accum}"
+    res = [r[name] for r in runs["world4" if mesh == "2x2" else "world2"]]
+    ref = runs[arch][(False, accum)]
+    _hold(res[0], ref, name)
+    assert len(res[0]["lb_loss"]) == len(ref["lb_loss"]) == \
+        (3 if accum == 1 else 0), name
+    for k in ("lb_loss", "z_loss"):
+        np.testing.assert_allclose(res[0][k], ref[k], rtol=1e-5,
+                                   err_msg=f"{name} {k}")
+    for r in res[1:]:
+        for k in ("losses", "grad_norms", "lb_loss", "z_loss"):
+            assert r[k] == res[0][k], (name, k)
+    return res
+
+
 def test_dbrx_on_1x2_matches_reference(runs):
     """Reduced dbrx (stacked experts under (None, model, data, None), the
-    load-balance and z terms in the loss) on the 1 x 2 mesh. An MoE
-    model over more than one dp rank raises: its load-balance term and
-    capacity are functions of the whole batch."""
-    _hold(runs["world2"][0]["dbrx/False/1"], runs["dbrx"][(False, 1)],
-          "dbrx/False/1")
+    load-balance and z terms in the loss) on the 1 x 2 mesh: each rank
+    runs its 2 of the 4 experts over the same rows and the partial
+    outputs are summed over the model axis."""
+    _hold_moe(runs, "dbrx", "1x2", 1)
+
+
+@pytest.mark.parametrize("arch,mesh,accum", [
+    r for r in MOE_RUNS if r[:2] != ("dbrx", "1x2")],
+    ids=[f"{a}-{m}-{c}" for a, m, c in MOE_RUNS if (a, m) != ("dbrx",
+                                                             "1x2")])
+def test_moe_train_matches_reference(runs, arch, mesh, accum):
+    """Reduced dbrx and deepseek (an MLA dense layer, then MoE layers with
+    a shared expert) on dp 2 (routing, capacity and the load-balance
+    density over the whole microbatch), model 2 (expert parallelism) and
+    2 x 2: 3 steps against the JAX step without a mesh, the aux terms
+    the reference's global values."""
+    _hold_moe(runs, arch, mesh, accum)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_moe_routing_is_global_over_dp(runs, arch):
+    """On 2 x 1 the two ranks' kept assignments, laid end to end, are the
+    one-process slot table's over the whole microbatch, layer by layer.
+    The inputs make this a test: some expert overflows the global C, and
+    capacity taken per rank (each rank's own C, slots from 0) would keep
+    another set of assignments."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import moe
+    cfg = get_reduced_config(ARCHS[arch])
+    calls = [r[f"{arch}_2x1/False/1"]["routing"] for r in runs["world2"]]
+    assert calls[0] and len(calls[0]) == len(calls[1])
+    per_rank_differs = overflow = False
+    for a, b in zip(*calls):
+        ids = torch.cat([a["ids"], b["ids"]])
+        C = moe.capacity(ids.shape[0], cfg, False)
+        assert a["C"] == b["C"] == C
+        want_total = moe.expert_counts(ids, cfg.n_experts)
+        assert torch.equal(a["total"], want_total)
+        assert torch.equal(b["before"], moe.expert_counts(a["ids"],
+                                                          cfg.n_experts))
+        _, kept = moe.slot_assignments(ids, cfg.n_experts, C)
+        assert torch.equal(torch.cat([a["kept"], b["kept"]]), kept)
+        overflow |= bool((want_total > C).any())
+        c_rank = moe.capacity(a["ids"].shape[0], cfg, False)
+        alone = torch.cat([moe.slot_assignments(x["ids"], cfg.n_experts,
+                                                c_rank)[1] for x in (a, b)])
+        per_rank_differs |= not torch.equal(alone, kept)
+    assert overflow and per_rank_differs
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_expert_products_take_their_block(runs, arch):
+    """On 1 x 2 every routed expert product of either rank takes banks of
+    E / 2 experts, never all E (expert parallelism, not replicated
+    compute); on 2 x 1 it takes all E. deepseek's shared experts are one
+    fused expert [1, D, F x S], gathered whole on every rank."""
+    from repro_torch.configs import get_reduced_config
+    cfg = get_reduced_config(ARCHS[arch])
+    E = cfg.n_experts
+    for mesh, routed in (("1x2", E // 2), ("2x1", E)):
+        for r in runs["world2"]:
+            shapes = r[f"{arch}_{mesh}/False/1"]["bank_shapes"]
+            lead = [sh[0] for sh in shapes]
+            assert lead.count(routed) > 0, (mesh, shapes)
+            assert set(lead) <= {routed, 1}, (mesh, shapes)
+            assert lead.count(1) == (len(lead) // 2
+                                     if cfg.n_shared_experts else 0)
+            assert all(sh[1:] == (cfg.d_model, cfg.moe_d_ff)
+                       for sh in shapes if sh[0] == routed), shapes
 
 
 @pytest.mark.parametrize("compress", [False, True])
@@ -505,6 +656,20 @@ def test_collectives_world2(runs):
                for k in range(2))
     np.testing.assert_array_equal(r["compressed"].numpy(), want)
     assert all(ok for _, _, ok in r["round_trip"])
+    _hold_pair(runs["world2"])
+
+
+def _hold_pair(ranks):
+    """`copy_to` then `reduce_from` over the world, each rank's part the
+    same x times rank + 2: every rank holds Σ (r + 2) x, and x's gradient
+    under the loss Σ s w is Σ (r + 2) w (each rank's backward through its
+    own part, summed), on every rank."""
+    k = sum(r + 2 for r in range(len(ranks)))
+    x, w = _rank_input(0)[:4], _rank_input(1)[:4]
+    for res in ranks:
+        s, gx = res["collectives"]["pair"]
+        np.testing.assert_allclose(s.numpy(), k * x, rtol=1e-6)
+        np.testing.assert_allclose(gx.numpy(), k * w, rtol=1e-6)
 
 
 def test_collectives_world4(runs):
@@ -527,6 +692,7 @@ def test_collectives_world4(runs):
         np.sum([np.round(x * 8) for x in xs], 0))
     assert len(r["round_trip"]) == len(SPECS) + len(POD_SPECS)
     assert all(ok for _, _, ok in r["round_trip"])
+    _hold_pair(runs["world4"])
 
 
 def test_layers_flag_cuts_depth(tmp_path):
