@@ -263,12 +263,17 @@ Phases (each one that fails makes the script exit non-zero):
               mla_moe layer): E2 mesh 2 x 1 (routing and capacity over
               both ranks' rows), one step, launched when S2_22 ends; E1
               mesh 1 x 2 (each rank runs 32 of the 64 experts), 2 steps,
-              launched after S3, the script's own process restoring S2's
-              step 2 for steps 3-4 once S1 and S2 end.
-              S1's, S2's, E1's and E2's losses and grad norms against the
-              trainer on one device within SHARDED_TOL (S3: S2's within
-              1e-4), S2_22's against the train phase's first step within
-              DEPTH_TOL; ranks equal; each rank's peak below the
+              launched after S3 and R1, the script's own process
+              restoring S2's step 2 for steps 3-4 once S1 and S2 end.
+              rwkv6-7b cut to 2 layers: R1 mesh 1 x 2, one step,
+              launched with E2. On
+              1 x 2 each rank computes its heads, its columns and rows
+              and its half of the vocabulary (Megatron's products over
+              the model axis); on 2 x 1 the gradients reduce-scatter.
+              S1's, S2's, E1's, E2's and R1's losses and grad norms
+              against the trainer on one device within SHARDED_TOL (S3:
+              S2's within 1e-4), S2_22's against the train phase's first
+              step within DEPTH_TOL; ranks equal; each rank's peak below the
               one-device peak (S2_22: the train phase's); no kernel
               launched; the MoE model's smallest routing margin logged;
               over NCCL across 2 (4) cards where the host has them
@@ -4697,11 +4702,14 @@ def train_full_width(dev, results):
 # the sharded trainer's runs. With ranks sharing the one card, every
 # gather and reduction goes through gloo, which stages CUDA tensors
 # through host memory at ≈ 0.36 GB/s (probes/dist_probe.py: 246 ms to
-# all-gather a layer's 176 MB): a 22-layer step takes 11-20 s. So the
-# runs that take several steps, checkpoint and restore are tinyllama-1.1b
-# at full width cut to SHARDED_LAYERS layers, held to the same trainer on
-# one device in this process; one step of the whole 22-layer model at
-# mesh 1 x 2 is held to the train phase's first step and peak.
+# all-gather a layer's 176 MB): a 22-layer step at mesh 1 x 2 took 11.0
+# s when each layer was gathered whole and takes 3.8 s with the layers'
+# products split over the model axis (only f32 activation sums cross;
+# PERF.md §6). So the runs that take several steps, checkpoint and
+# restore are tinyllama-1.1b at full width cut to SHARDED_LAYERS layers,
+# held to the same trainer on one device in this process; one step of
+# the whole 22-layer model at mesh 1 x 2 is held to the train phase's
+# first step and peak.
 # (name, ranks, layers, steps, extra flags, checkpoint every 2); S3
 # restores S2's step-2 checkpoint in one process.
 SHARDED_LAYERS = 2
@@ -4719,7 +4727,7 @@ SHARDED_RUNS = (("S1", 2, SHARDED_LAYERS, SHARDED_STEPS,
 # trainer on one device. E1 mesh 1 x 2: each rank stores and runs 32 of
 # the 64 expert banks (no bank crosses the wire), 2 steps; E2 mesh 2 x 1,
 # one step: routing and capacity over both ranks' rows, each bank's din
-# halves gathered (≈ 1.1 GB a rank a use, twice a microbatch: 45-56 s a
+# halves gathered (≈ 1.1 GB a rank a use, twice a microbatch: 42-56 s a
 # step). Two steps, not four: E1's bf16 forward rounds its experts' sum
 # otherwise than one device does, and with router margins of 1e-7 the
 # gap flips the experts of 50, 136 and 290 of the 2048 routings of steps
@@ -4733,6 +4741,15 @@ MOE_SHARDED_ARCH = MLA_ARCH
 MOE_SHARDED_RUNS = (("E1", 2, SHARDED_LAYERS, 2,
                      ["--model-parallel", "2", "--share-cards"], False),
                     ("E2", 2, SHARDED_LAYERS, 1, ["--share-cards"], False))
+# the recurrent family's run, launched with E2: rwkv6-7b at full width
+# cut to 2 layers (≈ 705 M f32 params), mesh 1 x 2, one step: each rank
+# runs its 32 of the 64 time-mix heads and its half of the channel mix
+# (the gate r gathered), the decay LoRA and the token shifts computed
+# whole; held to the same trainer on one device
+RECURRENT_SHARDED_ARCH = "rwkv6-7b"
+RECURRENT_SHARDED_RUNS = (("R1", 2, SHARDED_LAYERS, 1,
+                           ["--model-parallel", "2", "--share-cards"],
+                           False),)
 # where the host has the cards: (name, ranks, cards, extra flags, the
 # one-device run it is held to ("moe": MOE_SHARDED_ARCH's), steps)
 SHARDED_CARDS = (("S1_nccl", 2, 2, ["--compress-grads"], "compressed",
@@ -4746,8 +4763,10 @@ SHARDED_CARDS = (("S1_nccl", 2, 2, ["--compress-grads"], "compressed",
 # to bf16 before the dp mean, where one device rounds the sum over all
 # rows once, and a last-bit difference in the clip scale carries on to
 # later steps (at most 9.8e-5 at dp 2 and 7.0e-5 at dp 1 on an H100 80GB
-# HBM3 at 700 W; PERF.md). The 22-layer step 1 at dp 1 computes what one
-# device computes, the norm's sum in another order: 1e-4 for both.
+# HBM3 at 700 W; PERF.md). The 22-layer step 1 at dp 1: the row
+# products' f32 partials summed over the model axis round once, as one
+# device's product does, so it lies close to one device (1.7e-5 loss,
+# 6.0e-5 norm, PERF.md §6): 1e-4 for both.
 SHARDED_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
 DEPTH_TOL = {"loss": 1e-4, "grad_norm": 1e-4}
 
@@ -4931,16 +4950,22 @@ def train_sharded(dev, results):
     2 x 1 (routing over both ranks' rows), one step, launched when S2_22
     ends; S3 when S1 and S2 end: this process restores S2's step-2
     checkpoint (copied alone into a fresh directory) and runs steps 3-4;
-    then E1 mesh 1 x 2 (expert parallelism), 2 steps.
-    The MoE model's one-device run goes first, alone (its 28.5 GB beside
-    the ranks would overrun the card). Gates: S1's, S2's, E1's and E2's
-    losses and grad norms against the trainer on one device in this
-    process within SHARDED_TOL; S2_22's step against the train phase's
-    first plain step within DEPTH_TOL; S3's losses within 1e-4 of S2's
-    steps 3-4; every rank of a run reporting the same losses and norms;
-    each rank's peak allocated memory below the one-device peak of the
-    same run (S2_22: the train phase's); no
-    kernel of the port launched; every rank's exit 0. Where the host has
+    then E1 mesh 1 x 2 (expert parallelism), 2 steps, once R1 ends.
+    RECURRENT_SHARDED_ARCH (RECURRENT_SHARDED_RUNS): R1 mesh 1 x 2 (the
+    time mix on heads, the channel mix on d_ff, the gate gathered), one
+    step, launched with E2 and collected before E1 starts; its one-
+    device run follows tinyllama's in this process. On mesh 1 x 2 the ranks split the products over the
+    model axis (Megatron's column and row products, heads, the
+    vocabulary); on 2 x 1 a gradient reaches its block by a reduce-
+    scatter. The MoE model's one-device run goes first, alone (its 28.5
+    GB beside the ranks would overrun the card). Gates: S1's, S2's, E1's,
+    E2's and R1's losses and grad norms against the trainer on one device
+    in this process within SHARDED_TOL; S2_22's step against the train
+    phase's first plain step within DEPTH_TOL; S3's losses within 1e-4 of
+    S2's steps 3-4; every rank of a run reporting the same losses and
+    norms; each rank's peak allocated memory below the one-device peak of
+    the same run (S2_22: the train phase's); no kernel of the port
+    launched; every rank's exit 0. Where the host has
     2 (4) cards, S1 and E1 over NCCL on 2 cards (and a 2 x 2 mesh over 4)
     too; otherwise logged as not run. Logged: ms a step, tokens/s, each
     rank's peak GB, when each run ended, the MoE model's smallest routing
@@ -4982,8 +5007,11 @@ def train_sharded(dev, results):
                               if line.startswith("mesh ")]
         for k, n in launched.items():
             counts[k] = counts.get(k, 0) + n
-    runs = {r[0]: r for r in SHARDED_RUNS + MOE_SHARDED_RUNS}
-    moe_runs = {r[0] for r in MOE_SHARDED_RUNS}
+    runs = {r[0]: r for r in SHARDED_RUNS + MOE_SHARDED_RUNS
+            + RECURRENT_SHARDED_RUNS}
+    arch_of = dict({r[0]: MOE_SHARDED_ARCH for r in MOE_SHARDED_RUNS},
+                   **{r[0]: RECURRENT_SHARDED_ARCH
+                      for r in RECURRENT_SHARDED_RUNS})
     live, ended = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         def launch(name):
@@ -4991,15 +5019,16 @@ def train_sharded(dev, results):
             live[name] = _launch_ranks(
                 name, nproc, extra, tmp, layers, steps,
                 f"{tmp}/{name}_ckpt" if ck else None,
-                MOE_SHARDED_ARCH if name in moe_runs else "tinyllama-1.1b")
+                arch_of.get(name, "tinyllama-1.1b"))
 
         def collect(name, ref, tol):
             hold(name, *_collect_ranks(live.pop(name)), ref, tol)
             ended[name] = time.perf_counter() - t0
-        # at most ≈ 58 GB of ranks on the card at once: S1 ∥ S2 ∥ S2_22
-        # (45 GB) and the one-device runs; E2 (29 GB) once S2_22 ends,
-        # beside S1 and S2; S3 in this process once they end; then E1
-        # (29 GB) beside E2
+        # S1 ∥ S2 ∥ S2_22 (45 GB) and the one-device runs (tinyllama's,
+        # then rwkv6's: 24 GB); E2 (29 GB) and R1 (24 GB) once S2_22
+        # ends, beside S1 and S2; S3 in this process once they end; E1
+        # (29 GB) beside E2 once R1 has ended too (E1 ∥ E2 ∥ R1 would
+        # hold ≈ 82 GB)
         t0 = time.perf_counter()
         try:
             for name, *_ in SHARDED_RUNS:
@@ -5010,8 +5039,17 @@ def train_sharded(dev, results):
                     f"{row['losses']}, grad norms {row['grad_norms']}, "
                     f"peak {row['peak_gb']:.2f} GB")
             rows["one_device"] = one
+            rec_one = one_device(arch=RECURRENT_SHARDED_ARCH,
+                                 steps=RECURRENT_SHARDED_RUNS[0][3],
+                                 kinds=(("plain", []),))["plain"]
+            log(f"train_sharded one device {RECURRENT_SHARDED_ARCH} "
+                f"({SHARDED_LAYERS} layers): losses {rec_one['losses']}, "
+                f"grad norms {rec_one['grad_norms']}, peak "
+                f"{rec_one['peak_gb']:.2f} GB, {rec_one['seconds']:.1f} s")
+            rows["one_device_recurrent"] = rec_one
             collect("S2_22", results["train"]["plain"], DEPTH_TOL)
             launch("E2")
+            launch("R1")
             collect("S1", one["compressed"], SHARDED_TOL)
             collect("S2", one["plain"], SHARDED_TOL)
             shutil.copytree(f"{tmp}/S2_ckpt/step_00000002",
@@ -5025,6 +5063,7 @@ def train_sharded(dev, results):
             ended["S3"] = time.perf_counter() - t0
             for k, n in c3.items():
                 counts[k] = counts.get(k, 0) + n
+            collect("R1", rec_one, SHARDED_TOL)
             launch("E1")
             collect("E2", moe_one, SHARDED_TOL)
             collect("E1", moe_one, SHARDED_TOL)

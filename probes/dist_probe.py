@@ -6,7 +6,10 @@
 
 Each rank prints one JSON line of what worked and what raised, and the
 time of an all-reduce of 176 MB (one tinyllama-1.1b layer's f32
-weights) and an all-gather of its halves."""
+weights), an all-gather of its halves, a reduce-scatter of it onto the
+halves (the sharded trainer's gradient reduction over dp) and an
+all-reduce of 8 MB (a tinyllama-1.1b row product's f32 partial sum over
+the model axis, 8 x 128 x 2048)."""
 import json
 import os
 import sys
@@ -62,9 +65,14 @@ def main():
     import time
     big = torch.ones(44_000_000, device=dev)
     parts = [torch.empty(22_000_000, device=dev) for _ in range(world)]
+    block = torch.empty(44_000_000 // world, device=dev)
+    small = torch.ones(8 * 128 * 2048, device=dev)
     for name, fn in (("all_reduce_176MB", lambda: dist.all_reduce(big)),
                      ("all_gather_88MB_each", lambda: dist.all_gather(
-                         parts, big[:22_000_000]))):
+                         parts, big[:22_000_000])),
+                     ("reduce_scatter_176MB", lambda:
+                      dist.reduce_scatter_tensor(block, big)),
+                     ("all_reduce_8MB", lambda: dist.all_reduce(small))):
         fn()
         torch.cuda.synchronize()
         t = time.perf_counter()

@@ -6,16 +6,10 @@ banks lie over "model" on E).
 Under the reference's activation spec every rank of a model group holds
 the same tokens, its dp rows. So a layer whose banks are split over
 "model" runs only this rank's experts over those tokens and sums the
-partial outputs over the group. Two autograd functions make the
-gradients right, Megatron's pair (they serve any product split over an
-axis group, not only the experts):
-  * `copy_to(x, group)`: identity forward, all-reduce backward. Each
-    rank's backward through its own experts gives only their share of
-    the input's gradient; the sum over the group is the whole of it.
-  * `reduce_from(x, group)`: all-reduce forward, identity backward. The
-    loss after the sum is the same on every rank of the group, so each
-    partial takes the output's gradient as it is.
-Both sum in f32 and return the input's dtype.
+partial outputs over the group: the tokens and gates enter the experts
+through `distributed.tensor.copy_to` and the partial outputs leave
+through `reduce_from` (Megatron's pair, which the model axis's other
+split products use too).
 
 Routing and capacity are functions of the whole microbatch (the
 reference routes every token of the global batch at once). A rank holds
@@ -34,51 +28,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.distributed.sharding import TP
+from repro_torch.distributed.tensor import copy_to, reduce_from
 
-
-def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """Σ over `group` in f32, in x's dtype; a new tensor."""
-    import torch.distributed as dist
-    y = x.to(torch.float32).contiguous().clone()
-    dist.all_reduce(y, group=group)
-    return y.to(x.dtype)
-
-
-class _CopyTo(torch.autograd.Function):
-    """Identity forward; the gradient summed over the group backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _group_sum(g, ctx.group), None
-
-
-class _ReduceFrom(torch.autograd.Function):
-    """The sum over the group forward; identity backward."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        return _group_sum(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
-def copy_to(x: torch.Tensor, group) -> torch.Tensor:
-    """x as it is, where the group's ranks each compute a part of what
-    follows from it: its gradient is summed over `group`."""
-    return _CopyTo.apply(x, group)
-
-
-def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of each rank's partial x over `group` (f32 sums, x's
-    dtype); its gradient reaches each partial unchanged."""
-    return _ReduceFrom.apply(x, group)
+__all__ = ["ExpertGroups", "copy_to", "reduce_from"]
 
 
 class ExpertGroups:

@@ -1,30 +1,36 @@
 """Sharded training over a `launch.mesh.DistMesh`: FSDP storage, data-
-parallel compute (the port's counterpart of what GSPMD makes of the
-reference's pjit step under `param_pspecs`).
+parallel compute over the dp axes and Megatron's split compute over
+"model" (the port's counterpart of what GSPMD makes of the reference's
+pjit step under `param_pspecs`).
 
 Every rank stores only its block of each parameter (and of AdamW's m and
-v and the compressor's residual), under the reference's rules. Compute is
-data-parallel over the dp axes: a rank takes its rows of the batch
-(`batch_pspecs`), and the weights are made whole a layer at a time where
-they are used (`Model.loss(..., gather=)`): the leaves outside the layer
+v and the compressor's residual), under the reference's rules. A rank
+takes its rows of the batch (`batch_pspecs`); ranks that differ only on
+the model axis hold the same rows. The weights are made whole where they
+are used (`Model.loss(..., gather=)`): the leaves outside the layer
 stacks at the top of the loss, each layer inside its remat body, so the
-backward's recompute gathers again instead of keeping every layer. The
-gather's backward turns the whole weight's gradient into the block's:
-the mean over the dp group (a rank's loss is the mean over its rows),
-then the block's slice. Ranks that differ only on the model axis compute
-the same rows. A routed expert bank stored over "model" on E is made
-whole over the dp axes only: each rank of a model group runs its own
-E/m experts over the group's tokens and the partial outputs are summed
-(expert parallelism, `distributed.expert`, `models.moe.moe_apply`).
-Every other weight is gathered whole, and its compute over the model
-axis is replicated (Megatron's column and row products are the next
-slice). Only what the forward makes whole depends on this: the stored
-blocks, their specs and the checkpoints do not.
+backward's recompute gathers again instead of keeping every layer.
 
-Every rank runs the same collectives in the same order: the gathers
-follow the model's code, which never branches on the data, and a leaf
-that does not reach the loss still joins the reductions after the
-backward (the norm, the compressor's scale).
+A leaf that `sharding.model_split` splits is made whole over the dp axes
+only: the rank computes on its block over "model" (column and row
+products, heads, the vocabulary, its E/m routed experts), its inputs
+entering through `distributed.tensor.copy_to` and its row partials
+leaving through `reduce_from` (`FSDP.model_axis`, which `Model.loss`
+hands the layers). Every other leaf is made whole over the mesh and
+computed whole on every rank of a model group, on the same inputs, so
+its gradient is the same there.
+
+The gather's backward turns the whole gradient into the block's: the
+model axis's slice (the same gradient on every rank of a model group),
+then a reduce-scatter over the dp group onto the dp block, divided by
+the dp size (a rank's loss is the mean over its rows), summed over
+"data", then "pod", as `hierarchical_psum` sums; a leaf whose dp entry
+`fit_spec` dropped takes the all-reduce mean whole.
+
+Every rank runs the same collectives in the same order: the gathers and
+the model axis's sums follow the model's code, which never branches on
+the data, and a leaf that does not reach the loss still joins the
+reductions after the backward (the norm, the compressor's scale).
 """
 from __future__ import annotations
 
@@ -37,16 +43,17 @@ import torch
 from repro_torch import tree as T
 from repro_torch.distributed.collectives import hierarchical_psum
 from repro_torch.distributed.expert import ExpertGroups
-from repro_torch.distributed.sharding import (EXPERT_KEYS, TP, Spec,
-                                              batch_pspecs, block_slices,
-                                              dp_axes, entry_axes,
+from repro_torch.distributed.sharding import (TP, Spec, batch_pspecs,
+                                              block_slices, dp_axes,
+                                              entry_axes, model_split,
                                               owns_block, unshard_leaf,
                                               whole_shape)
+from repro_torch.distributed.tensor import ModelAxis
 
 
 class _Gather(torch.autograd.Function):
-    """block -> whole leaf; backward: the whole gradient's dp mean, then
-    the block's slice."""
+    """block -> the leaf made whole over `spec`'s axes; backward: the
+    block's gradient (`FSDP.block_grad`)."""
 
     @staticmethod
     def forward(ctx, block, fsdp, spec):
@@ -56,21 +63,23 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = ctx.fsdp.dp_mean(g)
-        return (g[block_slices(tuple(g.shape), ctx.spec, ctx.fsdp.mesh)]
-                .contiguous(), None, None)
+        return ctx.fsdp.block_grad(g, ctx.spec), None, None
 
 
 class FSDP:
     """The gathers and reductions of a sharded train step. `specs` maps
     each parameter's key (`tree.path_key`) to its spec, as `param_pspecs`
-    gives them for the whole leaves."""
+    gives them for the whole leaves; `model_split` chooses, from the
+    model's config `cfg`, the leaves computed on their model block."""
 
-    def __init__(self, mesh, specs: Dict[str, Spec]):
+    def __init__(self, mesh, specs: Dict[str, Spec], cfg):
         self.mesh, self.specs = mesh, specs
         self.dp = dp_axes(mesh)
         self.dp_size = math.prod(mesh.shape[a] for a in self.dp)
         self._experts: Dict[Tuple[str, ...], ExpertGroups] = {}
+        m = mesh.shape.get(TP, 1)
+        self.model_axis = ModelAxis(mesh) if m > 1 else None
+        self.split: Dict[str, bool] = {}
         for key, spec in specs.items():
             axes = [a for e in spec for a in entry_axes(e)]
             if len(axes) != len(set(axes)):
@@ -80,28 +89,80 @@ class FSDP:
                 raise NotImplementedError(
                     f"{key}: spec {spec} shards the layer axis, which the "
                     f"per-layer gather does not take")
+            for e in spec:
+                if len({a in self.dp for a in entry_axes(e)}) > 1:
+                    raise NotImplementedError(
+                        f"{key}: spec {spec} merges dp and model axes in "
+                        f"one entry")
+            self.split[key] = model_split(tuple(key.split("/")), spec,
+                                          cfg, m)
 
     # ------------------------------------------------------------ gathers
+    def _gather(self, key: str, leaf, spec: Spec):
+        if self.split[key]:
+            spec = tuple(None if e == TP else e for e in spec)
+        return _Gather.apply(leaf, self, spec)
+
     def outside(self, params: Dict) -> Dict:
-        """`params` with every leaf outside "blocks" made whole."""
+        """`params` with every leaf outside "blocks" made whole (over the
+        dp axes only where it computes on its model block)."""
         return T.unflatten(params, [
             leaf if path[0] == "blocks" else
-            _Gather.apply(leaf, self, self.specs[T.path_key(path)])
+            self._gather(T.path_key(path), leaf,
+                         self.specs[T.path_key(path)])
             for path, leaf in T.flatten_with_path(params)])
 
     def layer(self, gi: int, p_l: Any) -> Any:
         """Layer blocks of stack group `gi` (views of its [L, ...] blocks)
-        made whole under a stacked leaf's spec less its layer entry; a
-        routed expert bank split over "model" on E keeps this rank's
-        E/m experts (made whole over the dp axes only)."""
+        made whole under a stacked leaf's spec less its layer entry, over
+        the dp axes only where the leaf computes on its model block (a
+        routed expert bank keeps this rank's E/m experts)."""
         out = []
         for path, leaf in T.flatten_with_path(p_l):
-            spec = self.specs[T.path_key(("blocks", gi) + path)][1:]
-            if path[-2:-1] == ("moe",) and path[-1] in EXPERT_KEYS \
-                    and spec[:1] == (TP,):
-                spec = (None,) + spec[1:]
-            out.append(_Gather.apply(leaf, self, spec))
+            key = T.path_key(("blocks", gi) + path)
+            out.append(self._gather(key, leaf, self.specs[key][1:]))
         return T.unflatten(p_l, out)
+
+    def block_grad(self, g: torch.Tensor, spec: Spec) -> torch.Tensor:
+        """A block's gradient from the gradient of the leaf made whole
+        over `spec`'s axes: the slice of the axes outside the dp group,
+        then the dp block of the sum over the dp group (reduce-scattered
+        over "data", then "pod"; all-reduced over an axis the spec does
+        not split on), divided by the dp size."""
+        import torch.distributed as dist
+        dp = set(self.dp)
+        outer = tuple(tuple(a for a in entry_axes(e) if a not in dp)
+                      for e in spec)
+        g = g[block_slices(tuple(g.shape), outer, self.mesh)]
+        if self.dp_size == 1:
+            return g.contiguous()
+        d = next((i for i, e in enumerate(spec)
+                  if set(entry_axes(e)) & dp), None)
+        if d is None:
+            return self.dp_mean(g)
+        axes = list(entry_axes(spec[d]))
+        sizes = [self.mesh.shape[a] for a in axes]
+        shape = tuple(g.shape)
+        x = g.reshape(shape[:d] + tuple(sizes)
+                      + (shape[d] // math.prod(sizes),) + shape[d + 1:])
+        for a in reversed(self.dp):
+            group = self.mesh.group(a)
+            if a not in axes:
+                x = x.contiguous().clone()
+                dist.all_reduce(x, group=group)
+                continue
+            k = d + axes.index(a)
+            y = x.movedim(k, 0).contiguous()
+            out = torch.empty((1,) + tuple(y.shape[1:]), dtype=y.dtype,
+                              device=y.device)
+            dist.reduce_scatter_tensor(out, y, group=group)
+            x = out.movedim(0, k)
+            axes.pop(axes.index(a))
+            x = x.reshape(x.shape[:k] + x.shape[k + 1:])
+        x = x.reshape(shape[:d] + (shape[d] // math.prod(sizes),)
+                      + shape[d + 1:])
+        return x / torch.tensor(float(self.dp_size), dtype=x.dtype,
+                                device=x.device)
 
     # ------------------------------------------------------------ rows
     def rows(self, batch: Dict[str, np.ndarray]

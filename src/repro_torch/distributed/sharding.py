@@ -13,9 +13,11 @@ are the reference's: column-parallel weights `(dp, "model")`, row-parallel
 leading stacked-layer axis left whole, and with `tensor_parallel=False`
 the ZeRO layout (first dimension over every axis). `shard_tree` gives a
 rank its block of each leaf; `unshard_leaf` rebuilds a whole leaf from
-the blocks of its group. The reference's `constrain*` hooks are GSPMD
-compiler hints for computing over the model axis; they wait for that
-slice, and `cache_pspecs` for the dry run.
+the blocks of its group. `model_split` says which leaves a train step
+computes on their block over the model axis (Megatron's column and row
+products, heads, the vocabulary) and which it makes whole: the rule of
+the reference's `constrain_heads`, which never splits inside a head, in
+place of that GSPMD hint. `cache_pspecs` waits for the dry run.
 
 **Serving (tensor-parallel paged cache).** GQA heads are KV-major (query
 head h serves KV head h // G), so sharding the pools' KV axis `tp` ways
@@ -153,6 +155,40 @@ def leaf_spec(path: tuple, shape: tuple, mesh,
     elif nd == len(base) + 1:
         base = (None, *base)    # stacked layers: leading L dim
     return fit_spec(tuple(shape), base, mesh)
+
+
+def model_split(path: tuple, spec: Spec, cfg, m: int) -> bool:
+    """Whether a train step computes the leaf at `path` (its fitted
+    `spec`, a config `cfg`, a model axis of m ranks) on its block over
+    "model", or makes it whole. A pure function of names and shapes, never
+    of data, so every rank runs the same collectives. The spec must keep
+    "model" (a bare entry; `fit_spec` drops it where it does not divide),
+    and attention splits on whole heads only, as the reference's
+    `constrain_heads` pins them: q, `wo` and MLA's `w_uk` / `w_uv` where
+    m divides the heads, k and v where it also divides the KV heads (else
+    computed whole, each rank reading the KV heads its q heads need: MQA,
+    or tinyllama's 4 at m 16; `fit_spec` alone would split granite's
+    `wk` [6144, 128] inside its one head), RWKV's time mix where m divides
+    its d_model / head_size heads. Every other leaf with "model" in its
+    spec splits on that dimension: the vocabulary (`embed`, `lm_head`),
+    the FFN's and the shared experts' F, the routed banks' E, RWKV's
+    channel mix, the RG-LRU's width. A column leaf and the row leaf that
+    consumes its output split the same dimension, so they split together
+    or not at all."""
+    if m <= 1 or TP not in spec:
+        return False
+    names = [k for k in path if isinstance(k, str)]
+    name = names[-1] if names else None
+    if "moe" in names:
+        return True
+    heads = cfg.n_heads % m == 0
+    if name in ("wq", "wo", "w_uk", "w_uv"):
+        return heads
+    if name in ("wk", "wv"):
+        return heads and cfg.n_kv_heads % m == 0
+    if name in ("w_r", "w_k", "w_v", "w_g", "w_o"):
+        return (cfg.d_model // cfg.head_size) % m == 0
+    return True
 
 
 def param_pspecs(params: Any, mesh, tensor_parallel: bool = True

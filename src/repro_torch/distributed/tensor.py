@@ -1,0 +1,165 @@
+"""The model axis's collectives for a train step (Megatron's four
+autograd functions), and `ModelAxis`, a rank's place on that axis (the
+port's counterpart of what GSPMD makes of the reference's column- and
+row-parallel rules and its `constrain_heads`).
+
+  * `copy_to(x, group)`: identity forward, the gradient summed over the
+    group backward. It feeds a split product: each rank's backward
+    through its own block gives only its share of x's gradient.
+  * `reduce_from(x, group)`: the sum over the group forward, identity
+    backward. It ends a row-parallel product: the loss after the sum is
+    the same on every rank, so each partial takes the output's gradient
+    as it is.
+  * `gather_from(x, group, dim)`: the ranks' blocks laid side by side
+    along `dim` forward; this rank's block of the gradient backward.
+  * `reduce_scatter_to(x, group, dim)`: the sum over the group, of which
+    this rank keeps its block along `dim`, forward; the blocks of the
+    gradient gathered backward.
+Every sum is taken in f32 and returns the input's dtype.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.distributed.sharding import TP
+
+
+def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over `group` in f32, in x's dtype; a new tensor."""
+    import torch.distributed as dist
+    y = x.to(torch.float32).contiguous().clone()
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The group's blocks of x, in group-rank order, along `dim`."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
+
+
+def _scatter_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along `dim` of Σ over `group` (f32, x's dtype)."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    y = x.to(torch.float32).movedim(dim, 0).contiguous()
+    out = torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]),
+                      dtype=y.dtype, device=y.device)
+    dist.reduce_scatter_tensor(out, y, group=group)
+    return out.movedim(0, dim).to(x.dtype)
+
+
+def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    step = x.shape[dim] // n
+    return x.narrow(dim, r * step, step).contiguous()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _group_sum(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _group_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter_sum(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """x as it is, where the group's ranks each compute a part of what
+    follows from it: its gradient is summed over `group`."""
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of each rank's partial x over `group` (f32 sums, x's
+    dtype); its gradient reaches each partial unchanged."""
+    return _ReduceFrom.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """The group's blocks of x side by side along `dim`; the gradient's
+    block of this rank flows back."""
+    return _GatherFrom.apply(x, group, dim % x.dim())
+
+
+def reduce_scatter_to(x: torch.Tensor, group, dim: int = -1
+                      ) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of the ranks' partial x
+    over `group` (f32 sums, x's dtype); the gradient's blocks are
+    gathered back."""
+    return _ReduceScatterTo.apply(x, group, dim % x.dim())
+
+
+class ModelAxis:
+    """A rank's place on the model axis of a train step's mesh: its group,
+    the group's size m and this rank's index there. A product split over
+    the axis takes this rank's block, the index-th of m equal parts of the
+    split dimension (`part`)."""
+
+    def __init__(self, mesh):
+        self.group = mesh.group(TP)
+        self.size = mesh.shape[TP]
+        self.index = mesh.coord[TP]
+
+    def part(self, n: int) -> slice:
+        """This rank's block of a dimension of n (m divides n)."""
+        step = n // self.size
+        return slice(self.index * step, (self.index + 1) * step)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return copy_to(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return reduce_from(x, self.group)
+
+    def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return gather_from(x, self.group, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        return reduce_scatter_to(x, self.group, dim)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the group, detached."""
+        import torch.distributed as dist
+        y = x.detach().contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
+        return y

@@ -22,16 +22,17 @@ the reference's mesh: `--model-parallel N` the host mesh (world / N, N),
 or 512 ranks). Params, m, v and the residual are stored as blocks under
 `param_pspecs` (FSDP / ZeRO; `distributed.fsdp`), each rank takes its dp
 rows of the global batch, and weights are gathered a layer at a time.
-An MoE layer routes, sizes its capacity and takes its load-balance
-density over every row of the microbatch (one all-gather of the [E]
-expert counts), and each rank of a model group runs only its E/m
-routed experts, whose banks are gathered over the dp axes alone; the
-partial outputs are summed over the group (`distributed.expert`). The
-other weights are gathered whole, and ranks on the model axis compute
-their rows with them: that storage is sharded, that compute replicated
-(Megatron's column and row products over the model axis are the next
-slice). Ranks share a card only with `--share-cards` (gloo; NCCL where
-each has its own).
+Over the model axis the ranks of a group split the compute as the
+reference's rules split the weights (`sharding.model_split`): Megatron's
+column and row products, attention on whole heads, a vocab-parallel
+embedding and LM loss, the RWKV and RG-LRU mixers on their heads or
+channels; such a leaf is gathered over the dp axes alone (`distributed.
+tensor`). An MoE layer routes, sizes its capacity and takes its load-
+balance density over every row of the microbatch (one all-gather of the
+[E] expert counts), and each rank of a model group runs only its E/m
+routed experts (`distributed.expert`). A gradient reaches its block by
+a reduce-scatter over the dp axes. Ranks share a card only with
+`--share-cards` (gloo; NCCL where each has its own).
 Without torchrun's environment the trainer runs on one device with no
 process group, as before.
 """
@@ -90,7 +91,8 @@ def build_train_step(model: Model, opt: AdamW,
     scales a block by its whole leaf's max, and AdamW clips by the global
     norm. An MoE layer routes and sizes its capacity over the whole
     microbatch, and its routed experts split over "model" where their
-    banks do (`models.moe.moe_apply`)."""
+    banks do (`models.moe.moe_apply`); every other leaf that `fsdp`
+    splits over "model" computes on its block there (`FSDP.split`)."""
     accum = accum or model.cfg.train_microbatches
 
     def loss_of(mb):
@@ -229,7 +231,7 @@ def main(argv=None, metrics: Optional[list] = None):
     fsdp = None
     if mesh is not None:
         shapes = Model(cfg, device="meta").init_params(dtype=torch.float32)
-        fsdp = FSDP(mesh, param_pspecs(shapes, mesh))
+        fsdp = FSDP(mesh, param_pspecs(shapes, mesh), cfg)
         if rank == 0:
             print(f"mesh {mesh.shape} over {world} ranks, backend "
                   f"{mesh.backend}, rank 0 on {device}", flush=True)

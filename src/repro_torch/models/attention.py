@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.models.cache import CacheConfig, CacheStore
 from repro_torch.models.common import (ModelConfig, QuantCtx, dense,
-                                       init_dense, rope)
+                                       dense_f32, init_dense, rope, row_sum)
 
 
 def _split_heads(x, n_heads):
@@ -23,11 +23,66 @@ def _merge_heads(x):
     return x.reshape(B, T, H * hd)
 
 
+def heads_on(params: Dict, cfg: ModelConfig, mp):
+    """`mp` where this attention's q heads arrive split over the model
+    axis (`wq` a block narrower than every head), else None."""
+    if mp is None or params["wq"].shape[-1] == cfg.n_heads * cfg.head_dim:
+        return None
+    return mp
+
+
+def _heads_kv(kv: torch.Tensor, h0: int, Hl: int, G: int) -> torch.Tensor:
+    """The KV heads [B, T, *, hd] that q heads h0 .. h0 + Hl - 1 read
+    (query head h reads KV head h // G): the one they share, or one a q
+    head where they span several groups in part."""
+    first, last = h0 // G, (h0 + Hl - 1) // G
+    if first == last:
+        return kv[:, :, first:first + 1]
+    idx = torch.div(torch.arange(h0, h0 + Hl, device=kv.device), G,
+                    rounding_mode="floor")
+    return kv.index_select(2, idx)
+
+
+def split_proj(params: Dict, x: torch.Tensor, kv_x: torch.Tensor,
+               cfg: ModelConfig, mp):
+    """q, k, v [B, T, heads, hd] of a rank whose q heads are split over the
+    model axis (training; no RoPE): q from its `wq` block on x (through
+    `copy_to`, in f32), k and v from their blocks on kv_x the same way
+    where the KV heads split with q; otherwise k and v computed whole
+    from kv_x (outside the split, as one device computes them), entering
+    through `copy_to`, and cut to the KV heads this rank's q heads read
+    (MQA; fewer KV heads than ranks)."""
+    hd, dt = cfg.head_dim, x.dtype
+    xf = mp.copy(x.to(torch.float32))
+
+    def col(name, site, src):
+        return _split_heads(dense_f32(params[name], src, site, dt).to(dt),
+                            params[name].shape[-1] // hd)
+    q = col("wq", "attn_q", xf)
+    if params["wk"].shape[-1] != cfg.n_kv_heads * hd:
+        kf = xf if kv_x is x else mp.copy(kv_x.to(torch.float32))
+        return q, col("wk", "attn_k", kf), col("wv", "attn_v", kf)
+    Hl, G = q.shape[2], cfg.n_heads // cfg.n_kv_heads
+    k, v = (_heads_kv(mp.copy(_split_heads(dense(params[n], kv_x, s),
+                                           cfg.n_kv_heads)),
+                      mp.index * Hl, Hl, G)
+            for n, s in (("wk", "attn_k"), ("wv", "attn_v")))
+    return q, k, v
+
+
 def qkv_proj(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-             positions: torch.Tensor, ctx: Optional[QuantCtx] = None):
-    q = _split_heads(dense(params["wq"], x, "attn_q", ctx), cfg.n_heads)
-    k = _split_heads(dense(params["wk"], x, "attn_k", ctx), cfg.n_kv_heads)
-    v = _split_heads(dense(params["wv"], x, "attn_v", ctx), cfg.n_kv_heads)
+             positions: torch.Tensor, ctx: Optional[QuantCtx] = None,
+             mp=None):
+    """q, k, v [B, T, heads, hd], RoPE applied; with `mp` where the heads
+    arrive split, this rank's (`split_proj`)."""
+    if heads_on(params, cfg, mp) is not None:
+        q, k, v = split_proj(params, x, x, cfg, mp)
+    else:
+        q = _split_heads(dense(params["wq"], x, "attn_q", ctx), cfg.n_heads)
+        k = _split_heads(dense(params["wk"], x, "attn_k", ctx),
+                         cfg.n_kv_heads)
+        v = _split_heads(dense(params["wv"], x, "attn_v", ctx),
+                         cfg.n_kv_heads)
     if not cfg.use_rope:
         return q, k, v
     return rope(q, positions, cfg.rope_theta), \
@@ -190,7 +245,7 @@ def cache_update(cache, k_new: torch.Tensor, v_new: torch.Tensor):
 def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, cache=None, mode: str = "train",
                     ctx: Optional[QuantCtx] = None, chunk=None,
-                    window: int = 0, prefix_len: int = 0):
+                    window: int = 0, prefix_len: int = 0, mp=None):
     """qkv -> attend -> out projection. Returns (out, cache).
 
     train:          causal flash attention over x (calibration forward;
@@ -203,9 +258,12 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                     (PagedCacheStore.write_chunk), then attention runs over
                     the chunk plus the already-written pages (K3);
     decode:         one token per sequence, written to the cache, then
-                    `decode_attention` (K5 contiguous, K2 paged)."""
+                    `decode_attention` (K5 contiguous, K2 paged).
+    With `mp` (train only) where the heads arrive split over the model
+    axis, a rank attends with its heads and `wo`'s block sums the
+    partial outputs (`row_sum`)."""
     from repro_torch.models.paging import chunked_prefill_attention
-    q, k, v = qkv_proj(params, x, cfg, positions, ctx)
+    q, k, v = qkv_proj(params, x, cfg, positions, ctx, mp)
     if mode == "chunk_prefill":
         assert cache is not None and chunk is not None
         cache.write_chunk(k[0], v[0], chunk)
@@ -226,6 +284,9 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                                   prefix_len=prefix_len)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported")
+    if heads_on(params, cfg, mp) is not None:
+        return row_sum(params["wo"], _merge_heads(out), "attn_out", mp), \
+            cache
     # a tensor-parallel read returned every head, concatenated on the lead
     # device: wo contracts them whole, in the TP 1 order (a row-parallel
     # wo summing tp partial products would reassociate the contraction)

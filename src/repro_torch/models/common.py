@@ -138,6 +138,27 @@ def dense(w, x: torch.Tensor, site: str,
     raise ValueError(ctx.mode)
 
 
+def dense_f32(w, x: torch.Tensor, site: str, dtype) -> torch.Tensor:
+    """x @ w for a product split over the model axis in training: x in f32
+    holding `dtype` values, the weight rounded to `dtype`, the product in
+    f32 (the products of `dtype` operands are exact there). A column
+    product rounds it to `dtype`, as one device's product does; a row
+    product's partial stays f32 until its sum over the axis
+    (`row_sum`), so the sum rounds once. `site` names the product (no
+    quantization hook: the train path only)."""
+    from repro_torch.models.quantize import as_weight
+    return torch.matmul(x, as_weight(w, dtype).to(torch.float32))
+
+
+def row_sum(w, x: torch.Tensor, site: str, mp) -> torch.Tensor:
+    """The row-parallel end of a split product: this rank's partial of
+    x @ w (x's last dimension and w's rows this rank's block) in f32,
+    summed over the model axis (`mp`, a `distributed.tensor.ModelAxis`)
+    and rounded to x's dtype once."""
+    return mp.reduce(dense_f32(w, x.to(torch.float32), site,
+                               x.dtype)).to(x.dtype)
+
+
 # ----------------------------------------------------------------------
 # primitive layers
 # ----------------------------------------------------------------------
@@ -209,6 +230,19 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor,
     return emb[tokens.long()].to(dtype)
 
 
+def vocab_parallel_embed(emb: torch.Tensor, tokens: torch.Tensor, dtype,
+                         mp) -> torch.Tensor:
+    """`embed_tokens` over a vocabulary split on the model axis: `emb` is
+    this rank's block of V/m rows; each rank looks up the tokens it holds,
+    zeros elsewhere, and the sum over the axis (one nonzero term a token,
+    so exact) is the whole lookup."""
+    Vl = emb.shape[0]
+    local = tokens.long() - mp.index * Vl
+    mine = (local >= 0) & (local < Vl)
+    rows = emb[torch.where(mine, local, 0)] * mine[..., None].to(emb.dtype)
+    return mp.reduce(rows).to(dtype)
+
+
 def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,
              ignore: int = -1):
     """(sum of -log p(label), count) over the positions whose label is
@@ -224,6 +258,26 @@ def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 
+def _vocab_parallel_nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+                            mp, ignore: int = -1):
+    """`_nll_sum` of logits [..., V/m] f32, this rank's block of the
+    vocabulary: the max over the axis (an all-reduce MAX, detached), the
+    sum of exp and the label's logit (from the rank that holds it)
+    through `reduce_from`."""
+    Vl = logits.shape[-1]
+    top = mp.max(torch.amax(logits, -1))
+    lse = top + torch.log(mp.reduce(torch.sum(
+        torch.exp(logits - top[..., None]), -1)))
+    flat = logits.reshape(-1, Vl)
+    rows = torch.arange(flat.shape[0], device=logits.device)
+    local = labels.reshape(-1).long() - mp.index * Vl
+    mine = (local >= 0) & (local < Vl)
+    gold = mp.reduce((flat[rows, torch.where(mine, local, 0)]
+                      * mine.to(flat.dtype)).reshape(labels.shape))
+    mask = (labels != ignore).to(torch.float32)
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore: int = -1) -> torch.Tensor:
     """Mean CE over non-ignored positions. logits [..., V], labels [...]."""
@@ -232,20 +286,37 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def chunked_lm_loss(emb_out: torch.Tensor, x: torch.Tensor,
-                    labels: torch.Tensor, chunk: int) -> torch.Tensor:
+                    labels: torch.Tensor, chunk: int,
+                    mp=None) -> torch.Tensor:
     """CE loss of x [B, T, D] projected by emb_out [D, V], one sequence
     chunk of `chunk` positions at a time (the reference's scan), so the
     [T, V] logits are never whole; unchunked when `chunk` does not split
-    T into two or more chunks."""
+    T into two or more chunks. With `mp` (a `distributed.tensor.
+    ModelAxis`) emb_out is this rank's [D, V/m] block of the vocabulary:
+    x enters through `copy_to` and each chunk's CE is taken over the axis
+    (`_vocab_parallel_nll_sum`)."""
     B, T, D = x.shape
+    if mp is None:
+        def logits_of(xc):
+            return torch.matmul(xc, emb_out.to(xc.dtype)).to(torch.float32)
+        nll = _nll_sum
+    else:
+        dt = x.dtype
+        x = mp.copy(x.to(torch.float32))
+
+        def logits_of(xc):
+            return dense_f32(emb_out, xc, "lm_head", dt).to(dt).to(
+                torch.float32)
+
+        def nll(logits, labels):
+            return _vocab_parallel_nll_sum(logits, labels, mp)
     if chunk <= 0 or T % chunk != 0 or T == chunk:
-        logits = torch.matmul(x, emb_out.to(x.dtype))
-        return cross_entropy_loss(logits, labels)
+        s, c = nll(logits_of(x), labels)
+        return s / torch.clamp(c, min=1.0)
     s = torch.zeros((), dtype=torch.float32, device=x.device)
     c = torch.zeros((), dtype=torch.float32, device=x.device)
     for t0 in range(0, T, chunk):
-        logits = torch.matmul(x[:, t0:t0 + chunk],
-                              emb_out.to(x.dtype)).to(torch.float32)
-        ds, dc = _nll_sum(logits, labels[:, t0:t0 + chunk])
+        ds, dc = nll(logits_of(x[:, t0:t0 + chunk]),
+                     labels[:, t0:t0 + chunk])
         s, c = s + ds, c + dc
     return s / torch.clamp(c, min=1.0)

@@ -8,26 +8,38 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import QuantCtx, dense, init_dense
+from repro_torch.models.common import (QuantCtx, dense, dense_f32,
+                                       init_dense, row_sum)
 
 GATED = ("swiglu", "geglu")
 
 
 def ffn_apply(params: Dict, x: torch.Tensor, mlp_type: str,
-              ctx: Optional[QuantCtx] = None) -> torch.Tensor:
+              ctx: Optional[QuantCtx] = None, mp=None) -> torch.Tensor:
+    """The FFN of x. With `mp` (training; the leaves this rank's blocks
+    of d_ff over the model axis) x enters through `copy_to`, the up and
+    gate columns are this rank's, and `w_down`'s block sums the partial
+    outputs (`row_sum`)."""
+    if mp is None:
+        def col(name, site):
+            return dense(params[name], x, site, ctx)
+    else:
+        xf = mp.copy(x.to(torch.float32))
+
+        def col(name, site):
+            return dense_f32(params[name], xf, site, x.dtype).to(x.dtype)
     # the reference's jax.nn.gelu(approximate=True) is the tanh form
     if mlp_type == "swiglu":
-        h = F.silu(dense(params["w_gate"], x, "ffn_gate", ctx)) \
-            * dense(params["w_up"], x, "ffn_up", ctx)
+        h = F.silu(col("w_gate", "ffn_gate")) * col("w_up", "ffn_up")
     elif mlp_type == "geglu":
-        h = F.gelu(dense(params["w_gate"], x, "ffn_gate", ctx),
-                   approximate="tanh") \
-            * dense(params["w_up"], x, "ffn_up", ctx)
+        h = F.gelu(col("w_gate", "ffn_gate"), approximate="tanh") \
+            * col("w_up", "ffn_up")
     elif mlp_type == "gelu":
-        h = F.gelu(dense(params["w_up"], x, "ffn_up", ctx),
-                   approximate="tanh")
+        h = F.gelu(col("w_up", "ffn_up"), approximate="tanh")
     else:
         raise ValueError(f"unknown mlp_type {mlp_type!r}")
+    if mp is not None:
+        return row_sum(params["w_down"], h, "ffn_down", mp)
     return dense(params["w_down"], h, "ffn_down", ctx)
 
 

@@ -30,7 +30,7 @@ import torch
 from repro_torch.models.attention import flash_attention
 from repro_torch.models.cache import CacheConfig, MLACache
 from repro_torch.models.common import (ModelConfig, QuantCtx, dense,
-                                       init_dense, rope)
+                                       dense_f32, init_dense, rope, row_sum)
 from repro_torch.models.quantize import as_weight
 
 __all__ = ["MLACache", "mla_init", "mla_block", "mla_cache_init",
@@ -78,16 +78,30 @@ def sparq_mla_decode(q_lat: torch.Tensor, q_pe: torch.Tensor,
 
 def mla_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, cache: Optional[MLACache] = None,
-              mode: str = "train", ctx: Optional[QuantCtx] = None):
+              mode: str = "train", ctx: Optional[QuantCtx] = None,
+              mp=None):
     """Returns (out, cache); `cache` is written in place (prefill, decode).
     `positions` [B, T]; the decode mask is kpos < pos, with pos the cache
-    position after this step's append."""
+    position after this step's append. With `mp` (training) where `wq`,
+    `w_uk`, `w_uv` and `wo` arrive as blocks of the heads over the model
+    axis, a rank computes its heads: x enters `wq` through `copy_to`, the
+    latent and the shared RoPE key (from `w_dkv`, whole) enter `w_uk` /
+    `w_uv` and the attention through it, and `wo`'s block sums the
+    partial outputs."""
     B, T, _ = x.shape
-    H = cfg.n_heads
     r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
+    H = cfg.n_heads
+    if mp is not None:                 # a block's heads, or every head
+        H = params["wq"].shape[-1] // (dn + dr)
+        mp = mp if H != cfg.n_heads else None
     sm_scale = (dn + dr) ** -0.5
-    q = dense(params["wq"], x, "mla_q", ctx).reshape(B, T, H, dn + dr)
+    if mp is None:
+        q = dense(params["wq"], x, "mla_q", ctx)
+    else:
+        q = dense_f32(params["wq"], mp.copy(x.to(torch.float32)), "mla_q",
+                      x.dtype).to(x.dtype)
+    q = q.reshape(B, T, H, dn + dr)
     q_nope, q_pe = q[..., :dn], q[..., dn:]
     q_pe = rope(q_pe, positions, cfg.rope_theta)
 
@@ -123,9 +137,14 @@ def mla_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         wuv = as_weight(params["w_uv"], x.dtype).reshape(r, H, dv)
         out = torch.einsum("bthr,rhv->bthv", o_lat, wuv)
     else:
-        k_nope = dense(params["w_uk"], c_kv, "mla_uk", ctx).reshape(
-            B, T, H, dn)
-        v = dense(params["w_uv"], c_kv, "mla_uv", ctx).reshape(B, T, H, dv)
+        if mp is None:
+            k_nope = dense(params["w_uk"], c_kv, "mla_uk", ctx)
+            v = dense(params["w_uv"], c_kv, "mla_uv", ctx)
+        else:
+            cf, k_pe = mp.copy(c_kv.to(torch.float32)), mp.copy(k_pe)
+            k_nope, v = (dense_f32(params[n], cf, s, x.dtype).to(x.dtype)
+                         for n, s in (("w_uk", "mla_uk"), ("w_uv", "mla_uv")))
+        k_nope, v = k_nope.reshape(B, T, H, dn), v.reshape(B, T, H, dv)
         k_pe_b = k_pe[:, :, None].expand(B, T, H, dr)
         qf = torch.cat([q_nope, q_pe], -1)
         kf = torch.cat([k_nope, k_pe_b], -1)
@@ -136,6 +155,8 @@ def mla_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         out = flash_attention(qf, kf, v_p, q_chunk=cfg.attn_chunk,
                               kv_chunk=cfg.attn_chunk)[..., :dv]
     out = out.reshape(B, T, H * dv)
+    if mp is not None:
+        return row_sum(params["wo"], out, "mla_out", mp), cache
     return dense(params["wo"], out, "mla_out", ctx), cache
 
 

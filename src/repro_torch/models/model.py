@@ -23,7 +23,7 @@ from repro_torch.models.paging import meta_for
 from repro_torch.models.common import (ModelConfig, QuantCtx,
                                        chunked_lm_loss, embed_tokens, norm,
                                        norm_init, sinusoidal_embed,
-                                       trunc_normal)
+                                       trunc_normal, vocab_parallel_embed)
 
 LB_COEF = 0.01
 Z_COEF = 0.001
@@ -87,24 +87,30 @@ class Model:
         return params
 
     # ------------------------------------------------------------ pieces
-    def _embed_in(self, params, tokens, dtype):
-        x = embed_tokens(params["embed"], tokens, dtype)
+    def _embed_in(self, params, tokens, dtype, mp=None):
+        """The scaled embeddings; with `mp` and `embed` this rank's block
+        of the vocabulary, the lookup over the model axis."""
+        emb = params["embed"]
+        if mp is not None and emb.shape[0] != self.cfg.vocab_size:
+            x = vocab_parallel_embed(emb, tokens, dtype, mp)
+        else:
+            x = embed_tokens(emb, tokens, dtype)
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=dtype,
                                 device=x.device)
 
-    def _embed_batch(self, params, batch: Dict):
+    def _embed_batch(self, params, batch: Dict, mp=None):
         """(x, prefix_len): the scaled token embeddings, and for a VLM
         batch its "image_embeds" ahead of them, cast to the model dtype
         and not scaled; prefix_len is their row count (0 otherwise)."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        x = self._embed_in(params, tokens, cfg.dtype)
+        x = self._embed_in(params, tokens, cfg.dtype, mp)
         if cfg.family == "vlm" and "image_embeds" in batch:
             img = torch.as_tensor(batch["image_embeds"], device=self.device)
             return torch.cat([img.to(cfg.dtype), x], 1), img.shape[1]
         return x, 0
 
-    def _encode(self, params, frames, ctx):
+    def _encode(self, params, frames, ctx, mp=None):
         """The encoder over the frames [B, T, d]: the f32 sinusoidal
         positions added in the model dtype, the "enc" stack in mode train
         under `ctx` (no calibrated spans: a quantized ctx takes each
@@ -116,13 +122,13 @@ class Model:
         x, _ = tr.stack_apply([("enc", cfg.n_enc_layers)],
                               params["enc_blocks"], x, cfg,
                               positions=self._positions(*x.shape[:2]),
-                              mode="train", ctx=ctx)
+                              mode="train", ctx=ctx, mp=mp)
         return norm(params["enc_norm"], x, cfg.norm_type, cfg.norm_eps)
 
-    def _inputs(self, params, batch: Dict, ctx):
+    def _inputs(self, params, batch: Dict, ctx, mp=None):
         """(x, prefix_len, enc_out) of a whole-sequence pass."""
-        x, prefix_len = self._embed_batch(params, batch)
-        enc_out = self._encode(params, batch["frames"], ctx) \
+        x, prefix_len = self._embed_batch(params, batch, mp)
+        enc_out = self._encode(params, batch["frames"], ctx, mp) \
             if self.cfg.is_encdec else None
         return x, prefix_len, enc_out
 
@@ -139,7 +145,8 @@ class Model:
                  gather=None, experts=None):
         """(hidden states, prefix_len, the stack's summed aux terms)."""
         cfg = self.cfg
-        x, prefix_len, enc_out = self._inputs(params, batch, ctx)
+        mp = None if gather is None else gather.model_axis
+        x, prefix_len, enc_out = self._inputs(params, batch, ctx, mp)
         x, aux = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
                                 positions=self._positions(*x.shape[:2]),
                                 mode="train", ctx=ctx,
@@ -147,7 +154,7 @@ class Model:
                                 prefix_len=prefix_len, enc_out=enc_out,
                                 gather=None if gather is None
                                 else gather.layer,
-                                groups=experts)
+                                groups=experts, mp=mp)
         return norm(params["final_norm"], x, cfg.norm_type,
                     cfg.norm_eps), prefix_len, aux
 
@@ -178,17 +185,24 @@ class Model:
         (`gather.layer`). `experts` (the `distributed.expert.ExpertGroups`
         that `gather.rows` returns beside the rows) makes the MoE layers
         route over the whole microbatch, their experts split over "model"
-        where the banks are."""
+        where the banks are. Where `gather` splits leaves over the model
+        axis (`gather.model_axis`), each layer computes on its blocks
+        (column and row products, heads, experts) and the embedding and
+        the loss on this rank's block of the vocabulary."""
         cfg = self.cfg
+        mp = None
         if gather is not None:
             params = gather.outside(params)
+            mp = gather.model_axis
         x, prefix_len, aux = self._forward(params, batch, ctx, scales_groups,
                                            gather, experts)
         x = x[:, prefix_len:]
         labels = torch.as_tensor(batch["labels"], device=self.device)
         head = params["embed"].T if cfg.tie_embeddings \
             else params["lm_head"]
-        lm = chunked_lm_loss(head, x, labels, cfg.logit_chunk or x.shape[1])
+        lm = chunked_lm_loss(head, x, labels, cfg.logit_chunk or x.shape[1],
+                             mp if head.shape[1] != cfg.vocab_size
+                             else None)
         total = lm + LB_COEF * aux["lb_loss"] + Z_COEF * aux["z_loss"]
         return total, {"lm_loss": lm, **aux}
 

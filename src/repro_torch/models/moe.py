@@ -45,19 +45,32 @@ from repro_torch.models.common import (ModelConfig, QuantCtx, init_dense,
 from repro_torch.models.ffn import GATED
 
 
-def _expert_ffn(wg, wu, wd, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
-    """x [E, C, D]; weights [E, D, F] / [E, F, D] in any dtype."""
+def _expert_ffn(wg, wu, wd, x: torch.Tensor, mlp_type: str,
+                dtype=None) -> torch.Tensor:
+    """x [E, C, D]; weights [E, D, F] / [E, F, D] in any dtype. With
+    `dtype` (a block of F split over the model axis: x f32 holding
+    `dtype` values) every product takes the weights rounded to `dtype`
+    with an f32 result, the hidden rounded to `dtype`, and the down
+    product's f32 partial is returned."""
+    if dtype is not None:
+        def mm(a, w):
+            return torch.bmm(a, w.to(dtype).to(torch.float32)).to(dtype)
+        up, gate = mm(x, wu), mm(x, wg) if mlp_type in GATED else None
+        h = _act(gate, up, mlp_type).to(torch.float32)
+        return torch.bmm(h, wd.to(dtype).to(torch.float32))
     up = torch.bmm(x, wu.to(x.dtype))
+    gate = torch.bmm(x, wg.to(x.dtype)) if mlp_type in GATED else None
+    return torch.bmm(_act(gate, up, mlp_type), wd.to(x.dtype))
+
+
+def _act(gate, up, mlp_type: str) -> torch.Tensor:
     if mlp_type in GATED:
-        gate = torch.bmm(x, wg.to(x.dtype))
         act = F.silu(gate) if mlp_type == "swiglu" else \
             F.gelu(gate, approximate="tanh")
-        h = act * up
-    elif mlp_type == "gelu":
-        h = F.gelu(up, approximate="tanh")
-    else:
-        raise ValueError(f"unknown mlp_type {mlp_type!r}")
-    return torch.bmm(h, wd.to(x.dtype))
+        return act * up
+    if mlp_type == "gelu":
+        return F.gelu(up, approximate="tanh")
+    raise ValueError(f"unknown mlp_type {mlp_type!r}")
 
 
 def route(x2: torch.Tensor, router: torch.Tensor, K: int):
@@ -150,7 +163,9 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     ExpertGroups`; None in one process) makes x a rank's rows of the
     microbatch: routing, capacity and density are over all of them, and
     banks of E/m experts (this rank's, at `groups.model_index`) run
-    expert-parallel."""
+    expert-parallel; shared experts that arrive as blocks of F run on
+    this rank's block, their f32 partial joining the routed experts'
+    before the one sum over "model"."""
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
     N = B * T
@@ -192,16 +207,32 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     buf = xe[torch.clamp(table, min=0)] * (table >= 0)[..., None].to(x.dtype)
     out_buf = _expert_ffn(params["w_gate"], params["w_up"],
                           params["w_down"], buf, cfg.mlp_type)
+    # f32 partials summed over the model axis once: the routed experts'
+    # where the banks split, the shared experts' where their F does
+    partial = y = None
     if split:
-        y = groups.reduce_from_experts(combine(
-            out_buf, ge, expert_ids, pos, mine, e0, torch.float32)
-        ).to(out_buf.dtype)
+        partial = combine(out_buf, ge, expert_ids, pos, mine, e0,
+                          torch.float32)
     else:
         y = combine(out_buf, ge, expert_ids, pos, mine)
+    sh = None
     if cfg.n_shared_experts:
-        sh = _expert_ffn(params["sh_gate"], params["sh_up"],
-                         params["sh_down"], xt[None], cfg.mlp_type)
-        y = y + sh[0]
+        sh_split = groups is not None and params["sh_up"].shape[-1] != \
+            cfg.moe_d_ff * cfg.n_shared_experts
+        if sh_split:
+            sh_part = _expert_ffn(
+                params["sh_gate"], params["sh_up"], params["sh_down"],
+                groups.copy_to_experts(xt.to(torch.float32))[None],
+                cfg.mlp_type, x.dtype)[0]
+            partial = sh_part if partial is None else partial + sh_part
+        else:
+            sh = _expert_ffn(params["sh_gate"], params["sh_up"],
+                             params["sh_down"], xt[None], cfg.mlp_type)[0]
+    if partial is not None:
+        y_sum = groups.reduce_from_experts(partial).to(x.dtype)
+        y = y_sum if y is None else y + y_sum
+    if sh is not None:
+        y = y + sh
 
     if groups is None:
         density = torch.mean(F.one_hot(expert_ids, E).to(torch.float32),

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (ModelConfig, QuantCtx, dense,
-                                       init_dense, trunc_normal)
+                                       dense_f32, init_dense, row_sum,
+                                       trunc_normal)
 
 _C = 8.0
 
@@ -102,19 +103,45 @@ def _lru_scan(a, bx, h0, impl: str):
 
 def rglru_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 cache: Optional[RGLRUCache] = None, mode: str = "train",
-                ctx: Optional[QuantCtx] = None):
+                ctx: Optional[QuantCtx] = None, mp=None):
     """The recurrent sub-block: in-projections (x and gate branches) ->
     conv -> RG-LRU -> gated out-projection. The gates and the recurrence
     run in f32. With a cache, its state is read and then overwritten in
-    place, cast to the cache's own dtypes. Returns (out, cache)."""
-    B = x.shape[0]
-    gate = F.gelu(dense(params["w_y"], x, "rg_gate", ctx), approximate="tanh")
-    xb = dense(params["w_x"], x, "rg_in", ctx)
+    place, cast to the cache's own dtypes. Returns (out, cache).
+
+    With `mp` (training) where the leaves arrive as blocks of the width W
+    over the model axis, a rank runs its block of the channels: x enters
+    `w_y` / `w_x` through `copy_to`, the conv takes its channels, the
+    `w_a` / `w_i` products (their input rows split) are summed and
+    scattered back to its block (`reduce_scatter_to`), `lam` is sliced
+    (through `copy_to`), and `w_out`'s block sums the partial outputs."""
+    B, dt = x.shape[0], x.dtype
+    if mp is not None and params["w_x"].shape[-1] == (cfg.lru_width
+                                                      or cfg.d_model):
+        mp = None
+    if mp is None:
+        def col(name, site):
+            return dense(params[name], x, site, ctx)
+
+        def gates(name, site, xb):
+            return dense(params[name], xb, site, ctx).float()
+        lam = params["lam"].float()
+    else:
+        xf = mp.copy(x.to(torch.float32))
+
+        def col(name, site):
+            return dense_f32(params[name], xf, site, dt).to(dt)
+
+        def gates(name, site, xb):
+            return mp.reduce_scatter(dense_f32(
+                params[name], xb.to(torch.float32), site, dt)).to(dt).float()
+        lam = mp.copy(params["lam"])[mp.part(params["lam"].shape[0])].float()
+    gate = F.gelu(col("w_y", "rg_gate"), approximate="tanh")
+    xb = col("w_x", "rg_in")
     xb, conv_cache = _causal_conv(
         xb, params["conv_k"], cache.conv if cache is not None else None)
-    r = torch.sigmoid(dense(params["w_a"], xb, "rg_rgate", ctx).float())
-    i = torch.sigmoid(dense(params["w_i"], xb, "rg_igate", ctx).float())
-    lam = params["lam"].float()
+    r = torch.sigmoid(gates("w_a", "rg_rgate", xb))
+    i = torch.sigmoid(gates("w_i", "rg_igate", xb))
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax.nn.softplus
     a = torch.exp(-_C * softplus * r)
     gated_x = i * xb.float()
@@ -124,7 +151,10 @@ def rglru_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     impl = "scan" if (mode == "decode" or cfg.mixer_impl == "scan") \
         else "assoc"
     hs, h_last = _lru_scan(a, bx, h0, impl)
-    out = dense(params["w_out"], hs.to(x.dtype) * gate, "rg_out", ctx)
+    if mp is not None:
+        out = row_sum(params["w_out"], hs.to(dt) * gate, "rg_out", mp)
+    else:
+        out = dense(params["w_out"], hs.to(dt) * gate, "rg_out", ctx)
     if cache is not None:
         cache.h = h_last.to(cache.h.dtype)
         cache.conv = conv_cache.to(cache.conv.dtype)

@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (ModelConfig, QuantCtx, dense,
-                                       init_dense, trunc_normal)
+                                       dense_f32, init_dense, row_sum,
+                                       trunc_normal)
 
 LOG_DECAY_FLOOR = -5.0
 
@@ -126,27 +127,60 @@ def _wkv_chunked(r, k, v, logw, u, state0, chunk):
     return y.to(r.dtype), S.to(r.dtype)
 
 
+def _split_in(params: Dict, x: torch.Tensor, mp):
+    """(col(name, site, xs), part(v)) of a sub-block split over the model
+    axis: col the product of a column block on a token-shifted input xs
+    (computed whole, entering through `copy_to` in f32), part(v) this
+    rank's block of the last dimension of a tensor every rank holds whole
+    (a replicated vector or the decay LoRA's output), through
+    `copy_to`."""
+    def col(name, site, xs):
+        return dense_f32(params[name], mp.copy(xs.to(torch.float32)), site,
+                         x.dtype).to(x.dtype)
+
+    def part(v):
+        return mp.copy(v)[..., mp.part(v.shape[-1])]
+    return col, part
+
+
 def time_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
              cache: Optional[RWKVCache] = None, mode: str = "train",
-             ctx: Optional[QuantCtx] = None):
+             ctx: Optional[QuantCtx] = None, mp=None):
     """The time mix of normed x [B, T, D]. With a cache, its wkv state and
     tm_last are read and then overwritten in place (cast to their own
-    dtypes); cm_last is the block's to set. Returns (out, cache)."""
+    dtypes); cm_last is the block's to set. Returns (out, cache).
+
+    With `mp` (training) where `w_r`, `w_k`, `w_v`, `w_g` and `w_o`
+    arrive as blocks of the heads over the model axis, a rank runs its
+    heads: the token shifts and the decay LoRA are computed whole (as one
+    device computes them) and enter through `copy_to`, w0's LoRA sum
+    sliced to the rank's heads, u and the group norm's scale and bias too;
+    `w_o`'s block sums the partial outputs."""
     B, T, D = x.shape
     hs = cfg.head_size
-    H = D // hs
+    if mp is not None and params["w_r"].shape[-1] == D:
+        mp = None
     last = cache.tm_last if cache is not None else None
     xr = _token_shift(x, params["mu_r"], last)
     xk = _token_shift(x, params["mu_k"], last)
     xv = _token_shift(x, params["mu_v"], last)
     xw = _token_shift(x, params["mu_w"], last)
     xg = _token_shift(x, params["mu_g"], last)
-    r = _heads(dense(params["w_r"], xr, "tm_r", ctx), hs)
-    k = _heads(dense(params["w_k"], xk, "tm_k", ctx), hs)
-    v = _heads(dense(params["w_v"], xv, "tm_v", ctx), hs)
-    g = F.silu(dense(params["w_g"], xg, "tm_g", ctx))
-    logw = _heads(_log_decay(params, xw), hs)
-    u = params["u"].reshape(H, hs)
+    if mp is None:
+        def col(name, site, xs):
+            return dense(params[name], xs, site, ctx)
+
+        def part(v):
+            return v
+    else:
+        col, part = _split_in(params, x, mp)
+    r = _heads(col("w_r", "tm_r", xr), hs)
+    k = _heads(col("w_k", "tm_k", xk), hs)
+    v = _heads(col("w_v", "tm_v", xv), hs)
+    g = F.silu(col("w_g", "tm_g", xg))
+    logw = _heads(part(_log_decay(params, xw)), hs)
+    H = r.shape[2]
+    u = part(params["u"]).reshape(H, hs)
     state0 = cache.state if cache is not None else \
         torch.zeros((B, H, hs, hs), dtype=x.dtype, device=x.device)
     if mode == "decode" or cfg.mixer_impl == "scan":
@@ -159,9 +193,12 @@ def time_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     yc = yf - mean
     var = torch.mean(yc * yc, -1, keepdim=True)
     yf = yc * torch.rsqrt(var + 64e-5)
-    y = (yf.reshape(B, T, D) * params["ln_x_scale"]
-         + params["ln_x_bias"]).to(x.dtype)
-    out = dense(params["w_o"], y * g, "tm_out", ctx)
+    y = (yf.reshape(B, T, H * hs) * part(params["ln_x_scale"])
+         + part(params["ln_x_bias"])).to(x.dtype)
+    if mp is not None:
+        out = row_sum(params["w_o"], y * g, "tm_out", mp)
+    else:
+        out = dense(params["w_o"], y * g, "tm_out", ctx)
     if cache is not None:
         cache.state = state.to(cache.state.dtype)
         cache.tm_last = x[:, -1].to(cache.tm_last.dtype)
@@ -170,13 +207,30 @@ def time_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 def channel_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                 last: Optional[torch.Tensor] = None,
-                ctx: Optional[QuantCtx] = None) -> torch.Tensor:
+                ctx: Optional[QuantCtx] = None, mp=None) -> torch.Tensor:
+    """The channel mix of normed x. With `mp` (training) where `w_ck` and
+    `w_cv` arrive as blocks of d_ff over the model axis, a rank's column
+    and row products on its block (the token-shifted input through
+    `copy_to`); where `w_cr` arrives as a block of its columns, the gate
+    r, which multiplies the summed output, is gathered whole
+    (`gather_from`)."""
     xk = _token_shift(x, params["mu_ck"], last)
     xr = _token_shift(x, params["mu_cr"], last)
-    k = torch.square(torch.relu(dense(params["w_ck"], xk, "cm_k", ctx)))
-    r = torch.sigmoid(dense(params["w_cr"], xr, "cm_r", ctx))
-    # k is post-ReLU^2: a genuinely sparse input to cm_v
-    return r * dense(params["w_cv"], k, "cm_v", ctx)
+    split_k = mp is not None and params["w_ck"].shape[-1] != cfg.d_ff
+    split_r = mp is not None and params["w_cr"].shape[-1] != cfg.d_model
+    col = _split_in(params, x, mp)[0] if mp is not None else None
+    if split_k:
+        k = torch.square(torch.relu(col("w_ck", "cm_k", xk)))
+        out = row_sum(params["w_cv"], k, "cm_v", mp)
+    else:
+        k = torch.square(torch.relu(dense(params["w_ck"], xk, "cm_k", ctx)))
+        # k is post-ReLU^2: a genuinely sparse input to cm_v
+        out = dense(params["w_cv"], k, "cm_v", ctx)
+    if split_r:
+        r = mp.gather(torch.sigmoid(col("w_cr", "cm_r", xr)))
+    else:
+        r = torch.sigmoid(dense(params["w_cr"], xr, "cm_r", ctx))
+    return r * out
 
 
 def rwkv_block_init(gen: torch.Generator, cfg: ModelConfig, device,

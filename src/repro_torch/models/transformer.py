@@ -28,7 +28,8 @@ from repro_torch.models import rglru as rg_mod
 from repro_torch.models import rwkv6 as rwkv_mod
 from repro_torch.models.cache import (CacheConfig, CacheStore, DecCache,
                                       RingKVCache)
-from repro_torch.models.common import ModelConfig, QuantCtx, norm, norm_init
+from repro_torch.models.common import (ModelConfig, QuantCtx, norm,
+                                       norm_init, row_sum)
 from repro_torch.models.quantize import as_weight
 
 MLA_KINDS = ("mla_dense", "mla_moe")
@@ -151,22 +152,36 @@ def _rg_attention(params: Dict, h: torch.Tensor, cfg: ModelConfig, *,
     return _float_out(params, o, h.dtype), cache
 
 
-def _float_out(params: Dict, o: torch.Tensor, dtype) -> torch.Tensor:
+def _float_out(params: Dict, o: torch.Tensor, dtype,
+               mp=None) -> torch.Tensor:
     """An attention output [B, T, H, hd] through `wo` as a float product
-    of the dequantized weight, not `dense` (no K1, no calibrated site)."""
-    return torch.matmul(o.reshape(*o.shape[:2], -1),
-                        as_weight(params["wo"], dtype))
+    of the dequantized weight, not `dense` (no K1, no calibrated site);
+    with `mp` (heads split over the model axis) the row product's sum."""
+    o = o.reshape(*o.shape[:2], -1)
+    if mp is not None:
+        return row_sum(params["wo"], o.to(dtype), "attn_out", mp)
+    return torch.matmul(o, as_weight(params["wo"], dtype))
 
 
 def _cross_attention(params: Dict, h: torch.Tensor, cfg: ModelConfig, *,
-                     cache: Optional[DecCache], mode: str, enc_out):
+                     cache: Optional[DecCache], mode: str, enc_out,
+                     mp=None):
     """A "dec" layer's cross attention, every product in float (the
     reference's cross attention never reaches `dense`). K/V come from
     `enc_out` in mode train or whenever it is given (and are kept in the
     cache), else from the cache; at decode the query attends through
     `decode_attention` over fp planes holding the encoder's T_enc rows
     (`CacheStore.from_kv`, plain torch), otherwise through the
-    bidirectional flash attention."""
+    bidirectional flash attention. With `mp` (training, heads split over
+    the model axis) a rank attends with its heads, `enc_out` entering
+    through `copy_to` (`attention.split_proj`)."""
+    mp = attn_mod.heads_on(params, cfg, mp)
+    if mp is not None:
+        q, ck, cv = attn_mod.split_proj(params, h, enc_out, cfg, mp)
+        o = attn_mod.flash_attention(q, ck, cv, causal=False,
+                                     q_chunk=cfg.attn_chunk,
+                                     kv_chunk=cfg.attn_chunk)
+        return _float_out(params, o, h.dtype, mp)
     if mode == "train" or enc_out is not None:
         ck = attn_mod._split_heads(torch.matmul(
             enc_out, as_weight(params["wk"], h.dtype)), cfg.n_kv_heads)
@@ -192,7 +207,7 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
                 positions: torch.Tensor, cache=None, mode: str = "train",
                 ctx: Optional[QuantCtx] = None, prefix_len: int = 0,
                 enc_out: Optional[torch.Tensor] = None, chunk=None,
-                groups=None):
+                groups=None, mp=None):
     """Pre-norm residual block. Returns (x, cache, aux): aux holds an MoE
     layer's {"lb_loss", "z_loss"} and is empty for a dense layer. A GQA
     MoE layer's capacity is exact in decode and chunked prefill (a chunk
@@ -204,23 +219,28 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     the encoder's output a "dec" layer attends to. An "enc" layer
     attends both ways and projects its output in float, as the
     reference's. `groups` (sharded training's `distributed.expert.
-    ExpertGroups`) reaches an MoE layer's `moe_apply`."""
+    ExpertGroups`) reaches an MoE layer's `moe_apply`; `mp` (its
+    `distributed.tensor.ModelAxis`, mode train only) makes each sub-
+    block whose leaves arrive as model blocks compute on them: the
+    normed input enters through `copy_to`, the row product's f32
+    partials leave through `reduce_from`."""
     _check_kind(kind)
     nt, eps = cfg.norm_type, cfg.norm_eps
     h = norm(params["ln1"], x, nt, eps)
     if kind == "rwkv":
         cm_last = cache.cm_last if cache is not None else None
         o, cache = rwkv_mod.time_mix(params, h, cfg, cache=cache, mode=mode,
-                                     ctx=ctx)
+                                     ctx=ctx, mp=mp)
         x = x + o.to(x.dtype)
         h = norm(params["ln2"], x, nt, eps)
-        o = rwkv_mod.channel_mix(params, h, cfg, last=cm_last, ctx=ctx)
+        o = rwkv_mod.channel_mix(params, h, cfg, last=cm_last, ctx=ctx,
+                                 mp=mp)
         if cache is not None:
             cache.cm_last = h[:, -1].to(cache.cm_last.dtype)
         return x + o.to(x.dtype), cache, {}
     if kind == "rg_rec":
         o, cache = rg_mod.rglru_block(params["rec"], h, cfg, cache=cache,
-                                      mode=mode, ctx=ctx)
+                                      mode=mode, ctx=ctx, mp=mp)
     elif kind == "rg_attn" and mode in ("prefill", "decode"):
         o, cache = _rg_attention(params["attn"], h, cfg,
                                  positions=positions, cache=cache, mode=mode,
@@ -228,26 +248,26 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     elif kind in MLA_KINDS:
         o, cache = mla_mod.mla_block(params["attn"], h, cfg,
                                      positions=positions, cache=cache,
-                                     mode=mode, ctx=ctx)
+                                     mode=mode, ctx=ctx, mp=mp)
     elif kind == "enc" and mode != "decode":
         o = _float_out(params["attn"], attn_mod.flash_attention(
-            *attn_mod.qkv_proj(params["attn"], h, cfg, positions, ctx),
+            *attn_mod.qkv_proj(params["attn"], h, cfg, positions, ctx, mp),
             causal=False, q_chunk=cfg.attn_chunk, kv_chunk=cfg.attn_chunk),
-            x.dtype)
+            x.dtype, attn_mod.heads_on(params["attn"], cfg, mp))
     elif kind == "dec":
         o, _ = attn_mod.attention_block(
             params["attn"], h, cfg, positions=positions,
             cache=cache.self_kv if cache is not None else None, mode=mode,
-            ctx=ctx)
+            ctx=ctx, mp=mp)
         x = x + o.to(x.dtype)
         h = norm(params["ln_x"], x, nt, eps)
         o = _cross_attention(params["xattn"], h, cfg, cache=cache,
-                             mode=mode, enc_out=enc_out)
+                             mode=mode, enc_out=enc_out, mp=mp)
     else:
         o, cache = attn_mod.attention_block(
             params["attn"], h, cfg, positions=positions, cache=cache,
             mode=mode, ctx=ctx, chunk=chunk, prefix_len=prefix_len,
-            window=cfg.local_window if kind == "rg_attn" else 0)
+            window=cfg.local_window if kind == "rg_attn" else 0, mp=mp)
     x = x + o.to(x.dtype)
     h = norm(params["ln2"], x, nt, eps)
     aux = {}
@@ -257,7 +277,9 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
         o, aux = moe_mod.moe_apply(params["moe"], h, cfg, ctx,
                                    exact_capacity=exact, groups=groups)
     else:
-        o = ffn_mod.ffn_apply(params["ffn"], h, _mlp(cfg, kind), ctx)
+        o = ffn_mod.ffn_apply(params["ffn"], h, _mlp(cfg, kind), ctx,
+                              mp if mp is not None and params["ffn"][
+                                  "w_down"].shape[0] != cfg.d_ff else None)
     return x + o.to(x.dtype), cache, aux
 
 
@@ -396,14 +418,15 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
                 ctx: Optional[QuantCtx] = None,
                 scales_groups: Optional[list] = None, prefix_len: int = 0,
                 enc_out: Optional[torch.Tensor] = None, chunk=None,
-                gather: Optional[Callable] = None, groups=None):
+                gather: Optional[Callable] = None, groups=None, mp=None):
     """Apply every layer in order. `caches` is the flat per-layer list of
     cache stores (written in place); `scales_groups[g][site]` holds the
     group's per-layer calibrated spans; `prefix_len` and `enc_out` reach
     every layer (`block_apply`). `gather(g, layer)` turns a layer's blocks
     (group g) into whole weights inside the remat body, so the backward's
     recompute gathers again instead of keeping every layer's weights;
-    `groups` places a rank's rows and experts for the MoE layers.
+    `groups` places a rank's rows and experts for the MoE layers, and
+    `mp` its place on the model axis for the split products.
     Returns (x, aux): the layers' "lb_loss" and "z_loss" summed in layer
     order (f32 zeros for a dense stack)."""
     remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
@@ -427,7 +450,7 @@ def stack_apply(groups_meta: list, blocks: list, x: torch.Tensor,
                                         mode=mode, ctx=bctx,
                                         prefix_len=prefix_len,
                                         enc_out=enc_out, chunk=chunk,
-                                        groups=groups)
+                                        groups=groups, mp=mp)
                 return x, aux.get("lb_loss"), aux.get("z_loss")
             if remat:
                 x, lb_l, zl_l = torch.utils.checkpoint.checkpoint(

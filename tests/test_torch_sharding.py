@@ -219,3 +219,83 @@ def test_shard_tree_covers_every_element_once():
     assert owners == {"embed": 4, "blocks/0/attn/wq": 4,
                       "final_norm/scale": 1}
 
+
+
+# the leaves whose products split together over the model axis (a column
+# leaf and the row leaf that consumes its output), by the last name on
+# their path
+SPLIT_TOGETHER = ({"wq", "wo", "w_uk", "w_uv"}, {"wk", "wv"},
+                  {"w_up", "w_gate", "w_down"}, {"sh_up", "sh_gate",
+                                                 "sh_down"},
+                  {"w_r", "w_k", "w_v", "w_g", "w_o"}, {"w_ck", "w_cv"},
+                  {"w_x", "w_y", "w_a", "w_i", "conv_k", "w_out"})
+
+
+def _head_width(cfg, name):
+    """The width of one head along a head-split leaf's model dimension."""
+    if cfg.kv_lora_rank:
+        return {"wq": cfg.qk_nope_dim + cfg.qk_rope_dim,
+                "w_uk": cfg.qk_nope_dim, "w_uv": cfg.v_head_dim,
+                "wo": cfg.v_head_dim}.get(name)
+    if cfg.family == "rwkv6":
+        return cfg.head_size if name in ("w_r", "w_k", "w_v", "w_g",
+                                         "w_o") else None
+    return cfg.head_dim if name in ("wq", "wk", "wv", "wo") else None
+
+
+@pytest.mark.parametrize("m", [2, 16])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_model_split_rule(arch, m):
+    """`model_split` on every published config's leaves (shapes from the
+    meta device) at a model axis of 2 and 16: a split leaf keeps "model"
+    in its fitted spec and its block ends on a head boundary (no split
+    inside a head, the reference's `constrain_heads` rule), k / v split
+    only with the KV heads; a column leaf and its row leaf split together
+    within a layer. MQA's k / v (granite-20b, paligemma-3b,
+    recurrentgemma-9b) and whisper's 51865-row vocabulary stay whole;
+    tinyllama at 16 splits q (32 heads) but not k / v (4 KV heads); the
+    routed expert banks split on E."""
+    cfg = tget_config(arch)
+    mesh = _mesh(data=2, model=m)
+    meta = TModel(cfg, device="meta").init_params(dtype=torch.float32)
+    specs = tshd.param_pspecs(meta, mesh)
+    split = {}
+    for path, leaf in T.flatten_with_path(meta):
+        key = T.path_key(path)
+        spec = specs[key]
+        split[key] = tshd.model_split(path, spec, cfg, m)
+        if not split[key]:
+            continue
+        d = spec.index(tshd.TP)
+        part = leaf.shape[d] // m
+        assert part * m == leaf.shape[d], key
+        width = _head_width(cfg, path[-1])
+        if width is not None:
+            assert part % width == 0, (key, part, width)
+        if path[-1] in ("wk", "wv"):
+            assert cfg.n_kv_heads % m == 0, key
+    layers = {}
+    for key, s in split.items():
+        *prefix, name = key.split("/")
+        for group in SPLIT_TOGETHER:
+            if name in group:
+                layers.setdefault(("/".join(prefix), min(group)),
+                                  set()).add(s)
+    assert all(len(v) == 1 for v in layers.values()), layers
+
+    def keys(name):
+        return [k for k in split if k.split("/")[-1] == name]
+    if cfg.n_kv_heads == 1:
+        assert keys("wk") and not any(split[k] for k in keys("wk") +
+                                      keys("wv")), arch
+    if arch == "whisper-base":
+        assert not split["embed"]
+    if arch == "tinyllama-1.1b" and m == 16:
+        assert all(split[k] for k in keys("wq"))
+        assert not any(split[k] for k in keys("wk") + keys("wv"))
+    if arch == "granite-20b":
+        # fit_spec alone keeps "model" on wk [6144, 128]: inside its head
+        assert all(tshd.TP in specs[k] for k in keys("wk"))
+    if cfg.n_experts and cfg.n_experts % m == 0:
+        banks = [k for k in split if "/moe/w_" in k]
+        assert banks and all(split[k] for k in banks), arch
