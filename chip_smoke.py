@@ -276,7 +276,11 @@ Phases (each one that fails makes the script exit non-zero):
               step within DEPTH_TOL; ranks equal; each rank's peak below the
               one-device peak (S2_22: the train phase's); no kernel
               launched; the MoE model's smallest routing margin logged;
-              over NCCL across 2 (4) cards where the host has them
+              S2's and E1's state a rank (`memory_allocated` before the
+              first step) against the dry run's bytes
+              (`launch.dryrun.train_state_bytes`) within the allocator's
+              rounding (`_allocator_slack`), both logged; over NCCL across 2 (4) cards where
+              the host has them
   cnn_train   the CNN float trainer (`launch/cnn_train.py`): train_cnn()
               and train_cnn(prune_2_4=True) on the card; float top-1 >
               0.85 and pruned > 0.80 at stage-0 w1 sparsity 0.5 (the
@@ -4879,6 +4883,50 @@ def _hold_sharded(name, recs, want, peak_limit, tol, first=0):
                 tokens_s=8 * 128 / (ms / 1e3), peak_gb=peaks), launches
 
 
+# the allocator's rounding: PyTorch's CUDA caching allocator gives a
+# tensor of at most 1 MiB a block of a multiple of 512 bytes, and a larger
+# one a block that may keep the unsplit rest of its segment, under 1 MiB
+# more (a block splits only where more than 1 MiB would remain). So a
+# rank's state on the card lies between the dry run's count of it and
+# that count plus 512 B a small tensor and 1 MiB a large one (S2 on an
+# H100 80GB HBM3: 3 MiB + 508 B over the count, three large blocks and
+# the 4-byte step count).
+STATE_ROUND = 512
+
+
+def _allocator_slack(nbytes: int) -> int:
+    return STATE_ROUND if nbytes <= 2 ** 20 else 2 ** 20
+
+
+def _hold_state_bytes(name, recs, arch, layers, dims):
+    """Each rank's state on the card (its record's `state_gb`: allocated
+    memory once params, m and v exist, before the first step) against
+    `launch.dryrun.train_state_bytes` for the same config, mesh and f32
+    masters, which needs no process group, within the allocator's
+    rounding of each block. Logs both; returns the row."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+    cfg = get_config(arch).replace(n_layers=layers)
+    mesh = dryrun.layout_of(dims)
+    want = dryrun.train_state_bytes(cfg, mesh, True, torch.float32)["total"]
+    shapes = Model(cfg, device="meta").init_params(dtype=torch.float32)
+    specs = shd.param_pspecs(shapes, mesh)
+    slack = STATE_ROUND + 3 * sum(      # the step count; params, m, v
+        _allocator_slack(shd.block_bytes(leaf, specs[T.path_key(p)], mesh))
+        for p, leaf in T.flatten_with_path(shapes))
+    got = [round(r[0]["state_gb"] * 2 ** 30) for r in recs]
+    log(f"train_sharded {name} state a rank: card {got} bytes "
+        f"(memory_allocated before the first step), dry run {want} bytes, "
+        f"allowed above it {slack} (the allocator's rounding)")
+    if not all(want <= g <= want + slack for g in got):
+        raise AssertionError(f"train_sharded {name}: state {got} bytes a "
+                             f"rank vs the dry run's {want} (+{slack})")
+    return {"card_bytes": got, "dry_run_bytes": want, "slack": slack}
+
+
 def _one_device_runs(restore=None, arch="tinyllama-1.1b",
                      steps=SHARDED_STEPS,
                      kinds=(("plain", []), ("compressed",
@@ -5003,6 +5051,7 @@ def train_sharded(dev, results):
         rows[name], launched = _hold_sharded(name, recs, ref,
                                              ref["peak_gb"], tol)
         rows[name]["seconds"] = secs
+        rows[name]["recs"] = recs
         rows[name]["mesh"] = [line for line in out.splitlines()
                               if line.startswith("mesh ")]
         for k, n in launched.items():
@@ -5052,6 +5101,9 @@ def train_sharded(dev, results):
             launch("R1")
             collect("S1", one["compressed"], SHARDED_TOL)
             collect("S2", one["plain"], SHARDED_TOL)
+            rows["S2"]["state"] = _hold_state_bytes(
+                "S2", rows["S2"]["recs"], "tinyllama-1.1b", SHARDED_LAYERS,
+                (1, 2))
             shutil.copytree(f"{tmp}/S2_ckpt/step_00000002",
                             f"{tmp}/S3_ckpt/step_00000002")
             (recs, secs), c3 = _drive(lambda: _one_device_runs(
@@ -5067,6 +5119,9 @@ def train_sharded(dev, results):
             launch("E1")
             collect("E2", moe_one, SHARDED_TOL)
             collect("E1", moe_one, SHARDED_TOL)
+            rows["E1"]["state"] = _hold_state_bytes(
+                "E1", rows["E1"]["recs"], MOE_SHARDED_ARCH, SHARDED_LAYERS,
+                (1, 2))
         finally:
             for run in live.values():
                 _stop_ranks(run)

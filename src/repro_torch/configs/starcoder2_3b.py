@@ -9,7 +9,8 @@ def config() -> ModelConfig:
         name="starcoder2-3b", family="dense", n_layers=30, d_model=3072,
         n_heads=24, n_kv_heads=2, d_ff=12288, vocab_size=49152,
         mlp_type="gelu", norm_type="layernorm", rope_theta=1e5,
-        tie_embeddings=True, logit_chunk=512, train_microbatches=1)
+        tie_embeddings=True, logit_chunk=512, train_microbatches=1,
+        tensor_parallel=False)
 
 
 def reduced() -> ModelConfig:

@@ -8,7 +8,7 @@ def config() -> ModelConfig:
         name="tinyllama-1.1b", family="dense", n_layers=22, d_model=2048,
         n_heads=32, n_kv_heads=4, d_ff=5632, vocab_size=32000,
         mlp_type="swiglu", norm_type="rmsnorm", tie_embeddings=False,
-        logit_chunk=512)
+        logit_chunk=512, tensor_parallel=False)
 
 
 def reduced() -> ModelConfig:

@@ -10,7 +10,8 @@ def config() -> ModelConfig:
         name="whisper-base", family="encdec", n_layers=6, n_enc_layers=6,
         d_model=512, n_heads=8, n_kv_heads=8, d_ff=2048, vocab_size=51865,
         mlp_type="gelu", norm_type="layernorm", use_rope=False,
-        frontend="audio", tie_embeddings=True, logit_chunk=512)
+        frontend="audio", tie_embeddings=True, logit_chunk=512,
+        tensor_parallel=False)
 
 
 def reduced() -> ModelConfig:

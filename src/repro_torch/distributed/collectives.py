@@ -23,6 +23,7 @@ import torch
 from repro_torch import tree as T
 from repro_torch.core.bsparq import bsparq_recon_signed, shifts_for
 from repro_torch.core.quantizer import div_qmax
+from repro_torch.distributed import comm
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,14 +95,13 @@ class GradCompressor:
 
 
 def hierarchical_psum(x: torch.Tensor, mesh, pod_axis: str = "pod",
-                      data_axis: str = "data") -> torch.Tensor:
+                      data_axis: str = "data", site: str = "grads"
+                      ) -> torch.Tensor:
     """Σ of `x` over the data group, then the pod group (two hops, the
     first inside a pod); returns a new tensor."""
-    import torch.distributed as dist
     y = x.clone()
-    dist.all_reduce(y, group=mesh.group(data_axis))
-    dist.all_reduce(y, group=mesh.group(pod_axis))
-    return y
+    comm.all_reduce(y, mesh.group(data_axis), site=site)
+    return comm.all_reduce(y, mesh.group(pod_axis), site=site)
 
 
 def compressed_psum(x: torch.Tensor, mesh, axis: str,
@@ -109,7 +109,5 @@ def compressed_psum(x: torch.Tensor, mesh, axis: str,
     """Σ over `axis` of each rank's `sparq_compress(x)`: the quantization
     happens before the wire, and the fake-quant reconstruction keeps the
     decoded values' arithmetic exact."""
-    import torch.distributed as dist
-    y = sparq_compress(x, bits)
-    dist.all_reduce(y, group=mesh.group(axis))
-    return y
+    return comm.all_reduce(sparq_compress(x, bits), mesh.group(axis),
+                           site="grads")

@@ -27,8 +27,11 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import TP
 from repro_torch.distributed.tensor import copy_to, reduce_from
+
+EXPERTS = "experts"           # the counting site of the expert path
 
 __all__ = ["ExpertGroups", "copy_to", "reduce_from"]
 
@@ -53,20 +56,16 @@ class ExpertGroups:
         this rank's, and of all of them. Every rank calls it, in the same
         order; the blocks are gathered an axis at a time, minor to
         major, as `unshard_leaf` lays them."""
-        import torch.distributed as dist
         x = local.reshape(1, -1)
         for a in reversed(self.row_axes):
-            n = self.mesh.shape[a]
-            if n == 1:
+            if self.mesh.shape[a] == 1:
                 continue
-            x = x.contiguous()
-            parts = [torch.empty_like(x) for _ in range(n)]
-            dist.all_gather(parts, x, group=self.mesh.group(a))
-            x = torch.cat(parts, 0)
+            x = torch.cat(comm.all_gather(x.contiguous(), self.mesh.group(a),
+                                          site=EXPERTS), 0)
         return torch.sum(x[:self.row_index], 0), torch.sum(x, 0)
 
     def copy_to_experts(self, x: torch.Tensor) -> torch.Tensor:
-        return copy_to(x, self.mesh.group(TP))
+        return copy_to(x, self.mesh.group(TP), EXPERTS)
 
     def reduce_from_experts(self, x: torch.Tensor) -> torch.Tensor:
-        return reduce_from(x, self.mesh.group(TP))
+        return reduce_from(x, self.mesh.group(TP), EXPERTS)

@@ -27,7 +27,13 @@ the dp size (a rank's loss is the mean over its rows), summed over
 "data", then "pod", as `hierarchical_psum` sums; a leaf whose dp entry
 `fit_spec` dropped takes the all-reduce mean whole.
 
-Every rank runs the same collectives in the same order: the gathers and
+With `tensor_parallel=False` (the reference's ZeRO-DP layout, which its
+dry run takes for a small model's train cell) the model axis joins the
+dp group: every leaf is made whole over every axis, no product splits,
+and a rank's rows are its block of the batch over all the axes.
+
+Every collective goes through `distributed.comm` (the dry run counts
+their bytes there). Every rank runs the same collectives in the same order: the gathers and
 the model axis's sums follow the model's code, which never branches on
 the data, and a leaf that does not reach the loss still joins the
 reductions after the backward (the norm, the compressor's scale).
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed import comm
 from repro_torch.distributed.collectives import hierarchical_psum
 from repro_torch.distributed.expert import ExpertGroups
 from repro_torch.distributed.sharding import (TP, Spec, batch_pspecs,
@@ -70,25 +77,33 @@ class FSDP:
     """The gathers and reductions of a sharded train step. `specs` maps
     each parameter's key (`tree.path_key`) to its spec, as `param_pspecs`
     gives them for the whole leaves; `model_split` chooses, from the
-    model's config `cfg`, the leaves computed on their model block."""
+    model's config `cfg`, the leaves computed on their model block.
+    `tensor_parallel=False` is the ZeRO-DP layout (`specs` then from
+    `param_pspecs(..., tensor_parallel=False)`): dp is every axis and
+    nothing splits over "model"."""
 
-    def __init__(self, mesh, specs: Dict[str, Spec], cfg):
+    def __init__(self, mesh, specs: Dict[str, Spec], cfg,
+                 tensor_parallel: bool = True):
         self.mesh, self.specs = mesh, specs
-        self.dp = dp_axes(mesh)
+        self.tensor_parallel = tensor_parallel
+        self.dp = dp_axes(mesh, tensor_parallel)
         self.dp_size = math.prod(mesh.shape[a] for a in self.dp)
         self._experts: Dict[Tuple[str, ...], ExpertGroups] = {}
-        m = mesh.shape.get(TP, 1)
+        m = mesh.shape.get(TP, 1) if tensor_parallel else 1
         self.model_axis = ModelAxis(mesh) if m > 1 else None
         self.split: Dict[str, bool] = {}
+        # stacked leaves whose spec shards the layer axis (the ZeRO rules
+        # put dp on a stacked leaf's first dimension, which `fit_spec`
+        # keeps where the layer count divides): made whole once a step
+        # with the leaves outside the layers, not a layer at a time
+        self.stack_whole: Dict[str, bool] = {}
         for key, spec in specs.items():
             axes = [a for e in spec for a in entry_axes(e)]
             if len(axes) != len(set(axes)):
                 raise NotImplementedError(
                     f"{key}: spec {spec} names an axis twice")
-            if key.startswith("blocks/") and spec and spec[0] is not None:
-                raise NotImplementedError(
-                    f"{key}: spec {spec} shards the layer axis, which the "
-                    f"per-layer gather does not take")
+            self.stack_whole[key] = key.startswith("blocks/") and \
+                bool(spec) and spec[0] is not None
             for e in spec:
                 if len({a in self.dp for a in entry_axes(e)}) > 1:
                     raise NotImplementedError(
@@ -105,22 +120,27 @@ class FSDP:
 
     def outside(self, params: Dict) -> Dict:
         """`params` with every leaf outside "blocks" made whole (over the
-        dp axes only where it computes on its model block)."""
-        return T.unflatten(params, [
-            leaf if path[0] == "blocks" else
-            self._gather(T.path_key(path), leaf,
-                         self.specs[T.path_key(path)])
-            for path, leaf in T.flatten_with_path(params)])
+        dp axes only where it computes on its model block), and every
+        stacked leaf sharded on its layer axis."""
+        out = []
+        for path, leaf in T.flatten_with_path(params):
+            key = T.path_key(path)
+            out.append(leaf if path[0] == "blocks"
+                       and not self.stack_whole[key]
+                       else self._gather(key, leaf, self.specs[key]))
+        return T.unflatten(params, out)
 
     def layer(self, gi: int, p_l: Any) -> Any:
         """Layer blocks of stack group `gi` (views of its [L, ...] blocks)
         made whole under a stacked leaf's spec less its layer entry, over
         the dp axes only where the leaf computes on its model block (a
-        routed expert bank keeps this rank's E/m experts)."""
+        routed expert bank keeps this rank's E/m experts); a leaf made whole
+        in `outside` passes as it is."""
         out = []
         for path, leaf in T.flatten_with_path(p_l):
             key = T.path_key(("blocks", gi) + path)
-            out.append(self._gather(key, leaf, self.specs[key][1:]))
+            out.append(leaf if self.stack_whole[key] else
+                       self._gather(key, leaf, self.specs[key][1:]))
         return T.unflatten(p_l, out)
 
     def block_grad(self, g: torch.Tensor, spec: Spec) -> torch.Tensor:
@@ -129,7 +149,6 @@ class FSDP:
         then the dp block of the sum over the dp group (reduce-scattered
         over "data", then "pod"; all-reduced over an axis the spec does
         not split on), divided by the dp size."""
-        import torch.distributed as dist
         dp = set(self.dp)
         outer = tuple(tuple(a for a in entry_axes(e) if a not in dp)
                       for e in spec)
@@ -148,14 +167,14 @@ class FSDP:
         for a in reversed(self.dp):
             group = self.mesh.group(a)
             if a not in axes:
-                x = x.contiguous().clone()
-                dist.all_reduce(x, group=group)
+                x = comm.all_reduce(x.contiguous().clone(), group,
+                                    site="grads")
                 continue
             k = d + axes.index(a)
             y = x.movedim(k, 0).contiguous()
             out = torch.empty((1,) + tuple(y.shape[1:]), dtype=y.dtype,
                               device=y.device)
-            dist.reduce_scatter_tensor(out, y, group=group)
+            comm.reduce_scatter(out, y, group, site="grads")
             x = out.movedim(0, k)
             axes.pop(axes.index(a))
             x = x.reshape(x.shape[:k] + x.shape[k + 1:])
@@ -170,7 +189,7 @@ class FSDP:
         """This rank's rows of a batch, under `batch_pspecs`, and its place
         among the blocks of those rows (the `ExpertGroups` that
         `Model.loss(experts=)` hands the MoE layers)."""
-        specs = batch_pspecs(batch, self.mesh)
+        specs = batch_pspecs(batch, self.mesh, self.tensor_parallel)
         axes = entry_axes(specs["tokens"][0])
         if axes not in self._experts:
             self._experts[axes] = ExpertGroups(self.mesh, axes)
@@ -178,38 +197,37 @@ class FSDP:
                  for k, v in batch.items()}, self._experts[axes])
 
     # ------------------------------------------------------------ sums
-    def dp_mean(self, x: torch.Tensor) -> torch.Tensor:
+    def dp_mean(self, x: torch.Tensor, site: str = "grads") -> torch.Tensor:
         """The mean over the dp group, ("data",) or ("pod", "data")
-        (through `hierarchical_psum`); a new tensor."""
-        import torch.distributed as dist
+        (through `hierarchical_psum`), or every axis under ZeRO-DP; a new
+        tensor."""
         if self.dp_size == 1:
             return x
-        if "pod" in self.dp:
-            y = hierarchical_psum(x.contiguous(), self.mesh)
+        if len(self.dp) == len(self.mesh.axis_names):
+            y = comm.all_reduce(x.contiguous().clone(), None, site=site)
+        elif "pod" in self.dp:
+            y = hierarchical_psum(x.contiguous(), self.mesh, site=site)
         else:
-            y = x.contiguous().clone()
-            dist.all_reduce(y, group=self.mesh.group("data"))
+            y = comm.all_reduce(x.contiguous().clone(),
+                                self.mesh.group("data"), site=site)
         return y / torch.tensor(float(self.dp_size), dtype=y.dtype,
                                 device=y.device)
 
     def sq_norm(self, grads: Any) -> torch.Tensor:
         """Σ g² over the whole leaves (each block counted once over the
         mesh), equal on every rank."""
-        import torch.distributed as dist
         dev = self.mesh.device
         total = torch.zeros((), dtype=torch.float32, device=dev)
         for path, g in T.flatten_with_path(grads):
             if owns_block(self.specs[T.path_key(path)], self.mesh):
                 total = total + torch.sum(g.to(torch.float32) ** 2)
-        dist.all_reduce(total)
-        return total
+        return comm.all_reduce(total, None, site="metrics")
 
     def amax(self, local: torch.Tensor) -> torch.Tensor:
         """Elementwise max over the mesh."""
         import torch.distributed as dist
-        out = local.clone()
-        dist.all_reduce(out, op=dist.ReduceOp.MAX)
-        return out
+        return comm.all_reduce(local.clone(), None, site="metrics",
+                               op=dist.ReduceOp.MAX)
 
     def numels(self, tree: Any) -> List[int]:
         """The whole leaves' sizes, in leaf order, from the blocks."""

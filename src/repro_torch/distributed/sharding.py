@@ -17,7 +17,9 @@ the blocks of its group. `model_split` says which leaves a train step
 computes on their block over the model axis (Megatron's column and row
 products, heads, the vocabulary) and which it makes whole: the rule of
 the reference's `constrain_heads`, which never splits inside a head, in
-place of that GSPMD hint. `cache_pspecs` waits for the dry run.
+place of that GSPMD hint. `cache_pspecs` places the decode caches (the
+dry run's serving cells): the reference's rule on the port's per-layer
+caches, whose leaves lack the reference's stacked layer axis.
 
 **Serving (tensor-parallel paged cache).** GQA heads are KV-major (query
 head h serves KV head h // G), so sharding the pools' KV axis `tp` ways
@@ -29,8 +31,9 @@ shard's bytes. The per-slot scales, block table and positions are global
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -209,6 +212,67 @@ def batch_pspecs(batch: Dict[str, Any], mesh, tensor_parallel: bool = True
             for k, v in batch.items()}
 
 
+def cache_leaves(caches: Any) -> List[Tuple[tuple, torch.Tensor]]:
+    """[(path, tensor)] of a list of layer caches (`Model.init_cache`): the
+    layer's index, then the dataclass field names down to each tensor, in
+    field order; None and fields that are not tensors (a plane's layout,
+    codec, tile) hold no leaf, as in the reference's pytree."""
+    out: List[Tuple[tuple, torch.Tensor]] = []
+
+    def walk(node, path):
+        if torch.is_tensor(node):
+            out.append((path, node))
+        elif dataclasses.is_dataclass(node):
+            for f in dataclasses.fields(node):
+                walk(getattr(node, f.name), path + (f.name,))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, path + (i,))
+    walk(list(caches), ())
+    return out
+
+
+def cache_pspecs(caches: Any, model, mesh, tensor_parallel: bool = True
+                 ) -> Dict[str, Spec]:
+    """{leaf key: spec} of the decode caches (`cache_leaves`, keys joined
+    as `tree.path_key`): the reference's rule, whose leaves carry a
+    leading stacked layer axis left whole, so a port leaf's spec is the
+    reference's without its first entry. Batch (dim 0) over dp; with
+    tensor parallelism a KV time axis (dim 1 of [B, T, KV, hd] or MLA's
+    [B, T, r]) over the model axis, flash-decoding style, falling back to
+    the last dim (a recurrent state's width), then batch only, where the
+    axis does not divide; 0-d positions replicated. `model` is unused,
+    as in the reference."""
+    dp = dp_axes(mesh, tensor_parallel)
+
+    def spec_for(shape: tuple) -> Spec:
+        nd = len(shape)
+        if nd == 0:               # per-layer scalars (pos counters)
+            return ()
+        entries: list = [None] * nd
+        entries[0] = dp
+        if tensor_parallel and nd >= 3:
+            entries[1] = TP                       # sequence axis
+            spec = fit_spec(shape, tuple(entries), mesh)
+            if spec[1] is not None:
+                return spec
+            entries[1] = None
+        if tensor_parallel and nd >= 2:
+            entries[-1] = TP                      # state width fallback
+        return fit_spec(shape, tuple(entries), mesh)
+
+    return {T.path_key(path): spec_for(tuple(leaf.shape))
+            for path, leaf in cache_leaves(caches)}
+
+
+def block_bytes(leaf: torch.Tensor, spec: Spec, mesh) -> int:
+    """The bytes of one rank's block of `leaf` (any device, meta too)
+    under `spec` (every rank's block is the same size: `fit_spec` keeps
+    only axes that divide)."""
+    n = math.prod(_axis_size(mesh, entry_axes(e)) for e in spec)
+    return leaf.numel() // n * leaf.element_size()
+
+
 def activation_spec(mesh, sp: bool = False,
                     tensor_parallel: bool = True) -> Spec:
     """Residual-stream spec [B, T, D]: batch over dp (+ sequence over
@@ -262,23 +326,21 @@ def whole_shape(block_shape: tuple, spec: Spec, mesh) -> Tuple[int, ...]:
                       else 1) for d, n in enumerate(block_shape))
 
 
-def unshard_leaf(block: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+def unshard_leaf(block: torch.Tensor, spec: Spec, mesh,
+                 site: str = "weights") -> torch.Tensor:
     """The whole leaf from the blocks of the ranks that differ from this
     one on `spec`'s axes; every rank of the mesh calls it, in the same
     order. Each axis, minor to major, widens the block by its size: the
     parts of the axis's group are gathered in coordinate order and laid
     side by side along the dimension (a copy: the whole equals the blocks
     bit for bit)."""
-    import torch.distributed as dist
+    from repro_torch.distributed import comm
     x = block
     for d in range(len(spec)):
         for a in reversed(entry_axes(spec[d])):
-            n = mesh.shape[a]
-            if n == 1:
+            if mesh.shape[a] == 1:
                 continue
-            x = x.contiguous()
-            parts = [torch.empty_like(x) for _ in range(n)]
-            dist.all_gather(parts, x, group=mesh.group(a))
+            parts = comm.all_gather(x.contiguous(), mesh.group(a), site=site)
             x = torch.cat(parts, d)
     return x
 

@@ -21,25 +21,23 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import TP
 
+MODEL_AXIS = "model_axis"     # the counting site of the model axis's sums
 
-def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
+
+def _group_sum(x: torch.Tensor, group, site: str = MODEL_AXIS
+               ) -> torch.Tensor:
     """Σ over `group` in f32, in x's dtype; a new tensor."""
-    import torch.distributed as dist
     y = x.to(torch.float32).contiguous().clone()
-    dist.all_reduce(y, group=group)
-    return y.to(x.dtype)
+    return comm.all_reduce(y, group, site=site).to(x.dtype)
 
 
 def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The group's blocks of x, in group-rank order, along `dim`."""
-    import torch.distributed as dist
-    n = dist.get_world_size(group)
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim)
+    return torch.cat(comm.all_gather(x.contiguous(), group, site=MODEL_AXIS),
+                     dim)
 
 
 def _scatter_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -49,7 +47,7 @@ def _scatter_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     y = x.to(torch.float32).movedim(dim, 0).contiguous()
     out = torch.empty((y.shape[0] // n,) + tuple(y.shape[1:]),
                       dtype=y.dtype, device=y.device)
-    dist.reduce_scatter_tensor(out, y, group=group)
+    comm.reduce_scatter(out, y, group, site=MODEL_AXIS)
     return out.movedim(0, dim).to(x.dtype)
 
 
@@ -62,23 +60,23 @@ def _block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, site):
+        ctx.group, ctx.site = group, site
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return _group_sum(g, ctx.group), None
+        return _group_sum(g, ctx.group, ctx.site), None, None
 
 
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return _group_sum(x, group)
+    def forward(ctx, x, group, site):
+        return _group_sum(x, group, site)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _GatherFrom(torch.autograd.Function):
@@ -103,16 +101,18 @@ class _ReduceScatterTo(torch.autograd.Function):
         return _gather(g, ctx.group, ctx.dim), None, None
 
 
-def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+def copy_to(x: torch.Tensor, group, site: str = MODEL_AXIS) -> torch.Tensor:
     """x as it is, where the group's ranks each compute a part of what
-    follows from it: its gradient is summed over `group`."""
-    return _CopyTo.apply(x, group)
+    follows from it: its gradient is summed over `group` (`site` names
+    the sum for `comm.counting`)."""
+    return _CopyTo.apply(x, group, site)
 
 
-def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+def reduce_from(x: torch.Tensor, group, site: str = MODEL_AXIS
+                ) -> torch.Tensor:
     """The sum of each rank's partial x over `group` (f32 sums, x's
     dtype); its gradient reaches each partial unchanged."""
-    return _ReduceFrom.apply(x, group)
+    return _ReduceFrom.apply(x, group, site)
 
 
 def gather_from(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
@@ -161,5 +161,5 @@ class ModelAxis:
         """The elementwise max over the group, detached."""
         import torch.distributed as dist
         y = x.detach().contiguous().clone()
-        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
-        return y
+        return comm.all_reduce(y, self.group, site=MODEL_AXIS,
+                               op=dist.ReduceOp.MAX)

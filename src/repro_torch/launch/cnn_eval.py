@@ -12,9 +12,10 @@ A model is {"cfg": CNNConfig, "params": tree}. Every entry point takes
 `device=None` and resolves it with `repro_torch.resolve_device`: the card
 unless the caller asks for the CPU; without a GPU it raises. The data are
 the synthetic gratings of `models.cnn.synthetic_dataset`, drawn from a
-seeded `torch.Generator` on that device. The float trainer is not ported:
-a model is random (seeded) with its BatchNorm recalibrated, or carries
-parameters from the JAX package (`interop.params_from_jax`).
+seeded `torch.Generator` on that device. A model is random (seeded) with
+its BatchNorm recalibrated, trained by the float trainer
+(`launch.cnn_train`), or carries parameters from the JAX package
+(`interop.params_from_jax`).
 """
 from __future__ import annotations
 

@@ -47,6 +47,14 @@ from repro_torch.launch.serve import ContinuousBatchingEngine, Request
 from repro_torch.obs import export as obs_export
 from repro_torch.obs.metrics import summary_ms
 
+__analysis__ = {
+    "traced": (),
+    "host_loop": (),
+    "device_returning": (),
+    "device_params": (),
+    "host_objects": ("engine", "_engine", "registry", "reg", "server"),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class TokenEvent:

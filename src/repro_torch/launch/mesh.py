@@ -20,6 +20,10 @@ share cards only when the caller asks (the counterpart of the
 reference's forced host device count), and on the CPU every rank is the
 CPU. The backend is NCCL where each rank has a card of its own, else
 gloo (NCCL refuses two ranks on one card); the mesh records which.
+
+On the meta device (the dry run: one rank of a production mesh in one
+process, over torch's "fake" process group, which the caller starts) the
+`DeviceMesh` is built on "cpu" while the rank's tensors live on meta.
 """
 from __future__ import annotations
 
@@ -150,7 +154,8 @@ def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device=None,
               share_cards: bool = False) -> DistMesh:
     """A mesh of `shape` with axes `names` over every rank, rank-major;
     starts the process group from torchrun's environment unless one is
-    running."""
+    running. With `device="meta"` the group must be running (the dry
+    run's fake group)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     dev, shared = _rank_device(device, share_cards)
@@ -161,7 +166,8 @@ def make_mesh(shape: Tuple[int, ...], names: Tuple[str, ...], device=None,
         dist.init_process_group(
             "nccl" if dev.type == "cuda" and not shared else "gloo",
             rank=rank, world_size=world)
-    dm = init_device_mesh(dev.type, shape, mesh_dim_names=names)
+    dm = init_device_mesh("cpu" if dev.type == "meta" else dev.type, shape,
+                          mesh_dim_names=names)
     coord = dict(zip(names, dm.get_coordinate()))
     for a in names:
         if dist.get_group_rank(dm.get_group(a), dist.get_rank()) != coord[a]:

@@ -31,6 +31,14 @@ import torch
 
 from repro_torch.models.paging import ChunkMeta
 
+__analysis__ = {
+    # the chunk's device step is the model's (`run` hands it the plan)
+    "traced": ("model.prefill_chunk",),
+    "host_loop": ("PrefillScheduler.plan", "PrefillScheduler.run"),
+    "device_returning": ("model.prefill_chunk",),
+    "device_params": ("PrefillScheduler.run.caches",),
+}
+
 
 @dataclasses.dataclass
 class _Job:

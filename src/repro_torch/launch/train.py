@@ -125,7 +125,8 @@ def build_train_step(model: Model, opt: AdamW,
         gsq = None
         if fsdp is not None:
             names = ["loss", *metrics]
-            means = fsdp.dp_mean(torch.stack([loss, *metrics.values()]))
+            means = fsdp.dp_mean(torch.stack([loss, *metrics.values()]),
+                                 site="metrics")
             loss, metrics = means[0], dict(zip(names[1:], means[1:]))
             if compressor is not None:
                 grads, comp_state = compressor.compress(
@@ -169,11 +170,13 @@ def _mesh_of(args) -> Optional[meshes.DistMesh]:
 def main(argv=None, metrics: Optional[list] = None):
     """Runs the training loop; returns the losses, one a step. When
     `metrics` is a list, each step appends {"step", "loss", "grad_norm",
-    "ms", "rank", "peak_gb", "kernel_launches"} to it (ms: host time of
-    the step, the loss read back; peak_gb: the device's peak allocated
-    memory so far, None off the card; kernel_launches: {kernel: launches
-    so far in this process}); `--metrics-out` writes the same
-    records as JSON lines."""
+    "ms", "rank", "peak_gb", "state_gb", "kernel_launches"} to it (ms:
+    host time of the step, the loss read back; peak_gb: the device's peak
+    allocated memory so far, None off the card; state_gb: the device's
+    allocated memory once the params, AdamW's state and the compressor's
+    residual exist, before the first step, None off the card;
+    kernel_launches: {kernel: launches so far in this process});
+    `--metrics-out` writes the same records as JSON lines."""
     ap = argparse.ArgumentParser(
         description="LM training with AdamW, optional SPARQ gradient "
                     "compression, checkpoint/restart, sharded over a mesh "
@@ -231,7 +234,10 @@ def main(argv=None, metrics: Optional[list] = None):
     fsdp = None
     if mesh is not None:
         shapes = Model(cfg, device="meta").init_params(dtype=torch.float32)
-        fsdp = FSDP(mesh, param_pspecs(shapes, mesh), cfg)
+        # the TP layout always, as the reference's trainer (its dry run
+        # alone takes ZeRO-DP for a small model's train cell)
+        fsdp = FSDP(mesh, param_pspecs(shapes, mesh, tensor_parallel=True),
+                    cfg, tensor_parallel=True)
         if rank == 0:
             print(f"mesh {mesh.shape} over {world} ranks, backend "
                   f"{mesh.backend}, rank 0 on {device}", flush=True)
@@ -266,6 +272,8 @@ def main(argv=None, metrics: Optional[list] = None):
         if mesh is not None:
             dist.barrier()
 
+    state_gb = torch.cuda.memory_allocated(device) / 2 ** 30 \
+        if device.type == "cuda" else None
     step_fn = build_train_step(model, opt, compressor, fsdp=fsdp)
     coord = ElasticCoordinator(n_workers=world)
     out = open(args.metrics_out.replace("{rank}", str(rank)), "a") \
@@ -285,7 +293,7 @@ def main(argv=None, metrics: Optional[list] = None):
                "ms": dt * 1e3, "rank": rank,
                "peak_gb": torch.cuda.max_memory_allocated(device) / 2 ** 30
                if device.type == "cuda" else None,
-               "kernel_launches": _kernel_launches()}
+               "state_gb": state_gb, "kernel_launches": _kernel_launches()}
         if metrics is not None:
             metrics.append(rec)
         if out is not None:

@@ -72,6 +72,8 @@ class ModelConfig:
     train_microbatches: int = 1  # gradient accumulation (activation memory)
     remat: bool = True           # recompute each layer in the backward
     param_dtype: Any = torch.float32   # of the weights; bf16 for >100B
+    tensor_parallel: bool = True  # False: pure ZeRO-DP over all axes
+                                  # (the dry run's choice for <~5B models)
 
     @property
     def head_dim(self) -> int:

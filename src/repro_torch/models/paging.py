@@ -42,6 +42,29 @@ from repro_torch.core.sparq import SparqConfig
 from repro_torch.distributed.sharding import paged_pool_specs, shard_heads
 from repro_torch.models.cache import CacheConfig
 
+__analysis__ = {
+    # device steps: the stores' writes and reads, the page moves
+    "traced": (
+        "PagedCacheStore.update",
+        "PagedCacheStore.write_chunk",
+        "ShardedPagedCacheStore.update",
+        "ShardedPagedCacheStore.write_chunk",
+        "paged_decode_attention",
+        "chunked_prefill_attention",
+        "adopt_prefill",
+        "copy_page",
+        "adopt_prefix_scales",
+        "evict_slot",
+        "gather_slot_pages",
+        "restore_slot_pages",
+    ),
+    "host_loop": ("SwapStore.put", "SwapStore.pop"),
+    "device_returning": (),
+    "device_params": ("SwapStore.put.groups",),
+    # repro_torch.obs metric handles: host-side floats only
+    "host_objects": ("registry",),
+}
+
 
 class PoolExhausted(RuntimeError):
     """Raised host-side when the page pool runs dry."""

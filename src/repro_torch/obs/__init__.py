@@ -32,6 +32,14 @@ from .metrics import (
 from .tracing import EngineSpans, Tracer
 from . import export
 
+__analysis__ = {
+    "traced": (),
+    "host_loop": (),
+    "device_returning": (),
+    "device_params": (),
+    "host_objects": ("telemetry", "tel"),
+}
+
 __all__ = [
     "Counter",
     "Gauge",

@@ -19,6 +19,14 @@ from __future__ import annotations
 import asyncio
 import json
 
+__analysis__ = {
+    "traced": (),
+    "host_loop": (),
+    "device_returning": (),
+    "device_params": (),
+    "host_objects": ("registry", "reg", "tracer", "server"),
+}
+
 
 def _fmt(v):
     f = float(v)

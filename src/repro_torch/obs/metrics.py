@@ -28,6 +28,14 @@ import threading
 
 import numpy as np
 
+__analysis__ = {
+    "traced": (),
+    "host_loop": (),
+    "device_returning": (),
+    "device_params": (),
+    "host_objects": ("registry", "reg", "metric", "series"),
+}
+
 # Default histogram buckets: log-spaced, 10us .. ~84s (doubling).  Wide
 # enough for TTFT on a cold compile and tight enough for inter-token
 # latencies in the hundreds of microseconds.

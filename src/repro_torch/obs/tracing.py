@@ -29,6 +29,14 @@ from __future__ import annotations
 
 import time
 
+__analysis__ = {
+    "traced": (),
+    "host_loop": (),
+    "device_returning": (),
+    "device_params": (),
+    "host_objects": ("tracer", "spans", "sp"),
+}
+
 SCHED_TID = 0
 
 

@@ -175,6 +175,15 @@ def test_cli_runs_on_cpu_and_rejects_unported_flags(capsys, tmp_path):
     stats = tserve.main(base + ["--serve", "async"])
     assert stats["clock_mode"] == "wall"
     assert stats["decode_tokens"] == 2 * (3 - 1)
+    # --no-warmup (the reference's flag) skips the untimed pass of every
+    # engine: the scan engine's, the paged loop's and the front end's
+    stats = tserve.main(base + ["--no-warmup"])
+    assert stats["decode_tokens"] == 2 * (3 - 1)
+    stats = tserve.main(base[:-4] + ["--no-warmup"])
+    assert stats["compile_s"] == 0.0
+    assert tserve.main(base[:-4])["compile_s"] > 0.0
+    stats = tserve.main(base + ["--serve", "async", "--no-warmup"])
+    assert stats["decode_tokens"] == 2 * (3 - 1)
     with pytest.raises(SystemExit):         # oversubscribed, no preemption
         tserve.main(base + ["--oversubscribe", "0.5"])
     with pytest.raises(ValueError, match="packed"):   # pages are sparq

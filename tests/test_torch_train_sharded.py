@@ -103,8 +103,9 @@ def _run_train(job, rank):
     mesh = make_mesh(tuple(job["shape"]), tuple(job["names"]), "cpu")
     inputs = torch.load(job["inputs"], weights_only=False)
     model = Model(_cfg(job["arch"], job.get("cfg")), device="cpu")
-    specs = param_pspecs(inputs["params"], mesh)
-    fsdp = FSDP(mesh, specs, model.cfg)
+    tp = job.get("tp", True)
+    specs = param_pspecs(inputs["params"], mesh, tensor_parallel=tp)
+    fsdp = FSDP(mesh, specs, model.cfg, tensor_parallel=tp)
     params = shard_tree(inputs["params"], specs, mesh)
     opt = AdamW(lr=cosine_schedule(1e-3, 1, 3))
     comp = GradCompressor() if job["compress"] else None
@@ -487,6 +488,10 @@ GRAD_JOBS = ("1x2/False/1", "2x2/False/1", "dbrx_1x2/False/1",
              "deepseek_1x2/False/1", "deepseek_2x2/False/1")
 GRAD_RUNS = tuple(f"{n}_{m}/False/1" for n, m in FAMILY_RUNS) + GRAD_JOBS
 MESHES = {"2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2)}
+# ZeRO-DP (tensor_parallel=False: every axis data-parallel, nothing split
+# over "model"; the dry run's layout for a small model's train cell) on
+# 2 x 2, plain, accum 1: (name, arch)
+ZERO_RUNS = (("tiny", "tinyllama-1.1b"), ("whisper", "whisper-base"))
 # (arch, mesh, accum) of the MoE runs, plain: dp 2 (global routing), model
 # 2 (expert parallelism), both at once in the world of 4
 MOE_RUNS = (("dbrx", "2x1", 1), ("dbrx", "2x1", 2), ("dbrx", "1x2", 1),
@@ -588,6 +593,11 @@ def runs(tmp_path_factory):
                 f"{name}_{mesh}", MESHES[mesh], ("data", "model"),
                 fam[name][3], arch, ((False, 1),), over))
             (jobs4 if mesh == "2x2" else jobs2)[-1]["grads"] = True
+    for name, arch in ZERO_RUNS:
+        jobs4.extend(_jobs_train(f"zero_{name}", (2, 2), ("data", "model"),
+                                 (tiny if name == "tiny" else fam[name])[3],
+                                 arch, ((False, 1),)))
+        jobs4[-1].update(tp=False, grads=True)
     for jobs in (jobs2, jobs4):
         for job in jobs:
             if job["name"] in GRAD_JOBS:
@@ -739,6 +749,28 @@ def test_split_gradients_match_one_process(runs, job):
         assert len(errs) == len(res[job]["params"])
         worst = max(errs, key=errs.get)
         assert errs[worst] <= 1e-5, (job, r, worst, errs[worst])
+
+
+@pytest.mark.parametrize("name", [n for n, _ in ZERO_RUNS])
+def test_zero_dp_matches_reference(runs, name):
+    """ZeRO-DP on 2 x 2 (`FSDP(..., tensor_parallel=False)` over
+    `param_pspecs(..., tensor_parallel=False)`): a rank's rows are its
+    block over both axes, every leaf is gathered whole over the merged
+    group (the 2-layer stacks, which the ZeRO rules split on their layer
+    axis over "model", once a step with the leaves outside the layers),
+    and no product splits. 3 steps against JAX's step without a mesh at
+    the sharded tolerances, every rank's losses and norms equal, and the
+    first batch's gradient of every leaf on every rank within 1e-5 of
+    the one-process port's block."""
+    job = f"zero_{name}/False/1"
+    res = [r[job] for r in runs["world4"]]
+    for r in res[1:]:
+        assert r["losses"] == res[0]["losses"], job
+        assert r["grad_norms"] == res[0]["grad_norms"], job
+    _hold(res[0], runs[name][(False, 1)], job)
+    for r, one in enumerate(res):
+        worst = max(one["grad_errs"], key=one["grad_errs"].get)
+        assert one["grad_errs"][worst] <= 1e-5, (job, r, worst)
 
 
 def _hold_moe(runs, arch, mesh, accum):
