@@ -10,6 +10,16 @@ Phases (each one that fails makes the script exit non-zero):
               cuobjdump -sass of K1's library must show IMMA (integer
               tensor cores) with S8 x S8 and with U8 x S8 operands and no
               IDP4A, and K3's DMMA (f64 tensor cores)
+  audit       the program audit (`repro_torch.analysis`, JX101-JX106) on
+              the card: every registered hot program (`analysis.registry.
+              default_programs("cuda")`: the scan and paged decode steps,
+              the prefill chunk, the replay, the TP 2 step and chunk, the
+              six dispatchers) runs on CUDA tensors under the recorder, so
+              the kernels' route of K1-K6 is the one audited (host reads,
+              packed casts, launch plans, shared memory, one call
+              signature a program); every finding and the counters are
+              logged, and an unsuppressed finding fails the run; K1-K6
+              each launched at least once
   kernels     each kernel against its plain PyTorch version on the card, at
               the shapes the main paths give it: K1 sparq_matmul (M = 8,
               256, 445, 2048 on the four projections, 5opt and a8w8, each
@@ -2542,6 +2552,44 @@ def _drive(fn):
         raise AssertionError(f"plain versions of the KV path ran on the "
                              f"card: {spy.calls}")
     return out, counts
+
+
+def audit_programs(dev, results):
+    """The audit phase (module docstring): the registry's programs on the
+    card through the program audit, the reviewed baseline applied. Returns
+    the launches of the phase (the programs and their makers)."""
+    from repro_torch.analysis import (default_baseline_path, load_baseline,
+                                      split_suppressed)
+    from repro_torch.analysis.program_audit import audit_all
+    from repro_torch.analysis.registry import default_programs
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    specs = default_programs(dev)
+    build.reset_launch_counts()
+    findings, counters = audit_all(specs)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    live, muted = split_suppressed(findings,
+                                   load_baseline(default_baseline_path()))
+    secs = time.perf_counter() - t0
+    for f in live:
+        log(f"audit: {f.format()}")
+    for f in muted:
+        log(f"audit: {f.format()}  [suppressed]")
+    log(f"audit: {counters['programs_traced']} programs on {dev}, "
+        f"{len(live)} finding(s), {len(muted)} suppressed, {secs:.1f} s; "
+        f"counters {json.dumps(counters)}; launches {counts}")
+    results["audit"] = dict(findings=[f.as_dict() for f in live],
+                            suppressed=[f.as_dict() for f in muted],
+                            counters=counters, launches=counts, s=secs)
+    if live:
+        raise AssertionError(f"the program audit found {len(live)} "
+                             f"unsuppressed finding(s) on the card")
+    idle = [k for k, n in counts.items()
+            if n == 0 and k != "sparq_mla_decode"]
+    if idle:
+        raise AssertionError(f"the audited programs never launched {idle}")
+    return counts
 
 
 def _check_requests(cfg, reqs, out, gen):
@@ -6050,9 +6098,9 @@ def check_sass():
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="build,kernels,serve,frontend,preempt,prefix,"
-                            "tp,scan,sequential,dense_family,moe,mla,"
-                            "recurrent,multimodal,cli,wide,cnn,train,"
+                    default="build,audit,kernels,serve,frontend,preempt,"
+                            "prefix,tp,scan,sequential,dense_family,moe,"
+                            "mla,recurrent,multimodal,cli,wide,cnn,train,"
                             "train_sharded,cnn_train,parity")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -6079,6 +6127,12 @@ def main(argv=None):
                 log(f"ptxas {src}: {line.strip()}")
     log(f"build: {len(logs)} kernel libraries in {results['build_s']:.1f} s")
     results["sass"] = check_sass()
+    by_path = {}
+    if "audit" in phases:
+        t0 = time.perf_counter()
+        by_path["audit"] = audit_programs(dev, results)
+        results["audit_phase_s"] = time.perf_counter() - t0
+        log(f"phase audit: {results['audit_phase_s']:.1f} s")
     if "kernels" in phases:
         t0 = time.perf_counter()
         for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
@@ -6086,7 +6140,6 @@ def main(argv=None):
             check(dev, results)
         results["kernels_phase_s"] = time.perf_counter() - t0
         log(f"phase kernels: {results['kernels_phase_s']:.1f} s")
-    by_path = {}
     paths = (("serve", serve_full_width), ("frontend", frontend_full_width),
              ("preempt", preempt_full_width),
              ("prefix", prefix_full_width), ("tp", tp_full_width),
@@ -6106,7 +6159,7 @@ def main(argv=None):
             log(f"phase {name}: {results[f'{name}_phase_s']:.1f} s")
     counts = {k: sum(c.get(k, 0) for c in by_path.values())
               for k in build.KERNELS}
-    if len(by_path) == len(paths):
+    if all(name in by_path for name, _ in paths):
         idle = [k for k, n in counts.items() if n == 0]
         if idle:
             raise AssertionError(f"kernels never launched on any path: "

@@ -21,8 +21,21 @@ import json
 import os
 from typing import Dict, Iterable, List, Sequence, Tuple
 
-#: host-discipline linter check IDs (repro_torch.analysis.host_lint); the
-#: reference's jaxpr checks (JX101-JX106) come with their port
+#: program-audit check IDs (repro_torch.analysis.program_audit), the
+#: reference's jaxpr-auditor IDs
+JX_HOSTCALL = "JX101"       # host read / device-to-host copy / sync in a
+                            # hot program
+JX_PACKED_CAST = "JX102"    # packed int8 plane cast to float outside a
+                            # kernel / the registered meta-decode
+JX_TILE_DIVIDE = "JX103"    # an unmasked tile of a kernel's launch plan
+                            # does not divide its dimension
+JX_PAGE_TILE = "JX104"      # packed-plane tile != page size in a paged /
+                            # replay program
+JX_VMEM = "JX105"           # a launch's shared memory over budget
+JX_COMPILE_CACHE = "JX106"  # more than one call signature under the
+                            # engine's real shape set
+
+#: host-discipline linter check IDs (repro_torch.analysis.host_lint)
 HL_LOOP_NUMERIC = "HL201"   # torch math inside the per-step host
                             # scheduler loop
 HL_LOOP_SYNC = "HL202"      # implicit device sync (int()/np.asarray/if
@@ -35,8 +48,9 @@ HL_UNANNOTATED = "HL205"    # CUDA-graph / torch.compile / torch.jit
                             # target missing from the module's
                             # __analysis__ traced list
 
-ALL_CHECKS = (HL_LOOP_NUMERIC, HL_LOOP_SYNC, HL_TRACED_MUT, HL_TRACED_RAISE,
-              HL_UNANNOTATED)
+ALL_CHECKS = (JX_HOSTCALL, JX_PACKED_CAST, JX_TILE_DIVIDE, JX_PAGE_TILE,
+              JX_VMEM, JX_COMPILE_CACHE, HL_LOOP_NUMERIC, HL_LOOP_SYNC,
+              HL_TRACED_MUT, HL_TRACED_RAISE, HL_UNANNOTATED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,8 +160,8 @@ def split_suppressed(findings: Iterable[Finding],
 def report_json(unsuppressed: Sequence[Finding],
                 suppressed: Sequence[Finding],
                 counters: dict) -> dict:
-    """Machine-readable report; `counters` under "compile_cache", as the
-    reference writes its jaxpr auditor's (empty until M11.4 ports it)."""
+    """Machine-readable report; `counters` (the program audit's) under
+    "compile_cache", as the reference writes its jaxpr auditor's."""
     return {
         "findings": [f.as_dict() for f in unsuppressed],
         "suppressed": [f.as_dict() for f in suppressed],

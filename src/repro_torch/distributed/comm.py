@@ -11,8 +11,10 @@ rank's block. The port issues no all-to-all or collective-permute; those
 kinds stay 0. Each call also names its site, what it carries: "weights"
 (FSDP's gathers), "grads" (a gradient's reduce-scatter or all-reduce),
 "model_axis" (the model axis's sums and gathers), "experts" (an MoE
-layer's count gather and its experts' sums) or "metrics" (the loss's dp
-mean, the norm, the compressor's maxima). Outside `counting()` the count
+layer's count gather and its experts' sums), "sp_grads" (under sequence
+parallelism, the sums over the model axis of the gradients of the leaves
+not split over it) or "metrics" (the loss's dp mean, the norm, the
+compressor's maxima). Outside `counting()` the count
 is one test of a module global a call.
 """
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
          "collective-permute")
-SITES = ("weights", "grads", "model_axis", "experts", "metrics")
+SITES = ("weights", "grads", "model_axis", "experts", "sp_grads",
+         "metrics")
 
 
 class Traffic:

@@ -9,7 +9,9 @@ the same tokens, its dp rows. So a layer whose banks are split over
 partial outputs over the group: the tokens and gates enter the experts
 through `distributed.tensor.copy_to` and the partial outputs leave
 through `reduce_from` (Megatron's pair, which the model axis's other
-split products use too).
+split products use too). Under sequence parallelism the tokens are the
+whole stream, gathered at the block's entry, the copies are the identity
+and the partial outputs leave through a reduce-scatter over T.
 
 Routing and capacity are functions of the whole microbatch (the
 reference routes every token of the global batch at once). A rank holds
@@ -29,7 +31,8 @@ import torch
 
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import TP
-from repro_torch.distributed.tensor import copy_to, reduce_from
+from repro_torch.distributed.tensor import (copy_to, reduce_from,
+                                            reduce_scatter_to)
 
 EXPERTS = "experts"           # the counting site of the expert path
 
@@ -69,3 +72,9 @@ class ExpertGroups:
 
     def reduce_from_experts(self, x: torch.Tensor) -> torch.Tensor:
         return reduce_from(x, self.mesh.group(TP), EXPERTS)
+
+    def reduce_scatter_from_experts(self, x: torch.Tensor,
+                                    dim: int) -> torch.Tensor:
+        """The partial outputs' sum, this rank's block along `dim` (the
+        sequence-parallel stream's T)."""
+        return reduce_scatter_to(x, self.mesh.group(TP), dim, EXPERTS)

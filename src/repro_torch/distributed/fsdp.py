@@ -32,6 +32,17 @@ dry run takes for a small model's train cell) the model axis joins the
 dp group: every leaf is made whole over every axis, no product splits,
 and a rank's rows are its block of the batch over all the axes.
 
+With `sp=True` (sequence parallelism, the reference's Megatron-SP layout
+`activation_spec(mesh, sp=True)`, which its dry run takes for a TP train
+cell) the residual stream between the blocks is split over T on the
+model axis (`distributed.tensor.ModelAxis`): the norms run on this
+rank's block of T, so the gradient of every leaf that is not split over
+"model" is this rank's part of it, and the gather's backward sums it over
+the model group ("sp_grads") before the slice and the dp reduction. That
+holds only where every stream of the step is split: the model refuses a
+batch one of whose streams' T the model axis does not divide
+(`models.model.stream_lengths`), so SP is on or off for a whole step.
+
 Every collective goes through `distributed.comm` (the dry run counts
 their bytes there). Every rank runs the same collectives in the same order: the gathers and
 the model axis's sums follow the model's code, which never branches on
@@ -63,14 +74,16 @@ class _Gather(torch.autograd.Function):
     block's gradient (`FSDP.block_grad`)."""
 
     @staticmethod
-    def forward(ctx, block, fsdp, spec):
-        ctx.fsdp, ctx.spec = fsdp, spec
+    def forward(ctx, block, fsdp, spec, partial):
+        ctx.fsdp, ctx.spec, ctx.partial = fsdp, spec, partial
         out = unshard_leaf(block, spec, fsdp.mesh)
         return out.view_as(out) if out is block else out
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.fsdp.block_grad(g, ctx.spec), None, None
+        if ctx.partial:
+            g = ctx.fsdp.model_sum(g)
+        return ctx.fsdp.block_grad(g, ctx.spec), None, None, None
 
 
 class FSDP:
@@ -80,17 +93,19 @@ class FSDP:
     model's config `cfg`, the leaves computed on their model block.
     `tensor_parallel=False` is the ZeRO-DP layout (`specs` then from
     `param_pspecs(..., tensor_parallel=False)`): dp is every axis and
-    nothing splits over "model"."""
+    nothing splits over "model". `sp` turns sequence parallelism on where
+    the model axis is larger than 1 (module docstring)."""
 
     def __init__(self, mesh, specs: Dict[str, Spec], cfg,
-                 tensor_parallel: bool = True):
+                 tensor_parallel: bool = True, sp: bool = False):
         self.mesh, self.specs = mesh, specs
         self.tensor_parallel = tensor_parallel
         self.dp = dp_axes(mesh, tensor_parallel)
         self.dp_size = math.prod(mesh.shape[a] for a in self.dp)
         self._experts: Dict[Tuple[str, ...], ExpertGroups] = {}
         m = mesh.shape.get(TP, 1) if tensor_parallel else 1
-        self.model_axis = ModelAxis(mesh) if m > 1 else None
+        self.model_axis = ModelAxis(mesh, sp) if m > 1 else None
+        self.sp = self.model_axis is not None and self.model_axis.sp
         self.split: Dict[str, bool] = {}
         # stacked leaves whose spec shards the layer axis (the ZeRO rules
         # put dp on a stacked leaf's first dimension, which `fit_spec`
@@ -116,7 +131,8 @@ class FSDP:
     def _gather(self, key: str, leaf, spec: Spec):
         if self.split[key]:
             spec = tuple(None if e == TP else e for e in spec)
-        return _Gather.apply(leaf, self, spec)
+        return _Gather.apply(leaf, self, spec,
+                             self.sp and not self.split[key])
 
     def outside(self, params: Dict) -> Dict:
         """`params` with every leaf outside "blocks" made whole (over the
@@ -182,6 +198,13 @@ class FSDP:
                       + shape[d + 1:])
         return x / torch.tensor(float(self.dp_size), dtype=x.dtype,
                                 device=x.device)
+
+    def model_sum(self, g: torch.Tensor) -> torch.Tensor:
+        """A gradient's parts summed over the model group (f32), under
+        sequence parallelism."""
+        y = comm.all_reduce(g.to(torch.float32).contiguous().clone(),
+                            self.model_axis.group, site="sp_grads")
+        return y.to(g.dtype)
 
     # ------------------------------------------------------------ rows
     def rows(self, batch: Dict[str, np.ndarray]

@@ -36,6 +36,37 @@ from repro_torch.kernels import sparq_quant as _q
 # CacheConfig.attn_bk overrides it per cache
 DEFAULT_BK = 128
 
+# ----------------------------------------------------------------------
+# repro_torch.analysis registration (as the reference's): which code may
+# turn packed §5.1 planes back into floats, which dispatchers the program
+# audit runs as programs of their own, and the hook through which it
+# reads the launches a program asks of the kernels.
+# ----------------------------------------------------------------------
+
+#: source-path fragments whose integer -> float conversions are the
+#: blessed meta-decode (analysis check JX102): the kernels' wrappers decode
+#: tile by tile in their loops, and their plain versions are the kernels'
+#: counterparts op for op. A float of a packed plane made anywhere else is
+#: a whole-plane dequantize, which the format exists to avoid.
+META_DECODE_SOURCES = ("repro_torch/kernels/",)
+
+#: public dispatchers the analysis registry runs as programs of their own,
+#: on packed planes shaped like the engines'
+HOT_DISPATCHERS = (
+    "quantized_matmul",
+    "sparq_quantize",
+    "sparq_dequantize",
+    "sparq_decode_attention",
+    "sparq_chunked_prefill_attention",
+    "sparq_paged_decode_attention",
+)
+
+#: set by `analysis.program_audit` while it records a program, None
+#: otherwise. Every dispatcher, on either route, calls it as
+#: AUDIT_HOOK(kernel, **geometry) with the shapes and static arguments
+#: from which its kernel's launch plan is computed; it changes no route.
+AUDIT_HOOK = None
+
 
 def _route(t: torch.Tensor) -> str:
     if t.device.type == "cpu":
@@ -120,6 +151,8 @@ def quantized_matmul(x: torch.Tensor, w_codes: torch.Tensor, act_qs: QScale,
         raise ValueError("vSPARQ pairs adjacent K lanes; K must be even")
     x2 = x.reshape(-1, K)
     a = torch.as_tensor(act_qs.scale, dtype=torch.float32, device=x.device)
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_matmul", M=x2.shape[0], N=N, K=K, device=x.device)
     if _route(x) == "plain":
         out = _mm.ref_sparq_matmul(x2, w_codes, a, chan_scale,
                                    **_codec_kw(cfg))
@@ -148,6 +181,8 @@ def sparq_quantize(x: torch.Tensor, scale: torch.Tensor,
     if sc.numel() not in (1, M):
         raise ValueError(f"scale has {sc.numel()} elements; expected 1 or "
                          f"one per row ({M})")
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_quant", mode="rows", widths=(K,), lane0=0)
     if _route(x) == "plain":
         a = sc.reshape(()) if sc.numel() == 1 else sc[:, None]
         codes, meta = _q.ref_sparq_quant(x2, a, **_codec_kw(cfg))
@@ -178,6 +213,10 @@ def kv_write_paged(k_new, v_new, k_data, k_meta, v_data, v_meta, k_scale,
     v_scale, seq_pos). One K4 launch on the card."""
     args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, block_table,
             seq_pos)
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_quant", mode="paged",
+                   widths=(k_new.shape[-1], v_new.shape[-1]),
+                   lane0=head0 * k_new.shape[-1])
     if _route(k_new) == "plain":
         return _q.ref_kv_write_paged(k_new, v_new, *args, head0=head0,
                                      **_codec_kw(cfg))
@@ -195,6 +234,10 @@ def kv_write_chunk(k_new, v_new, k_data, k_meta, v_data, v_meta, k_scale,
     pass, write pass)."""
     args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, block_table,
             seq_id, pos, hist, seq_pos_after)
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_quant", mode="chunk",
+                   widths=(k_new.shape[-1], v_new.shape[-1]),
+                   lane0=head0 * k_new.shape[-1])
     if _route(k_new) == "plain":
         return _q.ref_kv_write_chunk(k_new, v_new, *args, head0=head0,
                                      **_codec_kw(cfg))
@@ -213,6 +256,10 @@ def kv_write_contiguous(k_new, v_new, k_data, k_meta, v_data, v_meta,
     `kv_write_paged`. Returns the new (k_scale, v_scale, pos). On the card
     one K4 launch at T = 1, two (scale pass, write pass) otherwise."""
     args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, pos)
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_quant", mode="contiguous",
+                   widths=(k_new.shape[-1], v_new.shape[-1]),
+                   lane0=head0 * k_new.shape[-1])
     if _route(k_new) == "plain":
         return _q.ref_kv_write_contiguous(k_new, v_new, *args, head0=head0,
                                           **_codec_kw(cfg))
@@ -231,6 +278,9 @@ def kv_write_ring(k_new, v_new, k_data, k_meta, v_data, v_meta, k_scale,
         raise ValueError(f"a ring write of {k_new.shape[1]} tokens exceeds "
                          f"the window's {k_data.shape[1]} slots")
     args = (k_data, k_meta, v_data, v_meta, k_scale, v_scale, slot_pos, pos)
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_quant", mode="ring",
+                   widths=(k_new.shape[-1], v_new.shape[-1]), lane0=0)
     if _route(k_new) == "plain":
         return _q.ref_kv_write_ring(k_new, v_new, *args, **_codec_kw(cfg))
     return _q.kv_write_ring_cuda(_kv(k_new), _kv(v_new), *args,
@@ -249,6 +299,8 @@ def sparq_dequantize(store: torch.Tensor, meta: torch.Tensor, scale=None,
     lead = store.shape[:-1]
     K = store.shape[-1]
     s2, m2 = store.reshape(-1, K), meta.reshape(-1, K)
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_dequant", K=K)
     if _route(store) == "plain":
         out = _dq.ref_sparq_dequant(s2, m2) if scale is None else \
             _dq.ref_sparq_dequant_float(s2, m2, scale, dtype)
@@ -271,6 +323,9 @@ def sparq_mla_decode(q_lat, q_pe, c_data, c_meta, c_scale, pe_data,
             q_pe[:, 0].to(torch.float32).contiguous(), c_data, c_meta,
             c_scale.to(torch.float32), pe_data, pe_meta,
             pe_scale.to(torch.float32), pos.to(torch.int32))
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_mla_decode", H=q_lat.shape[2], r=q_lat.shape[3],
+                   dr=q_pe.shape[3], n_keys=c_data.shape[1])
     if _route(q_lat) == "plain":
         out = _mla.ref_sparq_mla_decode(*args, sm_scale=sm_scale, bk=bk)
     else:
@@ -309,6 +364,8 @@ def sparq_decode_attention(q, k_data, k_meta, k_scale, v_data, v_meta,
             k_data, k_meta, k_scale.to(torch.float32),
             v_data, v_meta, v_scale.to(torch.float32),
             kpos.to(torch.int32).contiguous(), cur.to(torch.int32))
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_decode_attn", G=G, hd=hd, tile=bk, n_keys=Tk)
     if _route(q) == "plain":
         out = _dec.ref_sparq_decode_attn(*args, window=window, bk=bk)
     else:
@@ -348,6 +405,9 @@ def sparq_chunked_prefill_attention(q, k_chunk, v_chunk, k_data, k_meta,
             k_data, k_meta, k_scale.to(torch.float32), v_data, v_meta,
             v_scale.to(torch.float32), block_table.to(i32),
             seq_id.to(i32), pos.to(i32), hist.to(i32), tile_seq.to(i32))
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_chunked_prefill_attn", C=C, G=G, hd=hd, bq=bq,
+                   page=k_data.shape[1], NB=block_table.shape[1])
     if _route(q) == "plain":
         out = _pre.ref_sparq_chunked_prefill_attn(*args, window=window)
     else:
@@ -377,6 +437,9 @@ def sparq_paged_decode_attention(q, k_data, k_meta, k_scale, v_data, v_meta,
     args = (q.reshape(B, KV, G, hd).to(torch.float32).contiguous(),
             k_data, k_meta, k_scale.to(torch.float32), v_data, v_meta,
             v_scale.to(torch.float32), block_table.to(i32), cur.to(i32))
+    if AUDIT_HOOK is not None:
+        AUDIT_HOOK("sparq_paged_decode_attn", G=G, hd=hd,
+                   page=k_data.shape[1], NB=block_table.shape[1])
     if _route(q) == "plain":
         out = _dec.ref_sparq_paged_decode_attn(*args, window=window)
     else:

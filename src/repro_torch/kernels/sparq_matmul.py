@@ -41,6 +41,10 @@ BK = 64
 # (BM, BN) output tiles above M = 1024, in order of preference; the
 # kernel is instantiated for these and for 16 x 128 and 64 x 128
 _LARGE_TILES = ((128, 128), (64, 32))
+# depth of the GEMM's cp.async ring, and the bytes a staged k row of the
+# weight tile takes whatever BN is (`STAGES`, `B_ROW` in the .cu)
+STAGES = 4
+B_ROW = 128
 
 
 class Plan(NamedTuple):
@@ -87,6 +91,13 @@ def plan(M: int, N: int, K: int, sms: int = 132) -> Plan:
                 break
     split = _cdiv(kt, tps)
     return Plan(bm, bn, BK, split, tps, kt * BK, tiles * split)
+
+
+def smem_bytes(p: Plan) -> int:
+    """Dynamic shared memory of one GEMM block of plan `p`, as the launcher
+    sets it: the STAGES-deep ring of BM x BK code tiles and BK x B_ROW
+    weight tiles."""
+    return STAGES * (p.bm * p.bk + p.bk * B_ROW)
 
 
 @functools.lru_cache(maxsize=None)

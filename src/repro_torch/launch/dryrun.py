@@ -41,8 +41,11 @@ Keys the reference fills from XLA that have no counterpart here
 the meta step) stands in for `lower_s` / `compile_s`. `origin` names the
 source of each figure ("counted on meta, CPU", "from specs", "analytic"),
 and `fits` holds the rank's argument bytes against an H100 80GB HBM3's
-80 GB. Sequence parallelism is not ported: `sp` is false in every record,
-and a cell where the reference would take it says so. Every number is a
+80 GB. A tensor-parallel train cell runs with sequence parallelism, as
+the reference's does (`sp` true in its record; `--no-sp` turns it off):
+the residual stream between the blocks is split over T on "model"
+(`FSDP(..., sp=True)`). A cell where the model axis does not divide the T
+of one of its streams runs without it (`sp` false). Every number is a
 count made on the CPU, never a time on a device.
 """
 from __future__ import annotations
@@ -66,7 +69,7 @@ from repro_torch.configs.base import (ARCHS, SHAPES, ShapeSpec,
                                       input_specs)
 from repro_torch.distributed import comm
 from repro_torch.distributed import sharding as shd
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, stream_lengths
 
 #: an H100 80GB HBM3's memory, the bound `fits` holds a rank's arguments to
 HBM_BYTES = 80 * 10 ** 9
@@ -76,7 +79,6 @@ FLOPS_COUNTED = "aten matmul/conv/attention only"
 ON_META = "counted on meta, CPU"
 FROM_SPECS = "from specs"
 ANALYTIC = "analytic"
-SP_NOTE = "sequence parallelism not ported"
 SERVING_NOT_TRACED = (
     "prefill and decode cells are not traced: the kernel dispatch takes "
     "CPU and CUDA tensors only (kernels/ops.py), so a serving step cannot "
@@ -245,11 +247,13 @@ def fake_world(world: int):
 
 
 def trace_train_step(cfg, layout: MeshShape, tensor_parallel: bool,
-                     batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+                     batch: Dict[str, torch.Tensor],
+                     sp: bool = False) -> Dict[str, Any]:
     """The port's sharded train step (`build_train_step` over `FSDP`,
-    `cfg.train_microbatches`, params in `cfg.param_dtype`) for rank 0 on
-    the meta device under a fake group of `layout`'s ranks, on the global
-    `batch` (meta tensors). Returns {"flops" (`FlopCounterMode`'s total),
+    `cfg.train_microbatches`, params in `cfg.param_dtype`, sequence
+    parallel with `sp`) for rank 0 on the meta device under a fake group
+    of `layout`'s ranks, on the global `batch` (meta tensors). Returns
+    {"flops" (`FlopCounterMode`'s total),
     "kinds" and "sites" (collective bytes, `comm.Traffic`), "trace_s",
     "metric_bytes" (the step's metrics)}."""
     from torch.utils.flop_counter import FlopCounterMode
@@ -265,7 +269,8 @@ def trace_train_step(cfg, layout: MeshShape, tensor_parallel: bool,
                          "meta")
         shapes = model.init_params(dtype=cfg.param_dtype)
         specs = shd.param_pspecs(shapes, mesh, tensor_parallel)
-        fsdp = FSDP(mesh, specs, cfg, tensor_parallel=tensor_parallel)
+        fsdp = FSDP(mesh, specs, cfg, tensor_parallel=tensor_parallel,
+                    sp=sp)
         params = model.init_params(dtype=cfg.param_dtype,
                                    blocks=fsdp.slices)
         state = opt.init(params)
@@ -283,11 +288,12 @@ def trace_train_step(cfg, layout: MeshShape, tensor_parallel: bool,
                                 for v in metrics.values())}
 
 
-def _train_cell(cfg, shape: ShapeSpec, layout: MeshShape, tp: bool) -> Dict:
+def _train_cell(cfg, shape: ShapeSpec, layout: MeshShape, tp: bool,
+                sp: bool) -> Dict:
     """A train cell's counted fields: the traced step, the rank's state
     and batch bytes from the specs."""
     batch = input_specs(cfg, shape)
-    run = trace_train_step(cfg, layout, tp, batch)
+    run = trace_train_step(cfg, layout, tp, batch, sp)
     state_b = train_state_bytes(cfg, layout, tp)
     batch_b = batch_rank_bytes(batch, layout, tp)
     return {
@@ -356,10 +362,13 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         shape = SHAPES[shape_name]
         layout = production_layout(multi_pod)
         tp = uses_tensor_parallel(cfg, shape, layout)
-        rec.update(tensor_parallel=tp, sp=False)
-        if sp and tp and shape.kind == "train":
-            rec["sp_note"] = SP_NOTE
-        counted = _train_cell(cfg, shape, layout, tp) \
+        # SP where the model axis divides every stream's T; else the
+        # split drops, as `fit_spec` drops it, and the record says false
+        sp = bool(sp and tp and shape.kind == "train") and all(
+            t % layout.shape["model"] == 0
+            for _, t in stream_lengths(cfg, input_specs(cfg, shape)))
+        rec.update(tensor_parallel=tp, sp=sp)
+        counted = _train_cell(cfg, shape, layout, tp, sp) \
             if shape.kind == "train" else _serving_cell(cfg, shape, layout)
         arg = counted["memory"]["argument_bytes"]
         rec.update(
@@ -392,8 +401,8 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--no-sp", action="store_true",
-                    help="disable sequence-parallel residual stream (not "
-                         "ported: recorded only)")
+                    help="disable the sequence-parallel residual stream "
+                         "of the tensor-parallel train cells")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 

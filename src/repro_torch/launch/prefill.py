@@ -32,10 +32,11 @@ import torch
 from repro_torch.models.paging import ChunkMeta
 
 __analysis__ = {
-    # the chunk's device step is the model's (`run` hands it the plan)
-    "traced": ("model.prefill_chunk",),
+    # the chunk's device step (`run` hands it the plan's inputs)
+    "traced": ("PrefillScheduler.step", "model.prefill_chunk"),
     "host_loop": ("PrefillScheduler.plan", "PrefillScheduler.run"),
-    "device_returning": ("model.prefill_chunk",),
+    "device_returning": ("model.prefill_chunk", "self.step",
+                         "self.inputs"),
     "device_params": ("PrefillScheduler.run.caches",),
 }
 
@@ -211,6 +212,28 @@ class PrefillScheduler:
                          tile_seq=tile_seq, last_rows=last_rows,
                          completed=completed, advanced=advanced)
 
+    def inputs(self, plan: ChunkPlan, seq_pos_after: np.ndarray):
+        """The chunk program's device inputs for `plan`: (tokens [1, C],
+        the ChunkMeta, last_rows [S]), int32 on the model's device (under
+        TP the meta as {device: ChunkMeta}, one copy a shard device)."""
+        def meta_at(dev):
+            return ChunkMeta(*(torch.as_tensor(a, dtype=torch.int32,
+                                               device=dev)
+                               for a in (plan.seq_id, plan.pos, plan.hist,
+                                         plan.tile_seq, seq_pos_after)))
+        dev = self.model.device
+        meta = meta_at(dev) if self.mesh is None else \
+            {d: meta_at(d) for d in self.mesh.distinct}
+        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
+        return i32(plan.tokens)[None], meta, i32(plan.last_rows)
+
+    def step(self, params, tokens, caches, meta, last_rows) -> torch.Tensor:
+        """The chunk program: one packed chunk through the model, its K/V
+        written into the pages in place. Returns tok0 [S] int32."""
+        return self.model.prefill_chunk(
+            params, tokens, caches, meta, last_rows, ctx=self.ctx,
+            scales_groups=self.scales_groups)
+
     def run(self, params, caches, plan: ChunkPlan,
             seq_pos_after: np.ndarray) -> torch.Tensor:
         """Execute one planned chunk on the model's device (the caches are
@@ -218,18 +241,5 @@ class PrefillScheduler:
         if self._h_fill is not None:
             # the plan is host numpy: a host-side observation
             self._h_fill.observe(int((plan.seq_id >= 0).sum()) / self.C)
-
-        def meta_at(dev):
-            return ChunkMeta(*(torch.as_tensor(a, dtype=torch.int32,
-                                               device=dev)
-                               for a in (plan.seq_id, plan.pos, plan.hist,
-                                         plan.tile_seq, seq_pos_after)))
-        dev = self.model.device
-        # under TP {device: ChunkMeta}, one copy a shard device
-        meta = meta_at(dev) if self.mesh is None else \
-            {d: meta_at(d) for d in self.mesh.distinct}
-        i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)
-        return self.model.prefill_chunk(
-            params, i32(plan.tokens)[None], caches, meta,
-            i32(plan.last_rows), ctx=self.ctx,
-            scales_groups=self.scales_groups)
+        tokens, meta, last_rows = self.inputs(plan, seq_pos_after)
+        return self.step(params, tokens, caches, meta, last_rows)

@@ -186,12 +186,12 @@ class DecodeEngine:
                                     scales_groups=self.scales_groups)
         return torch.argmax(logits, -1)[:, None].to(torch.int32)
 
-    def _decode(self, params, tok, caches, pos0: int,
+    def _decode(self, params, tok, caches, pos: torch.Tensor,
                 steps: int) -> torch.Tensor:
-        """`steps` greedy steps from tok [B, 1] at position pos0. The loop
-        reads nothing back: pos is a device scalar, each step's argmax
-        feeds the next. Returns the tokens [B, steps] on the device."""
-        pos = torch.tensor(pos0, dtype=torch.int32, device=self.device)
+        """`steps` greedy steps from tok [B, 1] at position pos (an int32
+        device scalar, so that every prompt length calls one program).
+        The loop reads nothing back: each step's argmax feeds the next.
+        Returns the tokens [B, steps] on the device."""
         out = []
         for _ in range(steps):
             logits = self.model.decode_step(
@@ -234,6 +234,7 @@ class DecodeEngine:
                 f"({gen}) needs {pos0 + gen} cache slots but capacity is "
                 f"{max_len}; the cache write would clamp and overwrite the "
                 f"newest entries")
+        pos = torch.tensor(pos0, dtype=torch.int32, device=self.device)
         with torch.no_grad():
             compile_s = 0.0
             if warmup:
@@ -241,7 +242,7 @@ class DecodeEngine:
                 caches = self.init_cache(B, max_len)
                 tok_w = self._prefill(params, inputs, caches)
                 if gen > 1:
-                    self._decode(params, tok_w, caches, pos0, gen - 1)
+                    self._decode(params, tok_w, caches, pos, gen - 1)
                 _sync(self.device)
                 compile_s = time.perf_counter() - t0
             caches = self.init_cache(B, max_len)
@@ -254,7 +255,7 @@ class DecodeEngine:
             toks = tok0
             if gen > 1:
                 toks = torch.cat([tok0, self._decode(params, tok0, caches,
-                                                     pos0, gen - 1)], 1)
+                                                     pos, gen - 1)], 1)
             _sync(self.device)
             t_decode = time.perf_counter() - t0
         self.last_caches = caches      # the timed pass's caches (read-back)

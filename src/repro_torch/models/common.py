@@ -155,10 +155,11 @@ def dense_f32(w, x: torch.Tensor, site: str, dtype) -> torch.Tensor:
 def row_sum(w, x: torch.Tensor, site: str, mp) -> torch.Tensor:
     """The row-parallel end of a split product: this rank's partial of
     x @ w (x's last dimension and w's rows this rank's block) in f32,
-    summed over the model axis (`mp`, a `distributed.tensor.ModelAxis`)
-    and rounded to x's dtype once."""
-    return mp.reduce(dense_f32(w, x.to(torch.float32), site,
-                               x.dtype)).to(x.dtype)
+    summed over the model axis (`mp`, a `distributed.tensor.ModelAxis`;
+    under sequence parallelism this rank's block of T of the sum) and
+    rounded to x's dtype once."""
+    return mp.sum_out(dense_f32(w, x.to(torch.float32), site,
+                                x.dtype)).to(x.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -233,16 +234,17 @@ def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor,
 
 
 def vocab_parallel_embed(emb: torch.Tensor, tokens: torch.Tensor, dtype,
-                         mp) -> torch.Tensor:
+                         mp, whole: bool = False) -> torch.Tensor:
     """`embed_tokens` over a vocabulary split on the model axis: `emb` is
     this rank's block of V/m rows; each rank looks up the tokens it holds,
     zeros elsewhere, and the sum over the axis (one nonzero term a token,
-    so exact) is the whole lookup."""
+    so exact) is the whole lookup: under sequence parallelism this rank's
+    block of T (a reduce-scatter), or with `whole` every row."""
     Vl = emb.shape[0]
     local = tokens.long() - mp.index * Vl
     mine = (local >= 0) & (local < Vl)
     rows = emb[torch.where(mine, local, 0)] * mine[..., None].to(emb.dtype)
-    return mp.reduce(rows).to(dtype)
+    return (mp.sum_whole if whole else mp.sum_out)(rows).to(dtype)
 
 
 def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,

@@ -29,6 +29,19 @@ LB_COEF = 0.01
 Z_COEF = 0.001
 
 
+def stream_lengths(cfg: ModelConfig, batch: Dict) -> List[Tuple[str, int]]:
+    """[(stream, T)] of a whole-sequence pass over `batch` (arrays or
+    meta tensors): the decoder's (its tokens and a VLM's image prefix)
+    and an enc-dec model's encoder's (its frames)."""
+    T = tuple(batch["tokens"].shape)[1]
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        T += tuple(batch["image_embeds"].shape)[1]
+    out = [("decoder", T)]
+    if cfg.is_encdec:
+        out.append(("encoder", tuple(batch["frames"].shape)[1]))
+    return out
+
+
 class Model:
     def __init__(self, cfg: ModelConfig, device=None):
         self.cfg = cfg
@@ -87,46 +100,70 @@ class Model:
         return params
 
     # ------------------------------------------------------------ pieces
-    def _embed_in(self, params, tokens, dtype, mp=None):
+    def _embed_in(self, params, tokens, dtype, mp=None, whole=False):
         """The scaled embeddings; with `mp` and `embed` this rank's block
-        of the vocabulary, the lookup over the model axis."""
+        of the vocabulary, the lookup over the model axis. Under sequence
+        parallelism (`mp.sp`) this rank's block of T, unless `whole`."""
         emb = params["embed"]
         if mp is not None and emb.shape[0] != self.cfg.vocab_size:
-            x = vocab_parallel_embed(emb, tokens, dtype, mp)
+            x = vocab_parallel_embed(emb, tokens, dtype, mp, whole)
         else:
             x = embed_tokens(emb, tokens, dtype)
+            if mp is not None and not whole:
+                x = mp.shard(x)
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=dtype,
                                 device=x.device)
 
     def _embed_batch(self, params, batch: Dict, mp=None):
         """(x, prefix_len): the scaled token embeddings, and for a VLM
         batch its "image_embeds" ahead of them, cast to the model dtype
-        and not scaled; prefix_len is their row count (0 otherwise)."""
+        and not scaled; prefix_len is their row count (0 otherwise).
+        Under sequence parallelism x is this rank's block of the stream's
+        T."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        x = self._embed_in(params, tokens, cfg.dtype, mp)
-        if cfg.family == "vlm" and "image_embeds" in batch:
-            img = torch.as_tensor(batch["image_embeds"], device=self.device)
-            return torch.cat([img.to(cfg.dtype), x], 1), img.shape[1]
-        return x, 0
+        if not (cfg.family == "vlm" and "image_embeds" in batch):
+            return self._embed_in(params, tokens, cfg.dtype, mp), 0
+        x = self._embed_in(params, tokens, cfg.dtype, mp, whole=True)
+        img = torch.as_tensor(batch["image_embeds"], device=self.device)
+        x = torch.cat([img.to(cfg.dtype), x], 1)
+        return (x if mp is None else mp.shard(x)), img.shape[1]
 
     def _encode(self, params, frames, ctx, mp=None):
         """The encoder over the frames [B, T, d]: the f32 sinusoidal
         positions added in the model dtype, the "enc" stack in mode train
         under `ctx` (no calibrated spans: a quantized ctx takes each
-        site's dynamic range), then `enc_norm`."""
+        site's dynamic range), then `enc_norm`. Under sequence
+        parallelism the encoder's stream is split over T as the
+        decoder's, and its output is made whole once, for the decoder's
+        cross attention (an all-gather whose backward reduce-scatters)."""
         cfg = self.cfg
         x = torch.as_tensor(frames, device=self.device).to(cfg.dtype)
-        x = x + sinusoidal_embed(x.shape[1], cfg.d_model,
-                                 self.device).to(cfg.dtype)
+        B, T = x.shape[:2]
+        x = x + sinusoidal_embed(T, cfg.d_model, self.device).to(cfg.dtype)
+        sp = mp is not None and mp.sp
         x, _ = tr.stack_apply([("enc", cfg.n_enc_layers)],
-                              params["enc_blocks"], x, cfg,
-                              positions=self._positions(*x.shape[:2]),
+                              params["enc_blocks"],
+                              mp.shard(x) if sp else x, cfg,
+                              positions=self._positions(B, T),
                               mode="train", ctx=ctx, mp=mp)
-        return norm(params["enc_norm"], x, cfg.norm_type, cfg.norm_eps)
+        x = norm(params["enc_norm"], x, cfg.norm_type, cfg.norm_eps)
+        return mp.gather(x, 1) if sp else x
 
     def _inputs(self, params, batch: Dict, ctx, mp=None):
-        """(x, prefix_len, enc_out) of a whole-sequence pass."""
+        """(x, prefix_len, enc_out) of a whole-sequence pass. Under
+        sequence parallelism the model axis must divide every stream's
+        T (`stream_lengths`): a ValueError otherwise, since the gradients
+        of the leaves not split over "model" are summed there as partial
+        (`distributed.fsdp`), which only a split stream makes them."""
+        if mp is not None and mp.sp:
+            whole = [f"the {k}'s T {t}" for k, t in
+                     stream_lengths(self.cfg, batch) if t % mp.size]
+            if whole:
+                raise ValueError(
+                    f"sequence parallelism over a model axis of {mp.size} "
+                    f"does not divide {', '.join(whole)}: run the step "
+                    f"with sp=False")
         x, prefix_len = self._embed_batch(params, batch, mp)
         enc_out = self._encode(params, batch["frames"], ctx, mp) \
             if self.cfg.is_encdec else None
@@ -143,20 +180,25 @@ class Model:
     # ------------------------------------------------------------ train
     def _forward(self, params, batch: Dict, ctx, scales_groups,
                  gather=None, experts=None):
-        """(hidden states, prefix_len, the stack's summed aux terms)."""
+        """(hidden states, prefix_len, the stack's summed aux terms).
+        Under sequence parallelism the final norm runs on this rank's
+        block of T and its output is made whole."""
         cfg = self.cfg
         mp = None if gather is None else gather.model_axis
         x, prefix_len, enc_out = self._inputs(params, batch, ctx, mp)
+        sp = mp is not None and mp.sp
         x, aux = tr.stack_apply(self.groups_meta, params["blocks"], x, cfg,
-                                positions=self._positions(*x.shape[:2]),
+                                positions=self._positions(
+                                    x.shape[0],
+                                    x.shape[1] * (mp.size if sp else 1)),
                                 mode="train", ctx=ctx,
                                 scales_groups=scales_groups,
                                 prefix_len=prefix_len, enc_out=enc_out,
                                 gather=None if gather is None
                                 else gather.layer,
                                 groups=experts, mp=mp)
-        return norm(params["final_norm"], x, cfg.norm_type,
-                    cfg.norm_eps), prefix_len, aux
+        x = norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
+        return (mp.gather(x, 1) if sp else x), prefix_len, aux
 
     def forward(self, params, batch: Dict, ctx: Optional[QuantCtx] = None,
                 scales_groups=None) -> torch.Tensor:
@@ -188,21 +230,25 @@ class Model:
         where the banks are. Where `gather` splits leaves over the model
         axis (`gather.model_axis`), each layer computes on its blocks
         (column and row products, heads, experts) and the embedding and
-        the loss on this rank's block of the vocabulary."""
+        the loss on this rank's block of the vocabulary. Under sequence
+        parallelism (`gather.model_axis.sp`) the stream between the
+        blocks is this rank's block of T, and a head that is not split
+        passes 1/m of the loss's gradient (`ModelAxis.partial`)."""
         cfg = self.cfg
-        mp = None
         if gather is not None:
             params = gather.outside(params)
-            mp = gather.model_axis
+        mp = None if gather is None else gather.model_axis
         x, prefix_len, aux = self._forward(params, batch, ctx, scales_groups,
                                            gather, experts)
         x = x[:, prefix_len:]
         labels = torch.as_tensor(batch["labels"], device=self.device)
         head = params["embed"].T if cfg.tie_embeddings \
             else params["lm_head"]
+        split = mp is not None and head.shape[1] != cfg.vocab_size
         lm = chunked_lm_loss(head, x, labels, cfg.logit_chunk or x.shape[1],
-                             mp if head.shape[1] != cfg.vocab_size
-                             else None)
+                             mp if split else None)
+        if mp is not None and not split:
+            lm = mp.partial(lm)
         total = lm + LB_COEF * aux["lb_loss"] + Z_COEF * aux["z_loss"]
         return total, {"lm_loss": lm, **aux}
 

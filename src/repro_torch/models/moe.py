@@ -154,7 +154,7 @@ def combine(out_buf: torch.Tensor, gate_vals: torch.Tensor,
 
 def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
               ctx: Optional[QuantCtx] = None, exact_capacity: bool = False,
-              groups=None):
+              groups=None, mp=None):
     """x [B, T, D]. Returns (y [B, T, D] in x's dtype, {"lb_loss",
     "z_loss"}). `exact_capacity` (decode, chunked prefill): C = N, so no
     token drops and one token's routing never depends on another's.
@@ -165,9 +165,14 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     banks of E/m experts (this rank's, at `groups.model_index`) run
     expert-parallel; shared experts that arrive as blocks of F run on
     this rank's block, their f32 partial joining the routed experts'
-    before the one sum over "model"."""
+    before the one sum over "model". `mp` (the model axis) under sequence
+    parallelism: x is the whole stream, the copies are the identity, the
+    sum is reduce-scattered to this rank's block of T (the returned y is
+    that block) and the load-balance and z terms, which every rank
+    computes alike, pass 1/m of their gradient (`ModelAxis.partial`)."""
     B, T, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
+    sp = mp is not None and mp.sp
     N = B * T
     xt = x.reshape(N, D)
     logits, probs, gate_vals, expert_ids = route(xt, params["router"], K)
@@ -192,7 +197,7 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     pos = slot - before[flat]
     Cl = min(C, N)
     xe, ge = xt, gate_vals
-    if split:
+    if split and not sp:
         xe, ge = groups.copy_to_experts(xt), groups.copy_to_experts(gate_vals)
 
     # the slot table: which token feeds each (expert, row), -1 empty.
@@ -220,16 +225,22 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         sh_split = groups is not None and params["sh_up"].shape[-1] != \
             cfg.moe_d_ff * cfg.n_shared_experts
         if sh_split:
+            xs = xt.to(torch.float32)
             sh_part = _expert_ffn(
                 params["sh_gate"], params["sh_up"], params["sh_down"],
-                groups.copy_to_experts(xt.to(torch.float32))[None],
+                (xs if sp else groups.copy_to_experts(xs))[None],
                 cfg.mlp_type, x.dtype)[0]
             partial = sh_part if partial is None else partial + sh_part
         else:
             sh = _expert_ffn(params["sh_gate"], params["sh_up"],
                              params["sh_down"], xt[None], cfg.mlp_type)[0]
+    if sp:      # this rank's block of T of every term, in the same order
+        y = None if y is None else mp.shard(y.reshape(B, T, D))
+        sh = None if sh is None else mp.shard(sh.reshape(B, T, D))
     if partial is not None:
-        y_sum = groups.reduce_from_experts(partial).to(x.dtype)
+        y_sum = (groups.reduce_scatter_from_experts(
+            partial.reshape(B, T, D), 1) if sp
+            else groups.reduce_from_experts(partial)).to(x.dtype)
         y = y_sum if y is None else y + y_sum
     if sh is not None:
         y = y + sh
@@ -241,8 +252,10 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
         density = total.to(torch.float32) / (N * groups.row_size * K)
     lb_loss = E * torch.sum(density * torch.mean(probs, 0))
     z_loss = torch.mean(torch.logsumexp(logits, -1) ** 2)
-    return y.reshape(B, T, D).to(x.dtype), {"lb_loss": lb_loss,
-                                            "z_loss": z_loss}
+    if sp:
+        lb_loss, z_loss = mp.partial(lb_loss), mp.partial(z_loss)
+    return y.reshape(B, -1, D).to(x.dtype), {"lb_loss": lb_loss,
+                                             "z_loss": z_loss}
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, device,

@@ -230,6 +230,9 @@ def channel_mix(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         r = mp.gather(torch.sigmoid(col("w_cr", "cm_r", xr)))
     else:
         r = torch.sigmoid(dense(params["w_cr"], xr, "cm_r", ctx))
+    if mp is not None:       # under sequence parallelism, this rank's T
+        r = mp.shard(r)
+        out = out if split_k else mp.shard(out)
     return r * out
 
 

@@ -223,21 +223,31 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
     `distributed.tensor.ModelAxis`, mode train only) makes each sub-
     block whose leaves arrive as model blocks compute on them: the
     normed input enters through `copy_to`, the row product's f32
-    partials leave through `reduce_from`."""
+    partials leave through `reduce_from`. Under sequence parallelism
+    (`mp.sp`) x is this rank's block of T: each normed input is made whole
+    over T before its sub-block (`mp.enter`), and the sub-block's output
+    comes back as this rank's block (its row product reduce-scattered, a
+    sub-block that ran whole cut by `mp.shard`)."""
     _check_kind(kind)
     nt, eps = cfg.norm_type, cfg.norm_eps
-    h = norm(params["ln1"], x, nt, eps)
+
+    def enter(h):
+        return h if mp is None else mp.enter(h)
+
+    def out(o):
+        return o if mp is None or o.shape[1] == x.shape[1] else mp.shard(o)
+    h = enter(norm(params["ln1"], x, nt, eps))
     if kind == "rwkv":
         cm_last = cache.cm_last if cache is not None else None
         o, cache = rwkv_mod.time_mix(params, h, cfg, cache=cache, mode=mode,
                                      ctx=ctx, mp=mp)
-        x = x + o.to(x.dtype)
-        h = norm(params["ln2"], x, nt, eps)
+        x = x + out(o).to(x.dtype)
+        h = enter(norm(params["ln2"], x, nt, eps))
         o = rwkv_mod.channel_mix(params, h, cfg, last=cm_last, ctx=ctx,
                                  mp=mp)
         if cache is not None:
             cache.cm_last = h[:, -1].to(cache.cm_last.dtype)
-        return x + o.to(x.dtype), cache, {}
+        return x + out(o).to(x.dtype), cache, {}
     if kind == "rg_rec":
         o, cache = rg_mod.rglru_block(params["rec"], h, cfg, cache=cache,
                                       mode=mode, ctx=ctx, mp=mp)
@@ -259,8 +269,8 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
             params["attn"], h, cfg, positions=positions,
             cache=cache.self_kv if cache is not None else None, mode=mode,
             ctx=ctx, mp=mp)
-        x = x + o.to(x.dtype)
-        h = norm(params["ln_x"], x, nt, eps)
+        x = x + out(o).to(x.dtype)
+        h = enter(norm(params["ln_x"], x, nt, eps))
         o = _cross_attention(params["xattn"], h, cfg, cache=cache,
                              mode=mode, enc_out=enc_out, mp=mp)
     else:
@@ -268,19 +278,20 @@ def block_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str, *,
             params["attn"], h, cfg, positions=positions, cache=cache,
             mode=mode, ctx=ctx, chunk=chunk, prefix_len=prefix_len,
             window=cfg.local_window if kind == "rg_attn" else 0, mp=mp)
-    x = x + o.to(x.dtype)
-    h = norm(params["ln2"], x, nt, eps)
+    x = x + out(o).to(x.dtype)
+    h = enter(norm(params["ln2"], x, nt, eps))
     aux = {}
     if kind in ("moe", "mla_moe"):
         exact = mode in (("decode",) if kind == "mla_moe"
                          else ("decode", "chunk_prefill"))
         o, aux = moe_mod.moe_apply(params["moe"], h, cfg, ctx,
-                                   exact_capacity=exact, groups=groups)
+                                   exact_capacity=exact, groups=groups,
+                                   mp=mp)
     else:
         o = ffn_mod.ffn_apply(params["ffn"], h, _mlp(cfg, kind), ctx,
                               mp if mp is not None and params["ffn"][
                                   "w_down"].shape[0] != cfg.d_ff else None)
-    return x + o.to(x.dtype), cache, aux
+    return x + out(o).to(x.dtype), cache, aux
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:

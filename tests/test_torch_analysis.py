@@ -21,7 +21,10 @@ from repro_torch.analysis import (ALL_CHECKS, Finding, load_baseline,
 from repro_torch.analysis import host_lint
 from repro_torch.analysis.findings import (HL_LOOP_NUMERIC, HL_LOOP_SYNC,
                                            HL_TRACED_MUT, HL_TRACED_RAISE,
-                                           HL_UNANNOTATED)
+                                           HL_UNANNOTATED, JX_COMPILE_CACHE,
+                                           JX_HOSTCALL, JX_PACKED_CAST,
+                                           JX_PAGE_TILE, JX_TILE_DIVIDE,
+                                           JX_VMEM)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -164,11 +167,18 @@ def _lint(tmp_path, body, name="mod.py"):
 
 
 def test_check_ids_keep_the_reference_ids():
-    """The HL IDs are the reference's; the JX ones come with M11.4."""
-    assert ALL_CHECKS == tuple(c for c in jfindings.ALL_CHECKS
-                               if c.startswith("HL"))
-    assert ALL_CHECKS == (HL_LOOP_NUMERIC, HL_LOOP_SYNC, HL_TRACED_MUT,
+    """Every check ID is the reference's, in its order: the program
+    audit's JX101-JX106 (`program_audit`), then the lint's HL201-HL205."""
+    assert ALL_CHECKS == jfindings.ALL_CHECKS
+    assert ALL_CHECKS == (JX_HOSTCALL, JX_PACKED_CAST, JX_TILE_DIVIDE,
+                          JX_PAGE_TILE, JX_VMEM, JX_COMPILE_CACHE,
+                          HL_LOOP_NUMERIC, HL_LOOP_SYNC, HL_TRACED_MUT,
                           HL_TRACED_RAISE, HL_UNANNOTATED)
+    assert (JX_HOSTCALL, JX_PACKED_CAST, JX_TILE_DIVIDE, JX_PAGE_TILE,
+            JX_VMEM, JX_COMPILE_CACHE) == (
+        jfindings.JX_HOSTCALL, jfindings.JX_PACKED_CAST,
+        jfindings.JX_TILE_DIVIDE, jfindings.JX_PAGE_TILE, jfindings.JX_VMEM,
+        jfindings.JX_COMPILE_CACHE)
     assert (HL_LOOP_NUMERIC, HL_LOOP_SYNC, HL_TRACED_MUT, HL_TRACED_RAISE,
             HL_UNANNOTATED) == (jfindings.HL_LOOP_NUMERIC,
                                 jfindings.HL_LOOP_SYNC,
@@ -274,8 +284,9 @@ def test_report_json_matches_reference():
 def test_clean_tree_reports_zero_unsuppressed_findings():
     """Every default target is annotated and lints clean; every
     suppression in the shipped baseline carries a reason (there are
-    none)."""
-    live, muted, counters = run_all()
+    none). The program audit's half runs in
+    tests/test_torch_program_audit.py."""
+    live, muted, counters = run_all(programs=())
     assert live == [], [f.format() for f in live]
     assert muted == []
     assert all(s.reason for s in load_baseline(
@@ -320,7 +331,7 @@ def test_cli_exit_code_follows_the_baseline(tmp_path, monkeypatch, capsys):
     v = tmp_path / "v.py"
     v.write_text(VIOLATIONS)
     monkeypatch.setattr(cli, "run_all", lambda **k: analysis.run_all(
-        targets=(str(v),), **k))
+        targets=(str(v),), programs=(), **k))
     some = tmp_path / "some.toml"
     some.write_text('[[suppress]]\ncheck = "HL204"\nreason = "r"\n')
     assert cli.main(["--fail-on-findings", "--baseline", str(some)]) == 1
