@@ -291,17 +291,19 @@ Phases (each one that fails makes the script exit non-zero):
               (`launch.dryrun.train_state_bytes`) within the allocator's
               rounding (`_allocator_slack`), both logged; over NCCL across 2 (4) cards where
               the host has them
-  cnn_train   the CNN float trainer (`launch/cnn_train.py`): train_cnn()
-              and train_cnn(prune_2_4=True) on the card; float top-1 >
-              0.85 and pruned > 0.80 at stage-0 w1 sparsity 0.5 (the
-              reference's thresholds), then the paper's 16 quantizers of
-              Tables 1, 2, 4 and ACIQ A4W8 on the trained network (3072
-              images, K1 unsigned: K1 = 8 sites x (12 x 17 + 1), no other
-              kernel; every quantizer's logits equal the plain K1's on
-              batch 0), top-1, delta and logit_err logged; Table 6 on the
-              pruned network (A8W8 through K1, STC rows, 256 images); the
-              claims of tests/test_paper_claims.py logged beside their
-              margins
+  cnn_train   the paper's tables (`launch/paper_tables.py`) on the CNN
+              float trainer's networks: train_cnn() and
+              train_cnn(prune_2_4=True) on the card; float top-1 > 0.85
+              and pruned > 0.80 at stage-0 w1 sparsity 0.5 (the
+              reference's thresholds); Tables 1-4 on 3072 images (K1
+              unsigned), Table 1's logit_err, Table 6 (A8W8 through K1,
+              STC rows, 256 images), bit_stats and Table 5 (K1 signed,
+              timed): K1 = 8 sites x (12 x 21 + 2 x 3 + 1) + 8 x 55 =
+              2512, no other kernel; every quantizer's logits (and the
+              pruned A8W8's) equal the plain K1's on batch 0, each Table 5
+              configuration bit-exact twice against ref_sparq_matmul; the
+              rows printed as CSV, the claims of
+              tests/test_paper_claims.py logged beside their bounds
   parity      2-layer full-width f32 models on the card (kernels) and on
               the CPU (plain versions): the paged chunked engine (also at
               chunk-align 16 and page size 128) and the scan engine give
@@ -5281,53 +5283,39 @@ def profile_train(dev, results):
 # phase: the CNN float trainer and the paper's quantizers on its network
 # ----------------------------------------------------------------------
 
-# tests/test_paper_claims.py's paired-evaluation margin
-CLAIM_MARGIN = 0.012
-
-
-def _paper_claims(top1, fp32, err, pruned):
-    """The quantities of the reference's paper-claims tests, each beside
-    its margin (findings, not gates: the port draws its own data)."""
-    t = lambda name: top1[name]
-    return {
-        "T1 a8w8 top1 > fp32 - 0.01": (t("a8w8"), fp32 - 0.01),
-        "T1 err(a8w4) > 4 err(a8w8)": (err["a8w4"], 4 * err["a8w8"]),
-        "T1 err(5opt) < err(a8w4)": (err["5opt_R"], err["a8w4"]),
-        "T1 a8w4 top1 > 0.85": (t("a8w4"), 0.85),
-        "T2 5opt top1 > fp32 - 0.025": (t("5opt_R"), fp32 - 0.025),
-        "T2 3opt top1 > fp32 - 0.025": (t("3opt_R"), fp32 - 0.025),
-        **{f"T2 |{o}opt trim - fp32| < 0.08": (abs(t(f"{o}opt_trim") - fp32),
-                                               0.08) for o in (5, 3, 2)},
-        "T4 5opt >= 7opt - margin": (t("5opt_R"),
-                                     t("2b_7opt") - CLAIM_MARGIN),
-        "T4 7opt top1 > 0.5": (t("2b_7opt"), 0.5),
-        "T4 7opt >= 7opt noVS - margin": (t("2b_7opt"),
-                                          t("2b_7opt_noVS") - CLAIM_MARGIN),
-        "T6 pruned top1 > 0.8": (pruned["top1"], 0.8),
-        "T6 STC 5opt > pruned fp32 - 0.03": (pruned["stc_5opt_top1"],
-                                             pruned["fp32_256"] - 0.03),
-    }
-
-
 def cnn_train_full(dev, results):
-    """The paper's path on a trained network: `cnn_train.train_cnn()`
-    (width 24, stages (1, 1, 1), 8 classes, 24 x 24; 420 steps of 96) and
-    `train_cnn(prune_2_4=True)` (630 steps, 2:4 from step 157) on the card,
-    then calibration (BN and min-max spans on one batch of 128, the
-    reference's default) and 3072 images at batch 256 through the 16
-    quantizers of Tables 1, 2 and 4 and ACIQ A4W8, each conv but the stem
-    through K1 (unsigned); Table 6 on the pruned network: its A8W8 row
-    (K1) and the STC rows on one batch of 256. Gates: float top-1 > 0.85
-    and pruned top-1 > 0.80 with stage-0 w1 at sparsity 0.5 (the
-    reference's thresholds for its trainer); K1 launched exactly sites x
-    batches x quantized evaluations and no other kernel; K1's logits equal
-    the plain K1's on batch 0 of every quantizer. The claims of
-    tests/test_paper_claims.py are logged beside their margins."""
+    """The paper's tables on a trained network, through
+    `launch/paper_tables.py`'s functions: `cnn_train.train_cnn()` (width
+    24, stages (1, 1, 1), 8 classes, 24 x 24; 420 steps of 96) and
+    `train_cnn(prune_2_4=True)` (630 steps, 2:4 from step 157) on the
+    card, then calibration (BN and min-max spans on one batch of 128, the
+    reference's default) and, on 3072 images at batch 256, Tables 1, 2, 3
+    (ACIQ's clips on the calibration batch) and 4, each conv but the stem
+    through K1 (unsigned); `logit_err` of A8W8, A8W4 and 5opt on the first
+    two batches (Table 1's claims); the pruned network's float top-1 on
+    the 3072 images, then, calibrated, Table 6 on one batch of 256 (its
+    A8W8 row through K1, the STC rows plain); bit_stats on the first
+    batch; Table 5 (K1 signed at 256 x 1024 x 256, each of its eight
+    configurations 5 + 50 times).
+
+    K1 launches, gated exactly, none of any other kernel: 8 sites x (12
+    batches x 21 quantized evaluations (3 + 9 + 5 + 4) + 2 x 3 + 1) +
+    8 x (5 + 50) = 2512.
+
+    Gates: float top-1 > 0.85 and pruned top-1 > 0.80 with stage-0 w1 at
+    sparsity 0.5 (the reference's thresholds for its trainer); on batch 0
+    each of the 17 quantizers' K1 logits (ACIQ's on its clips) and the
+    pruned A8W8 logits equal the plain K1's; each Table 5 configuration's
+    K1 run twice on its first input set, both equal to each other and to
+    `ref_sparq_matmul`. The rows are printed as CSV; the claims of
+    tests/test_paper_claims.py are logged beside their bounds (findings:
+    the port draws its own data)."""
     from repro_torch.core.pruning import sparsity
-    from repro_torch.core.sparq import SparqConfig
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import sparq_matmul as mm
     from repro_torch.launch import cnn_eval as ce
     from repro_torch.launch import cnn_train as ct
+    from repro_torch.launch import paper_tables as pt
 
     def run():
         t0 = time.perf_counter()
@@ -5337,92 +5325,111 @@ def cnn_train_full(dev, results):
         pruned = ct.train_cnn(prune_2_4=True, device=dev)
         torch.cuda.synchronize()
         t_pruned = time.perf_counter() - t0 - t_float
+        t0 = time.perf_counter()
         cfg = model["cfg"]
         calib = ce.calib_batches(cfg, 128, device=dev)
         evalb = ce.eval_batches(cfg, device=dev)
         scales = ce.calibrate_cnn(model, calib, device=dev)
-        aciq = ce.aciq_scales(model, 4, calib, device=dev)
-        codecs = {n: (scales, c) for n, c in ce.PAPER_CODECS.items()}
-        codecs["aciq_a4w8"] = (aciq, SparqConfig(enabled=False, act_bits=4))
-        ctxs = {n: ce.quant_ctx(sc, c, device=dev)
-                for n, (sc, c) in codecs.items()}
-        params = model["params"]
-        lf = _logits(params, evalb, cfg)
-        lq = {}
-        for name, ctx in ctxs.items():
-            t = time.perf_counter()
-            lq[name] = (_logits(params, evalb, cfg, ctx),
-                        time.perf_counter() - t)
-        # Table 6: the pruned network, uncalibrated (as the reference
-        # tests it), then calibrated for its A8W8 and STC rows
-        p_top1 = ce.cnn_accuracy(pruned, batches=evalb, device=dev)
-        stc_b = evalb[:1]
-        stc_scales = ce.calibrate_cnn(pruned, calib, device=dev)
-        p_lf = _logits(pruned["params"], stc_b, cfg)
-        p_a8w8 = _logits(pruned["params"], stc_b, cfg, ce.quant_ctx(
-            stc_scales, ce.PAPER_CODECS["a8w8"], device=dev))
+        tables = {
+            "table1": pt.table1_precision_grid(model, scales, evalb, dev),
+            "table2": pt.table2_sparq_configs(model, scales, evalb, dev),
+            "table3": pt.table3_baselines(model, scales, evalb, calib, dev),
+            "table4": pt.table4_low_bits(model, scales, evalb, dev)}
+        errs = {n: ce.logit_err(model, scales, ce.PAPER_CODECS[n],
+                                evalb[:2], device=dev)
+                for n in pt.CLAIM_ERR_CODECS}
+        w = pruned["params"]["stages"][0][0]["w1"]
+        pruned_info = dict(
+            top1=ce.cnn_accuracy(pruned, batches=evalb, device=dev),
+            sparsity=sparsity(w.reshape(-1, w.shape[-1])))
+        pscales = ce.calibrate_cnn(pruned, calib, device=dev)
         t = time.perf_counter()
-        stc = {n: _logits(pruned["params"], stc_b, cfg, ce.quant_ctx(
-            stc_scales, c, stc=True, device=dev))
-            for n, c in ce.STC_CODECS.items()}
-        t_stc = time.perf_counter() - t
+        tables["table6"] = pt.table6_sparse_tc(pruned, pscales, evalb[:1],
+                                               dev)
+        t_table6 = time.perf_counter() - t
+        tables["bit_stats"] = pt.bit_stats(model, evalb[0], dev)
+        t = time.perf_counter()
+        tables["table5"] = pt.table5_rows(dev)
+        t_table5 = time.perf_counter() - t
+        torch.cuda.synchronize()
         return dict(model=model, pruned=pruned, calib=calib, evalb=evalb,
-                    ctxs=ctxs, lf=lf, lq=lq, p_top1=p_top1, p_lf=p_lf,
-                    p_a8w8=p_a8w8, stc=stc, stc_b=stc_b,
-                    stc_scales=stc_scales, t_float=t_float,
-                    t_pruned=t_pruned, t_stc=t_stc)
+                    scales=scales, pscales=pscales, tables=tables,
+                    errs=errs, pruned_info=pruned_info, t_float=t_float,
+                    t_pruned=t_pruned, t_table6=t_table6,
+                    t_table5=t_table5,
+                    t_tables=time.perf_counter() - t0)
     torch.cuda.reset_peak_memory_stats()
     out, counts = _drive(run)
     model, pruned, evalb = out["model"], out["pruned"], out["evalb"]
+    tables, pinfo = out["tables"], out["pruned_info"]
     cfg, params = model["cfg"], model["params"]
     sites = sum(2 * n + (si > 0) for si, n in enumerate(cfg.stages))
-    want = sites * (len(evalb) * len(out["ctxs"]) + 1)
+    evals = sum(len(tables[t]) - 1 for t in ("table1", "table2", "table3",
+                                             "table4"))
+    t5_calls = len(pt.TABLE5_CONFIGS) * (pt.TIME_WARMUP + pt.TIME_ITERS)
+    want = sites * (len(evalb) * evals + 2 * len(pt.CLAIM_ERR_CODECS) + 1) \
+        + t5_calls
     if counts["sparq_matmul"] != want or any(
             n for k, n in counts.items() if k != "sparq_matmul"):
-        raise AssertionError(f"cnn_train: launches {counts}, expected "
-                             f"sparq_matmul = {sites} x ({len(evalb)} x "
-                             f"{len(out['ctxs'])} + 1) = {want} and no "
-                             f"other")
-    labels = [b["label"] for b in evalb]
-    fp32 = _compare(out["lf"], out["lf"], labels)["top1"]
-    w = pruned["params"]["stages"][0][0]["w1"]
-    w_sparsity = sparsity(w.reshape(-1, w.shape[-1]))
+        raise AssertionError(
+            f"cnn_train: launches {counts}, expected sparq_matmul = {sites} "
+            f"x ({len(evalb)} x {evals} + 2 x {len(pt.CLAIM_ERR_CODECS)} + "
+            f"1) + {t5_calls} = {want} and no other")
+    fp32 = dict((c, v) for c, _, v in tables["table1"])["fp32"]
     log(f"cnn_train: float {len(model['losses'])} steps in "
         f"{out['t_float']:.1f} s (loss {model['losses'][0]:.4f} -> "
         f"{model['losses'][-1]:.2e}), 2:4 {len(pruned['losses'])} steps in "
         f"{out['t_pruned']:.1f} s; float top-1 {fp32:.4f}, pruned top-1 "
-        f"{out['p_top1']:.4f} at stage-0 w1 sparsity {w_sparsity}")
+        f"{pinfo['top1']:.4f} at stage-0 w1 sparsity {pinfo['sparsity']}; "
+        f"tables in {out['t_tables']:.1f} s (Table 6 {out['t_table6']:.1f} "
+        f"s, Table 5 {out['t_table5']:.1f} s); K1 launched {want} times")
     if not fp32 > 0.85:
         raise AssertionError(f"cnn_train: float top-1 {fp32} <= 0.85")
-    if not (out["p_top1"] > 0.80 and w_sparsity == 0.5):
-        raise AssertionError(f"cnn_train: pruned top-1 {out['p_top1']}, "
-                             f"sparsity {w_sparsity}")
-    rows = {}
+    if not (pinfo["top1"] > 0.80 and pinfo["sparsity"] == 0.5):
+        raise AssertionError(f"cnn_train: pruned {pinfo}")
+    # the quantizers' K1 logits on batch 0 against the plain K1's (these
+    # launches compare; the path's were counted above)
+    codecs = {n: (out["scales"], c) for n, c in ce.PAPER_CODECS.items()}
+    codecs["aciq_a4w8"] = (ce.aciq_scales(model, 4, out["calib"],
+                                          device=dev),
+                           ce.PAPER_CODECS["a4w8"])
+    b0 = evalb[:1]
+    lf = _logits(params, b0, cfg)
+    k1 = {n: _logits(params, b0, cfg, ce.quant_ctx(sc, c, device=dev))
+          for n, (sc, c) in codecs.items()}
+    p_ctx = ce.quant_ctx(out["pscales"], ce.PAPER_CODECS["a8w8"],
+                         device=dev)
+    p_k1 = _logits(pruned["params"], b0, cfg, p_ctx)[0]
+    t5_in = pt.table5_inputs(1, device=dev)[0]
+    t5_k1 = {}
+    for name, c in pt.TABLE5_CONFIGS:
+        kw = ops._codec_kw(c)
+        t5_k1[name] = (mm.sparq_matmul_cuda(*t5_in, **kw),
+                       mm.sparq_matmul_cuda(*t5_in, **kw))
+    torch.cuda.synchronize()
+    labels = [b["label"] for b in b0]
+    batch0 = {}
     orig_route = ops._route
     ops._route = lambda t: "plain"        # K1's plain version, on the card
     try:
         build.reset_launch_counts()
-        for name, ctx in out["ctxs"].items():
-            lq, secs = out["lq"][name]
+        for name, (sc, c) in codecs.items():
+            lq = k1[name]
             if not all(bool(torch.isfinite(q).all()) for q in lq):
                 raise AssertionError(f"cnn_train {name}: non-finite logits")
-            plain = _logits(params, evalb[:1], cfg, ctx)[0]
+            plain = _logits(params, b0, cfg, ce.quant_ctx(sc, c,
+                                                          device=dev))[0]
             if not torch.equal(plain, lq[0]):
                 raise AssertionError(
                     f"cnn_train {name}: K1 logits differ from the plain "
                     f"version's (max abs "
                     f"{float((plain - lq[0]).abs().max())})")
-            r = _compare(lq, out["lf"], labels)
-            rows[name] = dict(**r, delta=r["top1"] - fp32,
-                              ms_per_batch=1e3 * secs / len(evalb))
-            log(f"cnn_train {name:13s}: == plain K1 on batch 0; top-1 "
-                f"{r['top1']:.4f} (delta {r['top1'] - fp32:+.4f}), "
-                f"logit_err {r['logit_err']:.5f}, agreement "
-                f"{r['agree']:.4f}, {rows[name]['ms_per_batch']:.2f} ms a "
-                f"batch")
-        plain = _logits(pruned["params"], out["stc_b"], cfg, ce.quant_ctx(
-            out["stc_scales"], ce.PAPER_CODECS["a8w8"], device=dev))[0]
-        if not torch.equal(plain, out["p_a8w8"][0]):
+            batch0[name] = _compare(lq, lf, labels)
+            log(f"cnn_train {name:13s}: == plain K1 on batch 0; batch 0 "
+                f"logit_err {batch0[name]['logit_err']:.5f}, agreement "
+                f"{batch0[name]['agree']:.4f}")
+        plain = _logits(pruned["params"], b0, cfg, p_ctx)[0]
+        if not torch.equal(plain, p_k1):
             raise AssertionError("cnn_train: pruned a8w8 K1 logits differ "
                                  "from the plain version's")
         if build.launch_counts()["sparq_matmul"]:
@@ -5430,39 +5437,41 @@ def cnn_train_full(dev, results):
                                  "K1")
     finally:
         ops._route = orig_route
-    stc_labels = [b["label"] for b in out["stc_b"]]
-    p_fp32 = _compare(out["p_lf"], out["p_lf"], stc_labels)["top1"]
-    stc_rows = {"a8w8": _compare(out["p_a8w8"], out["p_lf"], stc_labels)}
-    for name, lq in out["stc"].items():
-        if not all(bool(torch.isfinite(q).all()) for q in lq):
-            raise AssertionError(f"cnn_train {name}: non-finite logits")
-        stc_rows[name] = _compare(lq, out["p_lf"], stc_labels)
-    for name, r in stc_rows.items():
-        r["delta"] = r["top1"] - p_fp32
-        log(f"cnn_train T6 {name:12s} (2:4-pruned, 256 images): top-1 "
-            f"{r['top1']:.4f} (delta {r['delta']:+.4f}), logit_err "
-            f"{r['logit_err']:.5f}")
-    claims = _paper_claims(
-        {n: r["top1"] for n, r in rows.items()}, fp32,
-        {n: r["logit_err"] for n, r in rows.items()},
-        dict(top1=out["p_top1"], fp32_256=p_fp32,
-             stc_5opt_top1=stc_rows["stc_4b_5opt"]["top1"]))
-    for claim, (value, bound) in claims.items():
-        log(f"cnn_train claim {claim}: {value:.5f} against {bound:.5f}")
+    t5_err = {}
+    for name, c in pt.TABLE5_CONFIGS:
+        got, again = t5_k1[name]
+        want_t5 = mm.ref_sparq_matmul(*t5_in, **ops._codec_kw(c))
+        t5_err[name] = float((got - want_t5).abs().max())
+        if not (torch.equal(got, want_t5) and torch.equal(got, again)):
+            raise AssertionError(
+                f"cnn_train Table 5 {name}: K1 not bit-exact twice (max "
+                f"abs err {t5_err[name]}, runs equal "
+                f"{torch.equal(got, again)})")
+    log(f"cnn_train Table 5: K1 bit-exact twice against ref_sparq_matmul "
+        f"at all {len(t5_err)} configurations")
+    log("table,config,metric,value")
+    for t in ("table1", "table2", "table3", "table4", "table5", "table6",
+              "bit_stats"):
+        pt.emit(t, tables[t])
+    claims = pt.paper_claims(tables, out["errs"], pinfo)
+    for claim, (value, bound, held) in claims.items():
+        log(f"cnn_train claim {claim}: {value:.6g} against {bound:.6g}: "
+            f"{'held' if held else 'NOT held'}")
     results["cnn_train"] = dict(
         arch=cfg.name, width=cfg.width, stages=list(cfg.stages),
         img=cfg.img_size, classes=cfg.num_classes,
         steps=len(model["losses"]), pruned_steps=len(pruned["losses"]),
         train_s=out["t_float"], pruned_train_s=out["t_pruned"],
-        final_loss=model["losses"][-1], float_top1=fp32,
-        pruned_top1=out["p_top1"], pruned_sparsity=w_sparsity,
+        tables_s=out["t_tables"], table6_s=out["t_table6"],
+        table5_s=out["t_table5"], final_loss=model["losses"][-1],
+        float_top1=fp32, pruned=pinfo,
         eval_images=sum(b["image"].shape[0] for b in evalb),
-        launches=counts, codecs=rows,
-        stc=dict(images=sum(b["image"].shape[0] for b in out["stc_b"]),
-                 seconds=out["t_stc"], fp32_top1=p_fp32, codecs=stc_rows),
+        launches=counts, tables={t: [list(r) for r in rows]
+                                 for t, rows in tables.items()},
+        logit_err=out["errs"], batch0=batch0, table5_max_abs_err=t5_err,
         claims={k: list(v) for k, v in claims.items()},
         peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    del out, model, pruned, params, evalb
+    del out, model, pruned, params, evalb, k1, t5_k1
     torch.cuda.empty_cache()
     return counts
 

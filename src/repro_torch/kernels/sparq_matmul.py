@@ -100,6 +100,21 @@ def smem_bytes(p: Plan) -> int:
     return STAGES * (p.bm * p.bk + p.bk * B_ROW)
 
 
+def hbm_bytes(p: Plan, M: int, N: int, K: int, x_bytes: int = 4) -> int:
+    """Device-memory bytes of one K1 call of plan `p`, as the plan implies
+    when no read hits L2: the pre-pass reads x (`x_bytes` a value) and
+    writes the codes r (M x kp, a byte each); the GEMM reads r once per N
+    tile and w once per M tile; with split-K every slice writes its int32
+    partial sums and the tile's last block reads them all back; the
+    epilogue writes the f32 output. The scales (N + 1 floats) and
+    split-K's arrival counters (one int a tile) are left out. The codec
+    does not enter: SPARQ's logic runs in registers."""
+    pre = M * K * x_bytes + M * p.kp
+    gemm = M * p.kp * _cdiv(N, p.bn) + K * N * _cdiv(M, p.bm)
+    partials = 2 * 4 * p.split_k * M * N if p.split_k > 1 else 0
+    return pre + gemm + partials + 4 * M * N
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(dev: torch.device) -> int:
     """SMs of the card `dev`: the `sms` of its plans."""
