@@ -9,7 +9,8 @@ Phases (each one that fails makes the script exit non-zero):
               src/repro_torch/csrc, one nvcc per source, all at once;
               cuobjdump -sass of K1's library must show IMMA (integer
               tensor cores) with S8 x S8 and with U8 x S8 operands and no
-              IDP4A, and K3's DMMA (f64 tensor cores)
+              IDP4A, K3's DMMA (f64 tensor cores), and K7's HMMA with
+              f16 operands and f32 sums and no DFMA or DMMA
   audit       the program audit (`repro_torch.analysis`, JX101-JX106) on
               the card: every registered hot program (`analysis.registry.
               default_programs("cuda")`: the scan and paged decode steps,
@@ -50,10 +51,13 @@ Phases (each one that fails makes the script exit non-zero):
               heads of 64, paligemma-3b's one of 256 behind its prefix);
               K7 sparq_mla_decode
               at K7_SHAPES (deepseek-v2-lite's H 16, r 512, dr 64 and the
-              reduced widths, 8 x 296 slots) at pos 287 and 256, over planes K4 wrote with
-              uncalibrated and calibrated scales and on misaligned planes,
-              within 1e-4 of mla_f64_reference and PLAIN_TOL of its plain
-              version, timed beside SDPA over the dequantized planes; K6
+              reduced widths, 8 x 296 slots, at pos 287 and 256; and an
+              8 x 8192 cache at the published widths, at pos 8191), over
+              planes K4 wrote with uncalibrated and calibrated scales and
+              on misaligned planes, within 1e-4 of mla_f64_reference and
+              PLAIN_TOL of its plain version, timed at 296 and 8192 slots
+              beside SDPA over the dequantized planes, its cluster plan
+              and the card's cluster capacity logged; K6
               sparq_dequant bit-exact in codes and float modes (f32 and
               bf16 out), `CachedTensor.read` profiled as one K6 launch;
               K2 paged decode and K5 contiguous decode (the split-key
@@ -369,6 +373,7 @@ sys.path.insert(0, str(ROOT / "src"))
 H100_BYTES_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_INT8_OPS_S = 1979e12     # dense int8 tensor-core rate
 H100_F32_FLOPS_S = 67e12      # f32 outside the tensor cores
+H100_F16_FLOPS_S = 989e12     # dense f16 and bf16 tensor-core rate
 H100_F64_MMA_FLOPS_S = 67e12  # f64 tensor cores (DMMA), the same rate
 L2_BYTES = 50 * 2 ** 20
 
@@ -2225,13 +2230,22 @@ def check_f3(dev, results):
 
 
 # K7's shapes (B, H, r, dr, Tk): the mla phase's scan decode (deepseek-v2-
-# lite at its published widths, 8 x (256 + 32 + 8) slots) and the reduced
-# deepseek's heads and widths over the same slots
+# lite at its published widths, 8 x (256 + 32 + 8) slots), the reduced
+# deepseek's heads and widths over the same slots, and an 8K cache at the
+# published widths (a long context of deepseek-v2-lite's users)
 K7_SHAPES = {"full width": (8, 16, 512, 64, 296),
-             "reduced": (8, 4, 32, 16, 296)}
-# pos after the append: the scan decode's last step (287: inside a split
-# of 32 keys and a plain tile of 128) and a tile boundary (256)
-K7_POS = (287, 256)
+             "reduced": (8, 4, 32, 16, 296),
+             "long": (8, 16, 512, 64, 8192)}
+# pos after the append: the scan decode's last step (287: inside a tile of
+# 32 keys and a plain tile of 128) and a tile boundary (256); the long
+# cache's last slot (8191) and early decode in it (300: most splits' runs
+# empty or short)
+K7_POS = {"full width": (287, 256), "reduced": (287, 256),
+          "long": (8191, 300)}
+# the timed cases: (shape, pos), the first pos of each shape timed and the
+# long cache early in decode
+K7_TIMED = {"full width": ("full width", 287), "long": ("long", 8191),
+            "long pos 300": ("long", 300)}
 
 
 def k7_case(gen, dev, B, H, r, dr, Tk, pos, calibrated, misalign=False):
@@ -2284,20 +2298,23 @@ def check_k7(dev, results):
     """K7 (the absorbed-MLA latent decode) at K7_SHAPES, at K7_POS, over
     planes written by K4 with uncalibrated and calibrated scales, and on
     misaligned planes: within 1e-4 of mla_f64_reference and of its plain
-    version (PLAIN_TOL beyond the full-width calibrated case). Timed at
-    the scan decode's last step beside its plain version, SDPA over the
-    dequantized planes (key [c, pe], value c, scale sm_scale; the decode
-    excluded) and the byte bound."""
+    version (PLAIN_TOL beyond the timed calibrated cases). Timed at
+    the scan decode's last step and at the long cache beside its plain
+    version, SDPA over the dequantized planes (key [c, pe], value c, scale
+    sm_scale; the decode excluded) and the byte bound, and at the long
+    cache early in decode (pos 300, which the long shape's uncalibrated
+    and calibrated cases also hold to the gates); the launch plan
+    (clusters, shared memory) and the card's cluster capacity logged."""
     import torch.nn.functional as F
     from repro_torch.kernels import sparq_mla_decode as k7
     from repro_torch.kernels.ref import _meta_decode32
     gen = torch.Generator(device=dev).manual_seed(7)
     errs = {}
     for name, (B, H, r, dr, Tk) in K7_SHAPES.items():
-        sm = (128 + dr) ** -0.5 if name == "full width" else (32 + dr) ** -0.5
-        for pos in K7_POS:
+        sm = (32 + dr) ** -0.5 if name == "reduced" else (128 + dr) ** -0.5
+        for pos in K7_POS[name]:
             for calibrated in (False, True):
-                for misalign in ((False, True) if pos == K7_POS[0]
+                for misalign in ((False, True) if pos == K7_POS[name][0]
                                  else (False,)):
                     a = k7_case(gen, dev, B, H, r, dr, Tk, pos, calibrated,
                                 misalign)
@@ -2307,44 +2324,67 @@ def check_k7(dev, results):
                     got = k7.sparq_mla_decode_cuda(*a, sm_scale=sm)
                     want = k7.ref_sparq_mla_decode(*a, sm_scale=sm)
                     exact = mla_f64_reference(*a, sm)
-                    timed = name == "full width" and calibrated \
-                        and pos == K7_POS[0] and not misalign
+                    timed = (name, pos) in K7_TIMED.values() \
+                        and calibrated and not misalign
                     errs[what] = hold(f"K7 {what}", got, want, exact,
                                       1e-4 if timed else PLAIN_TOL)
+                    del a, got, want, exact
     _log_decode("K7", errs)
-    B, H, r, dr, Tk = K7_SHAPES["full width"]
-    pos = K7_POS[0]
-    sm = (128 + dr) ** -0.5
-    err = errs[f"full width pos {pos} calibrated"]["plain"]
-    n_bytes_set = B * Tk * (r + dr) * 2
-    sets = [k7_case(gen, dev, B, H, r, dr, Tk, pos, True)
-            for _ in range(n_sets(n_bytes_set))]
-    ms = bench(lambda *a: k7.sparq_mla_decode_cuda(*a, sm_scale=sm), sets)
-    plain_ms = bench(lambda *a: k7.ref_sparq_mla_decode(*a, sm_scale=sm),
-                     sets, iters=5, warmup=1)
-    q_lat, q_pe, cd, cm, cs, pd, pm, ps, _ = sets[0]
-    c = _meta_decode32(cd[:, :pos], cm[:, :pos], cs.reshape(()))
-    pe = _meta_decode32(pd[:, :pos], pm[:, :pos], ps.reshape(()))
-    key = torch.cat([c, pe], -1)[:, None].expand(B, H, pos,
-                                                 r + dr).contiguous()
-    val = c[:, None].expand(B, H, pos, r).contiguous()
-    q = torch.cat([q_lat, q_pe], -1)[:, :, None]
-    lib_ms = bench(lambda: F.scaled_dot_product_attention(q, key, val,
-                                                          scale=sm), [()])
-    nbytes = (B * pos * (r + dr) * 2 + B * H * (r + dr) * 4 + B * H * r * 4
-              + 3 * 4)
-    flops = 2 * B * H * pos * (2 * r + dr)
-    bound = max(nbytes / H100_BYTES_S, flops / H100_F32_FLOPS_S) * 1e3
-    kps = k7.split_keys(H, r, dr)
-    results["sparq_mla_decode"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=bound, bound_by="bytes" if nbytes / H100_BYTES_S
-        >= flops / H100_F32_FLOPS_S else "operations", errors=errs,
-        grid=[B, -(-Tk // kps)], smem_bytes=k7.smem_bytes(H, r, dr),
-        shape=f"B={B} H={H} r={r} dr={dr} Tk={Tk} pos={pos} 5opt planes")
-    log(f"K7 sparq_mla_decode: max abs err {err:.2e}, {ms:.4f} ms (plain "
-        f"{plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound {bound:.5f} ms, "
-        f"grid {B}x{-(-Tk // kps)}, {k7.smem_bytes(H, r, dr)} B shared)")
+    rows = {}
+    for row_name, (name, pos) in K7_TIMED.items():
+        B, H, r, dr, Tk = K7_SHAPES[name]
+        sm = (128 + dr) ** -0.5
+        sets = [k7_case(gen, dev, B, H, r, dr, Tk, pos, True)
+                for _ in range(n_sets(B * Tk * (r + dr) * 2))]
+        ms = bench(lambda *a: k7.sparq_mla_decode_cuda(*a, sm_scale=sm),
+                   sets)
+        plain_ms = bench(lambda *a: k7.ref_sparq_mla_decode(*a,
+                                                            sm_scale=sm),
+                         sets, iters=5, warmup=1)
+        q_lat, q_pe, cd, cm, cs, pd, pm, ps, _ = sets[0]
+        c = _meta_decode32(cd[:, :pos], cm[:, :pos], cs.reshape(()))
+        pe = _meta_decode32(pd[:, :pos], pm[:, :pos], ps.reshape(()))
+        key = torch.cat([c, pe], -1)[:, None].expand(B, H, pos,
+                                                     r + dr).contiguous()
+        val = c[:, None].expand(B, H, pos, r).contiguous()
+        q = torch.cat([q_lat, q_pe], -1)[:, :, None]
+        lib_ms = bench(lambda: F.scaled_dot_product_attention(
+            q, key, val, scale=sm), [()])
+        del sets, c, pe, key, val
+        nbytes = (B * pos * (r + dr) * 2 + B * H * (r + dr) * 4
+                  + B * H * r * 4 + 3 * 4)
+        flops = 2 * B * H * pos * (2 * r + dr)
+        bound = max(nbytes / H100_BYTES_S, flops / H100_F16_FLOPS_S) * 1e3
+        cap = k7.cluster_capacity(dev, r, dr)
+        p = k7.plan(B, H, r, dr, Tk, cap)
+        err = errs[f"{name} pos {pos} calibrated"]
+        rows[row_name] = dict(
+            max_abs_err=err["plain"], max_abs_err_f64=err["f64"], ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+            bound_by="bytes" if nbytes / H100_BYTES_S
+            >= flops / H100_F16_FLOPS_S else "operations",
+            f32_rate_ms=flops / H100_F32_FLOPS_S * 1e3,
+            grid=[p.n_splits, p.head_groups, B], cluster=p.n_splits,
+            smem_bytes=p.smem,
+            instance=list(p.instance), max_clusters=cap[p.n_splits],
+            shape=f"B={B} H={H} r={r} dr={dr} Tk={Tk} pos={pos} 5opt "
+                  f"planes")
+        log(f"K7 sparq_mla_decode {row_name}: max abs err "
+            f"{err['plain']:.2e} "
+            f"(f64 {err['f64']:.2e}), {ms:.4f} ms (plain {plain_ms:.3f} ms,"
+            f" SDPA {lib_ms:.4f} ms, bound {bound:.5f} ms by "
+            f"{rows[row_name]['bound_by']}, "
+            f"{flops / H100_F32_FLOPS_S * 1e3:.5f} at the f32 rate); grid "
+            f"{p.n_splits}x{p.head_groups}x{B} in clusters of {p.n_splits} "
+            f"({cap[p.n_splits]} such clusters fit the card), "
+            f"{-(-(-(-min(pos, Tk) // p.tile)) // p.n_splits)} live tiles "
+            f"of {p.tile} keys at most a block, {p.smem} B shared, instance "
+            f"{p.instance}")
+    results["sparq_mla_decode"] = dict(rows["full width"], errors=errs,
+                                       long=rows["long"],
+                                       long_pos_300=rows["long pos 300"],
+                                       capacity=k7.cluster_capacity(
+                                           dev, 512, 64))
 
 
 # ----------------------------------------------------------------------
@@ -6072,11 +6112,15 @@ def parity_multimodal(dev, results):
 # opcodes that must (True) or must not (False) appear in a kernel
 # library's SASS: K1 runs on the integer tensor cores, with int8 codes
 # (S8 x S8) and the paper's unsigned codes (U8 x S8), and dp4a is gone; K3
-# runs on the f64 tensor cores
+# runs on the f64 tensor cores; K7 on the f16 tensor cores (HMMA.16816
+# with f16 operands and f32 sums, not bf16) and nowhere in f64
 SASS_CHECKS = {"sparq_matmul.cu": {"IMMA": True, "IMMA.16832.S8.S8": True,
                                    "IMMA.16832.U8.S8": True,
                                    "IDP4A": False},
-               "sparq_chunked_prefill_attn.cu": {"DMMA": True}}
+               "sparq_chunked_prefill_attn.cu": {"DMMA": True},
+               "sparq_mla_decode.cu": {"HMMA": True, "HMMA.16816.F32": True,
+                                       "HMMA.16816.F32.BF16": False,
+                                       "DFMA": False, "DMMA": False}}
 
 
 def sass_counts(source, opcodes):

@@ -43,7 +43,8 @@ JX103  every tile of a kernel's launch plan that its CUDA body does not
          K3 sparq_chunked_prefill_attn.cu masks its page and chunk key
             tiles and a query tile's row blocks (r < bq * G); the query
             tile of bq stream rows must divide the chunk C.
-         K7 sparq_mla_decode.cu masks the ragged last split.
+         K7 sparq_mla_decode.cu masks the ragged last tile; its plan
+            cuts any n_keys into at most 16 splits a batch row.
        A shape that no instantiation takes (K3's `k3_traits` raises) is
        reported here too.
 JX104  in a program that declares `page_size`, a paged read's key tile is
@@ -54,7 +55,8 @@ JX104  in a program that declares `page_size`, a paged read's key tile is
 JX105  a launch's shared memory stays under the budget (default
        `kernels.build.SMEM_LIMIT`, an H100's 227 KB a block): K1's
        `smem_bytes(plan)`, K2 / K5's and K3's `smem_bytes`, K7's
-       `smem_bytes` at its `split_keys`.
+       `smem_bytes` (fixed by r and dr: H, B and n_keys change its grid
+       and its runs of tiles, not a block).
 JX106  running a program over its shape set gives ONE `call_signature`:
        the condition under which one captured CUDA graph serves every
        call.
@@ -313,10 +315,6 @@ class _Recorder:
                 self.emit(check, where, f"{kernel}: {message}")
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
 def _pairs(widths, lane0=0) -> List[Tuple[str, str]]:
     out = [(JX_TILE_DIVIDE, f"the vSPARQ lane pair (2 lanes) does not "
                             f"divide a row of {w} lanes") for w in widths
@@ -387,16 +385,15 @@ def plan_checks(kernel: str, geo: Dict, page_size: Optional[int],
                          f"instantiation hd {tr.hd} x {tr.rows} rows over "
                          f"{geo['NB']} pages of {ps} and a chunk of {C}")
     elif kernel == "sparq_mla_decode":
-        H, r, dr = geo["H"], geo["r"], geo["dr"]
+        r, dr = geo["r"], geo["dr"]
         try:
-            kps = _mla.split_keys(H, r, dr)
+            _mla.instance(r, dr)
         except ValueError as e:
-            out.append((JX_VMEM, str(e)))
+            out.append((JX_TILE_DIVIDE, f"no instantiation tiles it: {e}"))
         else:
-            out += _smem(_mla.smem_bytes(H, r, dr,
-                                         _cdiv(geo["n_keys"], kps)),
-                         smem_budget, f"a split of {kps} keys at H {H}, "
-                                      f"r {r}, dr {dr}")
+            out += _smem(_mla.smem_bytes(r, dr), smem_budget,
+                         f"a block of {_mla.TILE}-key tiles at r {r}, dr "
+                         f"{dr}")
     else:
         raise ValueError(f"no launch plan known for kernel {kernel!r}")
     return out

@@ -140,6 +140,15 @@ class CudaKernel:
                 self._fn, self._err = fn, err
         return self._fn
 
+    def function(self, symbol: str, argtypes: Sequence):
+        """Another C entry point of this kernel's library, returning a
+        cudaError_t code: a query, not a launch, so it is not counted."""
+        self._bind()
+        fn = getattr(ctypes.CDLL(str(_lib_path(self.source))), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
+
     def launch(self, *args) -> None:
         fn = self._bind()
         rc = fn(*args)

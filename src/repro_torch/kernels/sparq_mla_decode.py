@@ -11,26 +11,27 @@ c and pe are each plane's §5.1 codes times its own f32 scale. The keys are
 [c, pe] (width r + dr), the values the latent plane c itself (width r).
 
 The plain version walks the reference's tile loop in its f32 op order. The
-kernel (`csrc/sparq_mla_decode.cu`) splits the keys across blocks and sums
-in f64, so the two agree to a tolerance, not bit for bit.
+kernel (`csrc/sparq_mla_decode.cu`) runs the products on f16 tensor cores
+over the exact codes, q and p split into f16 terms, and walks a run of key
+tiles a block; a cluster of blocks (`plan`) combines a batch row's splits.
+The two agree to a tolerance, not bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, NamedTuple
 
 import torch
 
 from repro_torch.kernels import build as _b
 from repro_torch.kernels.ref import _meta_decode32
-from repro_torch.kernels.sparq_decode_attn import (SPLIT_KEYS, _online_update,
-                                                   _vec, _workspace,
-                                                   row_stride)
+from repro_torch.kernels.sparq_decode_attn import _online_update, _vec
 
 # q_lat, q_pe, c_data, c_meta, c_scale, pe_data, pe_meta, pe_scale, pos,
-# out, workspace, counters; B, H, r, dr, Tk, kps, vec; sm_scale; the stream
+# out; B, H, r, dr, Tk, n_splits, vec; sm_scale; the stream
 KERNEL = _b.CudaKernel(
     "sparq_mla_decode", "sparq_mla_decode.cu", "sparq_mla_decode_launch",
-    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_float,
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                   ctypes.c_void_p],
     replaces="src/repro/models/mla.py:58")
 
@@ -79,44 +80,135 @@ def ref_sparq_mla_decode(q_lat, q_pe, c_data, c_meta, c_scale, pe_data,
     return acc / torch.clamp(l, min=1e-30)
 
 
-def _layout_bytes(H: int, r: int, dr: int, kps: int) -> int:
-    """`smem_bytes` in csrc/sparq_mla_decode.cu: q [H][r + dr] and p
-    [H][kps] in f64 (the count rounded up to even), then the f32 key tile
-    [kps][row_stride(r + dr)]."""
-    nd = H * (r + dr) + H * kps
-    return 8 * (nd + nd % 2) + 4 * kps * row_stride(r + dr)
+# keys a tile, raw tiles in the cp.async ring, head rows of a block (one
+# m16 tile), threads and warps of a block, the largest cluster, and the
+# f16 terms of q (under its row's power-of-two scale) and of p 2^15: TK,
+# STAGES, HR, THREADS, WARPS, MAX_SPLITS, QT and PT in
+# csrc/sparq_mla_decode.cu
+TILE = 32
+STAGES = 3
+HEAD_ROWS = 16
+THREADS = 256
+WARPS = THREADS // 32
+MAX_SPLITS = 16
+Q_TERMS, P_TERMS = 2, 2
+# the kernel's (KSW, NP) instantiations, in the order the launcher tries
+# them (KSW k-steps of 16 key columns a warp holds Q fragments for, NP
+# pairs of 8-column output tiles a warp owns): the reduced deepseek's
+# widths, the published ones, and any other r + dr <= 1024, r <= 1024
+INSTANCES = ((1, 1), (5, 4), (8, 8))
 
 
-def split_keys(H: int, r: int, dr: int) -> int:
-    """Keys of one split: SPLIT_KEYS, halved until one block's layout fits
-    the card's shared memory. Raises when even one key does not fit."""
-    kps = SPLIT_KEYS
-    while _layout_bytes(H, r, dr, kps) > _b.SMEM_LIMIT and kps > 1:
-        kps //= 2
-    if _layout_bytes(H, r, dr, kps) > _b.SMEM_LIMIT:
-        raise ValueError(
-            f"MLA decode: H = {H}, r = {r}, dr = {dr} need "
-            f"{_layout_bytes(H, r, dr, kps)} bytes of shared memory per "
-            f"block, above the card's {_b.SMEM_LIMIT}")
-    return kps
+class MlaPlan(NamedTuple):
+    """One K7 launch: a cluster of n_splits blocks (grid x) for each of the
+    head_groups groups of 16 heads (grid y) of each batch row (grid z).
+    The kernel reads pos and cuts the ceil(min(pos, Tk) / tile) live tiles
+    into n_splits runs of ceil(live tiles / n_splits); block z walks run
+    z, empty when it starts past the live tiles."""
+    tile: int
+    n_tiles: int
+    n_splits: int
+    head_groups: int
+    instance: tuple
+    smem: int
 
 
-def smem_bytes(H: int, r: int, dr: int, n_splits: int = 1) -> int:
-    """Dynamic shared memory of one block, as the launcher computes it:
-    the split's layout, or the combine's m, l [n_splits][H] and 1 / l [H]
-    in f32 (which reuse it) where they need more."""
-    return max(_layout_bytes(H, r, dr, split_keys(H, r, dr)),
-               4 * (2 * H * n_splits + H))
+def tile_ld(r: int, dr: int) -> int:
+    """Row stride (f16) of the decoded tile: r + dr rounded up to 16, plus
+    8 (`tile_ld` in the kernel)."""
+    return 16 * -(-(r + dr) // 16) + 8
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def smem_bytes(r: int, dr: int) -> int:
+    """Dynamic shared memory of one block (`Layout` in the kernel): STAGES
+    raw stages of TILE keys' r + dr data and meta bytes, the f16 tile
+    [TILE][tile_ld], the eight warps' partial scores [16][TILE + 4] f32,
+    the P tile [P_TERMS][16][TILE + 8] f16, the row statistics (4 x 16
+    f32) and the combine's buffer (the block's share of the cluster's
+    accumulators, at most 16 r / 2 + MAX_SPLITS float2, and m, l
+    [MAX_SPLITS][2][16] f32). Independent of H, Tk and the splits."""
+    stage = _align16(TILE * (r + dr) * 2)
+    tile = _align16(TILE * tile_ld(r, dr) * 2)
+    red = 4 * WARPS * HEAD_ROWS * (TILE + 4)
+    ptile = 2 * P_TERMS * HEAD_ROWS * (TILE + 8)
+    comb = _align16(8 * (HEAD_ROWS * r // 2 + MAX_SPLITS)
+                    + 4 * 2 * HEAD_ROWS * MAX_SPLITS)
+    return STAGES * stage + tile + red + ptile + 4 * 4 * HEAD_ROWS + comb
+
+
+def instance(r: int, dr: int) -> tuple:
+    """The kernel instantiation that covers r, dr: the first of INSTANCES
+    with KSW >= ceil(ceil((r + dr) / 16) / WARPS) and NP >=
+    ceil(ceil(r / 16) / WARPS). Raises when none does."""
+    kw = -(-(-(-(r + dr) // 16)) // WARPS)
+    pw = -(-(-(-r // 16)) // WARPS)
+    for ksw, np_ in INSTANCES:
+        if kw <= ksw and pw <= np_:
+            return ksw, np_
+    raise ValueError(f"MLA decode: r = {r}, dr = {dr} pass the widest "
+                     f"instantiation {INSTANCES[-1]}")
+
+
+def plan(B: int, H: int, r: int, dr: int, Tk: int,
+         clusters: Dict[int, int]) -> MlaPlan:
+    """K7's launch plan. The splits of a (batch row, head group) are the
+    largest n <= MAX_SPLITS for which the card holds B x head_groups
+    clusters of n blocks at once (`clusters`: {n: such clusters}, from
+    `cluster_capacity`), so the whole call runs in one wave; 1 when none;
+    never more than the cache's tiles. pos is a device scalar, so the
+    kernel itself cuts the live tiles into the splits' runs. Raises
+    ValueError for widths whose block does not fit the card's shared
+    memory or no instantiation covers."""
+    if min(B, H, r, dr, Tk) <= 0:
+        raise ValueError(f"MLA decode: B {B}, H {H}, r {r}, dr {dr}, Tk "
+                         f"{Tk} must be positive")
+    smem = smem_bytes(r, dr)
+    if smem > _b.SMEM_LIMIT:
+        raise ValueError(f"MLA decode: r = {r}, dr = {dr} need {smem} bytes "
+                         f"of shared memory per block, above the card's "
+                         f"{_b.SMEM_LIMIT}")
+    inst = instance(r, dr)
+    groups = -(-H // HEAD_ROWS)
+    want = max([n for n in range(1, MAX_SPLITS + 1)
+                if clusters.get(n, 0) >= B * groups], default=1)
+    n_tiles = -(-Tk // TILE)
+    return MlaPlan(TILE, n_tiles, min(want, n_tiles), groups, inst, smem)
+
+
+_CAPACITY: Dict[tuple, Dict[int, int]] = {}
+
+
+def cluster_capacity(dev: torch.device, r: int, dr: int) -> Dict[int, int]:
+    """{n: clusters of n blocks at widths r, dr the card `dev` holds at
+    once}, asked of the card (cudaOccupancyMaxActiveClusters, the kernel's
+    own query) once a device and widths."""
+    key = (torch.device(dev).index, r, dr)
+    if key not in _CAPACITY:
+        query = KERNEL.function(
+            "sparq_mla_decode_max_clusters",
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+        got = {}
+        with torch.cuda.device(dev):
+            for n in range(1, MAX_SPLITS + 1):
+                count = ctypes.c_int(0)
+                rc = query(HEAD_ROWS, r, dr, n, ctypes.byref(count))
+                got[n] = count.value if rc == 0 else 0
+        _CAPACITY[key] = got
+    return _CAPACITY[key]
 
 
 def sparq_mla_decode_cuda(q_lat, q_pe, c_data, c_meta, c_scale, pe_data,
                           pe_meta, pe_scale, pos, *, sm_scale: float):
     """Launch K7 on the current stream; arguments as the plain version,
     q_lat / q_pe f32, scales f32 and pos int32 one-element device tensors
-    (no host sync). One launch: a block per (batch row, split of
-    `split_keys` keys), the last block of a row combining its splits.
-    Raises for a layout or a combine that does not fit a block.
-    Returns f32 [B, H, r]."""
+    (no host sync). One launch of `plan`'s clusters: each block an online
+    softmax over its run of tiles, the cluster combining a row's splits in
+    distributed shared memory; no workspace, any Tk. Raises for widths
+    whose block does not fit. Returns f32 [B, H, r]."""
     dev = q_lat.device
     B, H, r = q_lat.shape
     dr = q_pe.shape[2]
@@ -134,21 +226,15 @@ def sparq_mla_decode_cuda(q_lat, q_pe, c_data, c_meta, c_scale, pe_data,
     _b.check(c_scale, "c_scale", torch.float32, (1,), dev)
     _b.check(pe_scale, "pe_scale", torch.float32, (1,), dev)
     _b.check(pos, "pos", torch.int32, (1,), dev)
-    kps = split_keys(H, r, dr)
-    n_splits = -(-Tk // kps)
-    if smem_bytes(H, r, dr, n_splits) > _b.SMEM_LIMIT:
-        raise ValueError(f"MLA decode: {n_splits} splits of {kps} keys "
-                         f"need more shared memory to combine than a block "
-                         f"has")
-    ws, cnt = _workspace(KERNEL, dev, B * n_splits * H * (r + 2), B)
     out = torch.empty((B, H, r), dtype=torch.float32, device=dev)
     vec = _vec(c_data, c_meta, pe_data, pe_meta) and r % 16 == 0 \
         and dr % 16 == 0
     with _b.on_device(q_lat):
+        p = plan(B, H, r, dr, Tk, cluster_capacity(dev, r, dr))
         KERNEL.launch(
             _b.ptr(q_lat), _b.ptr(q_pe), _b.ptr(c_data), _b.ptr(c_meta),
             _b.ptr(c_scale), _b.ptr(pe_data), _b.ptr(pe_meta),
-            _b.ptr(pe_scale), _b.ptr(pos), _b.ptr(out), _b.ptr(ws),
-            _b.ptr(cnt), B, H, r, dr, Tk, kps, int(vec), float(sm_scale),
+            _b.ptr(pe_scale), _b.ptr(pos), _b.ptr(out), B, H, r, dr, Tk,
+            p.n_splits, int(vec), float(sm_scale),
             _b.stream_ptr(q_lat))
     return out

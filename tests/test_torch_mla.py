@@ -417,55 +417,118 @@ def test_plain_mla_decode_matches_jax(bk, pos):
     np.testing.assert_allclose(got, oracle, rtol=0, atol=MLA_ATOL)
 
 
-def _emulate_k7(q_lat, q_pe, c, pe, pos, sm, kps):
-    """K7's arithmetic in numpy: per split of kps keys its live prefix
-    (t < min(pos, Tk)), f64 scores rounded to f32 and scaled in f32, the
-    f32 max, p = exp(s - m) in f32 summed in f64, P V in f64 rounded to
-    f32; then the last block's combine: f32 weights e^(m - M), f64 sums
-    in split order. c, pe are the decoded planes in f32."""
+def _bf16(x):
+    """x (f32) rounded to the nearest bf16, ties to even, as f32."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _split_f16(x, n):
+    """x split into n f16 terms, each the rounding (to nearest, ties to
+    even, subnormals kept) of what the earlier ones leave: the kernel's
+    split_f16."""
+    x = np.asarray(x, np.float32)
+    terms = []
+    for _ in range(n):
+        t = x.astype(np.float16).astype(np.float32)
+        terms.append(t)
+        x = (x - t).astype(np.float32)
+    return terms
+
+
+# clusters of n K7 blocks (204,160 bytes of shared memory, one an SM) an
+# NVIDIA H100 80GB HBM3 holds at once, as its cudaOccupancyMaxActiveClusters
+# gives them (probes/k7_probe.py prints the card's): the capacity the
+# recorded launches and the plan tests take in place of the card's answer
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15,
+                 9: 9, **{n: 7 for n in range(10, 17)}}
+
+
+def _runs(live, tile, n_splits):
+    """The kernel's cut of the live keys t < live: ceil(live / tile) tiles
+    in n_splits runs of ceil(tiles / n_splits); run z as a range of tiles,
+    empty when it starts past them."""
+    tiles = -(-live // tile)
+    tps = -(-tiles // n_splits)
+    return [range(min(z * tps, tiles), min((z + 1) * tps, tiles))
+            for z in range(n_splits)]
+
+
+def _emulate_k7(q_lat, q_pe, c, pe, cs, ps, pos, sm, tile, n_splits,
+                q_terms=k7.Q_TERMS, p_terms=k7.P_TERMS):
+    """K7's arithmetic in numpy. c, pe: the planes' codes before their
+    scales (exact in f16). q times its plane's scale and sm in f32, each
+    head row times 2^k (k = 14 - floor(log2 of its largest |entry|),
+    clamped to [-100, 100]) and split into q_terms f16 terms; per split,
+    its run of the live tiles of `tile` keys (`_runs`), each tile's live
+    keys (t < min(pos, Tk)) scored on the tensor cores (exact products,
+    modelled as f64 sums rounded to f32) and the row's 2^k undone, the f32
+    online softmax (corr 0 for the first tile), p 2^15 split into p_terms
+    f16 terms for P V (f64 sums rounded to f32), acc = acc corr + P V in
+    f32; then the cluster's combine: w = e^(m - M) in f32 (0 for an empty
+    split), l and the accumulators summed in split order in f32, out = sum
+    / max(l, 1e-30) * (c_scale 2^-15)."""
+    f32 = np.float32
     B, H, r = q_lat.shape
     Tk = c.shape[1]
-    n_splits = -(-Tk // kps)
-    out = np.zeros((B, H, r), np.float32)
-    f32 = np.float32
+    live = max(0, min(pos, Tk))
+    qs = np.concatenate([(q_lat * f32(cs)).astype(f32) * f32(sm),
+                         (q_pe * f32(ps)).astype(f32) * f32(sm)], -1)
+    mx = np.abs(qs).max(-1, keepdims=True)
+    e = np.frexp(np.where(mx > 0, mx, f32(1)))[1] - 1      # ilogbf
+    un = np.where(mx > 0, np.ldexp(f32(1), np.clip(e - 14, -100, 100)),
+                  f32(1)).astype(f32)
+    q_split = [t.astype(np.float64) for t in
+               _split_f16((qs / un).astype(f32), q_terms)]
+    keys = np.concatenate([c, pe], -1).astype(np.float64)
+    out = np.zeros((B, H, r), f32)
     for b in range(B):
         parts = []
-        for z in range(n_splits):
-            k0 = z * kps
-            nk = max(0, min(kps, min(pos, Tk) - k0))
-            if nk == 0:
-                parts.append(None)
-                continue
-            keys = np.concatenate([c[b, k0:k0 + nk], pe[b, k0:k0 + nk]], 1)
-            q = np.concatenate([q_lat[b], q_pe[b]], 1).astype(np.float64)
-            s = (q @ keys.astype(np.float64).T).astype(f32) * f32(sm)
-            m = s.max(1)
-            p = np.exp(s - m[:, None]).astype(f32)
-            l_ = p.astype(np.float64).sum(1).astype(f32)
-            acc = (p.astype(np.float64) @ c[b, k0:k0 + nk].astype(
-                np.float64)).astype(f32)
+        for run in _runs(live, tile, n_splits):
+            m = np.full(H, -np.inf, f32)
+            l_ = np.zeros(H, f32)
+            acc = np.zeros((H, r), f32)
+            for u in run:
+                k0 = u * tile
+                nk = min(tile, live - k0)
+                kt = keys[b, k0:k0 + nk]
+                s = (sum(q[b] @ kt.T for q in q_split).astype(f32)
+                     * un[b]).astype(f32)
+                m_new = np.maximum(m, s.max(1))
+                corr = np.where(np.isneginf(m), f32(0),
+                                np.exp(m - m_new)).astype(f32)
+                p = np.exp(s - m_new[:, None]).astype(f32)
+                l_ = (l_ * corr + p.sum(1, dtype=f32)).astype(f32)
+                pv = sum(t.astype(np.float64) @ kt[:, :r] for t in
+                         _split_f16(p * f32(32768), p_terms)).astype(f32)
+                acc = (acc * corr[:, None] + pv).astype(f32)
+                m = m_new
             parts.append((m, l_, acc))
-        live = [x for x in parts if x is not None]
-        if not live:
-            continue
-        M = np.max([x[0] for x in live], 0)
-        lsum = np.zeros(H)
-        a = np.zeros((H, r))
-        for m, l_, acc in live:
-            w = np.exp((m - M).astype(f32)).astype(f32).astype(np.float64)
-            lsum += w * l_
-            a += w[:, None] * acc
-        out[b] = a.astype(f32) / np.maximum(lsum.astype(f32), f32(1e-30))[
-            :, None]
+        M = np.max([x[0] for x in parts], 0)
+        lsum = np.zeros(H, f32)
+        x = np.zeros((H, r), f32)
+        for m, l_, acc in parts:
+            w = np.zeros(H, f32)
+            ok = ~np.isneginf(m)
+            w[ok] = np.exp(m[ok] - M[ok])
+            lsum = (lsum + w * l_).astype(f32)
+            x = (x + w[:, None] * acc).astype(f32)
+        out[b] = (x / np.maximum(lsum, f32(1e-30))[:, None]).astype(f32) \
+            * (f32(cs) * f32(2 ** -15))
     return out
 
 
 @pytest.mark.parametrize("pos", [0, 1, 13, 16, 17, 24])
 def test_k7_emulation_matches_plain(pos):
-    """The kernel's split-key arithmetic (splits of `split_keys` keys, the
-    live prefix a split derives from pos alone, an empty split weighing 0,
-    a cache with no live key giving zeros) against the plain version, at
-    splits of 32 (the card's) and of 8 keys (several splits in 24 slots)."""
+    """The kernel's arithmetic (q and p split into f16 terms over the
+    exact codes, the online softmax across a split's tiles, the live
+    prefix a split derives from pos alone, an empty split weighing 0, a
+    cache with no live key giving zeros, the cluster's combine) against
+    the plain version: at the card's plan for these 24 slots (one tile of
+    32 keys), and at plans of several tiles a split and several splits
+    (tiles of 4 keys in 3 splits, of 8 in 2 with a ragged last split, of 4
+    in 5, where a pos of few live tiles leaves splits empty)."""
     from repro_torch.kernels.ref import _meta_decode32
     _, tc, q_lat, q_pe = _mla_planes(3, pos=pos)
     sm = (32 + 16) ** -0.5
@@ -473,31 +536,99 @@ def test_k7_emulation_matches_plain(pos):
             tc.c_kv.data, tc.c_kv.meta, tc.c_kv.scale, tc.k_pe.data,
             tc.k_pe.meta, tc.k_pe.scale, tc.pos)
     want = k7.ref_sparq_mla_decode(*args, sm_scale=sm).numpy()
-    c = _meta_decode32(tc.c_kv.data, tc.c_kv.meta, tc.c_kv.scale).numpy()
-    pe = _meta_decode32(tc.k_pe.data, tc.k_pe.meta, tc.k_pe.scale).numpy()
-    assert k7.split_keys(4, 32, 16) == 32
-    for kps in (32, 8):
-        got = _emulate_k7(q_lat[:, 0], q_pe[:, 0], c, pe, pos, sm, kps)
-        np.testing.assert_allclose(got, want, rtol=0, atol=MLA_ATOL)
+    one = torch.ones(())
+    c = _meta_decode32(tc.c_kv.data, tc.c_kv.meta, one).numpy()
+    pe = _meta_decode32(tc.k_pe.data, tc.k_pe.meta, one).numpy()
+    cs, ps = float(tc.c_kv.scale), float(tc.k_pe.scale)
+    card = k7.plan(2, 4, 32, 16, 24, H100_CLUSTERS)
+    assert (card.tile, card.n_splits) == (32, 1)
+    for tile, n in ((card.tile, card.n_splits), (4, 3), (8, 2), (4, 5)):
+        got = _emulate_k7(q_lat[:, 0], q_pe[:, 0], c, pe, cs, ps, pos, sm,
+                          tile, n)
+        np.testing.assert_allclose(got, want, rtol=0, atol=MLA_ATOL,
+                                   err_msg=f"tile {tile}, {n} splits")
     if pos == 0:
         assert not want.any()
 
 
-def test_k7_wrapper_launch(recorder):
-    """One launch with the call's sizes, the split of `split_keys` (32 at
-    deepseek-v2-lite's widths, whose layout fits one block), 16-byte
-    vectors only for aligned planes of widths that are multiples of 16;
-    shapes and dtypes the kernel does not take raise."""
+def test_k7_codes_exact_in_bf16():
+    """For every stored byte, meta byte and lane parity, the §5.1 decode
+    before its scale (the plain version's `_meta_decode32` at scale 1) is
+    q * 2^shift, the kernel's decode, and is exact in bf16 and in f16 (at
+    most 8 significant bits, |code| <= 2^14 < f16's 65504): so the
+    kernel's f16 tile holds the codes exactly."""
+    from repro_torch.kernels.ref import _meta_decode32
+    q, m = np.meshgrid(np.arange(-128, 128), np.arange(-128, 128),
+                       indexing="ij")
+    q, m = q.reshape(-1), m.reshape(-1)
+    data = torch.from_numpy(np.stack([q, q], -1).astype(np.int8))[None]
+    meta = torch.from_numpy(np.stack([m, m], -1).astype(np.int8))[None]
+    codes = _meta_decode32(data, meta, torch.ones(())).numpy()[0]
+    for parity in (0, 1):
+        shift = (m & 7) if parity else ((m >> 3) & 7)
+        lane = codes[:, parity]
+        np.testing.assert_array_equal(lane,
+                                      (q * (1 << shift)).astype(np.float32))
+        np.testing.assert_array_equal(_bf16(lane), lane)
+        np.testing.assert_array_equal(
+            lane.astype(np.float16).astype(np.float32), lane)
+    assert np.abs(codes).max() == 128 << 7
+
+
+@pytest.mark.parametrize("name,shape,want", [
+    ("mla", (8, 16, 512, 64, 296), (10, 9)),
+    ("reduced", (8, 4, 32, 16, 296), (10, 9)),
+    ("long", (8, 16, 512, 64, 8192), (256, 9)),
+    ("64K at B 1", (1, 16, 512, 64, 65536), (2048, 16)),
+])
+def test_k7_plan(name, shape, want):
+    """`plan` at the mla phase's, the reduced and the long shapes and a
+    65,536-key cache at B 1 (which the ticket design refused) under the
+    H100's cluster capacity: the tiles and splits; one block's shared
+    memory within the card's, whatever Tk; the splits never above 16 nor
+    above the tiles, and all the call's clusters held at once. The
+    kernel's cut of the live tiles (`_runs`) at every pos: each live key
+    in exactly one split, and no split walking more than ceil(live tiles
+    / splits), so a long cache early in decode (pos 300 of 8192) does not
+    leave its live tiles to one block."""
+    B, H, r, dr, Tk = shape
+    p = k7.plan(B, H, r, dr, Tk, H100_CLUSTERS)
+    assert (p.n_tiles, p.n_splits) == want
+    assert p.tile == k7.TILE and p.head_groups == 1
+    assert p.smem == k7.smem_bytes(r, dr) <= _b.SMEM_LIMIT
+    assert p.n_splits <= min(k7.MAX_SPLITS, p.n_tiles)
+    assert H100_CLUSTERS[p.n_splits] >= B * p.head_groups
+    for pos in sorted({0, 1, 31, 32, 33, 300, Tk // 2, Tk - 1, Tk,
+                       Tk + 5}):
+        live = min(pos, Tk)
+        runs = _runs(live, p.tile, p.n_splits)
+        seen = np.zeros(Tk, int)
+        for run in runs:
+            for u in run:
+                k0 = u * p.tile
+                seen[k0:min(k0 + p.tile, live)] += 1
+        assert (seen[:live] == 1).all() and not seen[live:].any()
+        assert max(map(len, runs)) == -(-(-(-live // p.tile)) // p.n_splits)
+
+
+def test_k7_wrapper_launch(recorder, monkeypatch):
+    """One launch with the call's sizes and `plan`'s clusters under the
+    H100's capacity (2 splits for 40 slots at B 2; 16 splits for a
+    65,536-key cache at B 1), no workspace, counter or run length (the
+    kernel cuts the live tiles from pos), 16-byte vectors only for aligned
+    planes of widths that are multiples of 16; shapes, dtypes and widths
+    the kernel does not take raise."""
+    monkeypatch.setattr(k7, "cluster_capacity",
+                        lambda dev, r, dr: H100_CLUSTERS)
     B, H, r, dr, Tk = 2, 16, 512, 64, 40
-    assert k7.split_keys(H, r, dr) == 32
-    assert k7.smem_bytes(H, r, dr) == 152064 <= _b.SMEM_LIMIT
-    assert k7.smem_bytes(H, r, dr, 2000) > _b.SMEM_LIMIT   # the combine's
-    assert k7.split_keys(40, 512, 64) == 16         # halved until it fits
+    assert k7.smem_bytes(r, dr) == 204160 <= _b.SMEM_LIMIT
+    assert k7.smem_bytes(32, 16) == 38272
+    assert k7.instance(r, dr) == (5, 4) and k7.instance(32, 16) == (1, 1)
     with pytest.raises(ValueError, match="shared memory"):
-        k7.split_keys(128, 512, 64)
+        k7.plan(1, 16, 768, 64, 40, H100_CLUSTERS)
     ql, qp = torch.zeros((B, H, r)), torch.zeros((B, H, dr))
 
-    def planes(w, misalign=False):
+    def planes(w, misalign=False, B=B, Tk=Tk):
         if not misalign:
             return [torch.zeros((B, Tk, w), dtype=torch.int8)
                     for _ in range(2)]
@@ -512,10 +643,18 @@ def test_k7_wrapper_launch(recorder):
                                        sm_scale=0.1)
         assert out.shape == (B, H, r) and out.dtype == torch.float32
         (x,) = recorder
-        assert (x["B"], x["H"], x["rank"], x["dr"], x["Tk"], x["kps"],
-                x["vec"]) == (B, H, r, dr, Tk, 32, int(not mis))
+        assert (x["B"], x["H"], x["rank"], x["dr"], x["Tk"], x["n_splits"],
+                x["vec"]) == (B, H, r, dr, Tk, 2, int(not mis))
         assert (x["cd"], x["pos"]) == (cd.data_ptr(), p.data_ptr())
+        assert not {"ws", "counters", "tiles_per_split"} & set(x)
         recorder.clear()
+    long_planes = planes(r, B=1, Tk=65536) + planes(dr, B=1, Tk=65536)
+    k7.sparq_mla_decode_cuda(ql[:1], qp[:1], long_planes[0], long_planes[1],
+                             one, long_planes[2], long_planes[3], one, p,
+                             sm_scale=0.1)
+    (x,) = recorder
+    assert (x["B"], x["Tk"], x["n_splits"]) == (1, 65536, 16)
+    recorder.clear()
     with pytest.raises(ValueError, match="q_lat"):
         k7.sparq_mla_decode_cuda(ql.double(), qp, cd, cm, one, pd, pm, one,
                                  p, sm_scale=0.1)

@@ -202,7 +202,7 @@ def test_call_signature_is_graph_identity():
 def test_plan_checks_are_the_kernels_own():
     """The launch geometry each dispatcher reports is evaluated by its
     kernel's plan functions: K1's tile plan and shared memory, K3's
-    instantiation, K2 / K5's split body, K7's split keys."""
+    instantiation, K2 / K5's split body, K7's block."""
     from repro_torch.kernels import sparq_decode_attn as dec
     from repro_torch.kernels import sparq_matmul as mm
     from repro_torch.kernels.build import SMEM_LIMIT
@@ -232,9 +232,18 @@ def test_plan_checks_are_the_kernels_own():
     assert [c for c, _ in plan_checks("sparq_chunked_prefill_attn",
                                       dict(k3, hd=63), 16)] == \
         [JX_TILE_DIVIDE]
-    # K7 at deepseek's widths fits; K4's head shard must start on a pair
+    # K7 at deepseek's widths fits, at the scan decode's 296 slots and at
+    # a 65,536-key cache alike (a block's shared memory does not grow with
+    # the keys); widths past every instantiation or the card's shared
+    # memory are reported; K4's head shard must start on a pair
     assert plan_checks("sparq_mla_decode", dict(H=16, r=512, dr=64,
                                                 n_keys=296), None) == []
+    assert plan_checks("sparq_mla_decode", dict(H=16, r=512, dr=64,
+                                                n_keys=65536), None) == []
+    assert [c for c, _ in plan_checks("sparq_mla_decode", dict(
+        H=16, r=768, dr=64, n_keys=296), None)] == [JX_VMEM]
+    assert [c for c, _ in plan_checks("sparq_mla_decode", dict(
+        H=16, r=2048, dr=64, n_keys=296), None)] == [JX_TILE_DIVIDE]
     assert [c for c, _ in plan_checks("sparq_quant", dict(
         widths=(64, 64), lane0=3), None)] == [JX_TILE_DIVIDE]
     with pytest.raises(ValueError, match="no launch plan"):
